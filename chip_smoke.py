@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
   3. kernels vs their plain versions on edge cases (ragged n, k > n,
      n_valid mid-chunk, ties across chunks, row_ids out of order and
      masked, m not a multiple of 16, f32/bf16/int8, k in {10, 100, 1000};
-     gram exactly symmetric);
+     gram exactly symmetric; the paged kernel over scrambled pool/tail
+     tables with ragged pages, lo > 0, carry splits and ids_pool);
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -24,11 +25,22 @@ Phases, each printing one JSON line:
      versions, the card's PCA state carried across) at 0.5;
   6. a pipeline_depth=3 RetrievalServer over the full-size int8 and f32
      indexes: closed and open loop, replies checked against direct
-     search_projected calls.
+     search_projected calls;
+  7. the paged path: both full-size indexes paged (256-row pages, 34,539
+     each) by a device-side copy; (a) 8 batches through
+     PagedIndex.search_projected against DenseIndex.search_projected and
+     the paged kernel against its plain version, timed; (b) a lifecycle
+     (three appends, one x9 to widen an int8 scale, promote, compact,
+     evict 2,048 pages to pinned host memory, searched in 64-page waves),
+     each step against the plain version and promote/compact/evict held
+     bitwise unchanged; (c) a pipeline_depth=3 server over the paged int8
+     index, closed loop, then open loop while swap_index installs the
+     append, the compaction and the eviction under a background client.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
-phase 4 and read just after phase 6; launches made only to compare or time a
-kernel are not counted. Then one line {"kernels": [...]}, the nvidia-smi
+phase 4 and read just after phase 6; phase 7 is the paged path, counted the
+same way on its own. Launches made only to compare or time a kernel are not
+counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
 """
@@ -54,6 +66,9 @@ PROTOCOL_DOCS = 100_000
 PROTOCOL_DEPTH = 1000       # benchmarks/common.py:24
 SERVER_CLOSED = 256
 SERVER_OPEN = 512
+PAGE_ROWS = 256             # the reference's default page size
+WAVE_PAGES = 64             # host-tier pages per streamed wave
+EVICT_PAGES = 2048          # pages moved to pinned host memory in phase 7
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-5                  # tests/test_kernels.py:126
@@ -91,30 +106,33 @@ def cuda_ms(fn, reps=3):
 class Counters:
     """The kernels' launch counters: zeroed before the main path, read
     after it; ``uncounted`` restores them around compare/timing launches.
-    ``topk_score`` counts per mode (storage dtype, or row_ids), both its
-    calls and the CUDA launches its C entry reports."""
+    ``topk_score`` and its paged wrapper count per mode (storage dtype,
+    row_ids, paged_<dtype>, paged_ids), both their calls and the CUDA
+    launches their C entries report."""
 
     def __init__(self):
         from repro_torch.kernels.gram import gram_cuda
         from repro_torch.kernels.pca_project import pca_project_cuda, pca_project_quant_cuda
-        from repro_torch.kernels.topk_score import topk_score_cuda
+        from repro_torch.kernels.topk_score import topk_score_cuda, topk_score_paged_cuda
         self.fns = {"gram": gram_cuda, "pca_project": pca_project_cuda,
                     "pca_project_quant": pca_project_quant_cuda}
-        self.topk = topk_score_cuda
+        self.topk = (topk_score_cuda, topk_score_paged_cuda)
 
     def read(self):
         out = {name: fn.launches for name, fn in self.fns.items()}
-        for mode, v in self.topk.launches.items():
-            out[f"topk_score_{mode}"] = v
-            out[f"topk_score_{mode}_cuda"] = self.topk.cuda_launches[mode]
+        for fn in self.topk:
+            for mode, v in fn.launches.items():
+                out[f"topk_score_{mode}"] = v
+                out[f"topk_score_{mode}_cuda"] = fn.cuda_launches[mode]
         return out
 
     def restore(self, values):
         for name, fn in self.fns.items():
             fn.launches = values[name]
-        for mode in self.topk.launches:
-            self.topk.launches[mode] = values[f"topk_score_{mode}"]
-            self.topk.cuda_launches[mode] = values[f"topk_score_{mode}_cuda"]
+        for fn in self.topk:
+            for mode in fn.launches:
+                fn.launches[mode] = values[f"topk_score_{mode}"]
+                fn.cuda_launches[mode] = values[f"topk_score_{mode}_cuda"]
 
     def zero(self):
         self.restore(dict.fromkeys(self.read(), 0))
@@ -279,9 +297,111 @@ def phase_edge_cases():
                 raise AssertionError(f"pca_project_quant: {frac} differ")
             checks.append(dict(kernel="pca_project_quant", n=n, d=d, m=130,
                                max_abs_err=int(diff.max()), frac_differ=frac))
+    ids_row = paged_edge_cases(dev, randn, checks)
     torch.cuda.synchronize()
     emit("edge_cases", checks=len(checks),
          near_ties=sum(c.get("near_ties", 0) for c in checks), results=checks)
+    return ids_row
+
+
+def make_paged(dev, randn, n, m, R, store):
+    """A corpus of n unit-norm rows in pages of R rows over a scrambled
+    pool + tail layout (a ragged last page, spare physical pages), with
+    per-page int8 scales, and an ids_pool of shuffled ids with a tenth
+    masked."""
+    import torch
+    npages = -(-n // R)
+    phys_total = npages + 3
+    pool_pages = phys_total // 2
+    cap = npages + 5
+    D = randn(n, m) / m ** 0.5
+    perm = torch.randperm(phys_total, device=dev)[:npages].to(torch.int32)
+    pt = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    pt[:npages] = perm
+    nv = torch.zeros(cap, dtype=torch.int32, device=dev)
+    nv[:npages] = R
+    nv[npages - 1] = n - (npages - 1) * R
+    off = torch.zeros(cap, dtype=torch.int32, device=dev)
+    off[:npages] = torch.arange(npages, device=dev, dtype=torch.int32) * R
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[store]
+    pool = torch.zeros((pool_pages, R, m), dtype=dtype, device=dev)
+    tail = torch.zeros((phys_total - pool_pages, R, m), dtype=dtype, device=dev)
+    scale = None
+    if store == "int8":
+        scale = torch.zeros((cap, m), device=dev)
+    for j in range(npages):
+        rows = D[j * R:j * R + int(nv[j])]
+        if store == "int8":
+            scale[j] = rows.abs().amax(0).clamp_min(1e-12) / 127.0
+            rows = torch.clamp(torch.round(rows / scale[j]), -127, 127)
+        p = int(pt[j])
+        (pool[p] if p < pool_pages else tail[p - pool_pages])[:rows.shape[0]] = rows.to(dtype)
+    ids = torch.full((cap, R), -1, dtype=torch.int32, device=dev)
+    ids.view(-1)[:npages * R] = (torch.randperm(npages * R, device=dev).to(torch.int32)
+                                 + 1000)
+    ids.view(-1)[torch.randperm(npages * R, device=dev)[:npages * R // 10]] = -1
+    return dict(pool=pool, page_table=pt, page_nvalid=nv, page_offset=off,
+                tail=tail, page_scale=scale, npages=npages), ids
+
+
+def paged_edge_cases(dev, randn, checks):
+    """The paged kernel against its plain version: ragged last page, a
+    scrambled pool/tail table, k beyond the live rows, lo > 0, a carry
+    split (the un-finalized ids, pads included, equal exactly), ids_pool
+    out of order with negatives, m = 130, page sizes below, at and above
+    the kernel's 256/512-row pieces, f32/bf16/int8, k in {10, 100, 1000}.
+    Returns the timing row of the ids_pool mode at the first shape."""
+    import torch
+    from repro_torch.kernels import topk_score
+    cuda, plain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    ids_row = None
+    for n, m, R, B, k in [(5000, 384, 256, 32, 10), (3001, 130, 256, 7, 100),
+                          (2600, 64, 512, 33, 1000), (2100, 48, 700, 5, 10),
+                          (300, 16, 8, 3, 1000)]:
+        Q = randn(B, m)
+        for store in ("f32", "bf16", "int8"):
+            pg, ids = make_paged(dev, randn, n, m, R, store)
+            npages = pg.pop("npages")
+            split = npages // 2
+            kw = {key: v for key, v in pg.items()
+                  if key not in ("pool", "page_table", "page_nvalid", "page_offset")}
+            args = (pg["pool"], pg["page_table"], pg["page_nvalid"], pg["page_offset"])
+            cases = [("full", 0, npages, {}), ("lo>0", min(3, npages - 1), npages, {}),
+                     ("ids_pool", 0, npages, {"ids_pool": ids})]
+            for mode, lo, hi, extra in cases:
+                got = cuda(*args, lo, hi, Q, k=k, **kw, **extra)
+                want = plain(*args, lo, hi, Q, k=k, **kw, **extra)
+                err, eq, near = compare_topk(*want, *got, f"paged {store} {mode} "
+                                             f"n={n} m={m} R={R} k={k}")
+                checks.append(dict(kernel="topk_score_paged", n=n, m=m, R=R, B=B, k=k,
+                                   store=store, mode=mode, max_abs_err=err,
+                                   ids_equal=eq, near_ties=near))
+                if mode == "ids_pool":
+                    ids_check = checks[-1]
+            # carry split: the un-finalized head (pad ids included, which
+            # compare_topk holds exactly), then the finalized chain
+            p1 = cuda(*args, 0, split, Q, k=k, **kw, finalize=False)
+            w1 = plain(*args, 0, split, Q, k=k, **kw, finalize=False)
+            compare_topk(*w1, *p1, f"paged {store} carry head n={n} R={R} k={k}")
+            got = cuda(*args, split, npages, Q, k=k, **kw, carry=p1)
+            want = plain(*args, split, npages, Q, k=k, **kw, carry=w1)
+            err, eq, near = compare_topk(*want, *got, f"paged {store} carry n={n} R={R} k={k}")
+            checks.append(dict(kernel="topk_score_paged", n=n, m=m, R=R, B=B, k=k,
+                               store=store, mode="carry", max_abs_err=err,
+                               ids_equal=eq, near_ties=near))
+            if ids_row is None and store == "f32":
+                nb = npages * R
+                ids_row = dict(
+                    shape=[n, m, R, B, k], max_abs_err=ids_check["max_abs_err"],
+                    ids_equal=ids_check["ids_equal"], near_ties=ids_check["near_ties"],
+                    ms=cuda_ms(lambda: cuda(*args, 0, npages, Q, k=k, ids_pool=ids, **kw),
+                               reps=20),
+                    plain_ms=cuda_ms(lambda: plain(*args, 0, npages, Q, k=k, ids_pool=ids,
+                                                   **kw), reps=5),
+                    library_ms=None,
+                    bound=bound(4 * nb * m + 4 * nb + 12 * npages + 4 * B * m
+                                + 8 * B * k, 2 * B * nb * m))
+    return ids_row
 
 
 def phase_main_path(counters, rows, n_docs):
@@ -582,6 +702,269 @@ def phase_server(counters, index_f32, index_int8, pruner, Q):
              closed_loop=closed, open_loop=opened, replies_checked=len(tape))
 
 
+def plain_search(pg, q, k):
+    """``pg``'s search through the plain paged version: each device run over
+    the tiers in place, each host run as one stack of its pages on the
+    card, chained through the carry as the index chains them."""
+    import torch
+    from repro_torch.kernels.topk_score import topk_score_paged_plain
+    st = pg.storage
+    runs = pg._runs()
+    out = None
+    for i, (lo, hi, on_dev) in enumerate(runs):
+        fin = i == len(runs) - 1
+        if on_dev:
+            out = topk_score_paged_plain(
+                st.pool, st.page_table, st.page_nvalid, st.page_offset, lo, hi, q,
+                k=k, tail=st.tail, page_scale=st.page_scale, carry=out, finalize=fin)
+        else:
+            dev = q.device
+            pages = torch.stack([st.host_pages[s] for s in range(lo, hi)]).to(dev)
+            n = hi - lo
+            out = topk_score_paged_plain(
+                pages, torch.arange(n, dtype=torch.int32, device=dev),
+                torch.as_tensor(st.nvalid_host[lo:hi], device=dev),
+                torch.as_tensor(st.offset_host[lo:hi], device=dev), 0, n, q, k=k,
+                page_scale=(None if st.scale_host is None
+                            else torch.as_tensor(st.scale_host[lo:hi], device=dev)),
+                carry=out, finalize=fin)
+    return out
+
+
+def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
+    """Phase 7: the full-size f32 and int8 indexes paged (256-row pages),
+    searched against the dense index, taken through a lifecycle (appends
+    with a widening block, promote, compact, evict to pinned host memory)
+    and served by a depth-3 server that swaps those versions in under
+    load. Returns the int8 server's reply count."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.index import _project_nofold, project_queries
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.kernels import topk_score
+    from repro_torch.launch.serve import RetrievalServer, _drive, _drive_open, _lat_summary
+
+    dev = torch.device("cuda")
+    W, mean = pruner.projection()
+    Qs = torch.as_tensor(Q[:SEARCH_BATCHES * BATCH], device=dev)
+    batches = [Qs[i:i + BATCH] for i in range(0, len(Qs), BATCH)]
+    t0 = time.perf_counter()
+    paged = {name: PagedIndex.from_index(index, page_rows=PAGE_ROWS, depth=3,
+                                         wave_pages=WAVE_PAGES)
+             for name, index in (("f32", index_f32), ("int8", index_int8))}
+    torch.cuda.synchronize()
+    emit("paged_build", seconds=time.perf_counter() - t0, page_rows=PAGE_ROWS,
+         pages={k: v.total_pages for k, v in paged.items()},
+         pool_gb={k: v.nbytes / 1e9 for k, v in paged.items()},
+         allocated_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # (a) paged search against the dense index on the same contents
+    for name, index in (("f32", index_f32), ("int8", index_int8)):
+        pg = paged[name]
+        pg.search_projected(batches[0], W, k=K, mean=mean)     # first launches load
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [pg.search_projected(b, W, k=K, mean=mean) for b in batches]
+        torch.cuda.synchronize()
+        t_paged = time.perf_counter() - t0
+        with counters.uncounted():
+            t0 = time.perf_counter()
+            want = [index.search_projected(b, W, k=K, mean=mean) for b in batches]
+            torch.cuda.synchronize()
+            t_dense = time.perf_counter() - t0
+            bitwise = all(torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                          for g, w in zip(got, want))
+            worst = max(compare_topk(*w, *g, f"paged {name} vs dense")[0]
+                        for g, w in zip(got, want))
+            # the kernel against its plain version and the timings, at the
+            # shapes of this path
+            st = pg.storage
+            q = _project_nofold(batches[0], W, mean).contiguous()
+            args = (st.pool, st.page_table, st.page_nvalid, st.page_offset, 0,
+                    st.n_slots, q)
+            kw = dict(k=K, tail=st.tail, page_scale=st.page_scale)
+            before = dict(topk_score.topk_score_paged_cuda.cuda_launches)
+            g1 = topk_score.topk_score_paged_cuda(*args, **kw)
+            per_call = sum(topk_score.topk_score_paged_cuda.cuda_launches.values()) \
+                - sum(before.values())
+            w1 = topk_score.topk_score_paged_plain(*args, **kw)
+            err, eq, near = compare_topk(*w1, *g1, f"paged {name} kernel vs plain")
+            qd = project_queries(batches[0], W, scale=index.scale, mean=mean).contiguous()
+            item = st.pool.element_size()
+            npages, R, m = st.n_slots, st.page_rows, st.dim
+            scale_bytes = 0 if st.page_scale is None else 4 * npages * m
+            rows[f"topk_score_paged_{name}"] = dict(
+                shape=[index.n, m, BATCH, K], page_rows=R, pages=npages, store=name,
+                max_abs_err=err, ids_equal=eq, near_ties=near,
+                cuda_launches_per_call=per_call,
+                ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*args, **kw), reps=10),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(*args, **kw),
+                                 reps=2),
+                dense_ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, qd, k=K),
+                                 reps=10),
+                library_ms=None,
+                matmul_topk_ms=(cuda_ms(lambda: torch.topk(qd @ index.vectors.T, K), reps=2)
+                                if item == 4 else None),
+                bound=bound(item * npages * R * m + 12 * npages + scale_bytes
+                            + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * npages * R * m))
+        emit("paged_search", index=name, batches=len(batches), bitwise_vs_dense=bitwise,
+             max_abs_err_vs_dense=worst, paged_s=t_paged, dense_s=t_dense,
+             kernel_vs_plain=dict(max_abs_err=err, ids_equal=eq, near_ties=near))
+
+    # (b) the lifecycle, each step against the plain version; promote,
+    # compact and evict must leave results bitwise unchanged
+    g = torch.Generator(device=dev).manual_seed(3)
+    src = index_f32.vectors
+
+    def new_rows(n, mag=1.0):
+        pick = torch.randint(0, src.shape[0], (n,), generator=g, device=dev)
+        r = src[pick] + 0.01 * torch.randn(n, src.shape[1], generator=g, device=dev)
+        return (mag * r).cpu().numpy()
+
+    blocks = [new_rows(300), new_rows(200, 9.0), new_rows(5000)]
+    qb = batches[0]
+    qn = _project_nofold(qb, W, mean).contiguous()
+    versions = {}
+    for name in ("f32", "int8"):
+        pg = paged[name]
+        steps = {}
+
+        def check(step, pg=pg):
+            got = pg.search_projected(qb, W, k=K, mean=mean)
+            with counters.uncounted():
+                want = plain_search(pg, qn, K)
+            err, eq, near = compare_topk(*want, *got, f"paged {name} lifecycle {step}")
+            steps[step] = dict(max_abs_err=err, ids_equal=eq, near_ties=near,
+                               pages=pg.total_pages, delta_pages=pg.delta_pages,
+                               host_pages=pg.storage.n_host_pages)
+            return got
+
+        widened = 0
+        for i, bl in enumerate(blocks):
+            t0 = time.perf_counter()
+            pg, ops_ = pg.append_with_ops(bl)
+            steps[f"append_{i}_s"] = time.perf_counter() - t0
+            widened += sum(op[0] == "widen" for op in ops_)
+            check(f"append_{i}", pg)
+        ref = check("appended", pg)
+        if pg.quantized and not widened:
+            raise AssertionError("paged int8: the x9 block did not widen a scale")
+        v_append = pg
+        for step, fn in (("promote", lambda p: p.promote()),
+                         ("compact", lambda p: p.compact_pages()),
+                         ("evict", lambda p: p.evict(EVICT_PAGES))):
+            t0 = time.perf_counter()
+            pg, info = fn(pg)
+            torch.cuda.synchronize()
+            steps[f"{step}_s"] = time.perf_counter() - t0
+            steps[f"{step}_info"] = info
+            got = check(step, pg)
+            if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                raise AssertionError(f"paged {name}: {step} changed the results")
+            if step == "compact":
+                v_compact = pg
+        # the oversubscribed search: host pages stream in waves; the host's
+        # share (gathering waves into pinned buffers, queueing the copies)
+        # is timed apart
+        stage_s = [0.0]
+        stage = PagedIndex._stage_wave
+
+        def timed_stage(self, slots, buf):
+            t = time.perf_counter()
+            try:
+                return stage(self, slots, buf)
+            finally:
+                stage_s[0] += time.perf_counter() - t
+
+        PagedIndex._stage_wave = timed_stage
+        try:
+            t0 = time.perf_counter()
+            for b in batches:
+                pg.search_projected(b, W, k=K, mean=mean)
+            torch.cuda.synchronize()
+            t_over = time.perf_counter() - t0
+        finally:
+            PagedIndex._stage_wave = stage
+        st = pg.storage
+        h2d = st.n_host_pages * (st.page_rows * st.dim * st.pool.element_size()
+                                 + 8 + (0 if st.scale_host is None else 4 * st.dim))
+        emit("paged_lifecycle", index=name, steps=steps, extents=len(st.extents),
+             widen_ops=widened, host_pages=st.n_host_pages,
+             oversubscribed_ms_per_batch=t_over / len(batches) * 1e3,
+             wave_staging_ms_per_batch=stage_s[0] / len(batches) * 1e3,
+             h2d_bytes_per_batch=h2d, waves_per_batch=-(-st.n_host_pages // WAVE_PAGES))
+        if name == "int8":
+            versions = dict(append=v_append, compact=v_compact, evict=pg)
+        del pg, v_append, v_compact, st
+        torch.cuda.empty_cache()
+
+    # (c) a depth-3 server over the paged int8 index: closed loop, then open
+    # loop while swap_index installs the append, the compaction and the
+    # eviction; a background client keeps traffic on across the swaps
+    v0 = paged["int8"]
+    server = RetrievalServer(v0, pruner, k=K, max_batch=BATCH, pipeline_depth=3)
+    tape = Q[SERVER_CLOSED:]
+    segs = np.array_split(tape, 4)
+    bg = dict(ok=0, failed=[])
+    stop = threading.Event()
+
+    def background():
+        i = 0
+        while not stop.is_set():
+            try:
+                server.query(Q[i % SERVER_CLOSED], timeout=60.0)
+                bg["ok"] += 1
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                bg["failed"].append(repr(e))
+            i += 1
+
+    out = {}
+    try:
+        server.warmup()
+        wall, lat = _drive(server, Q[:SERVER_CLOSED])
+        out["closed_loop"] = dict(qps=SERVER_CLOSED / wall, **_lat_summary(lat),
+                                  **server.worker_stats())
+        th = threading.Thread(target=background, daemon=True)
+        th.start()
+        served = []
+        for name, v, seg in zip(("base", "append", "compact", "evict"),
+                                (v0, versions["append"], versions["compact"],
+                                 versions["evict"]), segs):
+            if v is not v0:
+                server.swap_index(v)
+            res = _drive_open(server, seg, rate=2000.0, collect=True)
+            if res["errors"] or res["n_ok"] != len(seg):
+                raise AssertionError(f"paged server {name}: {res['errors']} errors, "
+                                     f"{res['n_ok']} of {len(seg)} replies")
+            out[f"open_loop_{name}"] = {k: v_ for k, v_ in res.items() if k != "results"}
+            served.append((name, v, seg, res["results"]))
+        stop.set()
+        th.join(timeout=120.0)
+        if th.is_alive() or bg["failed"]:
+            raise AssertionError(f"paged server background client: {bg['failed'][:3]}")
+        out["swaps"] = server.swap_count
+    finally:
+        stop.set()
+        server.close()
+    mismatch = off_scores = checked = 0
+    with counters.uncounted():
+        for name, v, seg, results in served:
+            for i in range(0, len(seg), BATCH):
+                q = torch.as_tensor(seg[i:i + BATCH], device=dev)
+                s, ids = v.search_projected(q, W, k=K, mean=mean)
+                s, ids = s.cpu().numpy(), ids.cpu().numpy()
+                for j, (rs, ri) in enumerate(results[i:i + BATCH]):
+                    checked += 1
+                    mismatch += not np.array_equal(ri, ids[j])
+                    off_scores += not np.allclose(rs, s[j], rtol=TOL, atol=TOL)
+    if mismatch or off_scores:
+        raise AssertionError(f"paged server: {mismatch} replies' ids and {off_scores} "
+                             f"replies' scores differ from direct search_projected")
+    emit("paged_server", index="int8", pipeline_depth=3, batch=BATCH, k=K,
+         background_replies=bg["ok"], replies_checked=checked, **out)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -599,7 +982,7 @@ def main():
     import torch
     import repro_torch  # noqa: F401  (sets the fp32 policy)
     phase_build()
-    phase_edge_cases()
+    ids_row = phase_edge_cases()
     counters = Counters()
     rows = {}
     counters.zero()
@@ -615,13 +998,25 @@ def main():
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # the paged path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_paged(counters, index_f32, index_int8, pruner, Q, rows)
+    torch.cuda.synchronize()
+    paged_launches = counters.read()
+    emit("paged_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in paged_launches.items() if "paged" in k})
+    missing = [k for k in ("topk_score_paged_f32", "topk_score_paged_int8")
+               if paged_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the paged path: {missing}")
 
-    def entry(name, row, source, replaces, counter):
+    def entry(name, row, source, replaces, counter, counts=launches):
         b_ms, b_by = row["bound"]
-        extra = ({"cuda_launches": launches[counter + "_cuda"]}
-                 if counter + "_cuda" in launches else {})
+        extra = ({"cuda_launches": counts[counter + "_cuda"]}
+                 if counter + "_cuda" in counts else {})
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches[counter], **extra,
+                    launches=counts[counter], **extra,
                     max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=row["library_ms"],
@@ -629,9 +1024,11 @@ def main():
                     **{k: v for k, v in row.items()
                        if k in ("ids_equal", "near_ties", "rel_err",
                                 "plain_f32_rel_err_vs_f64", "rel_err_vs_plain_f32",
-                                "frac_differ", "matmul_topk_ms")})
+                                "frac_differ", "matmul_topk_ms", "dense_ms",
+                                "cuda_launches_per_call", "page_rows", "pages")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
+    paged = "src/repro/kernels/topk_score.py:549"
     kernels = [
         entry("gram", rows["gram"], csrc + "gram.cu",
               "src/repro/kernels/gram.py:41", "gram"),
@@ -644,6 +1041,14 @@ def main():
               "topk_score_int8"),
         entry("topk_score_row_ids", rows["topk_score_row_ids"], topk[1], topk[0],
               "topk_score_row_ids"),
+        # launches of the paged kernel are counted over phase 7; the ids_pool
+        # mode is not on that path, so its times come from the edge cases
+        entry("topk_score_paged_f32", rows["topk_score_paged_f32"], topk[1], paged,
+              "topk_score_paged_f32", paged_launches),
+        entry("topk_score_paged_int8", rows["topk_score_paged_int8"], topk[1], paged,
+              "topk_score_paged_int8", paged_launches),
+        entry("topk_score_paged_ids", ids_row, topk[1], paged, "topk_score_paged_ids",
+              paged_launches),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -4,8 +4,9 @@
 On a CUDA index every search is one ``topk_score`` kernel call (plus the
 query projection as a plain fp32 matmul); on a CPU index it is
 ``_scan_topk``, the blocked running top-k that ``repro`` runs as its jnp
-path. Scores are accumulated in fp32 whatever the index dtype. The sharded,
-segmented, store-backed and cascade indexes are not ported yet.
+path. Scores are accumulated in fp32 whatever the index dtype. The paged
+index is in ``core/paged.py``; the sharded, segmented, store-backed and
+cascade indexes are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,6 +32,13 @@ def project_queries(q: torch.Tensor, W: torch.Tensor,
     if scale is not None:
         q = q * scale[None, :]
     return q
+
+
+def _project_nofold(Q: torch.Tensor, W: torch.Tensor,
+                    mean: torch.Tensor | None) -> torch.Tensor:
+    """Centre and project a raw query without any scale fold: a paged index
+    folds each page's own scale inside its search."""
+    return project_queries(Q, W, scale=None, mean=mean)
 
 
 def _topk_merge(scores: torch.Tensor, ids: torch.Tensor, k: int

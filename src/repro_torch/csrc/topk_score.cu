@@ -25,6 +25,17 @@
 // from that one order. k <= 32 selects by repeated warp arg-max over keys
 // held in registers; larger k (up to 1024) sorts keys in shared memory.
 // The TPU kernel's block-skip guard and lane-fold select are not carried.
+//
+// Paged mode replaces src/repro/kernels/topk_score.py::
+// topk_score_paged_pallas: the index lives in fixed pages of R rows behind
+// an int32 page table (a stable pool and an append tail), and a call walks
+// logical slots [lo, hi). The TPU kernel pipelines page DMAs through one
+// sequential walk; here topk_page_kernel takes one CTA per (page, or
+// 512-row piece of a page, 32-query tile), reads the page in its storage
+// dtype straight from whichever tier the table names, folds the page's
+// scale row into the query tile, and hands k keys per query to the same
+// merge kernel. A carry (B, k) from an earlier call enters the merge as one
+// more list. The bound is the dense kernel's over the walked pages.
 #include "common.cuh"
 
 namespace {
@@ -255,11 +266,15 @@ topk_chunk_kernel(const T* __restrict__ D, const float* __restrict__ Q,
   }
 }
 
+// With `unfinal` the last level numbers the -inf slots as the reference's
+// un-finalized running list does: slot j after c finite slots gets id
+// -(j - c + 2), so a carry chained into a later call keeps the same ids.
 template <bool BIG_K>
 __global__ void __launch_bounds__(MT)
 topk_merge_kernel(const uint64_t* __restrict__ cand, int L, int k, int G,
                   int Lout, int cap, uint64_t* __restrict__ next,
-                  float* __restrict__ out_s, int* __restrict__ out_i) {
+                  float* __restrict__ out_s, int* __restrict__ out_i,
+                  int unfinal) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = blockIdx.x * (MT / 32) + warp;
@@ -293,15 +308,181 @@ topk_merge_kernel(const uint64_t* __restrict__ cand, int L, int k, int G,
     warp_bitonic_desc(buf, cap);
     for (int j = lane; j < k; j += 32) emit(j, buf[j]);
   }
+  if (next == nullptr && unfinal) {
+    __syncwarp();                               // the warp's own stores above
+    const float* srow = out_s + static_cast<int64_t>(q) * k;
+    int* irow = out_i + static_cast<int64_t>(q) * k;
+    int c = 0;
+    for (int j0 = 0; j0 < k; j0 += 32) {
+      const int j = j0 + lane;
+      c += __popc(__ballot_sync(FULL, j < k && srow[j] != __int_as_float(0xff800000)));
+    }
+    for (int j = lane; j < k; j += 32)
+      if (srow[j] == __int_as_float(0xff800000)) irow[j] = -(j - c + 2);
+  }
+}
+
+// Paged chunk kernel: one CTA per (PR-row piece of a logical page slot in
+// [lo, hi), 32-query tile); piece `list` of the launch covers rows
+// [r0, r0 + PR) of slot lo + list / ppp. The page table picks the tier:
+// entries below pool_pages address the pool, the rest the tail; an entry
+// outside both masks the page. With a scale row the query tile is
+// multiplied by it before the product (the reference's fold order), then
+// the same fp32 FMA chain as the dense chunk kernel, so an unmodified base
+// scores bitwise as it does there. Row r reports page_offset[slot] + r and
+// is masked at or beyond page_nvalid[slot]; with ids_pool it reports
+// ids_pool[slot, r] and negative ids are masked.
+template <typename T, bool BIG_K, int PR>
+__global__ void __launch_bounds__(CT)
+topk_page_kernel(const T* __restrict__ pool, const T* __restrict__ tail,
+                 const int* __restrict__ table, const int* __restrict__ nvalid,
+                 const int* __restrict__ offset, const float* __restrict__ scale,
+                 const int* __restrict__ ids_pool, const float* __restrict__ Q,
+                 int pool_pages, int tail_pages, int R, int m, int B, int lo,
+                 int ppp, int k, int nlists, int vec,
+                 uint64_t* __restrict__ cand) {
+  constexpr int DLDP = PR + 4;
+  constexpr int JN = PR / 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);                 // [CK][QLD]
+  float* Ds = Qs + CK * QLD;                                   // [CK][DLDP]
+  float* Ss = reinterpret_cast<float*>(smem);                 // [CQ][PR], after the product
+  uint64_t* Kbuf = reinterpret_cast<uint64_t*>(smem + CQ * PR * sizeof(float));
+  const int list = blockIdx.x;
+  const int64_t slot = lo + list / ppp;
+  const int r0 = (list % ppp) * PR;
+  const int q0 = blockIdx.y * CQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  const int phys = table[slot];
+  const T* page = nullptr;
+  if (phys >= 0 && phys < pool_pages)
+    page = pool + static_cast<int64_t>(phys) * R * m;
+  else if (phys >= pool_pages && phys - pool_pages < tail_pages)
+    page = tail + static_cast<int64_t>(phys - pool_pages) * R * m;
+  const int rows = page == nullptr ? 0 : min(PR, R - r0);
+  const float* srow = scale == nullptr ? nullptr : scale + slot * m;
+
+  float acc[4][4 * JN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * JN; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < m; k0 += CK) {
+    for (int e = tid; e < CQ * CK; e += CT) {
+      const int q = e / CK, kk = e % CK;
+      float v = 0.f;
+      if (q0 + q < B && k0 + kk < m) {
+        v = Q[static_cast<int64_t>(q0 + q) * m + k0 + kk];
+        if (srow != nullptr) v *= srow[k0 + kk];
+      }
+      Qs[kk * QLD + q] = v;
+    }
+    if (vec) {
+      for (int r = tid; r < PR; r += CT) {
+        float v[CK];
+        if (r < rows) {
+          load_slab(page + static_cast<int64_t>(r0 + r) * m + k0, v);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < CK; ++kk) v[kk] = 0.f;
+        }
+#pragma unroll
+        for (int kk = 0; kk < CK; ++kk) Ds[kk * DLDP + r] = v[kk];
+      }
+    } else {
+      for (int e = tid; e < PR * CK; e += CT) {
+        const int r = e / CK, kk = e % CK;
+        Ds[kk * DLDP + r] = (r < rows && k0 + kk < m)
+                                ? to_f32(page[static_cast<int64_t>(r0 + r) * m + k0 + kk]) : 0.f;
+      }
+    }
+    __syncthreads();
+    tile_fma<CQ, PR, CK, 1, JN, QLD, DLDP>(Qs, Ds, acc, warp, lane);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int si = 0; si < 4; ++si) {
+    const int q = warp * 4 + si;
+#pragma unroll
+    for (int jg = 0; jg < JN; ++jg) {
+      float4 v = make_float4(acc[si][4 * jg], acc[si][4 * jg + 1],
+                             acc[si][4 * jg + 2], acc[si][4 * jg + 3]);
+      *reinterpret_cast<float4*>(Ss + q * PR + jg * 128 + lane * 4) = v;
+    }
+  }
+  __syncthreads();
+
+  // lane holds piece rows lane + 32 t
+  const int nv = nvalid[slot];
+  const int off = offset[slot];
+  int ids[PR / 32];
+  bool ok[PR / 32];
+#pragma unroll
+  for (int t = 0; t < PR / 32; ++t) {
+    const int r = lane + 32 * t;
+    const int pr = r0 + r;
+    ids[t] = -1;
+    ok[t] = false;
+    if (r < rows) {
+      if (ids_pool != nullptr) {
+        ids[t] = ids_pool[slot * R + pr];
+        ok[t] = ids[t] >= 0;
+      } else {
+        ids[t] = off + pr;
+        ok[t] = pr < nv;
+      }
+    }
+  }
+
+  for (int qi = 0; qi < 4; ++qi) {
+    const int q = warp * 4 + qi;
+    if (q0 + q >= B) break;
+    uint64_t* dst = cand + (static_cast<int64_t>(q0 + q) * nlists + list) * k;
+    const float* sq = Ss + q * PR;
+    if (!BIG_K) {
+      uint64_t keys[PR / 32];
+#pragma unroll
+      for (int t = 0; t < PR / 32; ++t)
+        keys[t] = ok[t] ? encode_key(sq[lane + 32 * t], ids[t]) : PAD_KEY;
+      warp_extract<PR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; });
+    } else {
+      uint64_t* buf = Kbuf + warp * PR;
+#pragma unroll
+      for (int t = 0; t < PR / 32; ++t)
+        buf[lane + 32 * t] = ok[t] ? encode_key(sq[lane + 32 * t], ids[t]) : PAD_KEY;
+      __syncwarp();
+      warp_bitonic_desc(buf, PR);
+      for (int j = lane; j < k; j += 32) dst[j] = j < PR ? buf[j] : PAD_KEY;
+      __syncwarp();
+    }
+  }
+}
+
+// The carry (B, k) enters the merge as list nlists - 1 of every query; its
+// -inf slots are pads.
+__global__ void carry_keys_kernel(const float* __restrict__ cs,
+                                  const int* __restrict__ ci, int B, int k,
+                                  int nlists, uint64_t* __restrict__ cand) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<int64_t>(B) * k) return;
+  const int64_t q = e / k;
+  const int j = static_cast<int>(e % k);
+  const float s = cs[e];
+  cand[(q * nlists + nlists - 1) * k + j] =
+      s == __int_as_float(0xff800000) ? PAD_KEY : encode_key(s, ci[e]);
 }
 
 struct Plan {
   int nchunks, G, cap;
 };
 
-Plan plan_for(int64_t n, int k) {
+// L lists of k keys per query: how many lists one merge warp joins.
+Plan plan_lists(int64_t L, int k) {
   Plan p;
-  p.nchunks = static_cast<int>((n + CR - 1) / CR);
+  p.nchunks = static_cast<int>(L);
   if (k <= SMALL_K) {
     p.cap = MERGE_SMALL;
   } else {
@@ -310,6 +491,48 @@ Plan plan_for(int64_t n, int k) {
   }
   p.G = p.cap / k;
   return p;
+}
+
+Plan plan_for(int64_t n, int k) { return plan_lists((n + CR - 1) / CR, k); }
+
+// The merge levels after a first kernel left L lists of k keys per query in
+// `a`: one launch per level, alternating between a and b, until one list is
+// left; the last level writes scores and ids.
+int run_merges(const Plan& p, int L, int B, int k, uint64_t* a, uint64_t* b,
+               void* out_s, void* out_i, int unfinal, cudaStream_t s,
+               int* launched) {
+  const bool big = k > SMALL_K;
+  const size_t msmem = big ? (MT / 32) * static_cast<size_t>(p.cap) * sizeof(uint64_t) : 0;
+  cudaError_t err;
+  if (big) {
+    err = cudaFuncSetAttribute(topk_merge_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(msmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  uint64_t* src = a;
+  uint64_t* dst = b;
+  auto* os = static_cast<float*>(out_s);
+  auto* oi = static_cast<int*>(out_i);
+  while (true) {
+    const int Lout = (L + p.G - 1) / p.G;
+    const bool last = Lout == 1;
+    const dim3 grid((Lout + MT / 32 - 1) / (MT / 32), B);
+    uint64_t* next = last ? nullptr : dst;
+    if (big)
+      topk_merge_kernel<true><<<grid, MT, msmem, s>>>(src, L, k, p.G, Lout, p.cap, next, os, oi, unfinal);
+    else
+      topk_merge_kernel<false><<<grid, MT, 0, s>>>(src, L, k, p.G, Lout, p.cap, next, os, oi, unfinal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
+    if (last) break;
+    L = Lout;
+    uint64_t* t = src;
+    src = dst;
+    dst = t;
+  }
+  return 0;
 }
 
 template <typename T, bool WITH_IDS, bool VEC, bool BIG_K>
@@ -346,6 +569,43 @@ cudaError_t dispatch_dtype(bool with_ids, bool vec, bool big, const void* D,
   if (with_ids) return dispatch_chunks<T, true>(vec, big, D, Q, ids, n, m, B, n_valid, k, nchunks, cand, s);
   return dispatch_chunks<T, false>(vec, big, D, Q, ids, n, m, B, n_valid, k, nchunks, cand, s);
 }
+
+template <typename T, bool BIG_K, int PR>
+cudaError_t launch_pages(const void* pool, const void* tail, const int* table,
+                         const int* nvalid, const int* offset, const float* scale,
+                         const int* ids_pool, const float* Q, int pool_pages,
+                         int tail_pages, int R, int m, int B, int lo, int nslots,
+                         int ppp, int k, int nlists, int vec, uint64_t* cand,
+                         cudaStream_t stream) {
+  auto kern = topk_page_kernel<T, BIG_K, PR>;
+  const size_t smem = CQ * PR * sizeof(float) + (BIG_K ? (CT / 32) * PR * sizeof(uint64_t) : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nslots * ppp, (B + CQ - 1) / CQ);
+  kern<<<grid, CT, smem, stream>>>(static_cast<const T*>(pool), static_cast<const T*>(tail),
+                                   table, nvalid, offset, scale, ids_pool, Q, pool_pages,
+                                   tail_pages, R, m, B, lo, ppp, k, nlists, vec, cand);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_pages(bool big, int pr, const void* pool, const void* tail,
+                           const int* table, const int* nvalid, const int* offset,
+                           const float* scale, const int* ids_pool, const float* Q,
+                           int pool_pages, int tail_pages, int R, int m, int B, int lo,
+                           int nslots, int ppp, int k, int nlists, int vec,
+                           uint64_t* cand, cudaStream_t s) {
+#define PAGES(BIG, P) launch_pages<T, BIG, P>(pool, tail, table, nvalid, offset, scale, ids_pool, \
+      Q, pool_pages, tail_pages, R, m, B, lo, nslots, ppp, k, nlists, vec, cand, s)
+  if (pr == 512) return big ? PAGES(true, 512) : PAGES(false, 512);
+  return big ? PAGES(true, 256) : PAGES(false, 256);
+#undef PAGES
+}
+
+// Rows per CTA of the paged kernel for pages of R rows: 256 up to R = 256,
+// else 512 (a page of more rows takes one CTA per 512-row piece).
+int piece_rows(int R) { return R <= 256 ? 256 : 512; }
 
 }  // namespace
 
@@ -389,35 +649,79 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launched;
 
-  const size_t msmem = big ? (MT / 32) * static_cast<size_t>(p.cap) * sizeof(uint64_t) : 0;
-  if (big) {
-    err = cudaFuncSetAttribute(topk_merge_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(msmem));
+  return run_merges(p, p.nchunks, B, k, a, b, out_s, out_i, 0, s, launched);
+}
+
+// Scratch plan of the paged kernel over `slots` page slots of R rows, plus
+// the carry list when `carry` is set: out[0] = lists after the paged kernel,
+// out[1] = lists merged per warp, out[2] = lists after the first merge.
+extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int64_t* out) {
+  if (slots < 0 || R < 1 || k < 1 || k > K_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  const int pr = piece_rows(R);
+  const int64_t lists = slots * ((R + pr - 1) / pr) + (carry ? 1 : 0);
+  if (lists < 1 || lists > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = plan_lists(lists, k);
+  out[0] = lists;
+  out[1] = p.G;
+  out[2] = (lists + p.G - 1) / p.G;
+  return 0;
+}
+
+// Exact top-k over logical page slots [lo, hi) of a page table.
+// pool (pool_pages, R, m) and tail (tail_pages, R, m, or null) in dtype
+// 0 = f32, 1 = bf16, 2 = int8; table, nvalid, offset (>= hi,) int32;
+// scale (>= hi, m) f32 or null; ids_pool (>= hi, R) int32 or null; Q (B, m)
+// f32; carry_s / carry_i (B, k) or null. Scratch as topk_paged_plan says:
+// scratch_a B * out[0] * k keys, scratch_b B * out[2] * k keys. Writes
+// out_s (B, k) f32 and out_i (B, k) int32; -inf slots get id -1 with
+// `finalize`, else their rank among pads as -(j - c + 2). `vec` asserts
+// m % 16 == 0 and 16-byte aligned pool and tail. *launched counts the kernel
+// launches made. Returns the first cudaError_t.
+extern "C" int topk_score_paged_f32(
+    const void* pool, const void* tail, const void* table, const void* nvalid,
+    const void* offset, const void* scale, const void* ids_pool, const void* Q,
+    const void* carry_s, const void* carry_i, int pool_pages, int tail_pages,
+    int R, int m, int B, int lo, int hi, int k, int dtype, int vec, int finalize,
+    void* scratch_a, void* scratch_b, void* out_s, void* out_i, void* stream,
+    int* launched) {
+  auto s = static_cast<cudaStream_t>(stream);
+  *launched = 0;
+  const bool carry = carry_s != nullptr;
+  const int nslots = hi > lo ? hi - lo : 0;
+  if (k < 1 || k > K_CAP || B < 1 || B > 65535 || R < 1 || m < 1 || lo < 0 ||
+      (nslots == 0 && !carry) || (carry && carry_i == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int pr = piece_rows(R);
+  const int ppp = (R + pr - 1) / pr;
+  const int64_t lists64 = static_cast<int64_t>(nslots) * ppp + (carry ? 1 : 0);
+  if (lists64 > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  const int nlists = static_cast<int>(lists64);
+  const Plan p = plan_lists(nlists, k);
+  const bool big = k > SMALL_K;
+  auto* a = static_cast<uint64_t*>(scratch_a);
+  auto* b = static_cast<uint64_t*>(scratch_b);
+  auto q = static_cast<const float*>(Q);
+  auto tb = static_cast<const int*>(table);
+  auto nv = static_cast<const int*>(nvalid);
+  auto off = static_cast<const int*>(offset);
+  auto sc = static_cast<const float*>(scale);
+  auto ip = static_cast<const int*>(ids_pool);
+  cudaError_t err;
+  if (nslots > 0) {
+    if (dtype == 0) err = dispatch_pages<float>(big, pr, pool, tail, tb, nv, off, sc, ip, q, pool_pages, tail_pages, R, m, B, lo, nslots, ppp, k, nlists, vec, a, s);
+    else if (dtype == 1) err = dispatch_pages<__nv_bfloat16>(big, pr, pool, tail, tb, nv, off, sc, ip, q, pool_pages, tail_pages, R, m, B, lo, nslots, ppp, k, nlists, vec, a, s);
+    else if (dtype == 2) err = dispatch_pages<int8_t>(big, pr, pool, tail, tb, nv, off, sc, ip, q, pool_pages, tail_pages, R, m, B, lo, nslots, ppp, k, nlists, vec, a, s);
+    else return static_cast<int>(cudaErrorInvalidValue);
     if (err != cudaSuccess) return static_cast<int>(err);
+    ++*launched;
   }
-  int L = p.nchunks;
-  uint64_t* src = a;
-  uint64_t* dst = b;
-  while (true) {
-    const int Lout = (L + p.G - 1) / p.G;
-    const bool last = Lout == 1;
-    const dim3 grid((Lout + MT / 32 - 1) / (MT / 32), B);
-    uint64_t* next = last ? nullptr : dst;
-    if (big)
-      topk_merge_kernel<true><<<grid, MT, msmem, s>>>(src, L, k, p.G, Lout, p.cap, next,
-                                                      static_cast<float*>(out_s), static_cast<int*>(out_i));
-    else
-      topk_merge_kernel<false><<<grid, MT, 0, s>>>(src, L, k, p.G, Lout, p.cap, next,
-                                                   static_cast<float*>(out_s), static_cast<int*>(out_i));
+  if (carry) {
+    const int64_t total = static_cast<int64_t>(B) * k;
+    carry_keys_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+        static_cast<const float*>(carry_s), static_cast<const int*>(carry_i), B, k, nlists, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
-    if (last) break;
-    L = Lout;
-    uint64_t* t = src;
-    src = dst;
-    dst = t;
   }
-  return 0;
+  return run_merges(p, nlists, B, k, a, b, out_s, out_i, finalize ? 0 : 1, s, launched);
 }

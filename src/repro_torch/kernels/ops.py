@@ -4,7 +4,7 @@ Where ``repro`` takes ``interpret``, the port takes the tensors' device: a
 CUDA tensor launches the hand-written kernel (or the wrapper raises), a CPU
 tensor runs the plain PyTorch version. There is no other fallback. Block
 sizes are not arguments: the CUDA kernels fix their tiles for the card and
-the plain versions need none. ``topk_score_paged`` is not ported yet.
+the plain versions need none.
 """
 from __future__ import annotations
 
@@ -17,7 +17,12 @@ from repro_torch.kernels.pca_project import (
     pca_project_quant_cuda,
     pca_project_quant_plain,
 )
-from repro_torch.kernels.topk_score import topk_score_cuda, topk_score_plain
+from repro_torch.kernels.topk_score import (
+    topk_score_cuda,
+    topk_score_paged_cuda,
+    topk_score_paged_plain,
+    topk_score_plain,
+)
 
 
 def _on_card(*tensors: torch.Tensor) -> bool:
@@ -50,6 +55,33 @@ def topk_score(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     if _on_card(*operands):
         return topk_score_cuda(D, Q, k=k, n_valid=n_valid, row_ids=row_ids)
     return topk_score_plain(D, Q, k=k, n_valid=n_valid, row_ids=row_ids)
+
+
+def topk_score_paged(pool: torch.Tensor, page_table: torch.Tensor,
+                     page_nvalid: torch.Tensor, page_offset: torch.Tensor,
+                     lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                     tail: torch.Tensor | None = None,
+                     page_scale: torch.Tensor | None = None,
+                     ids_pool: torch.Tensor | None = None,
+                     carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+                     finalize: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused score + top-k over a paged index: logical slots [lo, hi) of
+    ``page_table``, whose entries address the stable ``pool`` or, at and
+    beyond its page count, the append ``tail``. Pages are read in their
+    storage dtype; ``page_scale`` folds per-page int8 scales into the
+    query; ``ids_pool`` switches to the rescore mode; ``carry`` /
+    ``finalize=False`` chain runs and host-tier waves (pass the un-clamped
+    ids of a ``finalize=False`` call back in).
+    """
+    operands = [pool, page_table, page_nvalid, page_offset, Q]
+    operands += [t for t in (tail, page_scale, ids_pool) if t is not None]
+    if carry is not None:
+        operands += list(carry)
+    fn = topk_score_paged_cuda if _on_card(*operands) else topk_score_paged_plain
+    return fn(pool, page_table, page_nvalid, page_offset, lo, hi, Q, k=k,
+              tail=tail, page_scale=page_scale, ids_pool=ids_pool, carry=carry,
+              finalize=finalize)
 
 
 def pca_project(D: torch.Tensor, W: torch.Tensor) -> torch.Tensor:

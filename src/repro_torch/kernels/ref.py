@@ -62,3 +62,97 @@ def pca_project_quant_ref(D: torch.Tensor, W: torch.Tensor,
     q = torch.clamp(torch.round(t / torch.clamp_min(scale[None, :], 1e-12)),
                     -127, 127)
     return q.to(torch.int8)
+
+
+_INT32_LOW = 0x7FFFFFFF
+
+
+def _keys(s: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order (score desc, id asc): the float's bits made
+    monotone as a signed int32 in the high word, ``0x7FFFFFFF - id`` in the
+    low word (the CUDA kernels' order). -0 and +0 tie."""
+    b = (s.float() + 0.0).view(torch.int32)
+    hi = torch.where(b < 0, b ^ _INT32_LOW, b).to(torch.int64)
+    return hi * (1 << 32) + (_INT32_LOW - ids.to(torch.int64))
+
+
+def _unkeys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = (keys >> 32).to(torch.int32)
+    s = torch.where(hi < 0, hi ^ _INT32_LOW, hi).view(torch.float32)
+    ids = (_INT32_LOW - (keys & 0xFFFFFFFF)).to(torch.int32)
+    return s, ids
+
+
+def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
+                         page_nvalid: torch.Tensor, page_offset: torch.Tensor,
+                         lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                         tail: torch.Tensor | None = None,
+                         page_scale: torch.Tensor | None = None,
+                         ids_pool: torch.Tensor | None = None,
+                         carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+                         finalize: bool = True, block_rows: int = 1 << 17
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over logical page slots [lo, hi): a twin of the
+    reference's ``_paged_core`` with ``topk_score_paged_pallas``'s
+    arguments.
+
+    Slot t's page is ``pool[table[t]]``, or ``tail[table[t] - pool_pages]``
+    at or beyond the pool (an entry in neither is masked). Its scale row
+    multiplies the query before the product; row r reports
+    ``page_offset[t] + r`` and is masked at or beyond ``page_nvalid[t]``,
+    or with ``ids_pool`` reports ``ids_pool[t, r]`` and masks negatives.
+    ``carry`` seeds the running list. Candidates order as (score desc, id
+    asc). Slots left at -inf get id -1 with ``finalize``, else the
+    reference's un-clamped pad ids: slot j after c finite slots gets
+    -(j - c + 2), so a carry chain reproduces them. Pages are walked in
+    blocks of about ``block_rows`` rows with a running merge.
+    """
+    lo, hi = int(lo), int(hi)
+    pool_pages, R, m = pool.shape
+    dev = pool.device
+    Qf = Q.float()
+    B = Qf.shape[0]
+    neg = torch.full((B, k), float("-inf"), device=dev)
+    run = _keys(neg, torch.zeros((B, k), dtype=torch.int32, device=dev))
+    if carry is not None:
+        run = _keys(carry[0], carry[1])
+    table = page_table.to(torch.int64)
+    nv = page_nvalid.to(torch.int64)
+    off = page_offset.to(torch.int64)
+    n_tail = 0 if tail is None else tail.shape[0]
+    step = max(1, block_rows // R)
+    iota = torch.arange(R, dtype=torch.int64, device=dev)
+    for t0 in range(lo, hi, step):
+        t = torch.arange(t0, min(t0 + step, hi), device=dev)
+        phys = table[t]
+        in_pool = (phys >= 0) & (phys < pool_pages)
+        pg = pool[phys.clamp(0, pool_pages - 1)]
+        if tail is not None:
+            pg = torch.where((phys >= pool_pages)[:, None, None],
+                             tail[(phys - pool_pages).clamp(0, n_tail - 1)], pg)
+        live = in_pool | ((phys >= pool_pages) & (phys < pool_pages + n_tail))
+        pgf = pg.float()                                         # (P, R, m)
+        if page_scale is None:
+            s = (Qf @ pgf.reshape(-1, m).T).reshape(B, len(t), R)
+        else:
+            q = Qf[None, :, :] * page_scale[t][:, None, :].float()   # (P, B, m)
+            s = torch.bmm(q, pgf.transpose(1, 2)).permute(1, 0, 2)   # (B, P, R)
+        if ids_pool is None:
+            ids = off[t][:, None] + iota[None, :]
+            ok = iota[None, :] < nv[t][:, None]
+        else:
+            ids = ids_pool[t].to(torch.int64)
+            ok = ids >= 0
+        ok = ok & live[:, None]
+        s = s.masked_fill(~ok[None], float("-inf")).reshape(B, -1)
+        keys = _keys(s, ids.reshape(1, -1).expand(B, -1))
+        run = torch.topk(torch.cat([run, keys], 1), k, dim=1).values
+    scores, ids = _unkeys(run)
+    pad = torch.isneginf(scores)
+    if finalize:
+        ids = torch.where(pad, -1, ids)
+    else:
+        c = (~pad).sum(1, keepdim=True)
+        j = torch.arange(k, device=dev)[None, :]
+        ids = torch.where(pad, -(j - c + 2), ids).to(torch.int32)
+    return scores, ids.to(torch.int32)

@@ -13,6 +13,13 @@ CTA scores a 512-row chunk for 32 queries and keeps the chunk's top k, and
 a merge kernel reduces the per-chunk lists, launched until one list is
 left. Candidates are compared as (score desc, id asc) keys, so the result
 does not depend on visit order. k is capped at ``K_CAP``.
+
+``topk_score_paged_cuda`` replaces ``topk_score_paged_pallas``: the same
+top-k over logical slots [lo, hi) of a page table (pool and tail tiers,
+per-page scale, ``page_nvalid`` masks and ``page_offset`` ids, the
+``ids_pool`` rescore mode, ``carry`` / ``finalize`` chaining). One CTA
+scores a page (or a 512-row piece of one) for 32 queries; the same merge
+kernel reduces the per-page lists, with the carry as one more list.
 """
 from __future__ import annotations
 
@@ -31,13 +38,18 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]),
+    "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]),
+    "topk_score_paged_f32": (ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                             + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 
 
-# the plain version is the oracle itself
+# the plain versions are the oracles themselves
 topk_score_plain = ref.topk_score_ref
+topk_score_paged_plain = ref.topk_score_paged_ref
 
 
 def topk_plan(n: int, k: int) -> tuple[int, int, int]:
@@ -110,3 +122,134 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
 
 topk_score_cuda.launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
 topk_score_cuda.cuda_launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
+
+
+def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool
+                    ) -> tuple[int, int, int]:
+    """(lists after the paged kernel, lists merged per warp, lists after
+    the first merge)."""
+    lib = _build.load("topk_score", _SIGNATURES)
+    out = (ctypes.c_int64 * 3)()
+    _build.check(lib.topk_paged_plan(slots, page_rows, k, int(carry), out),
+                 "topk_paged_plan")
+    return int(out[0]), int(out[1]), int(out[2])
+
+
+def _int32_vector(name: str, t: torch.Tensor, n: int) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or t.shape[0] < n or not t.is_contiguous():
+        raise ValueError(f"topk_score_paged: {name} must be a contiguous int32 "
+                         f"vector of at least {n} entries, got {tuple(t.shape)} {t.dtype}")
+
+
+def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
+                          page_nvalid: torch.Tensor, page_offset: torch.Tensor,
+                          lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                          tail: torch.Tensor | None = None,
+                          page_scale: torch.Tensor | None = None,
+                          ids_pool: torch.Tensor | None = None,
+                          carry: tuple[torch.Tensor, torch.Tensor] | None = None,
+                          finalize: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Paged score + top-k on the card; arguments as
+    ``topk_score_paged_plain``.
+
+    pool (P, R, m) and tail (T, R, m) f32, bf16 or int8 of one dtype;
+    page_table, page_nvalid, page_offset (>= hi,) int32; page_scale
+    (>= hi, m) f32; ids_pool (>= hi, R) int32; Q (B, m) f32; carry (B, k)
+    f32 and int32. ``lo`` and ``hi`` are host ints. ``launches`` counts
+    calls and ``cuda_launches`` the CUDA launches the C side reports, keyed
+    by mode: ``paged_<storage dtype>``, or ``paged_ids`` with ``ids_pool``.
+    """
+    lo, hi = int(lo), int(hi)
+    tensors = [pool, page_table, page_nvalid, page_offset, Q]
+    tensors += [t for t in (tail, page_scale, ids_pool) if t is not None]
+    if carry is not None:
+        tensors += list(carry)
+    if pool.device.type != "cuda" or any(t.device != pool.device for t in tensors):
+        raise ValueError(f"topk_score_paged_cuda needs all operands on one CUDA "
+                         f"device, got {[str(t.device) for t in tensors]}")
+    if pool.dim() != 3 or pool.dtype not in _DTYPES or not pool.is_contiguous():
+        raise ValueError(f"topk_score_paged: pool must be a contiguous (P, R, m) "
+                         f"f32/bf16/int8 tensor, got {tuple(pool.shape)} {pool.dtype}")
+    P, R, m = pool.shape
+    if tail is not None and (tail.dtype != pool.dtype or tail.dim() != 3
+                             or tuple(tail.shape[1:]) != (R, m)
+                             or not tail.is_contiguous()):
+        raise ValueError(f"topk_score_paged: tail must be a contiguous (T, {R}, {m}) "
+                         f"{pool.dtype} tensor, got {tuple(tail.shape)} {tail.dtype}")
+    if (Q.dim() != 2 or Q.dtype != torch.float32 or not Q.is_contiguous()
+            or Q.shape[1] != m):
+        raise ValueError(f"topk_score_paged: Q must be a contiguous (B, {m}) f32 "
+                         f"tensor, got {tuple(Q.shape)} {Q.dtype}")
+    B = Q.shape[0]
+    if not 1 <= k <= K_CAP:
+        raise ValueError(f"topk_score_paged: k = {k} is outside the kernel's "
+                         f"range 1..{K_CAP}")
+    if not 1 <= B <= 65535 or lo < 0 or hi > page_table.shape[0]:
+        raise ValueError(f"topk_score_paged: needs 1 <= B <= 65535 and "
+                         f"0 <= lo, hi <= {page_table.shape[0]}, got B={B} "
+                         f"lo={lo} hi={hi}")
+    for name, t in (("page_table", page_table), ("page_nvalid", page_nvalid),
+                    ("page_offset", page_offset)):
+        _int32_vector(name, t, max(hi, 0))
+    if page_scale is not None and (page_scale.dtype != torch.float32
+                                   or page_scale.dim() != 2
+                                   or page_scale.shape[0] < hi
+                                   or page_scale.shape[1] != m
+                                   or not page_scale.is_contiguous()):
+        raise ValueError(f"topk_score_paged: page_scale must be a contiguous "
+                         f"(>= {hi}, {m}) f32 tensor, got "
+                         f"{tuple(page_scale.shape)} {page_scale.dtype}")
+    if ids_pool is not None and (ids_pool.dtype != torch.int32 or ids_pool.dim() != 2
+                                 or ids_pool.shape[0] < hi or ids_pool.shape[1] != R
+                                 or not ids_pool.is_contiguous()):
+        raise ValueError(f"topk_score_paged: ids_pool must be a contiguous "
+                         f"(>= {hi}, {R}) int32 tensor, got "
+                         f"{tuple(ids_pool.shape)} {ids_pool.dtype}")
+    if carry is not None:
+        cs, ci = carry
+        if (cs.dtype != torch.float32 or ci.dtype != torch.int32
+                or tuple(cs.shape) != (B, k) or tuple(ci.shape) != (B, k)
+                or not cs.is_contiguous() or not ci.is_contiguous()):
+            raise ValueError(f"topk_score_paged: carry must be contiguous ({B}, {k}) "
+                             f"f32 scores and int32 ids")
+    dev = pool.device
+    if hi <= lo and carry is None:
+        # an empty walk: every slot is a pad
+        j = torch.arange(k, dtype=torch.int32, device=dev).expand(B, k)
+        return (torch.full((B, k), float("-inf"), device=dev),
+                torch.full((B, k), -1, dtype=torch.int32, device=dev)
+                if finalize else (-(j + 2)).contiguous())
+    lib = _build.load("topk_score", _SIGNATURES)
+    lists, _, lists1 = topk_paged_plan(max(hi - lo, 0), R, k, carry is not None)
+    scratch_a = torch.empty(B * lists * k, dtype=torch.int64, device=dev)
+    scratch_b = torch.empty(B * lists1 * k, dtype=torch.int64, device=dev)
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vec = (m % 16 == 0 and pool.data_ptr() % 16 == 0
+           and (tail is None or tail.data_ptr() % 16 == 0))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.topk_score_paged_f32(
+            pool.data_ptr(), ptr(tail), page_table.data_ptr(),
+            page_nvalid.data_ptr(), page_offset.data_ptr(), ptr(page_scale),
+            ptr(ids_pool), Q.data_ptr(), ptr(None if carry is None else carry[0]),
+            ptr(None if carry is None else carry[1]), P,
+            0 if tail is None else tail.shape[0], R, m, B, lo, max(hi, lo), k,
+            _DTYPES[pool.dtype], int(vec), int(finalize), scratch_a.data_ptr(),
+            scratch_b.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    _build.check(err, "topk_score_paged")
+    mode = "paged_ids" if ids_pool is not None else f"paged_{_STORE[pool.dtype]}"
+    topk_score_paged_cuda.launches[mode] += 1
+    topk_score_paged_cuda.cuda_launches[mode] += launched.value
+    return out_s, out_i
+
+
+_PAGED_MODES = ("paged_f32", "paged_bf16", "paged_int8", "paged_ids")
+topk_score_paged_cuda.launches = dict.fromkeys(_PAGED_MODES, 0)
+topk_score_paged_cuda.cuda_launches = dict.fromkeys(_PAGED_MODES, 0)

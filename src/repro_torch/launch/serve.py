@@ -1,5 +1,6 @@
 """Retrieval serving entry point: batched queries against a PCA-pruned index
-(port of ``repro/launch/serve.py``, the flat single-index path).
+(port of ``repro/launch/serve.py``: the flat single-index path, dense or
+paged).
 
 The paper's online path, end to end:
   1. build the offline artefacts (PCA transform W_m + pruned index D̂)
@@ -17,14 +18,22 @@ replies. A plain ``.cpu()`` would wait for every batch launched since.
 ``pipeline_depth <= 1`` is the synchronous loop. On a CPU index the search
 is synchronous and the same pipeline runs without events.
 
-The sharded, store, live-append, paged, cascade and fleet modes of the
-reference are not ported yet.
+``--paged`` serves through a ``PagedIndex`` (``core/paged.py``): the index
+lives in ``--page-rows``-row pages behind a page table, so appends,
+promotion, compaction and eviction are pointer swaps that ``swap_index``
+installs under traffic. ``--page-pool P`` caps the device pool at P pages;
+the overflow stays in pinned host memory and streams in waves.
+``--delta-capacity`` is the row count at which an appended extent seals.
+The sharded, store, live-append, cascade and fleet modes of the reference
+are not ported yet.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 50000 \\
       --dim 256 --cutoff 0.5 --queries 256 --batch 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --n-docs 8000 --dim 128 --open-loop 200
+  PYTHONPATH=src python -m repro_torch.launch.serve --paged --page-rows 256 \\
+      --page-pool 96            # oversubscribed: the rest streams from host
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.index import DenseIndex
+from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.util import default_device
@@ -160,7 +170,8 @@ def _results_to_host(scores: torch.Tensor, ids: torch.Tensor):
 
 
 class RetrievalServer:
-    """Batched query server over a ``DenseIndex``.
+    """Batched query server over a ``DenseIndex`` or a ``PagedIndex`` (any
+    index with ``device``, ``dim``, ``search`` and ``search_projected``).
 
     With a pruner attached every batch runs ``search_projected``
     (projection + scale fold + top-k); without one, plain ``search``.
@@ -179,7 +190,7 @@ class RetrievalServer:
 
     _KEEP = object()   # swap_index sentinel: leave the projection alone
 
-    def __init__(self, index: DenseIndex, pruner: StaticPruner | None,
+    def __init__(self, index: DenseIndex | PagedIndex, pruner: StaticPruner | None,
                  k: int = 10, max_batch: int = 32,
                  pipeline_depth: int = 3,
                  bucket_batches: bool = False):
@@ -224,7 +235,7 @@ class RetrievalServer:
             t.start()
 
     @staticmethod
-    def _projection(pruner: StaticPruner, index: DenseIndex):
+    def _projection(pruner: StaticPruner, index: DenseIndex | PagedIndex):
         W, mean = pruner.projection()
         return (W.to(index.device),
                 None if mean is None else mean.to(index.device))
@@ -317,7 +328,7 @@ class RetrievalServer:
                 f"reply deadline exceeded ({now - r.deadline:.3f}s overdue) "
                 f"— batch never posted"), now)
 
-    def swap_index(self, index: DenseIndex, pruner=_KEEP) -> None:
+    def swap_index(self, index: DenseIndex | PagedIndex, pruner=_KEEP) -> None:
         """Atomically install a new index for future batches; in-flight
         batches finish against the old one. ``pruner`` replaces the query
         projection too; by default it is kept."""
@@ -586,6 +597,21 @@ def main(argv: list[str] | None = None) -> None:
                     help="pad partial batches to the next bucket in "
                          "{8,16,...,max_batch} instead of always max_batch")
     ap.add_argument("--quantize-int8", action="store_true")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve through a PagedIndex: fixed-size pages "
+                         "behind a page table; appends, promotion, "
+                         "compaction and eviction are pointer swaps, and "
+                         "the index may exceed the device pool (see "
+                         "--page-pool)")
+    ap.add_argument("--page-rows", type=int, default=256, metavar="R",
+                    help="rows per page (default 256)")
+    ap.add_argument("--page-pool", type=int, default=0, metavar="P",
+                    help="cap the device page pool at P pages; overflow "
+                         "pages stay in pinned host memory and stream in "
+                         "waves (default: everything resident)")
+    ap.add_argument("--delta-capacity", type=int, default=4096,
+                    help="rows at which an appended extent of a paged "
+                         "index seals")
     ap.add_argument("--open-loop", type=float, default=0.0, metavar="QPS",
                     help="additionally drive Poisson arrivals at QPS and "
                          "report p50/p95/p99 under that load")
@@ -607,6 +633,14 @@ def main(argv: list[str] | None = None) -> None:
                              quantize_int8=args.quantize_int8)
     print(f"[serve] pruned index: {index.n} x {index.dim} "
           f"({index.nbytes/2**20:.1f} MiB, {index.vectors.dtype})")
+    if args.paged:
+        index = PagedIndex.from_index(index, page_rows=args.page_rows,
+                                      pool_pages=args.page_pool or None,
+                                      seal_rows=args.delta_capacity)
+        stg = index.storage
+        print(f"[serve] paged index: {index.n} x {index.dim} "
+              f"({index.nbytes/2**20:.1f} MiB, {stg.n_slots} pages "
+              f"x {stg.page_rows} rows, {stg.n_host_pages} host-tier)")
     server = RetrievalServer(index, pruner, k=args.k, max_batch=args.batch,
                              pipeline_depth=args.pipeline_depth,
                              bucket_batches=args.bucket_batches)

@@ -125,4 +125,62 @@ def test_cuda_kernels_match_plain():
     assert topk_score.topk_score_cuda.launches["row_ids"] == calls["row_ids"] + 1
     assert topk_score.topk_score_cuda.launches["f32"] == calls["f32"]
     assert topk_score.topk_score_cuda.cuda_launches["row_ids"] >= cuda["row_ids"] + 2
+
+    # topk_score_paged: a scrambled pool/tail table with a ragged last page,
+    # per-page int8 scales, lo > 0, k beyond the live rows, a carry split
+    # (the un-finalized pad ids equal exactly), ids_pool out of order with
+    # masked rows; pages below, at and above the kernel's 256/512-row pieces
+    paged, paged_plain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    for n, m, R, B, k in [(3000, 384, 256, 32, 10), (1300, 130, 512, 7, 100),
+                          (2100, 48, 700, 33, 1000), (200, 16, 8, 3, 300)]:
+        npages = -(-n // R)
+        phys = npages + 3
+        P = phys // 2
+        cap = npages + 4
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        pt = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+        pt[:npages] = torch.randperm(phys, generator=g, device=dev)[:npages].int()
+        nv = torch.zeros(cap, dtype=torch.int32, device=dev)
+        nv[:npages] = R
+        nv[npages - 1] = n - (npages - 1) * R
+        off = torch.zeros(cap, dtype=torch.int32, device=dev)
+        off[:npages] = torch.arange(npages, dtype=torch.int32, device=dev) * R
+        ids = torch.full((cap, R), -1, dtype=torch.int32, device=dev)
+        ids.view(-1)[:npages * R] = torch.randperm(
+            npages * R, generator=g, device=dev).int() + 100
+        ids.view(-1)[torch.randperm(npages * R, generator=g, device=dev)[:R]] = -1
+        for store in ("f32", "bf16", "int8"):
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+                     "int8": torch.int8}[store]
+            pool = torch.zeros((P, R, m), dtype=dtype, device=dev)
+            tail = torch.zeros((phys - P, R, m), dtype=dtype, device=dev)
+            scale = torch.zeros((cap, m), device=dev) if store == "int8" else None
+            for j in range(npages):
+                rows = D[j * R:j * R + int(nv[j])]
+                if scale is not None:
+                    scale[j] = rows.abs().amax(0).clamp_min(1e-12) / 127.0
+                    rows = torch.round(rows / scale[j]).clamp(-127, 127)
+                p = int(pt[j])
+                (pool[p] if p < P else tail[p - P])[:rows.shape[0]] = rows.to(dtype)
+            args = (pool, pt, nv, off)
+            kw = dict(k=k, tail=tail, page_scale=scale)
+            for lo, extra in ((0, {}), (min(2, npages - 1), {}), (0, {"ids_pool": ids})):
+                s1, i1 = paged(*args, lo, npages, Q, **kw, **extra)
+                s2, i2 = paged_plain(*args, lo, npages, Q, **kw, **extra)
+                torch.testing.assert_close(s1, s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+            split = npages // 2
+            h1 = paged(*args, 0, split, Q, **kw, finalize=False)
+            h2 = paged_plain(*args, 0, split, Q, **kw, finalize=False)
+            pad = torch.isneginf(h2[0])
+            assert torch.equal(torch.isneginf(h1[0]), pad)
+            assert torch.equal(h1[1][pad], h2[1][pad])
+            s1, i1 = paged(*args, split, npages, Q, **kw, carry=h1)
+            s2, i2 = paged_plain(*args, split, npages, Q, **kw, carry=h2)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+
+    calls = dict(paged.launches)
+    paged(*args, 0, npages, Q, k=10, tail=tail, page_scale=scale)
+    assert paged.launches["paged_int8"] == calls["paged_int8"] + 1
     torch.cuda.synchronize()
