@@ -28,12 +28,14 @@ Phases, each printing one JSON line:
      search_projected calls;
   7. the paged path: both full-size indexes paged (256-row pages, 34,539
      each) by a device-side copy; (a) 8 batches through
-     PagedIndex.search_projected against DenseIndex.search_projected and
-     the paged kernel against its plain version, timed; (b) a lifecycle
-     (three appends, one x9 to widen an int8 scale, promote, compact,
-     evict 2,048 pages to pinned host memory, searched in 64-page waves),
-     each step against the plain version and promote/compact/evict held
-     bitwise unchanged; (c) a pipeline_depth=3 server over the paged int8
+     PagedIndex.search_projected held bitwise equal to
+     DenseIndex.search_projected and the paged kernel against its plain
+     version, timed; (b) a lifecycle (three appends, one x9 to widen an
+     int8 scale, promote, compact, evict 2,048 pages to pinned host
+     memory, searched in 64-page waves), each step against the plain
+     version, the f32 appended index also against the dense base merged
+     with a dense index over the appended rows, and promote/compact/evict
+     held bitwise unchanged; (c) a pipeline_depth=3 server over the paged int8
      index, closed loop, then open loop while swap_index installs the
      append, the compaction and the eviction under a background client.
 
@@ -740,7 +742,8 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
     import threading
     import numpy as np
     import torch
-    from repro_torch.core.index import _project_nofold, project_queries
+    from repro_torch.core.index import (DenseIndex, _project_nofold, _topk_merge,
+                                        project_queries)
     from repro_torch.core.paged import PagedIndex
     from repro_torch.kernels import topk_score
     from repro_torch.launch.serve import RetrievalServer, _drive, _drive_open, _lat_summary
@@ -777,6 +780,9 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                           for g, w in zip(got, want))
             worst = max(compare_topk(*w, *g, f"paged {name} vs dense")[0]
                         for g, w in zip(got, want))
+            if not bitwise:
+                raise AssertionError(f"paged {name}: not bitwise equal to the dense "
+                                     f"index (max abs err {worst})")
             # the kernel against its plain version and the timings, at the
             # shapes of this path
             st = pg.storage
@@ -848,6 +854,19 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
             widened += sum(op[0] == "widen" for op in ops_)
             check(f"append_{i}", pg)
         ref = check("appended", pg)
+        if name == "f32":
+            # an answer that does not read the paged metadata: the dense base
+            # and a dense index over the appended rows, ids offset by n
+            with counters.uncounted():
+                extra = DenseIndex(torch.as_tensor(np.concatenate(blocks), device=dev))
+                bs, bi = index_f32.search_projected(qb, W, k=K, mean=mean)
+                es, ei = extra.search_projected(qb, W, k=K, mean=mean)
+                want = _topk_merge(torch.cat([bs, es], 1),
+                                   torch.cat([bi, ei + index_f32.n], 1), K)
+            err, eq, near = compare_topk(*want, *ref, "paged f32 appended vs dense")
+            steps["appended_vs_dense"] = dict(max_abs_err=err, ids_equal=eq,
+                                              near_ties=near)
+            del extra
         if pg.quantized and not widened:
             raise AssertionError("paged int8: the x9 block did not widen a scale")
         v_append = pg

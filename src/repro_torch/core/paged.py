@@ -100,14 +100,6 @@ def _paged_topk(pool, tail, pt, scale, nv, off, lo: int, hi: int, Q, *,
                                 finalize=finalize)
 
 
-def _paged_search_projected(pool, tail, pt, scale, nv, off, lo: int, hi: int,
-                            W, mean, Q, *, k: int):
-    """Projection (no scale fold: each page folds its own) + one paged
-    top-k over a fully resident run."""
-    q = _project_nofold(torch.atleast_2d(Q), W, mean)
-    return _paged_topk(pool, tail, pt, scale, nv, off, lo, hi, q, k=k)
-
-
 class _Mut:
     """Scratch copy-on-write view of a storage: every mutation edits private
     copies, then ``freeze`` pushes the metadata (and a changed tail) to the
@@ -291,12 +283,12 @@ class PagedIndexStorage:
     @classmethod
     def from_index(cls, base: DenseIndex, *, page_rows: int = 256,
                    pool_pages: int | None = None,
-                   tail_pages: int | None = None,
-                   table_cap: int | None = None,
                    seal_rows: int = 4096) -> "PagedIndexStorage":
         """Page an immutable base index on its own device. The pool is
         filled by a device-side copy. ``pool_pages`` below the base's page
-        count oversubscribes: the overflow suffix lives on the host tier."""
+        count oversubscribes: the overflow suffix lives on the host tier.
+        The tail arena holds two sealed extents' pages and the table has
+        room for twice the pages, as the reference's defaults size them."""
         R = page_rows
         vec = base.vectors
         dev = vec.device
@@ -304,14 +296,11 @@ class PagedIndexStorage:
                  else base.scale.float().cpu().numpy())
         n, m = vec.shape
         npages = -(-n // R) if n else 0
-        if tail_pages is None:
-            tail_pages = max(2 * (-(-seal_rows // R)), 2)
+        tail_pages = max(2 * (-(-seal_rows // R)), 2)
         if pool_pages is None:
             pool_pages = npages + max(tail_pages, 8)
         pool_pages = max(pool_pages, 1)
-        if table_cap is None:
-            table_cap = max(2 * (npages + tail_pages) + 8, 16)
-        table_cap = max(table_cap, npages + 1)
+        table_cap = max(2 * (npages + tail_pages) + 8, 16)
 
         res = min(npages, pool_pages)
         pt = np.full(table_cap, -1, np.int32)
@@ -597,13 +586,11 @@ class PagedIndex:
     # -- construction --------------------------------------------------------
     @classmethod
     def from_index(cls, base: DenseIndex, *, page_rows: int = 256,
-                   pool_pages: int | None = None,
-                   tail_pages: int | None = None,
-                   table_cap: int | None = None, seal_rows: int = 4096,
+                   pool_pages: int | None = None, seal_rows: int = 4096,
                    depth: int = 2, wave_pages: int = 8) -> "PagedIndex":
         st = PagedIndexStorage.from_index(
             base, page_rows=page_rows, pool_pages=pool_pages,
-            tail_pages=tail_pages, table_cap=table_cap, seal_rows=seal_rows)
+            seal_rows=seal_rows)
         return cls(storage=st, depth=depth, wave_pages=wave_pages)
 
     # -- growth --------------------------------------------------------------
@@ -740,9 +727,4 @@ class PagedIndex:
         W = as_tensor(components, dev)
         mu = None if mean is None else as_tensor(mean, dev)
         Q = torch.atleast_2d(as_tensor(queries, dev))
-        runs = self._runs()
-        if len(runs) == 1 and runs[0][2]:
-            lo, hi, _ = runs[0]
-            return _paged_search_projected(*self._device_args(), lo, hi, W,
-                                           mu, Q, k=k)
         return self._search_qf(_project_nofold(Q, W, mu), k)

@@ -65,6 +65,9 @@ def pca_project_quant_ref(D: torch.Tensor, W: torch.Tensor,
 
 
 _INT32_LOW = 0x7FFFFFFF
+# rows of pages scored at once by ``topk_score_paged_ref`` before a merge:
+# bounds its (B, rows) score block and its gathered pages
+_PAGED_BLOCK_ROWS = 1 << 17
 
 
 def _keys(s: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -90,7 +93,7 @@ def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
                          page_scale: torch.Tensor | None = None,
                          ids_pool: torch.Tensor | None = None,
                          carry: tuple[torch.Tensor, torch.Tensor] | None = None,
-                         finalize: bool = True, block_rows: int = 1 << 17
+                         finalize: bool = True
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k over logical page slots [lo, hi): a twin of the
     reference's ``_paged_core`` with ``topk_score_paged_pallas``'s
@@ -105,7 +108,7 @@ def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
     asc). Slots left at -inf get id -1 with ``finalize``, else the
     reference's un-clamped pad ids: slot j after c finite slots gets
     -(j - c + 2), so a carry chain reproduces them. Pages are walked in
-    blocks of about ``block_rows`` rows with a running merge.
+    blocks of about ``_PAGED_BLOCK_ROWS`` rows with a running merge.
     """
     lo, hi = int(lo), int(hi)
     pool_pages, R, m = pool.shape
@@ -120,7 +123,7 @@ def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
     nv = page_nvalid.to(torch.int64)
     off = page_offset.to(torch.int64)
     n_tail = 0 if tail is None else tail.shape[0]
-    step = max(1, block_rows // R)
+    step = max(1, _PAGED_BLOCK_ROWS // R)
     iota = torch.arange(R, dtype=torch.int64, device=dev)
     for t0 in range(lo, hi, step):
         t = torch.arange(t0, min(t0 + step, hi), device=dev)
