@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
      with ptxas's registers, shared memory and spills;
   3. kernels vs their plain versions on edge cases (ragged n, k > n,
      n_valid mid-chunk, ties across chunks, row_ids out of order and
-     masked, m not a multiple of 16, f32/bf16/int8, k in {10, 100, 1000};
+     masked, m not a multiple of 16, n and B at the tile edges,
+     f32/bf16/int8, k in {1, 10, 32, 33, 100, 1000};
      gram exactly symmetric; the paged kernel over scrambled pool/tail
      tables with ragged pages, lo > 0, carry splits and ids_pool);
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
@@ -19,7 +20,8 @@ Phases, each printing one JSON line:
      batches of 32 queries through search_projected on the f32 and int8
      indexes (topk_score kernel) and an exact f32 rescore of the int8
      shortlist (topk_score, row_ids mode); each kernel is compared with its
-     plain version and timed at the shapes this path gives it;
+     plain version and timed at the shapes this path gives it, pca_project
+     also on 32 query rows and topk_score also at k = 100 and 1000;
   5. the Table-1 protocol on make_dataset("tasb", n_docs=100_000, d=768) at
      cutoffs {0.25, 0.5, 0.75}, checked against the CPU path (plain
      versions, the card's PCA state carried across) at 0.5;
@@ -222,9 +224,19 @@ def phase_edge_cases():
 
     checks = []
     # m = 130 is not a multiple of 16: the chunk kernel's element-wise loader
-    for n, m, B, k in [(1000, 64, 5, 10), (4097, 384, 32, 100), (3000, 48, 40, 1000),
-                       (700, 16, 3, 1000), (1536, 384, 33, 10), (1300, 130, 7, 10),
-                       (2100, 130, 33, 1000)]:
+    # n one row either side of the 512-row chunk, B of one to three 32-query
+    # tiles, k either side of the register / shared-memory select, m = 768
+    # in two 384-wide query panels
+    cases = [(1000, 64, 5, 10), (4097, 384, 32, 100), (3000, 48, 40, 1000),
+             (700, 16, 3, 1000), (1536, 384, 33, 10), (1300, 130, 7, 10),
+             (2100, 130, 33, 1000), (511, 384, 1, 1), (513, 384, 65, 32),
+             (1023, 130, 65, 33), (1025, 16, 33, 1000), (2049, 768, 33, 10)]
+    # the chunk kernel is persistent (one CTA per SM and query tile walks
+    # chunks, carrying a running list per query): three chunks per SM give
+    # every CTA several, and n_valid then masks whole chunks of the walk
+    walk = 3 * torch.cuda.get_device_properties(dev).multi_processor_count * 512 + 1
+    cases += [(walk, 48, B, k) for B in (1, 33, 65) for k in (1, 32, 33, 100)]
+    for n, m, B, k in cases:
         # rows of unit norm, so scores are O(1) as on the main path: the
         # near-tie window TOL is absolute
         D, Q = randn(n, m) / m ** 0.5, randn(B, m)
@@ -238,7 +250,8 @@ def phase_edge_cases():
             elif store == "int8":
                 Dx, scale = quantize_int8_per_dim(D)
                 Qx = (Q * scale[None, :]).contiguous()
-            for mode, kw in (("plain", {}), ("n_valid", {"n_valid": n - 300}),
+            n_valid = n // 2 + 37 if n == walk else n - 300
+            for mode, kw in (("plain", {}), ("n_valid", {"n_valid": n_valid}),
                              ("row_ids", {"row_ids": row_ids})):
                 got = topk_score.topk_score_cuda(Dx, Qx, k=k, **kw)
                 want = topk_score.topk_score_plain(Dx, Qx, k=k, **kw)
@@ -272,9 +285,11 @@ def phase_edge_cases():
         checks.append(dict(kernel="topk_score", case="row_ids_tie", k=k,
                            max_abs_err=float((s1 - s2).abs().max()), ids_equal=True))
     # gram and pca_project: ragged shapes, f32 and bf16; n = 10 is one row
-    # range (no second pass); the mirrored result is exactly symmetric
+    # range (no second pass); the mirrored result is exactly symmetric;
+    # n = 129 and d = 16 sit one row past a 128-row tile and on one slab
     for n, d, dtype in [(3001, 200, torch.float32), (5000, 768, torch.bfloat16),
-                        (10, 300, torch.float32)]:
+                        (10, 300, torch.float32), (129, 16, torch.float32),
+                        (32, 768, torch.float32)]:
         D = randn(n, d).to(dtype)
         got, want = gram.gram_cuda(D), gram.gram_plain(D)
         rel = float((got - want).abs().max() / want.abs().max())
@@ -531,6 +546,21 @@ def phase_main_path(counters, rows, n_docs):
             library_ms=cuda_ms(lambda: torch.matmul(blk, Wc), reps=10),
             bound=bound(4 * nb * d + 4 * d * m + 4 * nb * m, 2 * nb * d * m),
             calls_per_prune=-(-n // 262144))
+        # a batch of 32 queries, as transform_queries hands it over
+        q32 = Qs[:BATCH].contiguous()
+        before = pca_project.pca_project_cuda.launches
+        p1 = pca_project.pca_project_cuda(q32, Wc)
+        per_call = pca_project.pca_project_cuda.launches - before
+        p2 = pca_project.pca_project_plain(q32, Wc)
+        p_err = float((p1 - p2).abs().max())
+        if p_err > 1e-4:
+            raise AssertionError(f"pca_project n=32: error {p_err}")
+        rows["pca_project_n32"] = dict(
+            shape=[BATCH, d, m], max_abs_err=p_err, launches_per_call=per_call,
+            ms=cuda_ms(lambda: pca_project.pca_project_cuda(q32, Wc), reps=50),
+            plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(q32, Wc), reps=50),
+            library_ms=cuda_ms(lambda: torch.matmul(q32, Wc), reps=50),
+            bound=bound(4 * BATCH * d + 4 * d * m + 4 * BATCH * m, 2 * BATCH * d * m))
 
         sc = index_int8.scale
         qp = pca_project.pca_project_quant_plain(D[:1 << 20], Wc, sc)
@@ -569,6 +599,25 @@ def phase_main_path(counters, rows, n_docs):
                                 if item == 4 else None),
                 bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * K,
                             2 * BATCH * n * m))
+            # the same batch at the protocol's depths: the select and merge
+            # take over from the product as k grows
+            for kk in (100, 1000):
+                before = topk_score.topk_score_cuda.cuda_launches[name]
+                got = topk_score.topk_score_cuda(index.vectors, q, k=kk)
+                per_call = topk_score.topk_score_cuda.cuda_launches[name] - before
+                want = topk_score.topk_score_plain(index.vectors, q, k=kk)
+                err, eq, near = compare_topk(*want, *got, f"topk {name} main path k={kk}")
+                del got, want
+                rows[f"topk_score_{name}_k{kk}"] = dict(
+                    shape=[n, m, BATCH, kk], store=name, max_abs_err=err, ids_equal=eq,
+                    near_ties=near, launches_per_call=per_call,
+                    ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, q, k=kk),
+                               reps=5),
+                    plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
+                        index.vectors, q, k=kk), reps=2),
+                    library_ms=None,
+                    bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * kk,
+                                2 * BATCH * n * m))
         want = topk_score.topk_score_plain(D_short, qhat, k=K, row_ids=short_ids)
         err, eq, near = compare_topk(*want, *rescored, "topk row_ids")
         U = D_short.shape[0]
@@ -1031,11 +1080,18 @@ def main():
         raise AssertionError(f"kernels never launched on the paged path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches):
+        """counter None: a row timed at a shape of its own, whose launches
+        are the CUDA launches of one call at that shape."""
         b_ms, b_by = row["bound"]
-        extra = ({"cuda_launches": counts[counter + "_cuda"]}
-                 if counter + "_cuda" in counts else {})
+        if counter is None:
+            n_launch = row["launches_per_call"]
+            extra = {"launches_of": "one call at this shape, not a path's count"}
+        else:
+            n_launch = counts[counter]
+            extra = ({"cuda_launches": counts[counter + "_cuda"]}
+                     if counter + "_cuda" in counts else {})
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=counts[counter], **extra,
+                    launches=n_launch, **extra,
                     max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=b_ms,
                     bound_by=b_by, library_ms=row["library_ms"],
@@ -1053,11 +1109,17 @@ def main():
               "src/repro/kernels/gram.py:41", "gram"),
         entry("pca_project", rows["pca_project"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:56", "pca_project"),
+        entry("pca_project_n32", rows["pca_project_n32"], csrc + "pca_project.cu",
+              "src/repro/kernels/pca_project.py:56", None),
         entry("pca_project_quant", rows["pca_project_quant"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:79", "pca_project_quant"),
         entry("topk_score", rows["topk_score_f32"], topk[1], topk[0], "topk_score_f32"),
         entry("topk_score_int8", rows["topk_score_int8"], topk[1], topk[0],
               "topk_score_int8"),
+        # the same kernel at k = 100 and 1000
+        *[entry(f"topk_score{'' if st == 'f32' else '_int8'}_k{kk}",
+                rows[f"topk_score_{st}_k{kk}"], topk[1], topk[0], None)
+          for st in ("f32", "int8") for kk in (100, 1000)],
         entry("topk_score_row_ids", rows["topk_score_row_ids"], topk[1], topk[0],
               "topk_score_row_ids"),
         # launches of the paged kernel are counted over phase 7; the ids_pool

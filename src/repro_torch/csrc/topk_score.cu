@@ -13,9 +13,11 @@
 // The TPU kernel walks the whole index in one sequential grid per batch
 // tile, carrying a running top-k. At B <= 128 that would be one CTA on a
 // 132-SM card, so here n is split instead:
-//   1. topk_chunk_kernel: one CTA per (512-row chunk, 32-query tile). It
-//      scores its chunk with a register-blocked fp32 product into shared
-//      memory, then each warp selects, per query, the chunk's top k.
+//   1. topk_chunk_kernel: one persistent CTA per SM and 32-query tile
+//      walks 512-row chunks. It keeps the query tile in shared memory,
+//      streams the chunks through a cp.async ring, scores each with a
+//      register-blocked fp32 product, then each warp selects, per query,
+//      the chunk's top k into that chunk's candidate list.
 //   2. topk_merge_kernel: one warp per (group of chunk lists, query) keeps
 //      the top k of the group; launched again until one list remains, and
 //      the last launch writes scores and ids.
@@ -36,7 +38,10 @@
 // scale row into the query tile, and hands k keys per query to the same
 // merge kernel. A carry (B, k) from an earlier call enters the merge as one
 // more list. The bound is the dense kernel's over the walked pages.
+#include <type_traits>
+
 #include "common.cuh"
+#include "pipeline.cuh"
 
 namespace {
 
@@ -45,7 +50,6 @@ constexpr int CR = 512;         // index rows per chunk
 constexpr int CK = 16;          // slab depth over m
 constexpr int CT = 256;         // threads of the chunk kernel: 8 warps
 constexpr int QLD = CQ + 4;
-constexpr int DLD = CR + 4;
 constexpr int SMALL_K = 32;     // k at or below: register select
 constexpr int K_CAP = 1024;
 constexpr int MERGE_SMALL = 1024;   // candidates per warp in a register merge
@@ -81,11 +85,13 @@ __device__ __forceinline__ uint64_t warp_max(uint64_t v) {
   return v;
 }
 
-// Emit the k largest of the warp's PER_LANE * 32 keys, in descending order.
-// Keys at or below PAD_KEY come out as PAD_KEY.
-template <int PER_LANE, typename Emit>
+// Emit the k largest of the warp's PER_LANE * 32 keys, in descending order:
+// emit(j, key) from one lane per slot, and each(key) from every lane for
+// each key above PAD_KEY, in order. Keys at or below PAD_KEY come out as
+// PAD_KEY.
+template <int PER_LANE, typename Emit, typename Each>
 __device__ __forceinline__ void warp_extract(uint64_t (&keys)[PER_LANE], int k,
-                                             Emit emit) {
+                                             Emit emit, Each each) {
   const int lane = threadIdx.x & 31;
   uint64_t local = 0;
 #pragma unroll
@@ -95,6 +101,7 @@ __device__ __forceinline__ void warp_extract(uint64_t (&keys)[PER_LANE], int k,
     const uint64_t best = warp_max(local);
     if (best <= PAD_KEY) break;
     if (lane == 0) emit(j, best);
+    each(best);
     const unsigned owner = __ffs(__ballot_sync(FULL, local == best)) - 1;
     if (lane == static_cast<int>(owner)) {
       bool removed = false;
@@ -109,6 +116,10 @@ __device__ __forceinline__ void warp_extract(uint64_t (&keys)[PER_LANE], int k,
   }
   for (int jj = j + lane; jj < k; jj += 32) emit(jj, PAD_KEY);
 }
+
+struct NoEach {
+  __device__ void operator()(uint64_t) const {}
+};
 
 // Bitonic sort of N keys (a power of two) in shared memory, descending, by
 // one warp.
@@ -155,74 +166,171 @@ __device__ __forceinline__ void load_slab(const int8_t* p, float (&v)[CK]) {
   for (int i = 0; i < CK; ++i) v[i] = static_cast<float>(b[i]);
 }
 
-template <typename T, bool WITH_IDS, bool VEC, bool BIG_K>
-__global__ void __launch_bounds__(CT)
-topk_chunk_kernel(const T* __restrict__ D, const float* __restrict__ Q,
-                  const int* __restrict__ row_ids, int64_t n, int m, int B,
-                  int64_t n_valid, int k, int nchunks,
-                  uint64_t* __restrict__ cand) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);                 // [CK][QLD]
-  float* Ds = Qs + CK * QLD;                                   // [CK][DLD]
-  float* Ss = reinterpret_cast<float*>(smem);                 // [CQ][CR], after the product
-  uint64_t* Kbuf = reinterpret_cast<uint64_t*>(smem + CQ * CR * sizeof(float));
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * CQ;
+// Ring geometry of the dense chunk kernel. A D slab is CR rows x CK values.
+// As f32 a row's four 16-byte pieces are stored in the order piece ^ ((row
+// >> 1) & 3), so the 8 rows a quarter-warp reads at once fall on distinct
+// banks with no padding. int8 and bf16 slabs land raw (CK values a row,
+// packed) in a 32 KB ring and are upcast once into one of two f32 slabs.
+constexpr int RS = CK;
+constexpr int KP_MAX = 384;     // m-values of the query tile resident at once
+constexpr int HQ = CQ / 2;      // queries whose scores are staged at once
+constexpr int SLD = CR + 8;     // score row stride: a warp's 32 stores hit 32 banks
+constexpr int RAW_RING = 32768;
+
+template <typename T, bool BIG_K>
+struct Chunk {
+  static constexpr bool RAW = !std::is_same<T, float>::value;
+  static constexpr int STAGE_BYTES = RAW ? CR * CK * static_cast<int>(sizeof(T)) : CR * RS * 4;
+  // f32 with the big-k sort buffers has room for three stages
+  static constexpr int STAGES = RAW ? RAW_RING / STAGE_BYTES : (BIG_K ? 3 : 4);
+  static constexpr int RING_BYTES = STAGES * STAGE_BYTES + (RAW ? 2 * CR * RS * 4 : 0);
+};
+
+// Query-tile width for m: whole, rounded up to a slab, or panels of KP_MAX.
+__host__ __device__ __forceinline__ int panel_width(int m) {
+  const int mp = (m + CK - 1) / CK * CK;
+  return mp < KP_MAX ? mp : KP_MAX;
+}
+
+// Dynamic shared memory of the chunk kernel: the query tile, half the
+// tile's scores, the big-k sort buffers and the ring, side by side, so the
+// ring keeps streaming while a chunk's top k is selected.
+template <typename T, bool BIG_K>
+size_t chunk_smem(int m) {
+  return static_cast<size_t>(CQ) * (panel_width(m) + 4) * 4 + HQ * SLD * 4 +
+         (BIG_K ? (CT / 32) * CR * sizeof(uint64_t) : 0) + Chunk<T, BIG_K>::RING_BYTES;
+}
+
+// Float offset of 16-byte piece c of row r in an f32 slab.
+__device__ __forceinline__ int slab_at(int r, int c) { return r * RS + ((c ^ ((r >> 1) & 3)) << 2); }
+
+// Fill ring stage `dst` with slab k0 of chunk rows [row0, row0 + CR), in
+// D's storage dtype, as the stage stores it (f32: pieces placed by
+// slab_at; raw: CK packed values a row). VEC: 16-byte cp.async pieces (m % 16 == 0, D
+// 16-byte aligned); else scalar loads. Out-of-range values are zero.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_chunk_slab(const T* __restrict__ D, T* dst, int64_t n,
+                                                int m, int64_t row0, int k0, int tid) {
+  constexpr bool F32 = std::is_same<T, float>::value;
+  if (VEC) {
+    constexpr int PER_ROW = CK * sizeof(T) / 16;
+#pragma unroll
+    for (int i = 0; i < CR * PER_ROW / CT; ++i) {
+      const int e = tid + i * CT;
+      const int r = e / PER_ROW, c = e % PER_ROW;
+      const int64_t row = row0 + r;
+      const bool ok = row < n;
+      cp_async16(dst + (F32 ? slab_at(r, c) : r * CK + c * (16 / sizeof(T))),
+                 D + (ok ? row : 0) * m + k0 + c * (16 / sizeof(T)), ok);
+    }
+  } else {
+    for (int e = tid; e < CR * CK; e += CT) {
+      const int r = e / CK, kk = e % CK;
+      const int64_t row = row0 + r;
+      dst[F32 ? slab_at(r, kk >> 2) + (kk & 3) : r * CK + kk] =
+          (row < n && k0 + kk < m) ? D[row * m + k0 + kk] : T(0.f);
+    }
+  }
+}
+
+// 16 int8 as f32, exactly, without the conversion pipe (16 a clock per SM,
+// an eighth of the FMA rate): byte b ^ 0x80 = b + 128 is placed in the
+// mantissa of 2^23, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void upcast16(const int8_t* p, float (&v)[CK]) {
+  const int4 x = *reinterpret_cast<const int4*>(p);
+  const unsigned w[4] = {static_cast<unsigned>(x.x) ^ 0x80808080u,
+                         static_cast<unsigned>(x.y) ^ 0x80808080u,
+                         static_cast<unsigned>(x.z) ^ 0x80808080u,
+                         static_cast<unsigned>(x.w) ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < CK; ++i)
+    v[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4Bu, 0x4550u | (i % 4))) - 8388736.0f;
+}
+__device__ __forceinline__ void upcast16(const __nv_bfloat16* p, float (&v)[CK]) { load_slab(p, v); }
+
+// Upcast a raw int8 / bf16 slab into an f32 slab: two rows per thread.
+template <typename T>
+__device__ __forceinline__ void upcast_slab(const T* raw, float* dst, int tid) {
+#pragma unroll
+  for (int h = 0; h < CR / CT; ++h) {
+    const int r = tid + h * CT;
+    float v[CK];
+    upcast16(raw + r * CK, v);
+#pragma unroll
+    for (int c = 0; c < CK / 4; ++c)
+      *reinterpret_cast<float4*>(dst + slab_at(r, c)) =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+  }
+}
+
+// Query tile panel [kb, kb + kp) of queries [q0, q0 + CQ), scale already
+// folded in; zero past B and past m. Eight loads per thread in flight.
+__device__ __forceinline__ void load_query_panel(const float* __restrict__ Q, float* Qs,
+                                                 int B, int m, int q0, int kb, int kp,
+                                                 int tid) {
+  const int qld = kp + 4, total = CQ * kp;
+  for (int e0 = tid; e0 < total; e0 += 8 * CT) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * CT, q = e / kp, kk = e % kp;
+      v[u] = (e < total && q0 + q < B && kb + kk < m)
+                 ? Q[static_cast<int64_t>(q0 + q) * m + kb + kk] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * CT;
+      if (e < total) Qs[(e / kp) * qld + e % kp] = v[u];
+    }
+  }
+}
+
+// acc[i][j] += Q[4i + qg] . D[64 w + 8j + rg] over one CK-deep slab, k
+// ascending: per 4-deep step, 8 query and 8 row 16-byte pieces for 256 FMAs.
+__device__ __forceinline__ void slab_fma(const float* Qs, int qld, const float* Ds,
+                                         float (&acc)[8][8], int w, int qg, int rg) {
+  const float* qb = Qs + qg * qld;
+  const float* db = Ds + (w * 64 + rg) * RS;
+  const int swz = (rg >> 1) & 3;          // slab_at's order for rows 64 w + 8 j + rg
+#pragma unroll
+  for (int k4 = 0; k4 < CK; k4 += 4) {
+    float4 q[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) q[i] = *reinterpret_cast<const float4*>(qb + 4 * i * qld + k4);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 dv =
+          *reinterpret_cast<const float4*>(db + 8 * j * RS + (((k4 >> 2) ^ swz) << 2));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaf(q[i].x, dv.x, acc[i][j]);
+        acc[i][j] = fmaf(q[i].y, dv.y, acc[i][j]);
+        acc[i][j] = fmaf(q[i].z, dv.z, acc[i][j]);
+        acc[i][j] = fmaf(q[i].w, dv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// The chunk's top k per query, from the scores in acc, into its candidate
+// lists; then acc is zeroed. Scores go through shared memory half a tile at
+// a time; warp w selects queries 16h + 2w + {0, 1} of half h, so it keeps
+// the same four queries across chunks and carries a threshold for each: a
+// key below it cannot reach the final top k, because k keys above it are
+// already in this CTA's lists, so it is listed as a pad. The final result
+// does not change; a chunk's select shrinks to the keys that still matter.
+// k <= 32: run[s] holds, lane j, the j-th best key this CTA listed for query
+// slot s, and the threshold is lane k - 1's. Larger k: run[s] (the same in
+// every lane) is the largest k-th key of one earlier list, and a chunk with
+// at most 32 keys above it is selected by arg-max instead of a full sort.
+template <bool WITH_IDS, bool BIG_K>
+__device__ __forceinline__ void chunk_select(float (&acc)[8][8], float* Ss, uint64_t* Kbuf,
+                                             uint64_t (&run)[4], const int* __restrict__ row_ids,
+                                             int64_t n, int64_t n_valid, int B, int q0, int k,
+                                             int chunk, int nchunks,
+                                             uint64_t* __restrict__ cand, int tid) {
+  const int warp = tid / 32, lane = tid % 32, qg = lane / 8, rg = lane % 8;
   const int64_t row0 = static_cast<int64_t>(chunk) * CR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  float acc[4][16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < m; k0 += CK) {
-    for (int e = tid; e < CQ * CK; e += CT) {
-      const int q = e / CK, kk = e % CK;
-      Qs[kk * QLD + q] = (q0 + q < B && k0 + kk < m)
-                             ? Q[static_cast<int64_t>(q0 + q) * m + k0 + kk] : 0.f;
-    }
-    if (VEC) {
-      // one thread per slab row: conflict-free column stores
-      for (int r = tid; r < CR; r += CT) {
-        const int64_t row = row0 + r;
-        float v[CK];
-        if (row < n) {
-          load_slab(D + row * m + k0, v);
-        } else {
-#pragma unroll
-          for (int kk = 0; kk < CK; ++kk) v[kk] = 0.f;
-        }
-#pragma unroll
-        for (int kk = 0; kk < CK; ++kk) Ds[kk * DLD + r] = v[kk];
-      }
-    } else {
-      for (int e = tid; e < CR * CK; e += CT) {
-        const int r = e / CK, kk = e % CK;
-        const int64_t row = row0 + r;
-        Ds[kk * DLD + r] = (row < n && k0 + kk < m) ? to_f32(D[row * m + k0 + kk]) : 0.f;
-      }
-    }
-    __syncthreads();
-    tile_fma<CQ, CR, CK, 1, 4, QLD, DLD>(Qs, Ds, acc, warp, lane);
-    __syncthreads();
-  }
-
-  // scores to shared memory: the slabs are dead, every read is behind the
-  // barrier above
-#pragma unroll
-  for (int si = 0; si < 4; ++si) {
-    const int q = warp * 4 + si;
-#pragma unroll
-    for (int jg = 0; jg < 4; ++jg) {
-      float4 v = make_float4(acc[si][4 * jg], acc[si][4 * jg + 1],
-                             acc[si][4 * jg + 2], acc[si][4 * jg + 3]);
-      *reinterpret_cast<float4*>(Ss + q * CR + jg * (CR / 4) + lane * 4) = v;
-    }
-  }
-  __syncthreads();
-
   // lane holds rows lane + 32 t of the chunk
   int ids[CR / 32];
   bool ok[CR / 32];
@@ -241,29 +349,175 @@ topk_chunk_kernel(const T* __restrict__ D, const float* __restrict__ Q,
       }
     }
   }
-
-  for (int qi = 0; qi < 4; ++qi) {
-    const int q = warp * 4 + qi;
-    if (q0 + q >= B) break;
-    uint64_t* dst = cand + (static_cast<int64_t>(q0 + q) * nchunks + chunk) * k;
-    const float* srow = Ss + q * CR;
-    if (!BIG_K) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h) __syncthreads();            // half 0's scores are read
+#pragma unroll
+    for (int i = 4 * h; i < 4 * h + 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        Ss[(4 * i + qg - HQ * h) * SLD + warp * 64 + 8 * j + rg] = acc[i][j];
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = HQ * h + 2 * warp + u;
+      if (q0 + q >= B) break;
+      uint64_t& rs = run[2 * h + u];
+      uint64_t* dst = cand + (static_cast<int64_t>(q0 + q) * nchunks + chunk) * k;
+      const float* srow = Ss + (2 * warp + u) * SLD;
+      const uint64_t th = BIG_K ? rs : __shfl_sync(FULL, rs, k - 1);
+      // a score below the threshold's cannot make a key at or above it
+      const float ths = th > PAD_KEY ? key_score(th) : __int_as_float(0xff800000);
       uint64_t keys[CR / 32];
+      unsigned live = 0;
 #pragma unroll
-      for (int t = 0; t < CR / 32; ++t)
-        keys[t] = ok[t] ? encode_key(srow[lane + 32 * t], ids[t]) : PAD_KEY;
-      warp_extract<CR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; });
-    } else {
-      uint64_t* buf = Kbuf + warp * CR;
+      for (int t = 0; t < CR / 32; ++t) {
+        const float sc = srow[lane + 32 * t];
+        uint64_t key = PAD_KEY;
+        if (ok[t] && !(sc < ths)) {
+          key = encode_key(sc, ids[t]);
+          if (key < th) key = PAD_KEY;
+        }
+        keys[t] = key;
+        if (BIG_K) live += __popc(__ballot_sync(FULL, key > PAD_KEY));
+      }
+      auto emit = [&](int j, uint64_t key) { dst[j] = key; };
+      if constexpr (!BIG_K) {
+        // each listed key enters the running list at its rank
+        warp_extract<CR / 32>(keys, k, emit, [&](uint64_t best) {
+          const int pos = __popc(__ballot_sync(FULL, rs > best));
+          const uint64_t prev = __shfl_up_sync(FULL, rs, 1);
+          rs = lane < pos ? rs : (lane == pos ? best : prev);
+        });
+      } else if (live <= SMALL_K) {
+        // fewer than k live keys: the threshold stays
+        warp_extract<CR / 32>(keys, k, emit, NoEach{});
+      } else {
+        uint64_t* buf = Kbuf + warp * CR;
 #pragma unroll
-      for (int t = 0; t < CR / 32; ++t)
-        buf[lane + 32 * t] = ok[t] ? encode_key(srow[lane + 32 * t], ids[t]) : PAD_KEY;
-      __syncwarp();
-      warp_bitonic_desc(buf, CR);
-      for (int j = lane; j < k; j += 32) dst[j] = j < CR ? buf[j] : PAD_KEY;
-      __syncwarp();
+        for (int t = 0; t < CR / 32; ++t) buf[lane + 32 * t] = keys[t];
+        __syncwarp();
+        warp_bitonic_desc(buf, CR);
+        for (int j = lane; j < k; j += 32) dst[j] = j < CR ? buf[j] : PAD_KEY;
+        const uint64_t kth = k <= CR ? buf[k - 1] : 0;
+        if (kth > PAD_KEY && kth > rs) rs = kth;
+        __syncwarp();
+      }
     }
   }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+}
+
+// Persistent: CTA (x, y) walks chunks x, x + gridDim.x, ... of the
+// 32-query tile y.
+//
+// What bounds it on an H100: an f32 index is about even between bytes (n m
+// 4 over 3.35 TB/s) and fp32 FMAs (2 B n m over 67 TFLOP/s); int8 moves a
+// quarter of the bytes and is bound by the FMAs. Reaching either needs the
+// query tile kept on chip, loads in flight during the FMAs, and few
+// shared-memory wavefronts per FMA.
+//
+// This design loads the 32 x m query tile into shared memory once per CTA
+// (in panels of 384 values when m is larger, reloaded per chunk) and
+// streams D through a ring: 4 f32 stages (3 with big k), or raw int8 /
+// bf16 stages upcast once per element into one of two f32 slabs (int8 by a
+// byte permute and an exact add, not the conversion pipe), with one
+// barrier per slab and later slabs in flight, also across a chunk's
+// select. The select keeps a running top k per query (k <= 32), so after
+// the first chunks it lists few keys. Rows land as they lie in memory. A
+// warp owns 32 queries x 64 rows, a thread 8 queries x 8 rows with lanes
+// 4 x 8, reading both operands along m in 16-byte pieces: a quarter-warp
+// reads one query piece (2 wavefronts per warp-wide load) or 8 row pieces
+// on distinct banks (4), so 48 wavefronts per 256 FMAs. One CTA fills an
+// SM. What is left between this and the bound is shared memory: those
+// wavefronts, and for int8 the upcast's f32 stores, keep it busy for most
+// of the FMA time, and one CTA per SM hides little of it.
+//
+// Invariant: every score is one fp32 fmaf chain over m in ascending order
+// from 0.f (slabs past m add exact zeros), with the query scale-folded by
+// the caller. topk_page_kernel computes the same chain, and its bitwise
+// equality with this kernel on the same contents rests on it.
+template <typename T, bool WITH_IDS, bool VEC, bool BIG_K>
+__global__ void __launch_bounds__(CT, 1)
+topk_chunk_kernel(const T* __restrict__ D, const float* __restrict__ Q,
+                  const int* __restrict__ row_ids, int64_t n, int m, int B,
+                  int64_t n_valid, int k, int nchunks,
+                  uint64_t* __restrict__ cand) {
+  using C = Chunk<T, BIG_K>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = panel_width(m), qld = kp + 4;
+  float* Qs = reinterpret_cast<float*>(smem);                       // [CQ][qld]
+  float* Ss = Qs + CQ * qld;                                        // [HQ][SLD]
+  uint64_t* Kbuf = reinterpret_cast<uint64_t*>(Ss + HQ * SLD);      // big k: [8][CR]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Kbuf) +
+                        (BIG_K ? (CT / 32) * CR * sizeof(uint64_t) : 0);
+  float* Fs = reinterpret_cast<float*>(ring + C::STAGES * C::STAGE_BYTES);  // raw: [2][CR][RS]
+  const int q0 = blockIdx.y * CQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qg = lane / 8, rg = lane % 8;     // queries 4i + qg, rows 64 warp + 8j + rg
+  const int nslab = (m + CK - 1) / CK;
+  const int ppanel = kp / CK;                 // slabs per query panel
+  const int mine = (nchunks - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
+  const int total = mine * nslab;             // slabs this CTA walks
+  auto stage = [&](int t) {
+    return reinterpret_cast<T*>(ring + (t % C::STAGES) * C::STAGE_BYTES);
+  };
+  auto chunk_of = [&](int t) {
+    return static_cast<int>(blockIdx.x) + (t / nslab) * static_cast<int>(gridDim.x);
+  };
+  auto load = [&](int t) {
+    load_chunk_slab<T, VEC>(D, stage(t), n, m, static_cast<int64_t>(chunk_of(t)) * CR,
+                            (t % nslab) * CK, tid);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  uint64_t run[4] = {0, 0, 0, 0};     // chunk_select's thresholds
+
+  // f32 multiplies straight out of the ring, slab t + STAGES - 1 in
+  // flight; int8 / bf16 upcast slab t + 1 while slab t is multiplied, raw
+  // slabs t + 2 .. t + STAGES in flight
+  constexpr int AHEAD = C::RAW ? C::STAGES : C::STAGES - 1;
+#pragma unroll
+  for (int t = 0; t < AHEAD; ++t) {
+    if (t < total) load(t);
+    cp_async_commit();
+  }
+  if constexpr (C::RAW) {
+    cp_async_wait<C::STAGES - 1>();
+    __syncthreads();
+    upcast_slab(stage(0), Fs, tid);
+  }
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();                   // slab t is in (raw: slab t + 1, and f32 slab t);
+                                       // slab t - 1 (raw: raw slab t) is consumed
+    const int slab = t % nslab;
+    if (slab % ppanel == 0 && (t == 0 || nslab > ppanel)) {
+      load_query_panel(Q, Qs, B, m, q0, slab * CK, kp, tid);
+      __syncthreads();
+    }
+    if (t + AHEAD < total) load(t + AHEAD);
+    cp_async_commit();
+    const float* Ds;
+    if constexpr (C::RAW) {
+      if (t + 1 < total) upcast_slab(stage(t + 1), Fs + ((t + 1) % 2) * CR * RS, tid);
+      Ds = Fs + (t % 2) * CR * RS;
+    } else {
+      Ds = reinterpret_cast<const float*>(stage(t));
+    }
+    slab_fma(Qs + (slab % ppanel) * CK, qld, Ds, acc, warp, qg, rg);
+    if (slab == nslab - 1)
+      chunk_select<WITH_IDS, BIG_K>(acc, Ss, Kbuf, run, row_ids, n, n_valid, B, q0, k,
+                                    chunk_of(t), nchunks, cand, tid);
+  }
+  cp_async_wait<0>();
 }
 
 // With `unfinal` the last level numbers the -inf slots as the reference's
@@ -300,7 +554,7 @@ topk_merge_kernel(const uint64_t* __restrict__ cand, int L, int k, int G,
       const int idx = lane + 32 * t;
       keys[t] = idx < C ? src[idx] : 0;
     }
-    warp_extract<MERGE_SMALL / 32>(keys, k, emit);
+    warp_extract<MERGE_SMALL / 32>(keys, k, emit, NoEach{});
   } else {
     uint64_t* buf = reinterpret_cast<uint64_t*>(smem) + static_cast<int64_t>(warp) * cap;
     for (int i = lane; i < cap; i += 32) buf[i] = i < C ? src[i] : 0;
@@ -447,7 +701,7 @@ topk_page_kernel(const T* __restrict__ pool, const T* __restrict__ tail,
 #pragma unroll
       for (int t = 0; t < PR / 32; ++t)
         keys[t] = ok[t] ? encode_key(sq[lane + 32 * t], ids[t]) : PAD_KEY;
-      warp_extract<PR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; });
+      warp_extract<PR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; }, NoEach{});
     } else {
       uint64_t* buf = Kbuf + warp * PR;
 #pragma unroll
@@ -540,11 +794,18 @@ cudaError_t launch_chunks(const void* D, const float* Q, const int* ids,
                           int64_t n, int m, int B, int64_t n_valid, int k,
                           int nchunks, uint64_t* cand, cudaStream_t stream) {
   auto kern = topk_chunk_kernel<T, WITH_IDS, VEC, BIG_K>;
-  const size_t smem = CQ * CR * sizeof(float) + (BIG_K ? (CT / 32) * CR * sizeof(uint64_t) : 0);
+  const size_t smem = chunk_smem<T, BIG_K>(m);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(nchunks, (B + CQ - 1) / CQ);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // one CTA per SM, the SMs shared among the query tiles
+  const int tiles = (B + CQ - 1) / CQ;
+  const int per_tile = (sms + tiles - 1) / tiles;
+  const dim3 grid(nchunks < per_tile ? nchunks : per_tile, tiles);
   kern<<<grid, CT, smem, stream>>>(static_cast<const T*>(D), Q, ids, n, m, B,
                                    n_valid, k, nchunks, cand);
   return cudaGetLastError();

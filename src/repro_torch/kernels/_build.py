@@ -47,7 +47,7 @@ def _stale(name: str) -> bool:
         return True
     built = so.stat().st_mtime
     return any(src.stat().st_mtime > built
-               for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"))
+               for src in (CSRC / f"{name}.cu", *CSRC.glob("*.cuh")))
 
 
 def build(names=SOURCES) -> dict[str, str]:

@@ -8,10 +8,10 @@ int32 ids; ties go to the lowest id; slots with no candidate are
 (-inf, -1).
 
 The kernel (``csrc/topk_score.cu``) splits n over CTAs, since at serving
-batch sizes one CTA per query tile would leave most of the card idle: each
-CTA scores a 512-row chunk for 32 queries and keeps the chunk's top k, and
-a merge kernel reduces the per-chunk lists, launched until one list is
-left. Candidates are compared as (score desc, id asc) keys, so the result
+batch sizes one CTA per query tile would leave most of the card idle: one
+persistent CTA per SM walks 512-row chunks for 32 queries and keeps each
+chunk's top k, and a merge kernel reduces the per-chunk lists, launched
+until one list is left. Candidates are compared as (score desc, id asc) keys, so the result
 does not depend on visit order. k is capped at ``K_CAP``.
 
 ``topk_score_paged_cuda`` replaces ``topk_score_paged_pallas``: the same

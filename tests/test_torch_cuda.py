@@ -184,3 +184,99 @@ def test_cuda_kernels_match_plain():
     paged(*args, 0, npages, Q, k=10, tail=tail, page_scale=scale)
     assert paged.launches["paged_int8"] == calls["paged_int8"] + 1
     torch.cuda.synchronize()
+
+
+def _paged_view(D: torch.Tensor, R: int, scale: torch.Tensor | None):
+    """D's rows in pages of R rows, in order, one scale row per page."""
+    n, m = D.shape
+    npages = -(-n // R)
+    pool = D.new_zeros((npages, R, m))
+    pool.view(-1, m)[:n] = D
+    dev = D.device
+    pt = torch.arange(npages, dtype=torch.int32, device=dev)
+    nv = torch.full((npages,), R, dtype=torch.int32, device=dev)
+    nv[-1] = n - (npages - 1) * R
+    off = pt * R
+    ps = None if scale is None else scale[None, :].repeat(npages, 1).contiguous()
+    return (pool, pt, nv, off), ps, npages
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_tile_edges():
+    """The redesigned chunk and projection kernels at their tile edges: n one
+    row either side of the 512-row chunk and 128-row tile, and of several
+    chunks per CTA; m off the 16-deep slab, one, two and three query tiles,
+    k on both sides of the register / shared-memory select; the dense kernel
+    bitwise equal to the paged one on the same contents, and the projection
+    of a row range bitwise equal to the same rows of the whole projection
+    (no split over d)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import pca_project, topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    # the chunk kernel is persistent (one CTA per SM and query tile walks
+    # chunks, carrying a running list per query): n of three chunks per SM
+    # gives every CTA several chunks, with whole chunks masked by n_valid
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    walk = 3 * sms * 512 + 1
+    cases = [(511, 384, 1, 1, 510), (513, 384, 33, 32, 512), (1023, 130, 65, 33, 1022),
+             (1025, 16, 33, 1000, 1024), (1536, 130, 1, 33, 1535),
+             (2049, 384, 65, 1000, 2048), (512, 16, 65, 32, 511), (1024, 768, 33, 10, 1023)]
+    cases += [(walk, 48, B, k, walk // 2 + 37) for B in (1, 33, 65) for k in (1, 32, 33, 100)]
+    for n, m, B, k, n_valid in cases:
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        row_ids = torch.randperm(n, generator=g, device=dev).to(torch.int32)
+        row_ids[::9] = -1
+        for store in ("f32", "bf16", "int8"):
+            Dx, Qx = D, Q
+            if store == "bf16":
+                Dx = D.to(torch.bfloat16)
+            elif store == "int8":
+                Dx, scale = quantize_int8_per_dim(D)
+                Qx = (Q * scale[None, :]).contiguous()
+            for kw in ({}, {"n_valid": n_valid}, {"row_ids": row_ids}):
+                s1, i1 = topk_score.topk_score_cuda(Dx, Qx, k=k, **kw)
+                s2, i2 = topk_score.topk_score_plain(Dx, Qx, k=k, **kw)
+                torch.testing.assert_close(s1, s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+
+    # dense == paged, bitwise: both score with the same fmaf chain over m
+    for n, m, R, B, k in [(3001, 384, 256, 32, 10), (1300, 130, 512, 33, 100)]:
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        for store in ("f32", "int8"):
+            scale = None
+            Dx, Qd = D, Q
+            if store == "int8":
+                Dx, scale = quantize_int8_per_dim(D)
+                Qd = (Q * scale[None, :]).contiguous()
+            args, ps, npages = _paged_view(Dx, R, scale)
+            dense = topk_score.topk_score_cuda(Dx, Qd, k=k)
+            paged = topk_score.topk_score_paged_cuda(*args, 0, npages, Q, k=k,
+                                                     page_scale=ps)
+            assert torch.equal(dense[0], paged[0]) and torch.equal(dense[1], paged[1])
+
+    # a row range's projection is bitwise those rows of the whole one
+    for n, d, m, a, b, dtype in [(4099, 768, 384, 129, 3000, torch.float32),
+                                 (1000, 200, 130, 37, 900, torch.float32),
+                                 (777, 768, 384, 3, 700, torch.bfloat16)]:
+        D, W = randn(n, d).to(dtype), randn(d, m)
+        whole = pca_project.pca_project_cuda(D, W)
+        part = pca_project.pca_project_cuda(D[a:b].contiguous(), W)
+        assert torch.equal(whole[a:b], part)
+        torch.testing.assert_close(whole.float(),
+                                   pca_project.pca_project_plain(D, W).float(),
+                                   rtol=1e-2 if dtype == torch.bfloat16 else 1e-4,
+                                   atol=1e-2 if dtype == torch.bfloat16 else 1e-4)
+        if dtype == torch.float32:
+            scale = (whole.abs().amax(0) / 127.0).contiguous()
+            q = pca_project.pca_project_quant_cuda(D, W, scale)
+            assert torch.equal(q[a:b], pca_project.pca_project_quant_cuda(
+                D[a:b].contiguous(), W, scale))
+    torch.cuda.synchronize()
