@@ -10,9 +10,10 @@ Phases, each printing one JSON line:
   3. kernels vs their plain versions on edge cases (ragged n, k > n,
      n_valid mid-chunk, ties across chunks, row_ids out of order and
      masked, m not a multiple of 16, n and B at the tile edges,
-     f32/bf16/int8, k in {1, 10, 32, 33, 100, 1000};
+     f32/bf16/int8, k in {1, 10, 32, 33, 100, 1000, 2048, n + 7};
      gram exactly symmetric; the paged kernel over scrambled pool/tail
-     tables with ragged pages, lo > 0, carry splits and ids_pool);
+     tables with ragged pages, lo > 0, carry splits and ids_pool, pages
+     of 100 rows, a walk of more chunks than CTAs, k up to 2048);
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -21,7 +22,8 @@ Phases, each printing one JSON line:
      indexes (topk_score kernel) and an exact f32 rescore of the int8
      shortlist (topk_score, row_ids mode); each kernel is compared with its
      plain version and timed at the shapes this path gives it, pca_project
-     also on 32 query rows and topk_score also at k = 100 and 1000;
+     also on 32 query rows, topk_score also at k = 100, 1000, 2000 and
+     10,000, and the large-k select alone on one batch's keys at k = 100;
   5. the Table-1 protocol on make_dataset("tasb", n_docs=100_000, d=768) at
      cutoffs {0.25, 0.5, 0.75}, checked against the CPU path (plain
      versions, the card's PCA state carried across) at 0.5;
@@ -31,8 +33,9 @@ Phases, each printing one JSON line:
   7. the paged path: both full-size indexes paged (256-row pages, 34,539
      each) by a device-side copy; (a) 8 batches through
      PagedIndex.search_projected held bitwise equal to
-     DenseIndex.search_projected and the paged kernel against its plain
-     version, timed; (b) a lifecycle (three appends, one x9 to widen an
+     DenseIndex.search_projected (also at k = 100, 1000 and 2000) and the
+     paged kernel against its plain version, timed at k = 10, 2000 and
+     10,000; (b) a lifecycle (three appends, one x9 to widen an
      int8 scale, promote, compact, evict 2,048 pages to pinned host
      memory, searched in 64-page waves), each step against the plain
      version, the f32 appended index also against the dense base merged
@@ -112,15 +115,18 @@ class Counters:
     after it; ``uncounted`` restores them around compare/timing launches.
     ``topk_score`` and its paged wrapper count per mode (storage dtype,
     row_ids, paged_<dtype>, paged_ids), both their calls and the CUDA
-    launches their C entries report."""
+    launches their C entries report; the large-k select counts its runs
+    per calling mode."""
 
     def __init__(self):
         from repro_torch.kernels.gram import gram_cuda
         from repro_torch.kernels.pca_project import pca_project_cuda, pca_project_quant_cuda
-        from repro_torch.kernels.topk_score import topk_score_cuda, topk_score_paged_cuda
+        from repro_torch.kernels.topk_score import (topk_score_cuda, topk_score_paged_cuda,
+                                                    topk_select_cuda)
         self.fns = {"gram": gram_cuda, "pca_project": pca_project_cuda,
                     "pca_project_quant": pca_project_quant_cuda}
         self.topk = (topk_score_cuda, topk_score_paged_cuda)
+        self.select = topk_select_cuda
 
     def read(self):
         out = {name: fn.launches for name, fn in self.fns.items()}
@@ -128,6 +134,11 @@ class Counters:
             for mode, v in fn.launches.items():
                 out[f"topk_score_{mode}"] = v
                 out[f"topk_score_{mode}_cuda"] = fn.cuda_launches[mode]
+        for mode, v in self.select.launches.items():
+            out[f"topk_select_{mode}"] = v
+        out["topk_select_keys_cuda"] = self.select.cuda_launches["keys"]
+        # runs of the select, whoever called it
+        out["topk_select"] = sum(self.select.launches.values())
         return out
 
     def restore(self, values):
@@ -137,6 +148,9 @@ class Counters:
             for mode in fn.launches:
                 fn.launches[mode] = values[f"topk_score_{mode}"]
                 fn.cuda_launches[mode] = values[f"topk_score_{mode}_cuda"]
+        for mode in self.select.launches:
+            self.select.launches[mode] = values[f"topk_select_{mode}"]
+        self.select.cuda_launches["keys"] = values["topk_select_keys_cuda"]
 
     def zero(self):
         self.restore(dict.fromkeys(self.read(), 0))
@@ -236,6 +250,8 @@ def phase_edge_cases():
     # every CTA several, and n_valid then masks whole chunks of the walk
     walk = 3 * torch.cuda.get_device_properties(dev).multi_processor_count * 512 + 1
     cases += [(walk, 48, B, k) for B in (1, 33, 65) for k in (1, 32, 33, 100)]
+    # k past the old 1024 cap, to n and past it (pads)
+    cases += [(3000, 130, 33, 2048), (3000, 48, 7, 3007), (walk, 48, 33, 2048)]
     for n, m, B, k in cases:
         # rows of unit norm, so scores are O(1) as on the main path: the
         # near-tie window TOL is absolute
@@ -365,16 +381,20 @@ def paged_edge_cases(dev, randn, checks):
     """The paged kernel against its plain version: ragged last page, a
     scrambled pool/tail table, k beyond the live rows, lo > 0, a carry
     split (the un-finalized ids, pads included, equal exactly), ids_pool
-    out of order with negatives, m = 130, page sizes below, at and above
-    the kernel's 256/512-row pieces, f32/bf16/int8, k in {10, 100, 1000}.
+    out of order with negatives, m = 130, page sizes off and on the
+    64-row unit, below and above the 512-row chunk, f32/bf16/int8, k in
+    {10, 32, 100, 1000, 2048}, and a walk of more chunks than CTAs.
     Returns the timing row of the ids_pool mode at the first shape."""
     import torch
     from repro_torch.kernels import topk_score
     cuda, plain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
     ids_row = None
+    # the last two: k past the old cap, and a walk of more chunks than CTAs
+    walk = 3 * torch.cuda.get_device_properties(dev).multi_processor_count * 512 + 77
     for n, m, R, B, k in [(5000, 384, 256, 32, 10), (3001, 130, 256, 7, 100),
                           (2600, 64, 512, 33, 1000), (2100, 48, 700, 5, 10),
-                          (300, 16, 8, 3, 1000)]:
+                          (300, 16, 8, 3, 1000), (3000, 48, 100, 33, 2048),
+                          (walk, 48, 100, 33, 32)]:
         Q = randn(B, m)
         for store in ("f32", "bf16", "int8"):
             pg, ids = make_paged(dev, randn, n, m, R, store)
@@ -429,7 +449,7 @@ def phase_main_path(counters, rows, n_docs):
     from repro_torch.core.index import DenseIndex
     from repro_torch.core.pruning import StaticPruner
     from repro_torch.data.synthetic import corpus_on_device
-    from repro_torch.kernels import gram, ops, pca_project, topk_score
+    from repro_torch.kernels import gram, ops, pca_project, ref, topk_score
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -599,9 +619,9 @@ def phase_main_path(counters, rows, n_docs):
                                 if item == 4 else None),
                 bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * K,
                             2 * BATCH * n * m))
-            # the same batch at the protocol's depths: the select and merge
-            # take over from the product as k grows
-            for kk in (100, 1000):
+            # the same batch at the protocol's depths and past the old 1024
+            # cap: k > 32 lists every key and takes the radix select
+            for kk in (100, 1000, 2000, 10000):
                 before = topk_score.topk_score_cuda.cuda_launches[name]
                 got = topk_score.topk_score_cuda(index.vectors, q, k=kk)
                 per_call = topk_score.topk_score_cuda.cuda_launches[name] - before
@@ -614,10 +634,33 @@ def phase_main_path(counters, rows, n_docs):
                     ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, q, k=kk),
                                reps=5),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
-                        index.vectors, q, k=kk), reps=2),
+                        index.vectors, q, k=kk), reps=1),
                     library_ms=None,
+                    matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ index.vectors.T, kk),
+                                            reps=2) if item == 4 and kk > 1000 else None),
                     bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * kk,
                                 2 * BATCH * n * m))
+        # the large-k select alone (radix passes, gather, sort, write) on one
+        # batch's keys over every row, at the int8 shortlist's k = 100
+        q = project_queries(qb, Wc).contiguous()
+        keys = ref._keys(q @ index_f32.vectors.T,
+                         torch.arange(n, device=dev, dtype=torch.int32).expand(BATCH, -1))
+        plain_keys = keys.contiguous()
+        keys = (keys ^ topk_score._SIGN).contiguous()
+        before = topk_score.topk_select_cuda.cuda_launches["keys"]
+        got = topk_score.topk_select_cuda(keys, SHORTLIST_K)
+        per_call = topk_score.topk_select_cuda.cuda_launches["keys"] - before
+        want = topk_score.topk_select_plain(keys, SHORTLIST_K)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("topk_select: differs from its plain version")
+        rows["topk_select"] = dict(
+            shape=[BATCH, n, SHORTLIST_K], max_abs_err=0.0, ids_equal=True,
+            launches_per_call=per_call,
+            ms=cuda_ms(lambda: topk_score.topk_select_cuda(keys, SHORTLIST_K), reps=5),
+            plain_ms=cuda_ms(lambda: topk_score.topk_select_plain(keys, SHORTLIST_K), reps=2),
+            library_ms=cuda_ms(lambda: torch.topk(plain_keys, SHORTLIST_K), reps=2),
+            bound=bound(8 * BATCH * n + 8 * BATCH * SHORTLIST_K, 0))
+        del keys, plain_keys, got, want
         want = topk_score.topk_score_plain(D_short, qhat, k=K, row_ids=short_ids)
         err, eq, near = compare_topk(*want, *rescored, "topk row_ids")
         U = D_short.shape[0]
@@ -832,6 +875,14 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
             if not bitwise:
                 raise AssertionError(f"paged {name}: not bitwise equal to the dense "
                                      f"index (max abs err {worst})")
+            # deeper k: the radix select path, paged and dense alike
+            for kk in (100, 1000, 2000):
+                gp = pg.search_projected(batches[0], W, k=kk, mean=mean)
+                gd = index.search_projected(batches[0], W, k=kk, mean=mean)
+                if not (torch.equal(gp[0], gd[0]) and torch.equal(gp[1], gd[1])):
+                    raise AssertionError(f"paged {name}: not bitwise equal to the dense "
+                                         f"index at k = {kk}")
+            del gp, gd
             # the kernel against its plain version and the timings, at the
             # shapes of this path
             st = pg.storage
@@ -863,6 +914,25 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                                 if item == 4 else None),
                 bound=bound(item * npages * R * m + 12 * npages + scale_bytes
                             + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * npages * R * m))
+            for kk in (2000, 10000):
+                before = sum(topk_score.topk_score_paged_cuda.cuda_launches.values())
+                g1 = topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk})
+                per = sum(topk_score.topk_score_paged_cuda.cuda_launches.values()) - before
+                w1 = topk_score.topk_score_paged_plain(*args, **{**kw, "k": kk})
+                e2, eq2, near2 = compare_topk(*w1, *g1, f"paged {name} kernel vs plain k={kk}")
+                del g1, w1
+                rows[f"topk_score_paged_{name}_k{kk}"] = dict(
+                    shape=[index.n, m, BATCH, kk], page_rows=R, pages=npages, store=name,
+                    max_abs_err=e2, ids_equal=eq2, near_ties=near2, launches_per_call=per,
+                    ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk}),
+                               reps=3),
+                    plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(
+                        *args, **{**kw, "k": kk}), reps=1),
+                    dense_ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, qd, k=kk),
+                                     reps=3),
+                    library_ms=None,
+                    bound=bound(item * npages * R * m + 12 * npages + scale_bytes
+                                + 4 * BATCH * m + 8 * BATCH * kk, 2 * BATCH * npages * R * m))
         emit("paged_search", index=name, batches=len(batches), bitwise_vs_dense=bitwise,
              max_abs_err_vs_dense=worst, paged_s=t_paged, dense_s=t_dense,
              kernel_vs_plain=dict(max_abs_err=err, ids_equal=eq, near_ties=near))
@@ -1062,7 +1132,7 @@ def main():
     launches = counters.read()
     emit("main_path_launches", seconds=time.perf_counter() - t0, **launches)
     on_path = ("gram", "pca_project", "pca_project_quant", "topk_score_f32",
-               "topk_score_int8", "topk_score_row_ids")
+               "topk_score_int8", "topk_score_row_ids", "topk_select")
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1116,10 +1186,16 @@ def main():
         entry("topk_score", rows["topk_score_f32"], topk[1], topk[0], "topk_score_f32"),
         entry("topk_score_int8", rows["topk_score_int8"], topk[1], topk[0],
               "topk_score_int8"),
-        # the same kernel at k = 100 and 1000
+        # the same kernels at k = 100, 1000 and past the old cap: the chunk
+        # kernel lists every key and the radix select takes the top k
         *[entry(f"topk_score{'' if st == 'f32' else '_int8'}_k{kk}",
                 rows[f"topk_score_{st}_k{kk}"], topk[1], topk[0], None)
-          for st in ("f32", "int8") for kk in (100, 1000)],
+          for st in ("f32", "int8") for kk in (100, 1000, 2000, 10000)],
+        # the select alone: radix_hist / radix_pick passes, radix_gather,
+        # bitonic_tile (and bitonic_global past 8,192 keys), select_write;
+        # launches are its runs on the main path (protocol k = 1000, the int8
+        # shortlist at k = 100)
+        entry("topk_select", rows["topk_select"], topk[1], topk[0], "topk_select"),
         entry("topk_score_row_ids", rows["topk_score_row_ids"], topk[1], topk[0],
               "topk_score_row_ids"),
         # launches of the paged kernel are counted over phase 7; the ids_pool
@@ -1130,6 +1206,8 @@ def main():
               "topk_score_paged_int8", paged_launches),
         entry("topk_score_paged_ids", ids_row, topk[1], paged, "topk_score_paged_ids",
               paged_launches),
+        *[entry(f"topk_score_paged_{st}_k{kk}", rows[f"topk_score_paged_{st}_k{kk}"],
+                topk[1], paged, None) for st in ("f32", "int8") for kk in (2000, 10000)],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

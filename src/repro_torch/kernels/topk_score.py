@@ -1,25 +1,32 @@
-"""Exact top-k of ``Q @ D^T``: the CUDA kernel and its plain version.
+"""Exact top-k of ``Q @ D^T``: the CUDA kernels and their plain versions.
 
 Replaces ``repro/kernels/topk_score.py::topk_score_pallas`` in both of its
 modes: plain (ids are row positions, rows with id >= ``n_valid`` are
 masked) and ``row_ids`` rescore (row j reports ``row_ids[j]``, negative ids
 are masked). Outputs are (B, k) f32 scores sorted descending and (B, k)
 int32 ids; ties go to the lowest id; slots with no candidate are
-(-inf, -1).
+(-inf, -1). Any k >= 1 runs.
 
-The kernel (``csrc/topk_score.cu``) splits n over CTAs, since at serving
+The kernels (``csrc/topk_score.cu``) split n over CTAs, since at serving
 batch sizes one CTA per query tile would leave most of the card idle: one
-persistent CTA per SM walks 512-row chunks for 32 queries and keeps each
-chunk's top k, and a merge kernel reduces the per-chunk lists, launched
-until one list is left. Candidates are compared as (score desc, id asc) keys, so the result
-does not depend on visit order. k is capped at ``K_CAP``.
+persistent CTA per SM walks 512-row chunks for 32 queries. For k <= 32 it
+keeps each chunk's top k against a running threshold and a merge kernel
+reduces the per-chunk lists; for larger k it lists every row's key and a
+radix select, a gather and a bitonic sort take the top k. Candidates are
+compared as (score desc, id asc) keys, so the result does not depend on
+visit order. Above k = 32 the scratch is one 8-byte key per row and query,
+so a call walks its queries in groups whose scratch fits
+``SCRATCH_BYTES`` (at least one 32-query tile a group).
 
 ``topk_score_paged_cuda`` replaces ``topk_score_paged_pallas``: the same
 top-k over logical slots [lo, hi) of a page table (pool and tail tiers,
 per-page scale, ``page_nvalid`` masks and ``page_offset`` ids, the
-``ids_pool`` rescore mode, ``carry`` / ``finalize`` chaining). One CTA
-scores a page (or a 512-row piece of one) for 32 queries; the same merge
-kernel reduces the per-page lists, with the carry as one more list.
+``ids_pool`` rescore mode, ``carry`` / ``finalize`` chaining), through the
+same chunk kernel with a paged row source and the same select; the carry
+is one more list (k <= 32) or k more keys.
+
+``topk_select_cuda`` is the large-k select alone, over rows of keys as the
+chunk kernel lists them; ``topk_select_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -29,22 +36,29 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-K_CAP = 1024   # largest k the merge's shared-memory sort takes
+SCRATCH_BYTES = 4 << 30    # scratch of one C call, above which queries are grouped
+_P = ctypes.c_void_p
 _SIGNATURES = {
-    "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int,
+    "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_f32": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]),
+        _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+        ctypes.POINTER(ctypes.c_int)]),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]),
-    "topk_score_paged_f32": (ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-                             + [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_int)]),
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int64)]),
+    "topk_score_paged_f32": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 11
+                             + [_P] * 4 + [ctypes.POINTER(ctypes.c_int)]),
+    "topk_select_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                        ctypes.POINTER(ctypes.c_int64)]),
+    "topk_select_keys": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                        ctypes.c_int, _P, _P, _P, _P,
+                                        ctypes.POINTER(ctypes.c_int)]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+_SIGN = -(1 << 63)         # the CUDA keys are the plain keys with the top bit flipped
 
 
 # the plain versions are the oracles themselves
@@ -52,12 +66,35 @@ topk_score_plain = ref.topk_score_ref
 topk_score_paged_plain = ref.topk_score_paged_ref
 
 
-def topk_plan(n: int, k: int) -> tuple[int, int, int]:
-    """(chunks, lists merged per warp, lists after the first merge)."""
+def _plan(fn: str, *args) -> tuple[int, bool]:
+    """(scratch words, takes the radix select) from a C plan entry."""
     lib = _build.load("topk_score", _SIGNATURES)
-    out = (ctypes.c_int64 * 3)()
-    _build.check(lib.topk_plan(n, k, out), "topk_plan")
-    return int(out[0]), int(out[1]), int(out[2])
+    out = (ctypes.c_int64 * 2)()
+    _build.check(getattr(lib, fn)(*args, out), fn)
+    return int(out[0]), bool(out[1])
+
+
+def topk_plan(n: int, k: int, B: int) -> tuple[int, bool]:
+    """(8-byte words of scratch, takes the radix select) of a dense call."""
+    return _plan("topk_plan", n, k, B)
+
+
+def _group(B: int, words_of) -> int:
+    """Queries per C call: a multiple of the 32-query tile whose scratch
+    fits SCRATCH_BYTES, or all of B."""
+    g = 32 * max(1, SCRATCH_BYTES // (8 * words_of(min(B, 32))))
+    return min(B, g)
+
+
+def _call_groups(B: int, words_of, call, device: torch.device) -> int:
+    """Run ``call(g0, g1, scratch)`` over groups of queries sharing one
+    scratch tensor; returns the CUDA launches the C side reported."""
+    G = _group(B, words_of)
+    scratch = torch.empty(words_of(G), dtype=torch.int64, device=device)
+    launched = 0
+    for g0 in range(0, B, G):
+        launched += call(g0, min(B, g0 + G), scratch)
+    return launched
 
 
 def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
@@ -67,10 +104,12 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     """Fused score + top-k on the card; arguments as ``topk_score_plain``.
 
     D: (n, m) f32, bf16 or int8 (an int8 scale must already be folded into
-    Q); Q: (B, m) f32; row_ids: (n,) int32. Each call launches the chunk
-    kernel once and the merge kernel once per level. ``launches`` counts
-    calls and ``cuda_launches`` the CUDA launches the C side reports, both
-    keyed by mode: the storage dtype in plain mode, else ``"row_ids"``.
+    Q); Q: (B, m) f32; row_ids: (n,) int32. A group of queries launches
+    the chunk kernel once, then for k <= 32 the merge kernel once per
+    level, else the select's kernels. ``launches`` counts calls and
+    ``cuda_launches`` the CUDA launches the C side reports, both keyed by
+    mode: the storage dtype in plain mode, else ``"row_ids"``; a call with
+    k > 32 also counts in ``topk_select_cuda.launches`` under its mode.
     """
     tensors = [D, Q] + ([] if row_ids is None else [row_ids])
     if D.device.type != "cuda" or any(t.device != D.device for t in tensors):
@@ -91,32 +130,34 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
                          f"int32 tensor, got {tuple(row_ids.shape)} "
                          f"{row_ids.dtype}")
     B = Q.shape[0]
-    if not 1 <= k <= K_CAP:
-        raise ValueError(f"topk_score: k = {k} is outside the kernel's range "
-                         f"1..{K_CAP}")
-    if n < 1 or m < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"topk_score: needs n, m >= 1 and 1 <= B <= 65535, "
-                         f"got n={n} m={m} B={B}")
+    if k < 1 or n < 1 or m < 1 or not 1 <= B <= 65535:
+        raise ValueError(f"topk_score: needs k, n, m >= 1 and 1 <= B <= 65535, "
+                         f"got k={k} n={n} m={m} B={B}")
     lib = _build.load("topk_score", _SIGNATURES)
-    chunks, _, lists1 = topk_plan(n, k)
-    scratch_a = torch.empty(B * chunks * k, dtype=torch.int64, device=D.device)
-    scratch_b = torch.empty(B * lists1 * k, dtype=torch.int64, device=D.device)
+    select = topk_plan(n, k, B)[1]
     out_s = torch.empty((B, k), dtype=torch.float32, device=D.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=D.device)
     nv = n if n_valid is None else max(0, min(int(n_valid), n))
     vec = m % 16 == 0 and D.data_ptr() % 16 == 0
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(D.device):
+    stream = torch.cuda.current_stream(D.device).cuda_stream
+
+    def call(g0, g1, scratch):
+        launched = ctypes.c_int(0)
         err = lib.topk_score_f32(
-            D.data_ptr(), Q.data_ptr(),
-            None if row_ids is None else row_ids.data_ptr(), n, m, B, nv, k,
-            _DTYPES[D.dtype], int(vec), scratch_a.data_ptr(),
-            scratch_b.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
-    _build.check(err, "topk_score")
+            D.data_ptr(), Q[g0:g1].data_ptr(),
+            None if row_ids is None else row_ids.data_ptr(), n, m, g1 - g0, nv, k,
+            _DTYPES[D.dtype], int(vec), scratch.data_ptr(), out_s[g0:g1].data_ptr(),
+            out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
+        _build.check(err, "topk_score")
+        return launched.value
+
+    with torch.cuda.device(D.device):
+        launched = _call_groups(B, lambda b: topk_plan(n, k, b)[0], call, D.device)
     mode = "row_ids" if row_ids is not None else _STORE[D.dtype]
     topk_score_cuda.launches[mode] += 1
-    topk_score_cuda.cuda_launches[mode] += launched.value
+    topk_score_cuda.cuda_launches[mode] += launched
+    if select:
+        topk_select_cuda.launches[mode] += 1
     return out_s, out_i
 
 
@@ -124,15 +165,10 @@ topk_score_cuda.launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
 topk_score_cuda.cuda_launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
 
 
-def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool
-                    ) -> tuple[int, int, int]:
-    """(lists after the paged kernel, lists merged per warp, lists after
-    the first merge)."""
-    lib = _build.load("topk_score", _SIGNATURES)
-    out = (ctypes.c_int64 * 3)()
-    _build.check(lib.topk_paged_plan(slots, page_rows, k, int(carry), out),
-                 "topk_paged_plan")
-    return int(out[0]), int(out[1]), int(out[2])
+def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int
+                    ) -> tuple[int, bool]:
+    """(8-byte words of scratch, takes the radix select) of a paged call."""
+    return _plan("topk_paged_plan", slots, page_rows, k, int(carry), B)
 
 
 def _int32_vector(name: str, t: torch.Tensor, n: int) -> None:
@@ -182,9 +218,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
         raise ValueError(f"topk_score_paged: Q must be a contiguous (B, {m}) f32 "
                          f"tensor, got {tuple(Q.shape)} {Q.dtype}")
     B = Q.shape[0]
-    if not 1 <= k <= K_CAP:
-        raise ValueError(f"topk_score_paged: k = {k} is outside the kernel's "
-                         f"range 1..{K_CAP}")
+    if k < 1:
+        raise ValueError(f"topk_score_paged: needs k >= 1, got k={k}")
     if not 1 <= B <= 65535 or lo < 0 or hi > page_table.shape[0]:
         raise ValueError(f"topk_score_paged: needs 1 <= B <= 65535 and "
                          f"0 <= lo, hi <= {page_table.shape[0]}, got B={B} "
@@ -221,35 +256,110 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
                 torch.full((B, k), -1, dtype=torch.int32, device=dev)
                 if finalize else (-(j + 2)).contiguous())
     lib = _build.load("topk_score", _SIGNATURES)
-    lists, _, lists1 = topk_paged_plan(max(hi - lo, 0), R, k, carry is not None)
-    scratch_a = torch.empty(B * lists * k, dtype=torch.int64, device=dev)
-    scratch_b = torch.empty(B * lists1 * k, dtype=torch.int64, device=dev)
+    slots = max(hi - lo, 0)
+    select = topk_paged_plan(slots, R, k, carry is not None, B)[1]
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     vec = (m % 16 == 0 and pool.data_ptr() % 16 == 0
-           and (tail is None or tail.data_ptr() % 16 == 0))
+           and (tail is None or tail.data_ptr() % 16 == 0)
+           and (page_scale is None or page_scale.data_ptr() % 16 == 0))
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    launched = ctypes.c_int(0)
-    with torch.cuda.device(dev):
+    def call(g0, g1, scratch):
+        launched = ctypes.c_int(0)
         err = lib.topk_score_paged_f32(
             pool.data_ptr(), ptr(tail), page_table.data_ptr(),
             page_nvalid.data_ptr(), page_offset.data_ptr(), ptr(page_scale),
-            ptr(ids_pool), Q.data_ptr(), ptr(None if carry is None else carry[0]),
-            ptr(None if carry is None else carry[1]), P,
-            0 if tail is None else tail.shape[0], R, m, B, lo, max(hi, lo), k,
-            _DTYPES[pool.dtype], int(vec), int(finalize), scratch_a.data_ptr(),
-            scratch_b.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
-    _build.check(err, "topk_score_paged")
+            ptr(ids_pool), Q[g0:g1].data_ptr(),
+            None if carry is None else carry[0][g0:g1].data_ptr(),
+            None if carry is None else carry[1][g0:g1].data_ptr(), P,
+            0 if tail is None else tail.shape[0], R, m, g1 - g0, lo, max(hi, lo), k,
+            _DTYPES[pool.dtype], int(vec), int(finalize), scratch.data_ptr(),
+            out_s[g0:g1].data_ptr(), out_i[g0:g1].data_ptr(), stream,
+            ctypes.byref(launched))
+        _build.check(err, "topk_score_paged")
+        return launched.value
+
+    with torch.cuda.device(dev):
+        launched = _call_groups(
+            B, lambda b: topk_paged_plan(slots, R, k, carry is not None, b)[0], call, dev)
     mode = "paged_ids" if ids_pool is not None else f"paged_{_STORE[pool.dtype]}"
     topk_score_paged_cuda.launches[mode] += 1
-    topk_score_paged_cuda.cuda_launches[mode] += launched.value
+    topk_score_paged_cuda.cuda_launches[mode] += launched
+    if select:
+        topk_select_cuda.launches[mode] += 1
     return out_s, out_i
 
 
 _PAGED_MODES = ("paged_f32", "paged_bf16", "paged_int8", "paged_ids")
 topk_score_paged_cuda.launches = dict.fromkeys(_PAGED_MODES, 0)
 topk_score_paged_cuda.cuda_launches = dict.fromkeys(_PAGED_MODES, 0)
+
+
+def topk_select_plain(keys: torch.Tensor, k: int, finalize: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top k of each row of CUDA-order keys (B, L) int64, as scores and
+    ids: the plain version of ``topk_select_cuda``. Slots past L, and keys
+    whose score is -inf, are (-inf, -1); un-finalized, slot j after c
+    finite slots gets id -(j - c + 2)."""
+    B, L = keys.shape
+    plain = keys ^ _SIGN                       # signed order = the CUDA unsigned order
+    top = torch.topk(plain, min(k, L), dim=1).values
+    if k > L:
+        fill = ref._keys(torch.full((B, k - L), float("-inf"), device=keys.device),
+                         torch.full((B, k - L), -1, dtype=torch.int32, device=keys.device))
+        top = torch.cat([top, fill], 1)
+    scores, ids = ref._unkeys(top)
+    pad = torch.isneginf(scores) | torch.isnan(scores)
+    scores = scores.masked_fill(pad, float("-inf"))
+    if finalize:
+        ids = torch.where(pad, -1, ids)
+    else:
+        c = (~pad).sum(1, keepdim=True)
+        j = torch.arange(k, device=keys.device)[None, :]
+        ids = torch.where(pad, -(j - c + 2), ids)
+    return scores, ids.to(torch.int32)
+
+
+def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The large-k select alone on the card: the top k of each row of
+    ``keys`` (B, L) int64 in the CUDA order (the plain ``ref._keys`` with
+    the top bit flipped), by the radix select, gather, sort and write that
+    ``topk_score_cuda`` runs for k > 32. ``launches`` counts select runs
+    keyed by the caller's mode (``keys`` for direct calls);
+    ``cuda_launches["keys"]`` the CUDA launches of direct calls."""
+    if keys.device.type != "cuda":
+        raise ValueError(f"topk_select_cuda needs a CUDA tensor, got {keys.device}")
+    if keys.dim() != 2 or keys.dtype != torch.int64 or not keys.is_contiguous():
+        raise ValueError(f"topk_select: keys must be a contiguous (B, L) int64 "
+                         f"tensor, got {tuple(keys.shape)} {keys.dtype}")
+    B, L = keys.shape
+    if k < 1 or L < 1 or not 1 <= B <= 65535:
+        raise ValueError(f"topk_select: needs k, L >= 1 and 1 <= B <= 65535, "
+                         f"got k={k} L={L} B={B}")
+    lib = _build.load("topk_score", _SIGNATURES)
+    out = (ctypes.c_int64 * 1)()
+    _build.check(lib.topk_select_plan(L, k, B, out), "topk_select_plan")
+    dev = keys.device
+    scratch = torch.empty(int(out[0]), dtype=torch.int64, device=dev)
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = lib.topk_select_keys(keys.data_ptr(), B, L, k, int(finalize),
+                                   scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream,
+                                   ctypes.byref(launched))
+    _build.check(err, "topk_select")
+    topk_select_cuda.launches["keys"] += 1
+    topk_select_cuda.cuda_launches["keys"] += launched.value
+    return out_s, out_i
+
+
+topk_select_cuda.launches = dict.fromkeys(
+    ("f32", "bf16", "int8", "row_ids", *_PAGED_MODES, "keys"), 0)
+topk_select_cuda.cuda_launches = {"keys": 0}

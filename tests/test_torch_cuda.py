@@ -114,8 +114,12 @@ def test_cuda_kernels_match_plain():
         assert (i1 == i2).all()
         torch.testing.assert_close(s1, s2, **TOL)
 
-    with pytest.raises(ValueError, match="outside the kernel's range"):
-        topk_score.topk_score_cuda(D, Q, k=topk_score.K_CAP + 1)
+    # no k cap: k beyond 1024 takes the radix select, k > n pads
+    for k in (1025, 2000):
+        s1, i1 = topk_score.topk_score_cuda(D, Q, k=k, row_ids=row_ids)
+        s2, i2 = topk_score.topk_score_plain(D, Q, k=k, row_ids=row_ids)
+        assert torch.equal(i1, i2)
+        torch.testing.assert_close(s1, s2, **TOL)
 
     # the counters: one call in row_ids mode, and the CUDA launches its C
     # entry reports (the chunk kernel and at least one merge level)
@@ -279,4 +283,194 @@ def test_cuda_kernels_tile_edges():
             q = pca_project.pca_project_quant_cuda(D, W, scale)
             assert torch.equal(q[a:b], pca_project.pca_project_quant_cuda(
                 D[a:b].contiguous(), W, scale))
+    torch.cuda.synchronize()
+
+
+def _scrambled_pages(D, R, g, *, quantize=False, masked=0, scale_block=1):
+    """D's rows in pages of R rows over a scrambled pool + tail layout, with
+    `masked` table entries naming no page, int8 scales shared by blocks of
+    `scale_block` pages (so neighbouring blocks differ) and an ids_pool of
+    shuffled ids, a tenth negative. Built without a loop over pages."""
+    n, m = D.shape
+    dev = D.device
+    npages = -(-n // R)
+    phys_total = npages + 5
+    P = phys_total // 2
+    Dp = D.new_zeros((npages * R, m))
+    Dp[:n] = D
+    pages = Dp.view(npages, R, m)
+    scale = None
+    if quantize:
+        nb = -(-npages // scale_block)
+        blocks = pages.new_zeros((nb * scale_block, R, m))
+        blocks[:npages] = pages
+        amax = blocks.view(nb, scale_block * R, m).abs().amax(1)
+        scale = (amax.clamp_min(1e-12) / 127.0).repeat_interleave(scale_block, 0)[:npages]
+        scale = scale.contiguous()                                    # (npages, m)
+        pages = torch.clamp(torch.round(pages / scale[:, None, :]), -127, 127).to(torch.int8)
+    store = pages.new_zeros((phys_total, R, m))
+    perm = torch.randperm(phys_total, generator=g, device=dev)[:npages]
+    store[perm] = pages
+    pt = perm.to(torch.int32)
+    if masked:
+        hole = torch.randperm(npages, generator=g, device=dev)[:masked]
+        pt[hole[: masked // 2]] = -1
+        pt[hole[masked // 2:]] = phys_total + 7            # in neither tier
+    nv = torch.full((npages,), R, dtype=torch.int32, device=dev)
+    nv[-1] = n - (npages - 1) * R
+    off = torch.arange(npages, dtype=torch.int32, device=dev) * R
+    ids = torch.randperm(npages * R, generator=g, device=dev).to(torch.int32).view(npages, R)
+    ids.view(-1)[torch.randperm(npages * R, generator=g, device=dev)[:npages * R // 10]] = -1
+    return ((store[:P].contiguous(), pt, nv, off), dict(tail=store[P:].contiguous(),
+                                                      page_scale=scale), ids, npages)
+
+
+@pytest.mark.gpu
+def test_cuda_topk_any_k(monkeypatch):
+    """k above 32 takes the list-and-radix-select path, with no cap: k in
+    {33, 1025, 2048, n, n + 7}, dense and paged, in plain, n_valid, row_ids,
+    ids_pool, carry and un-finalized modes, against the plain versions; the
+    select alone against its plain version; and across the boundary the top
+    32 equal bitwise the first 32 slots of the top 33."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import ref, topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    cuda, plain = topk_score.topk_score_cuda, topk_score.topk_score_plain
+    n, m, B = 3000, 48, 33
+    D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+    row_ids = torch.randperm(n, generator=g, device=dev).to(torch.int32) + 5
+    row_ids[::11] = -1
+    for store in ("f32", "int8"):
+        Dx, Qx = D, Q
+        if store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+            Qx = (Q * scale[None, :]).contiguous()
+        for k in (33, 1025, 2048, n, n + 7):
+            for kw in ({}, {"n_valid": n - 700}, {"row_ids": row_ids}):
+                s1, i1 = cuda(Dx, Qx, k=k, **kw)
+                s2, i2 = plain(Dx, Qx, k=k, **kw)
+                torch.testing.assert_close(s1, s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+        # a call whose scratch passes SCRATCH_BYTES walks its queries in
+        # groups of 32-query tiles
+        Q3 = torch.cat([Qx, Qx, Qx, Qx[:5]]).contiguous()                # 104 queries
+        with monkeypatch.context() as mp:
+            mp.setattr(topk_score, "SCRATCH_BYTES", 1 << 20)
+            for kw in ({}, {"row_ids": row_ids}):
+                s1, i1 = cuda(Dx, Q3, k=1025, **kw)
+                s2, i2 = plain(Dx, Q3, k=1025, **kw)
+                torch.testing.assert_close(s1, s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+        # the boundary: both paths keep one total order
+        s32, i32 = cuda(Dx, Qx, k=32)
+        s33, i33 = cuda(Dx, Qx, k=33)
+        assert torch.equal(s32, s33[:, :32]) and torch.equal(i32, i33[:, :32])
+
+    # the select alone, on keys with duplicates (masked rows as pads)
+    s = randn(5, 20000)
+    ids = torch.arange(20000, device=dev, dtype=torch.int32).expand(5, -1)
+    s[:, ::3] = float("-inf")
+    keys = (ref._keys(s, ids) ^ topk_score._SIGN).contiguous()
+    for k in (33, 7000, 20000, 20010):
+        for fin in (True, False):
+            got = topk_score.topk_select_cuda(keys, k, finalize=fin)
+            want = topk_score.topk_select_plain(keys, k, finalize=fin)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    # paged: R off and on the 64-row unit, tail pages, masked entries,
+    # per-page int8 scales, ids_pool, a carry and un-finalized pads
+    paged, pplain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    for R, m, k in [(100, 48, 1025), (256, 130, 2048), (600, 64, n)]:
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        for quant in (False, True):
+            args, kw, ids, npages = _scrambled_pages(D, R, g, quantize=quant, masked=2)
+            split = npages // 2
+            for k_ in (k, n + 7):
+                for extra in ({}, {"ids_pool": ids}):
+                    s1, i1 = paged(*args, 0, npages, Q, k=k_, **kw, **extra)
+                    s2, i2 = pplain(*args, 0, npages, Q, k=k_, **kw, **extra)
+                    torch.testing.assert_close(s1, s2, **TOL)
+                    _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+                h1 = paged(*args, 0, split, Q, k=k_, **kw, finalize=False)
+                h2 = pplain(*args, 0, split, Q, k=k_, **kw, finalize=False)
+                pad = torch.isneginf(h2[0])
+                assert torch.equal(torch.isneginf(h1[0]), pad)
+                assert torch.equal(h1[1][pad], h2[1][pad])
+                for fin in (True, False):
+                    s1, i1 = paged(*args, split, npages, Q, k=k_, **kw, carry=h1, finalize=fin)
+                    s2, i2 = pplain(*args, split, npages, Q, k=k_, **kw, carry=h2, finalize=fin)
+                    torch.testing.assert_close(s1, s2, **TOL)
+                    _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+                    pad = torch.isneginf(s2)
+                    assert torch.equal(i1[pad], i2[pad])
+    calls = dict(topk_score.topk_select_cuda.launches)
+    paged(*args, 0, npages, Q, k=100, **kw)
+    assert topk_score.topk_select_cuda.launches["paged_int8"] == calls["paged_int8"] + 1
+    # grouped queries in a paged call, with a carry split across groups
+    Q3 = torch.cat([Q, Q, Q, Q[:5]]).contiguous()
+    with monkeypatch.context() as mp:
+        mp.setattr(topk_score, "SCRATCH_BYTES", 1 << 20)
+        h1 = paged(*args, 0, split, Q3, k=1025, **kw, finalize=False)
+        h2 = pplain(*args, 0, split, Q3, k=1025, **kw, finalize=False)
+        s1, i1 = paged(*args, split, npages, Q3, k=1025, **kw, carry=h1)
+        s2, i2 = pplain(*args, split, npages, Q3, k=1025, **kw, carry=h2)
+        torch.testing.assert_close(s1, s2, **TOL)
+        _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_paged_walk():
+    """The paged row source under the persistent walk: more chunks than
+    CTAs, so every CTA carries its running threshold across many pages;
+    R in {100, 256, 600} (units past a page, pages split over chunks),
+    masked table entries, tail pages, scale rows that differ between
+    neighbours, ragged m; k small and large. With one scale row for every
+    page and R = 256 the paged search is bitwise the dense one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 3 * sms * 512 + 77
+    paged, pplain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    for R, m in [(100, 48), (256, 130), (600, 48)]:
+        D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+        Q = torch.randn(33, m, generator=g, device=dev)
+        # f32; int8 with a scale row per page (every chunk folds at read
+        # time) and per block of 7 pages (the tile refolds where it changes)
+        for quant, block in ((False, 1), (True, 1), (True, 7)):
+            args, kw, ids, npages = _scrambled_pages(D, R, g, quantize=quant, masked=6,
+                                                     scale_block=block)
+            for k in (1, 10, 32, 100):
+                for lo, extra in ((0, {}), (3, {}), (0, {"ids_pool": ids})):
+                    s1, i1 = paged(*args, lo, npages, Q, k=k, **kw, **extra)
+                    s2, i2 = pplain(*args, lo, npages, Q, k=k, **kw, **extra)
+                    torch.testing.assert_close(s1, s2, **TOL)
+                    _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    # dense == paged, bitwise, over a walk of many chunks per CTA
+    D = torch.randn(n, 384, generator=g, device=dev) / 384 ** 0.5
+    Q = torch.randn(32, 384, generator=g, device=dev)
+    for store in ("f32", "int8"):
+        scale = None
+        Dx, Qd = D, Q
+        if store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+            Qd = (Q * scale[None, :]).contiguous()
+        args, ps, npages = _paged_view(Dx, 256, scale)
+        for k in (10, 100, 2000):
+            dense = topk_score.topk_score_cuda(Dx, Qd, k=k)
+            pg = paged(*args, 0, npages, Q, k=k, page_scale=ps)
+            assert torch.equal(dense[0], pg[0]) and torch.equal(dense[1], pg[1])
     torch.cuda.synchronize()

@@ -214,6 +214,46 @@ def test_topk_plain_row_ids_matches_reference(order):
     np.testing.assert_allclose(s2.numpy(), np.asarray(s1), **TOL)
 
 
+@pytest.mark.parametrize("k", [1500, 3005])
+@pytest.mark.parametrize("mode", ["plain", "n_valid", "row_ids"])
+@pytest.mark.parametrize("store", ["f32", "int8"])
+def test_topk_plain_large_k_matches_reference_scan(store, mode, k):
+    """k above the old 1024 cap, and past n (pads), through the reference's
+    jnp scan: n_valid as the scan over the valid rows (ids are positions),
+    row_ids as the scan over the live rows sorted by id (the lowest id wins
+    a tie). int8 folds the scale into the query in both packages."""
+    n, m, B = 3000, 32, 4
+    rng = np.random.default_rng(k + len(mode) + len(store))
+    D, Q = _rand(rng, (n, m)) / np.sqrt(m), _rand(rng, (B, m))
+    if store == "int8":
+        jD, jscale = jax_quantize(jnp.asarray(D))
+        tD, tscale = quantize_int8_per_dim(torch.from_numpy(D))
+        np.testing.assert_array_equal(tD.numpy(), np.asarray(jD))
+        jQ = jnp.asarray(Q) * jscale[None, :]
+        tQ = torch.from_numpy(Q) * tscale[None, :]
+    else:
+        (jD, tD), (jQ, tQ) = _both(D), _both(Q)
+    kw = {}
+    if mode == "plain":
+        s1, i1 = jax_scan_topk(jD, jQ, k, block=1024)
+    elif mode == "n_valid":
+        kw["n_valid"] = 2100
+        s1, i1 = jax_scan_topk(jD[:2100], jQ, k, block=1024)
+    else:
+        ids = rng.permutation(n).astype(np.int32) + 7
+        ids[rng.choice(n, 300, replace=False)] = -1
+        kw["row_ids"] = torch.from_numpy(ids)
+        order = np.argsort(np.where(ids < 0, np.iinfo(np.int32).max, ids), kind="stable")
+        order = order[ids[order] >= 0]
+        s1, p1 = jax_scan_topk(jD[jnp.asarray(order)], jQ, k, block=1024)
+        p1 = np.asarray(p1)
+        i1 = np.where(p1 >= 0, ids[order][np.clip(p1, 0, None)], -1)
+    s2, i2 = ops.topk_score(tD, tQ, k=k, **kw)
+    np.testing.assert_allclose(s2.numpy(), np.asarray(s1), **TOL)
+    _assert_ids_equal_up_to_near_ties(np.asarray(s1), np.asarray(i1), s2.numpy(), i2.numpy())
+    assert (i2.numpy()[np.isneginf(s2.numpy())] == -1).all()
+
+
 # ---------------------------------------------------------------------------
 # pca_project (+ quant epilogue)
 # ---------------------------------------------------------------------------

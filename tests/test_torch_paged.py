@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.core import DenseIndex as JaxIndex, StaticPruner as JaxPruner
+from repro.core.index import _scan_topk as jax_scan_topk
 from repro.core.paged import PagedIndex as JaxPaged, _paged_core
 from repro.kernels.topk_score import topk_score_paged_pallas
 from repro_torch import convert
@@ -162,6 +163,95 @@ def test_paged_cuda_wrapper_refuses_cpu_tensors():
         ops.topk_score_paged(torch.from_numpy(f["pool"]), torch.from_numpy(f["pt"]),
                              torch.from_numpy(f["nv"]), torch.from_numpy(f["off"]),
                              0, 3, torch.empty((2, 32), device="meta"), k=3)
+
+
+def _big_two_tier(dtype, seed, R=64, npages=40):
+    """_two_tier's layout at more rows than the old k cap (2,531 rows in
+    40 pages of 64 over a scrambled pool + tail, a partial last page,
+    per-page int8 scales)."""
+    rng = np.random.default_rng(seed)
+    m, B, n_last = 32, 4, 35
+    n = (npages - 1) * R + n_last
+    D = rng.standard_normal((n, m)).astype(np.float32) / np.sqrt(m)
+    Q = rng.standard_normal((B, m)).astype(np.float32)
+    pool_pages, tail_pages = 23, 20
+    pt = rng.permutation(pool_pages + tail_pages)[:npages].astype(np.int32)
+    nv = np.full(npages, R, np.int32)
+    nv[-1] = n_last
+    off = (np.arange(npages) * R).astype(np.int32)
+    scale = np.zeros((npages, m), np.float32)
+    pool = np.zeros((pool_pages, R, m), dtype)
+    tail = np.zeros((tail_pages, R, m), dtype)
+    for j in range(npages):
+        rows = D[j * R:j * R + nv[j]]
+        if dtype == np.int8:
+            scale[j] = np.abs(rows).max(axis=0).clip(1e-12) / 127.0
+            rows = np.clip(np.round(rows / scale[j]), -127, 127).astype(np.int8)
+        buf, idx = (pool, pt[j]) if pt[j] < pool_pages else (tail, pt[j] - pool_pages)
+        buf[idx, :nv[j]] = rows
+    return dict(pool=pool, tail=tail, pt=pt, nv=nv, off=off, Q=Q, npages=npages, R=R,
+                scale=scale if dtype == np.int8 else None)
+
+
+def _port_paged(f, lo, hi, k, **kw):
+    t = {x: torch.from_numpy(f[x]) for x in ("pool", "pt", "nv", "off", "Q", "tail")}
+    if f["scale"] is not None:
+        kw["page_scale"] = torch.from_numpy(f["scale"])
+    return ops.topk_score_paged(t["pool"], t["pt"], t["nv"], t["off"], lo, hi, t["Q"], k=k,
+                                tail=t["tail"], **kw)
+
+
+def _jax_paged(f, lo, hi, k, carry, finalize):
+    return _paged_core(jnp.asarray(f["pool"]), jnp.asarray(f["tail"]), jnp.asarray(f["pt"]),
+                       None if f["scale"] is None else jnp.asarray(f["scale"]),
+                       jnp.asarray(f["nv"]), jnp.asarray(f["off"]), lo, hi,
+                       jnp.asarray(f["Q"]), k, "row", carry, finalize)
+
+
+@pytest.mark.parametrize("k", [1100, 2600])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_plain_large_k_tail_scale_carry(quant, k):
+    """k above the old 1024 cap (and past the rows: pads) against the
+    reference's jnp page walk: pool and tail tiers, per-page int8 scale
+    rows, a run split and chained through the carry, its un-finalized
+    head's pad ids equal exactly, and an un-finalized last link."""
+    f = _big_two_tier(np.int8 if quant else np.float32, seed=7 + quant)
+    npages, split = f["npages"], 17
+    want = _jax_paged(f, 0, npages, k, None, True)
+    _assert_close(want, _port_paged(f, 0, npages, k), "single pass")
+    jhead = _jax_paged(f, 0, split, k, None, False)
+    head = _port_paged(f, 0, split, k, finalize=False)
+    np.testing.assert_allclose(head[0].numpy(), np.asarray(jhead[0]), **TOL)
+    pads = np.isneginf(np.asarray(jhead[0]))
+    assert pads.any() == (k > split * f["R"])
+    np.testing.assert_array_equal(head[1].numpy()[pads], np.asarray(jhead[1])[pads])
+    for fin in (True, False):
+        got = _port_paged(f, split, npages, k, carry=head, finalize=fin)
+        ref_ = _jax_paged(f, split, npages, k, jhead, fin)
+        _assert_close(ref_, got, f"carry chain finalize={fin}")
+        pads = np.isneginf(np.asarray(ref_[0]))
+        np.testing.assert_array_equal(got[1].numpy()[pads], np.asarray(ref_[1])[pads])
+
+
+@pytest.mark.parametrize("k", [1100, 2600])
+def test_paged_plain_large_k_ids_pool(k):
+    """ids_pool at k above the old cap: the reference's jnp scan over the
+    live rows sorted by id (the lowest id wins a tie), against the port's
+    paged walk in ids_pool mode."""
+    f = _big_two_tier(np.float32, seed=9)
+    rng = np.random.default_rng(9)
+    npages, R = f["npages"], f["R"]
+    ids_pool = rng.permutation(npages * R).astype(np.int32).reshape(npages, R) + 3
+    ids_pool[rng.random((npages, R)) < 0.1] = -1
+    got = _port_paged(f, 0, npages, k, ids_pool=torch.from_numpy(ids_pool))
+    rows = np.concatenate([f["pool"], f["tail"]])[f["pt"]].reshape(npages * R, -1)
+    ids = ids_pool.reshape(-1)
+    order = np.argsort(np.where(ids < 0, np.iinfo(np.int32).max, ids), kind="stable")
+    order = order[ids[order] >= 0]
+    s, p = jax_scan_topk(jnp.asarray(rows[order]), jnp.asarray(f["Q"]), k, block=1024)
+    p = np.asarray(p)
+    want = (np.asarray(s), np.where(p >= 0, ids[order][np.clip(p, 0, None)], -1))
+    _assert_close(want, got, "ids_pool")
 
 
 # ---------------------------------------------------------------------------
