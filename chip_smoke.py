@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
      f32/bf16/int8, k in {1, 10, 32, 33, 100, 1000, 2048, n + 7};
      gram exactly symmetric; the paged kernel over scrambled pool/tail
      tables with ragged pages, lo > 0, carry splits and ids_pool, pages
-     of 100 rows, a walk of more chunks than CTAs, k up to 2048);
+     of 100 rows, a walk of more chunks than CTAs, k up to 2048); B =
+     65,537 queries, past one launch's 65,535 query rows, dense, paged,
+     the select alone and DenseIndex.search, the last row bitwise equal
+     to a one-query call;
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -21,14 +24,17 @@ Phases, each printing one JSON line:
      batches of 32 queries through search_projected on the f32 and int8
      indexes (topk_score kernel) and an exact f32 rescore of the int8
      shortlist (topk_score, row_ids mode); each kernel is compared with its
-     plain version and timed at the shapes this path gives it, pca_project
+     plain version and timed at the shapes this path gives it, gram also at
+     the protocol's 100,000 x 768 (there held bitwise equal to the in-order
+     sum of one-range launches over its row ranges), pca_project
      also on 32 query rows, topk_score also at k = 100, 1000, 2000 and
      10,000, and the large-k select alone on one batch's keys at k = 100;
   5. the Table-1 protocol on make_dataset("tasb", n_docs=100_000, d=768) at
      cutoffs {0.25, 0.5, 0.75}, checked against the CPU path (plain
      versions, the card's PCA state carried across) at 0.5;
   6. a pipeline_depth=3 RetrievalServer over the full-size int8 and f32
-     indexes: closed and open loop, replies checked against direct
+     indexes: closed and open loop (beside each open-loop result its tape's
+     own rate, ``tape_qps``), replies checked against direct
      search_projected calls;
   7. the paged path: both full-size indexes paged (256-row pages, 34,539
      each) by a device-side copy; (a) 8 batches through
@@ -113,6 +119,7 @@ def cuda_ms(fn, reps=3):
 class Counters:
     """The kernels' launch counters: zeroed before the main path, read
     after it; ``uncounted`` restores them around compare/timing launches.
+    ``gram`` counts its calls and the CUDA launches its C entry reports.
     ``topk_score`` and its paged wrapper count per mode (storage dtype,
     row_ids, paged_<dtype>, paged_ids), both their calls and the CUDA
     launches their C entries report; the large-k select counts its runs
@@ -130,6 +137,7 @@ class Counters:
 
     def read(self):
         out = {name: fn.launches for name, fn in self.fns.items()}
+        out["gram_cuda"] = self.fns["gram"].cuda_launches
         for fn in self.topk:
             for mode, v in fn.launches.items():
                 out[f"topk_score_{mode}"] = v
@@ -144,6 +152,7 @@ class Counters:
     def restore(self, values):
         for name, fn in self.fns.items():
             fn.launches = values[name]
+        self.fns["gram"].cuda_launches = values["gram_cuda"]
         for fn in self.topk:
             for mode in fn.launches:
                 fn.launches[mode] = values[f"topk_score_{mode}"]
@@ -331,10 +340,67 @@ def phase_edge_cases():
             checks.append(dict(kernel="pca_project_quant", n=n, d=d, m=130,
                                max_abs_err=int(diff.max()), frac_differ=frac))
     ids_row = paged_edge_cases(dev, randn, checks)
+    any_batch_cases(dev, randn, checks)
     torch.cuda.synchronize()
     emit("edge_cases", checks=len(checks),
          near_ties=sum(c.get("near_ties", 0) for c in checks), results=checks)
     return ids_row
+
+
+def any_batch_cases(dev, randn, checks):
+    """B = 65,537 queries, past one launch's 65,535 query rows: the dense
+    top-k (f32 and int8 at k = 10 and 100), the paged top-k over the same
+    rows in pages of 256, the select alone and DenseIndex.search against
+    their plain versions, and the last query's row bitwise equal to a
+    one-query call."""
+    import torch
+    from repro_torch.core.index import DenseIndex
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import ref, topk_score
+    n, m, B, R = 4096, 64, 65537, 256
+    D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+    last = B - 1
+
+    def held(what, got, want, one=None):
+        err, eq, near = compare_topk(*want, *got, f"B={B} {what}")
+        if one is not None and not (torch.equal(got[0][last:], one[0])
+                                    and torch.equal(got[1][last:], one[1])):
+            raise AssertionError(f"B={B} {what}: the last row differs from a one-query call")
+        checks.append(dict(kernel=what.split()[0], case="any_batch", n=n, m=m, B=B,
+                           max_abs_err=err, ids_equal=eq, near_ties=near,
+                           **({} if one is None else {"last_row_bitwise": True})))
+
+    for store in ("f32", "int8"):
+        scale, Dx, Qx = None, D, Q
+        if store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+            Qx = (Q * scale[None, :]).contiguous()
+        npages = n // R
+        pages = (Dx.view(npages, R, m), torch.arange(npages, dtype=torch.int32, device=dev),
+                 torch.full((npages,), R, dtype=torch.int32, device=dev),
+                 torch.arange(npages, dtype=torch.int32, device=dev) * R)
+        ps = None if scale is None else scale[None, :].repeat(npages, 1).contiguous()
+        for k in (10, 100):
+            held(f"topk_score {store} k={k}", topk_score.topk_score_cuda(Dx, Qx, k=k),
+                 topk_score.topk_score_plain(Dx, Qx, k=k),
+                 topk_score.topk_score_cuda(Dx, Qx[last:], k=k))
+            held(f"topk_score_paged {store} k={k}",
+                 topk_score.topk_score_paged_cuda(*pages, 0, npages, Q, k=k, page_scale=ps),
+                 topk_score.topk_score_paged_plain(*pages, 0, npages, Q, k=k, page_scale=ps),
+                 topk_score.topk_score_paged_cuda(*pages, 0, npages, Q[last:], k=k,
+                                                  page_scale=ps))
+        index = DenseIndex.build(D, quantize_int8=store == "int8")
+        held(f"DenseIndex.search {store}", index.search(Q, k=K),
+             topk_score.topk_score_plain(index.vectors, index._dequeries(Q), k=K))
+    s = randn(B, 300)
+    s[:, ::7] = float("-inf")
+    ids = torch.arange(300, device=dev, dtype=torch.int32).expand(B, -1)
+    keys = (ref._keys(s, ids) ^ topk_score._SIGN).contiguous()
+    got = topk_score.topk_select_cuda(keys, 100)
+    want = topk_score.topk_select_plain(keys, 100)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"B={B} topk_select: differs from its plain version")
+    held("topk_select k=100", got, want, topk_score.topk_select_cuda(keys[last:], 100))
 
 
 def make_paged(dev, randn, n, m, R, store):
@@ -540,9 +606,19 @@ def phase_main_path(counters, rows, n_docs):
              rel_err_vs_plain_f32=kernel_vs_plain, tolerance=GRAM_TOL)
         if g_rel > GRAM_TOL:
             raise AssertionError(f"gram: relative error {g_rel} vs the fp64 Gram")
+        # fit_s is the process's first fit, one-time set-up included; a
+        # second fit on the same corpus is timed beside it
+        t0 = time.perf_counter()
+        StaticPruner(cutoff=CUTOFF).fit(D)
+        torch.cuda.synchronize()
+        emit("fit_again", fit_s=time.perf_counter() - t0)
+        before = gram.gram_cuda.cuda_launches
+        gram.gram_cuda(D)
+        per_call = gram.gram_cuda.cuda_launches - before
         rows["gram"] = dict(
             shape=[n, d], max_abs_err=g_err, rel_err=g_rel,
             plain_f32_rel_err_vs_f64=plain_rel, rel_err_vs_plain_f32=kernel_vs_plain,
+            cuda_launches_per_call=per_call,
             ms=cuda_ms(lambda: gram.gram_cuda(D)),
             plain_ms=cuda_ms(lambda: gram.gram_plain(D)),
             library_ms=cuda_ms(lambda: torch.matmul(D.T, D)),
@@ -550,6 +626,32 @@ def phase_main_path(counters, rows, n_docs):
             # 2 n FLOP each
             bound=bound(4 * n * d + 4 * d * d, n * d * (d + 1)))
         del G, Gp
+        # the protocol's shape: G bitwise the in-order sum of one-range
+        # launches over its row ranges (each one fp32 chain per entry)
+        Dp = D[:PROTOCOL_DOCS]
+        n_p = Dp.shape[0]
+        G = gram.gram_cuda(Dp)
+        ranges = gram._ranges(Dp)
+        want = torch.zeros((d, d), device=dev)
+        for a, b in ranges:
+            want += gram._launch(Dp[a:b].contiguous(), 1)
+        if not (torch.equal(G, want) and torch.equal(G, gram.gram_cuda(Dp))
+                and torch.equal(G, G.T)):
+            raise AssertionError("gram: not bitwise the in-order sum of its row ranges")
+        Gp = gram.gram_plain(Dp)
+        before = gram.gram_cuda.cuda_launches
+        gram.gram_cuda(Dp)
+        per_call = gram.gram_cuda.cuda_launches - before
+        rows["gram_protocol"] = dict(
+            shape=list(Dp.shape), ranges=len(ranges), range_sum_bitwise=True,
+            max_abs_err=float((G - Gp).abs().max()),
+            rel_err_vs_plain_f32=float((G - Gp).abs().max() / Gp.abs().max()),
+            launches_per_call=per_call,
+            ms=cuda_ms(lambda: gram.gram_cuda(Dp), reps=10),
+            plain_ms=cuda_ms(lambda: gram.gram_plain(Dp), reps=10),
+            library_ms=cuda_ms(lambda: torch.matmul(Dp.T, Dp), reps=10),
+            bound=bound(4 * n_p * d + 4 * d * d, n_p * d * (d + 1)))
+        del G, Gp, want
 
         blk = D[:262144]                                  # prune_index's block
         Wc = W.contiguous()
@@ -754,6 +856,16 @@ def phase_protocol(n_docs):
          card_vs_cpu_max_metric_diff=worst, table=table)
 
 
+def tape_qps(n, rate, seed=0):
+    """The rate of an open-loop tape itself: n over the span of the Poisson
+    arrivals that ``_drive_open`` draws for it (the same generator and
+    seed). Its ``achieved_qps`` (n over arrivals plus the last reply's
+    drain) cannot exceed this, however fast the server."""
+    import numpy as np
+    gaps = np.random.default_rng(seed).exponential(1.0 / rate, size=n)
+    return float(n / gaps.sum())
+
+
 def phase_server(counters, index_f32, index_int8, pruner, Q):
     import numpy as np
     import torch
@@ -769,6 +881,7 @@ def phase_server(counters, index_f32, index_int8, pruner, Q):
             rate = 2000.0
             res = _drive_open(server, Q[SERVER_CLOSED:], rate=rate, collect=True)
             opened = {k: v for k, v in res.items() if k != "results"}
+            opened["tape_qps"] = tape_qps(res["n"], rate)
             opened.update(server.worker_stats())
         finally:
             server.close()
@@ -1076,6 +1189,7 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                 raise AssertionError(f"paged server {name}: {res['errors']} errors, "
                                      f"{res['n_ok']} of {len(seg)} replies")
             out[f"open_loop_{name}"] = {k: v_ for k, v_ in res.items() if k != "results"}
+            out[f"open_loop_{name}"]["tape_qps"] = tape_qps(res["n"], 2000.0)
             served.append((name, v, seg, res["results"]))
         stop.set()
         th.join(timeout=120.0)
@@ -1170,13 +1284,17 @@ def main():
                        if k in ("ids_equal", "near_ties", "rel_err",
                                 "plain_f32_rel_err_vs_f64", "rel_err_vs_plain_f32",
                                 "frac_differ", "matmul_topk_ms", "dense_ms",
-                                "cuda_launches_per_call", "page_rows", "pages")})
+                                "cuda_launches_per_call", "page_rows", "pages",
+                                "ranges", "range_sum_bitwise")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
     kernels = [
         entry("gram", rows["gram"], csrc + "gram.cu",
               "src/repro/kernels/gram.py:41", "gram"),
+        # the Table-1 protocol's fit shape (100,000 x 768)
+        entry("gram_protocol", rows["gram_protocol"], csrc + "gram.cu",
+              "src/repro/kernels/gram.py:41", None),
         entry("pca_project", rows["pca_project"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:56", "pca_project"),
         entry("pca_project_n32", rows["pca_project_n32"], csrc + "pca_project.cu",

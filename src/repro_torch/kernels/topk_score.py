@@ -16,7 +16,9 @@ radix select, a gather and a bitonic sort take the top k. Candidates are
 compared as (score desc, id asc) keys, so the result does not depend on
 visit order. Above k = 32 the scratch is one 8-byte key per row and query,
 so a call walks its queries in groups whose scratch fits
-``SCRATCH_BYTES`` (at least one 32-query tile a group).
+``SCRATCH_BYTES`` (at least one 32-query tile a group). A group also holds
+at most ``MAX_GROUP`` queries, since one launch of the merge and select
+kernels takes at most 65,535: so every wrapper takes any B.
 
 ``topk_score_paged_cuda`` replaces ``topk_score_paged_pallas``: the same
 top-k over logical slots [lo, hi) of a page table (pool and tail tiers,
@@ -37,6 +39,10 @@ import torch
 from repro_torch.kernels import _build, ref
 
 SCRATCH_BYTES = 4 << 30    # scratch of one C call, above which queries are grouped
+# queries of one C call: the merge and select kernels put one query on each
+# gridDim.y (at most 65,535), so a call takes the largest multiple of the
+# 32-query tile below that
+MAX_GROUP = 65504
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -81,9 +87,10 @@ def topk_plan(n: int, k: int, B: int) -> tuple[int, bool]:
 
 def _group(B: int, words_of) -> int:
     """Queries per C call: a multiple of the 32-query tile whose scratch
-    fits SCRATCH_BYTES, or all of B."""
+    fits SCRATCH_BYTES, at most MAX_GROUP, or all of B. Each query's top-k
+    is independent of the others, so grouping changes no result."""
     g = 32 * max(1, SCRATCH_BYTES // (8 * words_of(min(B, 32))))
-    return min(B, g)
+    return min(B, g, MAX_GROUP)
 
 
 def _call_groups(B: int, words_of, call, device: torch.device) -> int:
@@ -130,8 +137,8 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
                          f"int32 tensor, got {tuple(row_ids.shape)} "
                          f"{row_ids.dtype}")
     B = Q.shape[0]
-    if k < 1 or n < 1 or m < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"topk_score: needs k, n, m >= 1 and 1 <= B <= 65535, "
+    if k < 1 or n < 1 or m < 1 or B < 1:
+        raise ValueError(f"topk_score: needs k, n, m, B >= 1, "
                          f"got k={k} n={n} m={m} B={B}")
     lib = _build.load("topk_score", _SIGNATURES)
     select = topk_plan(n, k, B)[1]
@@ -220,8 +227,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     B = Q.shape[0]
     if k < 1:
         raise ValueError(f"topk_score_paged: needs k >= 1, got k={k}")
-    if not 1 <= B <= 65535 or lo < 0 or hi > page_table.shape[0]:
-        raise ValueError(f"topk_score_paged: needs 1 <= B <= 65535 and "
+    if B < 1 or lo < 0 or hi > page_table.shape[0]:
+        raise ValueError(f"topk_score_paged: needs B >= 1 and "
                          f"0 <= lo, hi <= {page_table.shape[0]}, got B={B} "
                          f"lo={lo} hi={hi}")
     for name, t in (("page_table", page_table), ("page_nvalid", page_nvalid),
@@ -338,25 +345,27 @@ def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
         raise ValueError(f"topk_select: keys must be a contiguous (B, L) int64 "
                          f"tensor, got {tuple(keys.shape)} {keys.dtype}")
     B, L = keys.shape
-    if k < 1 or L < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"topk_select: needs k, L >= 1 and 1 <= B <= 65535, "
-                         f"got k={k} L={L} B={B}")
+    if k < 1 or L < 1 or B < 1:
+        raise ValueError(f"topk_select: needs k, L, B >= 1, got k={k} L={L} B={B}")
     lib = _build.load("topk_score", _SIGNATURES)
-    out = (ctypes.c_int64 * 1)()
-    _build.check(lib.topk_select_plan(L, k, B, out), "topk_select_plan")
     dev = keys.device
-    scratch = torch.empty(int(out[0]), dtype=torch.int64, device=dev)
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
-    launched = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(g0, g1, scratch):
+        launched = ctypes.c_int(0)
+        err = lib.topk_select_keys(keys[g0:g1].data_ptr(), g1 - g0, L, k, int(finalize),
+                                   scratch.data_ptr(), out_s[g0:g1].data_ptr(),
+                                   out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
+        _build.check(err, "topk_select")
+        return launched.value
+
     with torch.cuda.device(dev):
-        err = lib.topk_select_keys(keys.data_ptr(), B, L, k, int(finalize),
-                                   scratch.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-                                   torch.cuda.current_stream(dev).cuda_stream,
-                                   ctypes.byref(launched))
-    _build.check(err, "topk_select")
+        launched = _call_groups(B, lambda b: _plan("topk_select_plan", L, k, b)[0],
+                                call, dev)
     topk_select_cuda.launches["keys"] += 1
-    topk_select_cuda.cuda_launches["keys"] += launched.value
+    topk_select_cuda.cuda_launches["keys"] += launched
     return out_s, out_i
 
 

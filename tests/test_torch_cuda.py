@@ -474,3 +474,135 @@ def test_cuda_paged_walk():
             pg = paged(*args, 0, npages, Q, k=k, page_scale=ps)
             assert torch.equal(dense[0], pg[0]) and torch.equal(dense[1], pg[1])
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_topk_any_batch():
+    """B = 65,537 queries, past one launch's 65,535 query rows: the dense
+    top-k (f32 and int8, k = 10 and the select path at k = 100), the paged
+    top-k over the same rows, the select alone and ``DenseIndex.search``
+    against their plain versions; the last query's row bitwise equal to a
+    one-query call (each group of queries is its own C call)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import DenseIndex
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import ref, topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, m, B = 4096, 64, 65537
+    D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+    Q = torch.randn(B, m, generator=g, device=dev)
+    last = B - 1
+    for store in ("f32", "int8"):
+        scale = None
+        Dx, Qx = D, Q
+        if store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+            Qx = (Q * scale[None, :]).contiguous()
+        args, ps, npages = _paged_view(Dx, 256, scale)
+        for k in (10, 100):
+            s1, i1 = topk_score.topk_score_cuda(Dx, Qx, k=k)
+            s2, i2 = topk_score.topk_score_plain(Dx, Qx, k=k)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+            one = topk_score.topk_score_cuda(Dx, Qx[last:], k=k)
+            assert torch.equal(s1[last:], one[0]) and torch.equal(i1[last:], one[1])
+            s1, i1 = topk_score.topk_score_paged_cuda(*args, 0, npages, Q, k=k, page_scale=ps)
+            s2, i2 = topk_score.topk_score_paged_plain(*args, 0, npages, Q, k=k, page_scale=ps)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+            one = topk_score.topk_score_paged_cuda(*args, 0, npages, Q[last:], k=k,
+                                                   page_scale=ps)
+            assert torch.equal(s1[last:], one[0]) and torch.equal(i1[last:], one[1])
+        index = DenseIndex.build(D, quantize_int8=store == "int8")
+        s1, i1 = index.search(Q, k=10)
+        s2, i2 = topk_score.topk_score_plain(index.vectors, index._dequeries(Q), k=10)
+        torch.testing.assert_close(s1, s2, **TOL)
+        _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    # the select alone over 65,537 rows of keys
+    s = torch.randn(B, 300, generator=g, device=dev)
+    s[:, ::7] = float("-inf")
+    ids = torch.arange(300, device=dev, dtype=torch.int32).expand(B, -1)
+    keys = (ref._keys(s, ids) ^ topk_score._SIGN).contiguous()
+    got = topk_score.topk_select_cuda(keys, 100)
+    want = topk_score.topk_select_plain(keys, 100)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    one = topk_score.topk_select_cuda(keys[last:], 100)
+    assert torch.equal(got[0][last:], one[0]) and torch.equal(got[1][last:], one[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_gram_ranges():
+    """gram is bitwise the same run to run, exactly symmetric, and bitwise
+    the in-order sum of one-range launches over its row ranges (each range
+    one fp32 chain over its rows, the ranges summed in order from 0), for
+    f32 and bf16, d on and off the 128-column tile and the 16-byte piece,
+    and n within one slab, across a range boundary and over many ranges
+    (with d = 16, some of them empty)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import gram
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 200, 768, 300):
+            for n in (10, 16385, 40000):
+                D = torch.randn(n, d, generator=g, device=dev).to(dtype)
+                G = gram.gram_cuda(D)
+                assert torch.equal(G, gram.gram_cuda(D))
+                assert torch.equal(G, G.T)
+                want = torch.zeros((d, d), device=dev)
+                for a, b in gram._ranges(D):
+                    want += gram._launch(D[a:b].contiguous(), 1)
+                assert torch.equal(G, want), (dtype, d, n)
+                torch.testing.assert_close(G, gram.gram_plain(D), rtol=1e-4, atol=1e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_topk_duplicate_ids():
+    """row_ids and ids_pool with repeated non-negative ids (and rows that
+    repeat both content and id, so equal keys): the kernels keep every
+    copy, as the plain versions do; k = 10 and the select path at 100."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    n, m, B, R = 3000, 48, 33, 256
+    D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+    D[1500:] = D[:1500]
+    Q = torch.randn(B, m, generator=g, device=dev)
+    row_ids = torch.randint(0, 400, (n // 2,), generator=g, device=dev, dtype=torch.int32)
+    row_ids[::13] = -1
+    row_ids = torch.cat([row_ids, row_ids])
+    for store in ("f32", "int8"):
+        scale = None
+        Dx, Qx = D, Q
+        if store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+            Qx = (Q * scale[None, :]).contiguous()
+        args, ps, npages = _paged_view(Dx, R, scale)
+        ids_pool = torch.full((npages * R,), -1, dtype=torch.int32, device=dev)
+        ids_pool[:n] = row_ids
+        ids_pool = ids_pool.view(npages, R)
+        for k in (10, 100):
+            s1, i1 = topk_score.topk_score_cuda(Dx, Qx, k=k, row_ids=row_ids)
+            s2, i2 = topk_score.topk_score_plain(Dx, Qx, k=k, row_ids=row_ids)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+            # every key of the top k comes twice (the repeated rows)
+            assert torch.equal(s1[:, ::2], s1[:, 1::2]) and torch.equal(i1[:, ::2], i1[:, 1::2])
+            s1, i1 = topk_score.topk_score_paged_cuda(*args, 0, npages, Q, k=k,
+                                                      page_scale=ps, ids_pool=ids_pool)
+            s2, i2 = topk_score.topk_score_paged_plain(*args, 0, npages, Q, k=k,
+                                                       page_scale=ps, ids_pool=ids_pool)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    torch.cuda.synchronize()

@@ -20,6 +20,7 @@ from repro_torch.core.quantization import quantize_int8_per_dim
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.gram import gram_cuda
 from repro_torch.kernels.pca_project import pca_project_cuda, pca_project_quant_cuda
+from repro_torch.kernels import topk_score as topk_mod
 from repro_torch.kernels.topk_score import topk_score_cuda
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -295,6 +296,29 @@ def test_project_quant_plain_matches_reference():
         assert got.dtype == np.int8
         diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
         assert diff.max() <= 1 and (diff == 0).mean() > 0.999
+
+
+@pytest.mark.parametrize("B", [65535, 65536, 65537, 200000])
+def test_topk_query_groups_fit_one_launch(B):
+    """The card's wrappers split B into C calls of at most 65,504 queries (a
+    multiple of the 32-query tile within one launch's 65,535 grid rows)
+    that cover every query once, in order."""
+    def words_of(b):
+        return 64 * b
+
+    G = topk_mod._group(B, words_of)
+    assert G % 32 == 0 and G <= topk_mod.MAX_GROUP == 65504
+    seen = []
+
+    def call(g0, g1, scratch):
+        assert g1 - g0 <= G and scratch.numel() == words_of(G)
+        seen.append((g0, g1))
+        return 3
+
+    launched = topk_mod._call_groups(B, words_of, call, torch.device("cpu"))
+    assert seen[0][0] == 0 and seen[-1][1] == B
+    assert all(a[1] == b[0] for a, b in zip(seen, seen[1:]))
+    assert launched == 3 * len(seen) == 3 * -(-B // G)
 
 
 # ---------------------------------------------------------------------------
