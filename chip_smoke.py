@@ -30,8 +30,10 @@ Phases, each printing one JSON line:
      also on 32 query rows, topk_score also at k = 100, 1000, 2000 and
      10,000, and the large-k select alone on one batch's keys at k = 100;
   5. the Table-1 protocol on make_dataset("tasb", n_docs=100_000, d=768) at
-     cutoffs {0.25, 0.5, 0.75}, checked against the CPU path (plain
-     versions, the card's PCA state carried across) at 0.5;
+     cutoffs {0.25, 0.5, 0.75}, and Table 2's (W_m fit on an out-of-domain
+     corpus of the same encoder, drawn on the card), each checked against
+     the CPU path (plain versions, the card's PCA state carried across) at
+     0.5;
   6. a pipeline_depth=3 RetrievalServer over the full-size int8 and f32
      indexes: closed and open loop (beside each open-loop result its tape's
      own rate, ``tape_qps``), replies checked against direct
@@ -48,11 +50,24 @@ Phases, each printing one JSON line:
      with a dense index over the appended rows, and promote/compact/evict
      held bitwise unchanged; (c) a pipeline_depth=3 server over the paged int8
      index, closed loop, then open loop while swap_index installs the
-     append, the compaction and the eviction under a background client.
+     append, the compaction and the eviction under a background client;
+  8. the live path: (a) both full-size indexes wrapped as SegmentedIndex
+     (4,096-row deltas) and grown by 10,000 documents in 64-row
+     IndexUpdater.add_documents blocks (one x9, so an int8 delta widens),
+     8 batches at k = 10 and 1000 held bitwise (f32) to the merge of two
+     dense searches and (int8, mixed scales) to an f32 oracle over the
+     dequantised segments, each delta's top-k against its plain version,
+     a batch timed at 0, 1 and 3 deltas; (b) PagedIndex.from_segmented of
+     both, bitwise equal to the segmented search; (c) an IndexUpdater behind
+     a depth-3 server taking 2,000 rows/s of appends during a closed and an
+     open loop, then compact_async under that traffic: no reply lost,
+     health ok, replies after the last swap equal to the final index, the
+     compacted base bitwise its rebuild; (d) a paged IndexUpdater: appends
+     with a widen, then compact by pointer swaps, against the plain version.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
-phase 4 and read just after phase 6; phase 7 is the paged path, counted the
-same way on its own. Launches made only to compare or time a kernel are not
+phase 4 and read just after phase 6; phases 7 (the paged path) and 8 (the
+live path) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -82,6 +97,14 @@ SERVER_OPEN = 512
 PAGE_ROWS = 256             # the reference's default page size
 WAVE_PAGES = 64             # host-tier pages per streamed wave
 EVICT_PAGES = 2048          # pages moved to pinned host memory in phase 7
+DELTA_CAPACITY = 4096       # rows of a delta segment (the reference's default)
+APPEND_BLOCK = 64           # rows per add_documents (serve.py --live-append)
+LIVE_APPEND = 10_000        # phase 8(a): rows appended to each index
+LIVE_DELTAS = [4096, 4096, 1808]
+WIDEN_AT = 5056             # first row of the x9 block (in the second delta)
+LIVE_RATE = 2000.0          # phase 8(c): rows/s appended under traffic
+PAGED_APPEND = 2048         # phase 8(d): rows appended to the paged updater
+LIVE_DOCS = 32_768          # new documents drawn in phase 4 for phase 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-5                  # tests/test_kernels.py:126
@@ -114,6 +137,21 @@ def cuda_ms(fn, reps=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps=50):
+    """Mean host time for ``fn`` to return, with no synchronise inside the
+    loop: where it comes close to ``cuda_ms`` the call is bound by its host
+    work (the wrapper, the launches), not by the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
 
 class Counters:
@@ -680,6 +718,7 @@ def phase_main_path(counters, rows, n_docs):
         rows["pca_project_n32"] = dict(
             shape=[BATCH, d, m], max_abs_err=p_err, launches_per_call=per_call,
             ms=cuda_ms(lambda: pca_project.pca_project_cuda(q32, Wc), reps=50),
+            enqueue_ms=enqueue_ms(lambda: pca_project.pca_project_cuda(q32, Wc)),
             plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(q32, Wc), reps=50),
             library_ms=cuda_ms(lambda: torch.matmul(q32, Wc), reps=50),
             bound=bound(4 * BATCH * d + 4 * d * m + 4 * BATCH * m, 2 * BATCH * d * m))
@@ -770,42 +809,53 @@ def phase_main_path(counters, rows, n_docs):
             shape=[U, m, BATCH, K], max_abs_err=err, ids_equal=eq, near_ties=near,
             ms=cuda_ms(lambda: topk_score.topk_score_cuda(D_short, qhat, k=K,
                                                           row_ids=short_ids), reps=20),
+            enqueue_ms=enqueue_ms(lambda: topk_score.topk_score_cuda(D_short, qhat, k=K,
+                                                                     row_ids=short_ids)),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D_short, qhat, k=K,
                                                                  row_ids=short_ids), reps=20),
             library_ms=None,
             bound=bound(4 * U * m + 4 * U + 4 * BATCH * m + 8 * BATCH * K,
                         2 * BATCH * U * m))
+    # new documents for the live path (phase 8): perturbed corpus rows
+    pick = torch.randint(0, n_docs, (LIVE_DOCS,), generator=g, device=dev)
+    fresh = D[pick] + 0.5 / DIM ** 0.5 * torch.randn(LIVE_DOCS, DIM, generator=g, device=dev)
+    fresh /= fresh.norm(dim=1, keepdim=True)
     del D, pruned
     torch.cuda.empty_cache()
     emit("main_path_vs_plain", **{k: {kk: vv for kk, vv in v.items()}
                                   for k, v in rows.items()})
-    return index_f32, index_int8, pruner, Qall[SEARCH_BATCHES * BATCH:].cpu().numpy()
+    return (index_f32, index_int8, pruner, Qall[SEARCH_BATCHES * BATCH:].cpu().numpy(),
+            fresh)
 
 
 def phase_protocol(n_docs):
+    """Tables 1 and 2 of the paper on one dataset: W_m fit in domain, and
+    out of domain on the card's OOD corpus of the same encoder (RQ2); each
+    checked at cutoff 0.5 against the CPU path with the card's PCA state
+    carried across."""
     import numpy as np
     import torch
     from repro_torch.convert import pca_state_from_numpy
     from repro_torch.core.index import DenseIndex
     from repro_torch.core.metrics import evaluate_run, wilcoxon_significant
     from repro_torch.core.pruning import StaticPruner
-    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.data.synthetic import make_dataset, ood_corpus_on_device
 
     t0 = time.perf_counter()
     ds = make_dataset("tasb", n_docs=n_docs, d=DIM, seed=0)
     t_data = time.perf_counter() - t0
     metrics = ("nDCG@10", "MRR@10", "AP")
 
-    def run(device, cutoff, state=None):
+    def run(device, cutoff, state=None, fit_on=None):
         D = torch.as_tensor(ds.docs, device=device)
         pruner = None
         if cutoff is not None:
             pruner = StaticPruner(cutoff=cutoff)
             if state is None:
-                pruner.fit(D)
+                pruner.fit(D if fit_on is None else fit_on)
             else:
                 pruner.state = state
-        fitted[cutoff] = pruner
+        fitted[cutoff, fit_on is not None] = pruner
         Dx = pruner.prune_index(D) if pruner else D
         index = DenseIndex.build(Dx)
         out = {}
@@ -819,41 +869,58 @@ def phase_protocol(n_docs):
                 metrics=metrics))
         return out
 
+    def table_of(systems, base):
+        table = {}
+        for c in (0.25, 0.5, 0.75):
+            for qs in ds.queries:
+                for name in metrics:
+                    got = systems[c][qs][2][name]
+                    sig, p = wilcoxon_significant(base[qs][2][name], got)
+                    table[f"{int(c * 100)}%/{qs}/{name}"] = dict(
+                        value=float(got.mean()), baseline=float(base[qs][2][name].mean()),
+                        delta=float(got.mean() - base[qs][2][name].mean()),
+                        significant=sig)
+        return table
+
+    def cpu_check(card, state, what):
+        """The protocol at cutoff 0.5 on the CPU path (plain versions), with
+        the card's fitted PCA carried across: eigenvectors of near-equal
+        eigenvalues are not unique, so two fits may keep different
+        subspaces."""
+        t0 = time.perf_counter()
+        cpu = run("cpu", 0.5, state=pca_state_from_numpy(
+            state.components.cpu().numpy(), state.eigenvalues.cpu().numpy(),
+            state.mean.cpu().numpy(), state.n_samples, state.centered, device="cpu"))
+        worst = {}
+        for qs in ds.queries:
+            s_c, i_c, m_c = cpu[qs]
+            s_g, i_g, m_g = card[qs]
+            compare_topk(s_c[:, :K], torch.as_tensor(i_c[:, :K]),
+                         s_g[:, :K], torch.as_tensor(i_g[:, :K]), f"{what} {qs}")
+            for name in metrics:
+                worst[name] = max(worst.get(name, 0.0),
+                                  float(np.abs(m_c[name] - m_g[name]).max()))
+        return worst, time.perf_counter() - t0
+
     fitted = {}
     t0 = time.perf_counter()
     systems = {c: run("cuda", c) for c in (None, 0.25, 0.5, 0.75)}
     t_card = time.perf_counter() - t0
-    table = {}
-    for c in (0.25, 0.5, 0.75):
-        for qs in ds.queries:
-            for name in metrics:
-                base = systems[None][qs][2][name]
-                got = systems[c][qs][2][name]
-                sig, p = wilcoxon_significant(base, got)
-                table[f"{int(c * 100)}%/{qs}/{name}"] = dict(
-                    value=float(got.mean()), baseline=float(base.mean()),
-                    delta=float(got.mean() - base.mean()), significant=sig)
-    # the same protocol at cutoff 0.5 on the CPU path (plain versions), with
-    # the card's fitted PCA carried across: eigenvectors of near-equal
-    # eigenvalues are not unique, so two fits may keep different subspaces
-    st = fitted[0.5].state
-    t0 = time.perf_counter()
-    cpu = run("cpu", 0.5, state=pca_state_from_numpy(
-        st.components.cpu().numpy(), st.eigenvalues.cpu().numpy(),
-        st.mean.cpu().numpy(), st.n_samples, st.centered, device="cpu"))
-    t_cpu = time.perf_counter() - t0
-    worst = {}
-    for qs in ds.queries:
-        s_c, i_c, m_c = cpu[qs]
-        s_g, i_g, m_g = systems[0.5][qs]
-        compare_topk(s_c[:, :K], torch.as_tensor(i_c[:, :K]),
-                     s_g[:, :K], torch.as_tensor(i_g[:, :K]), f"protocol {qs}")
-        for name in metrics:
-            worst[name] = max(worst.get(name, 0.0),
-                              float(np.abs(m_c[name] - m_g[name]).max()))
+    worst, t_cpu = cpu_check(systems[0.5], fitted[0.5, False].state, "protocol")
     emit("protocol", n_docs=n_docs, d=DIM, depth=PROTOCOL_DEPTH,
          data_s=t_data, card_s=t_card, cpu_check_s=t_cpu,
-         card_vs_cpu_max_metric_diff=worst, table=table)
+         card_vs_cpu_max_metric_diff=worst, table=table_of(systems, systems[None]))
+    # Table 2 (RQ2): W_m fit on an out-of-domain corpus of the same encoder,
+    # drawn on the card, then the in-domain query sets searched
+    t0 = time.perf_counter()
+    ood = ood_corpus_on_device("tasb", n_docs=n_docs, d=DIM, device="cuda")
+    ood_systems = {c: run("cuda", c, fit_on=ood) for c in (0.25, 0.5, 0.75)}
+    t_card = time.perf_counter() - t0
+    del ood
+    worst, t_cpu = cpu_check(ood_systems[0.5], fitted[0.5, True].state, "protocol_ood")
+    emit("protocol_ood", n_docs=n_docs, d=DIM, depth=PROTOCOL_DEPTH, fit_corpus="ood",
+         card_s=t_card, cpu_check_s=t_cpu, card_vs_cpu_max_metric_diff=worst,
+         table=table_of(ood_systems, systems[None]))
 
 
 def tape_qps(n, rate, seed=0):
@@ -1217,6 +1284,369 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
          background_replies=bg["ok"], replies_checked=checked, **out)
 
 
+def wall_ms(fn, reps=10):
+    """Mean host time of ``fn`` (host work and device work both: it ends in
+    a synchronise) over ``reps`` calls after one warmup."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_live(counters, index_f32, index_int8, pruner, Q, fresh, rows):
+    """Phase 8: the live index at full width. (a) both indexes wrapped as
+    SegmentedIndex and grown by 10,000 documents in 64-row add_documents
+    blocks (one x9, so an int8 delta widens), searched at k = 10 and 1000;
+    (b) PagedIndex.from_segmented of both; (c) an IndexUpdater behind a
+    depth-3 server under appends and queries, then compact_async under that
+    traffic; (d) a paged IndexUpdater: appends with a widen, then compact."""
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import IndexUpdater, SegmentedIndex
+    from repro_torch.core.index import DenseIndex, _project_nofold, _topk_merge
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.kernels import pca_project, topk_score
+    from repro_torch.launch.serve import RetrievalServer, _drive, _drive_open, _lat_summary
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    W, mean = pruner.projection()
+    Qs = torch.as_tensor(Q[:SEARCH_BATCHES * BATCH], device=dev)
+    batches = [Qs[i:i + BATCH] for i in range(0, len(Qs), BATCH)]
+    qn = [_project_nofold(b, W, mean).contiguous() for b in batches]
+    n = index_f32.n
+    emit("live_start", allocated_gb=torch.cuda.memory_allocated() / 1e9)
+
+    def block(i, hi=None):
+        """New documents [i, i + 64) of the fresh pool (cut at ``hi``), x9
+        for the block that must widen an int8 scale."""
+        j = i % LIVE_DOCS
+        blk = fresh[j:j + min(APPEND_BLOCK, (hi or i + APPEND_BLOCK) - i)]
+        return blk * 9.0 if i == WIDEN_AT else blk
+
+    def open_scale(idx):
+        if isinstance(idx, SegmentedIndex):
+            return idx.deltas[-1].scale.cpu()
+        return torch.as_tensor(idx.storage.extents[-1].scale)
+
+    def widen_checked(up, i, hi):
+        """add_documents of block i; returns its seconds. Across the x9
+        block an int8 index's open delta must widen its scale."""
+        widen = i == WIDEN_AT and up.index.quantized
+        before = open_scale(up.index) if widen else None
+        t0 = time.perf_counter()
+        up.add_documents(block(i, hi))
+        dt = time.perf_counter() - t0
+        if widen and torch.equal(before, open_scale(up.index)):
+            raise AssertionError("live int8: the x9 block did not widen a scale")
+        return dt
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def f32_rows(index, tails=(), n_rows=None):
+        """One f32 buffer of ``n_rows``: an int8 index dequantised in 2^20-row
+        blocks (an f32 multiply each), then the ``tails`` tensors in order."""
+        n_rows = n_rows or index.n + sum(t.shape[0] for t in tails)
+        out = torch.empty((n_rows, index.dim), device=dev)
+        for i in range(0, index.n, 1 << 20):
+            blk = index.vectors[i:i + (1 << 20)]
+            out[i:i + blk.shape[0]] = blk.float() * index.scale[None, :]
+        pos = index.n
+        for t in tails:
+            take = min(t.shape[0], n_rows - pos)
+            out[pos:pos + take] = t[:take]
+            pos += take
+        return out
+
+    # (a) appends through IndexUpdater.add_documents, searches vs oracles
+    segs, out = {}, {}
+    for name, index in (("f32", index_f32), ("int8", index_int8)):
+        up = IndexUpdater(pruner=pruner, index=index, delta_capacity=DELTA_CAPACITY)
+        t_add, versions = [], {0: up.index}
+        for i in range(0, LIVE_APPEND, APPEND_BLOCK):
+            t_add.append(widen_checked(up, i, LIVE_APPEND))
+            versions.setdefault(len(up.index.deltas), up.index)
+        seg = segs[name] = up.index
+        if [d.n_real for d in seg.deltas] != LIVE_DELTAS:
+            raise AssertionError(f"live {name}: deltas {[d.n_real for d in seg.deltas]}")
+        res = {k: [seg.search_projected(b, W, k=k, mean=mean) for b in batches]
+               for k in (K, 1000)}
+        with counters.uncounted():
+            if name == "f32":
+                # the fixed fmaf order makes the segmented search bitwise the
+                # merge of a dense search of the base and one of the rows
+                extra = DenseIndex(torch.as_tensor(np.concatenate([d.raw for d in seg.deltas]),
+                                                   device=dev))
+                for k, got in res.items():
+                    for b, g in zip(batches, got):
+                        bs, bi = index.search_projected(b, W, k=k, mean=mean)
+                        es, ei = extra.search_projected(b, W, k=k, mean=mean)
+                        if not same(g, _topk_merge(torch.cat([bs, es], 1),
+                                                   torch.cat([bi, ei + n], 1), k)):
+                            raise AssertionError(f"live f32 k={k}: not bitwise the "
+                                                 f"merged dense search")
+                check = dict(bitwise_vs_merged_dense=True)
+                del extra
+            else:
+                # mixed scales: the f32 search over each segment's dequantised rows
+                deq = DenseIndex(f32_rows(index))
+                dq = DenseIndex(torch.cat([d.vectors[:d.n_real].float() * d.scale[None, :]
+                                           for d in seg.deltas]))
+                worst = near = 0
+                for k, got in res.items():
+                    for q, g in zip(qn, got):
+                        bs, bi = deq.search(q, k=k)
+                        es, ei = dq.search(q, k=k)
+                        want = _topk_merge(torch.cat([bs, es], 1),
+                                           torch.cat([bi, ei + n], 1), k)
+                        e, _, nt = compare_topk(*want, *g, f"live int8 k={k} vs f32 oracle")
+                        worst, near = max(worst, e), near + nt
+                check = dict(max_abs_err_vs_f32_oracle=worst, near_ties=near)
+                del deq, dq
+            # each delta's top-k against its plain version
+            for d in seg.deltas:
+                qf = (qn[0] * d.scale[None, :] if d.scale is not None else qn[0]).contiguous()
+                for k in (K, 1000):
+                    compare_topk(*topk_score.topk_score_plain(d.vectors, qf, k=k,
+                                                              n_valid=d.n_real),
+                                 *topk_score.topk_score_cuda(d.vectors, qf, k=k,
+                                                             n_valid=d.n_real),
+                                 f"live {name} delta n_valid={d.n_real} k={k}")
+            # a batch at 0, 1 and 3 deltas against the dense index
+            batch_ms = {f"deltas_{len(v.deltas)}": wall_ms(
+                lambda v=v: v.search_projected(batches[0], W, k=K, mean=mean), reps=20)
+                for nd, v in versions.items() if nd in (0, 1, 3)}
+            batch_ms["dense"] = wall_ms(
+                lambda: index.search_projected(batches[0], W, k=K, mean=mean), reps=20)
+            # the open delta's kernel at its shape (n = 4,096, n_valid below)
+            d = seg.deltas[-1]
+            qf = (qn[0] * d.scale[None, :] if d.scale is not None else qn[0]).contiguous()
+            got = topk_score.topk_score_cuda(d.vectors, qf, k=K, n_valid=d.n_real)
+            err, eq, nt = compare_topk(*topk_score.topk_score_plain(
+                d.vectors, qf, k=K, n_valid=d.n_real), *got, f"live {name} delta row")
+            live_rows = d.vectors[:d.n_real]
+            item = d.vectors.element_size()
+            rows[f"topk_score_delta_{name}"] = dict(
+                shape=[d.capacity, d.dim, BATCH, K], n_valid=d.n_real, store=name,
+                max_abs_err=err, ids_equal=eq, near_ties=nt,
+                ms=cuda_ms(lambda: topk_score.topk_score_cuda(d.vectors, qf, k=K,
+                                                              n_valid=d.n_real), reps=50),
+                enqueue_ms=enqueue_ms(lambda: topk_score.topk_score_cuda(
+                    d.vectors, qf, k=K, n_valid=d.n_real)),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
+                    d.vectors, qf, k=K, n_valid=d.n_real), reps=50),
+                library_ms=cuda_ms(lambda: torch.topk(qf @ live_rows.float().T, K), reps=50),
+                bound=bound(item * d.n_real * d.dim + 4 * BATCH * d.dim + 8 * BATCH * K,
+                            2 * BATCH * d.n_real * d.dim))
+        out[name] = dict(deltas=[d.n_real for d in seg.deltas],
+                         add_documents_ms_median=float(np.median(t_add) * 1e3),
+                         add_documents_ms_p90=float(np.percentile(t_add, 90) * 1e3),
+                         batch_ms=batch_ms, per_delta_ms=(batch_ms["deltas_3"]
+                                                          - batch_ms["deltas_0"]) / 3,
+                         **check)
+        del versions
+    emit("live_segmented", appended=LIVE_APPEND, block=APPEND_BLOCK,
+         delta_capacity=DELTA_CAPACITY, k=[K, 1000], batches=len(batches), **out)
+    # pca_project at the append block's shape
+    with counters.uncounted():
+        Wc = W.contiguous()
+        blk = fresh[:APPEND_BLOCK].contiguous()
+        p1 = pca_project.pca_project_cuda(blk, Wc)
+        p_err = float((p1 - pca_project.pca_project_plain(blk, Wc)).abs().max())
+        if p_err > 1e-4:
+            raise AssertionError(f"pca_project n=64: error {p_err}")
+        d_, m_ = Wc.shape
+        rows["pca_project_n64"] = dict(
+            shape=[APPEND_BLOCK, d_, m_], max_abs_err=p_err,
+            ms=cuda_ms(lambda: pca_project.pca_project_cuda(blk, Wc), reps=50),
+            enqueue_ms=enqueue_ms(lambda: pca_project.pca_project_cuda(blk, Wc)),
+            plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(blk, Wc), reps=50),
+            library_ms=cuda_ms(lambda: torch.matmul(blk, Wc), reps=50),
+            bound=bound(4 * APPEND_BLOCK * d_ + 4 * d_ * m_ + 4 * APPEND_BLOCK * m_,
+                        2 * APPEND_BLOCK * d_ * m_))
+
+    # (b) the live indexes paged, byte for byte
+    for name, seg in segs.items():
+        t0 = time.perf_counter()
+        pg = PagedIndex.from_segmented(seg, page_rows=PAGE_ROWS)
+        torch.cuda.synchronize()
+        t_page = time.perf_counter() - t0
+        for k in (K, 1000):
+            for b in batches:
+                if not same(pg.search_projected(b, W, k=k, mean=mean),
+                            seg.search_projected(b, W, k=k, mean=mean)):
+                    raise AssertionError(f"from_segmented {name} k={k}: not bitwise "
+                                         f"the segmented search")
+        emit("live_from_segmented", index=name, seconds=t_page, pages=pg.total_pages,
+             delta_pages=pg.delta_pages, bitwise_vs_segmented=True)
+        del pg
+    del segs["f32"]
+    torch.cuda.empty_cache()
+
+    # (c) an updater behind a depth-3 server: appends at LIVE_RATE rows/s
+    # during a closed and an open loop, then compact_async under that traffic
+    seg0 = segs.pop("int8")
+    server = RetrievalServer(seg0, pruner, k=K, max_batch=BATCH, pipeline_depth=3)
+    up = IndexUpdater(pruner=pruner, index=seg0, server=server,
+                      delta_capacity=DELTA_CAPACITY)
+    stop_app, stop_bg = threading.Event(), threading.Event()
+    appended, t_add, bg = [], [], dict(ok=0, failed=[])
+
+    def appender():
+        i = LIVE_APPEND
+        while not stop_app.is_set():
+            blk = block(i)
+            t0 = time.perf_counter()
+            up.add_documents(blk)
+            dt = time.perf_counter() - t0
+            appended.append(blk)
+            t_add.append(dt)
+            i += APPEND_BLOCK
+            stop_app.wait(max(0.0, APPEND_BLOCK / LIVE_RATE - dt))
+
+    def background():
+        i = 0
+        while not stop_bg.is_set():
+            try:
+                server.query(Q[i % SERVER_CLOSED], timeout=60.0)
+                bg["ok"] += 1
+            except Exception as e:  # noqa: BLE001 — counted and reported
+                bg["failed"].append(repr(e))
+            i += 1
+
+    def settled(cond, timeout=60.0):
+        t_end = time.perf_counter() + timeout
+        while not cond():
+            if time.perf_counter() > t_end or bg["failed"]:
+                raise AssertionError(f"live server background client: {bg['failed'][:3]}")
+            time.sleep(0.01)
+
+    res_out = {}
+    app = threading.Thread(target=appender, daemon=True)
+    th_bg = threading.Thread(target=background, daemon=True)
+    try:
+        server.warmup()
+        app.start()
+        wall, lat = _drive(server, Q[:SERVER_CLOSED])
+        res_out["closed_loop"] = dict(qps=SERVER_CLOSED / wall, **_lat_summary(lat),
+                                      **server.worker_stats())
+        res = _drive_open(server, Q[SERVER_CLOSED:], rate=2000.0)
+        if res["errors"] or res["n_ok"] != res["n"]:
+            raise AssertionError(f"live server: {res['errors']} errors, "
+                                 f"{res['n_ok']} of {res['n']} replies")
+        res_out["open_loop"] = dict(res, tape_qps=tape_qps(res["n"], 2000.0),
+                                    **server.worker_stats())
+        th_bg.start()
+        settled(lambda: bg["ok"] >= 20)           # traffic flows before the compaction
+        swaps0 = server.swap_count
+        t0 = time.perf_counter()
+        th = up.compact_async()
+        th.join(timeout=300.0)
+        t_compact = time.perf_counter() - t0
+        if th.is_alive():
+            raise AssertionError("live compaction did not finish")
+        ok0 = bg["ok"]
+        settled(lambda: bg["ok"] >= ok0 + 20)     # ... and after its swap
+        stop_app.set()
+        app.join(timeout=60.0)
+        stop_bg.set()
+        th_bg.join(timeout=120.0)
+        if app.is_alive() or th_bg.is_alive() or bg["failed"]:
+            raise AssertionError(f"live server clients: {bg['failed'][:3]}")
+        health = up.health()
+        if server.error is not None or not health["ok"] or up.compactions != 1:
+            raise AssertionError(f"live server: error {server.error!r}, health {health}")
+        final = up.index
+        swaps = server.swap_count
+        # replies after the last swap equal a direct search of the final index
+        tape = Q[SERVER_CLOSED:SERVER_CLOSED + 256]
+        res = _drive_open(server, tape, rate=2000.0, collect=True)
+        if server.swap_count != swaps or res["errors"] or res["n_ok"] != len(tape):
+            raise AssertionError("live server: replies lost or a swap after the last one")
+    finally:
+        stop_app.set()
+        stop_bg.set()
+        server.close()
+    mismatch = off_scores = 0
+    with counters.uncounted():
+        for i in range(0, len(tape), BATCH):
+            s_, ids = final.search_projected(torch.as_tensor(tape[i:i + BATCH], device=dev),
+                                             W, k=K, mean=mean)
+            s_, ids = s_.cpu().numpy(), ids.cpu().numpy()
+            for j, (rs, ri) in enumerate(res["results"][i:i + BATCH]):
+                mismatch += not np.array_equal(ri, ids[j])
+                off_scores += not np.allclose(rs, s_[j], rtol=TOL, atol=TOL)
+        if mismatch or off_scores:
+            raise AssertionError(f"live server: {mismatch} replies' ids and {off_scores} "
+                                 f"replies' scores differ from the final index")
+        # the compacted base, rebuilt once more: the dequantised base, the
+        # deltas' staging and every append pruned again, cut at the base's n
+        nb = final.base.n
+        tails = [torch.as_tensor(d.raw, device=dev) for d in seg0.deltas]
+        tails += [pruner.prune_index(b) for b in appended]
+        want = DenseIndex.build(f32_rows(index_int8, tails, nb), quantize_int8=True)
+        if not (torch.equal(want.vectors, final.base.vectors)
+                and torch.equal(want.scale, final.base.scale)):
+            raise AssertionError("live compaction: the base is not bitwise its rebuild")
+        if final.n != n + LIVE_APPEND + sum(b.shape[0] for b in appended):
+            raise AssertionError(f"live server: {final.n} rows after the appends")
+        del want
+    emit("live_server", index="int8", pipeline_depth=3, batch=BATCH, k=K,
+         append_rate=LIVE_RATE, appended_rows=up.appended_rows, swaps=swaps,
+         swaps_during_compaction=swaps - swaps0,
+         add_documents_ms_median=float(np.median(t_add) * 1e3),
+         add_documents_ms_p90=float(np.percentile(t_add, 90) * 1e3),
+         compact_s=t_compact, last_compaction=up.last_compaction,
+         deltas_after=[d.n_real for d in final.deltas], background_replies=bg["ok"],
+         replies_checked=len(tape), compacted_base_bitwise_rebuild=True,
+         health_ok=health["ok"], **res_out)
+    del server, up, final, seg0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) a paged updater over the same base: appends (one widens), then
+    # compact by pointer swaps; each step against the plain version
+    pg = PagedIndex.from_index(index_int8, page_rows=PAGE_ROWS, seal_rows=DELTA_CAPACITY,
+                               depth=3, wave_pages=WAVE_PAGES)
+    up = IndexUpdater(pruner=pruner, index=pg, delta_capacity=DELTA_CAPACITY)
+    t_add, steps = [], {}
+
+    def check(step):
+        got = up.index.search_projected(batches[0], W, k=K, mean=mean)
+        with counters.uncounted():
+            want = plain_search(up.index, qn[0], K)
+        err, eq, nt = compare_topk(*want, *got, f"live paged {step}")
+        steps[step] = dict(max_abs_err=err, ids_equal=eq, near_ties=nt,
+                           delta_pages=up.index.delta_pages)
+        return got
+
+    for i in range(WIDEN_AT - PAGED_APPEND // 2, WIDEN_AT + PAGED_APPEND // 2, APPEND_BLOCK):
+        t_add.append(widen_checked(up, i, None))
+    ref = check("appended")
+    t0 = time.perf_counter()
+    up.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    got = check("compacted")
+    if not same(got, ref):
+        raise AssertionError("live paged: compact changed the results")
+    emit("live_paged", appended=PAGED_APPEND, block=APPEND_BLOCK,
+         add_documents_ms_median=float(np.median(t_add) * 1e3),
+         add_documents_ms_p90=float(np.percentile(t_add, 90) * 1e3),
+         compact_s=t_compact, last_compaction=up.last_compaction, steps=steps,
+         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del up, pg
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -1239,7 +1669,7 @@ def main():
     rows = {}
     counters.zero()
     t0 = time.perf_counter()
-    index_f32, index_int8, pruner, Q = phase_main_path(counters, rows, args.n_docs)
+    index_f32, index_int8, pruner, Q, fresh = phase_main_path(counters, rows, args.n_docs)
     phase_protocol(args.protocol_docs)
     phase_server(counters, index_f32, index_int8, pruner, Q)
     torch.cuda.synchronize()
@@ -1262,6 +1692,19 @@ def main():
                if paged_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the paged path: {missing}")
+    # the live path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_live(counters, index_f32, index_int8, pruner, Q, fresh, rows)
+    torch.cuda.synchronize()
+    live_launches = counters.read()
+    emit("live_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in live_launches.items() if v})
+    on_live = ("pca_project", "topk_score_f32", "topk_score_int8", "topk_score_f32_n_valid",
+               "topk_score_int8_n_valid", "topk_score_paged_f32", "topk_score_paged_int8")
+    missing = [k for k in on_live if live_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the live path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches):
         """counter None: a row timed at a shape of its own, whose launches
@@ -1285,7 +1728,8 @@ def main():
                                 "plain_f32_rel_err_vs_f64", "rel_err_vs_plain_f32",
                                 "frac_differ", "matmul_topk_ms", "dense_ms",
                                 "cuda_launches_per_call", "page_rows", "pages",
-                                "ranges", "range_sum_bitwise")})
+                                "ranges", "range_sum_bitwise", "n_valid",
+                                "enqueue_ms")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -1326,6 +1770,14 @@ def main():
               paged_launches),
         *[entry(f"topk_score_paged_{st}_k{kk}", rows[f"topk_score_paged_{st}_k{kk}"],
                 topk[1], paged, None) for st in ("f32", "int8") for kk in (2000, 10000)],
+        # the live path (phase 8): a delta segment's search over its 4,096-row
+        # buffer with n_valid below it (launches: every masked dense call of
+        # phase 8, k = 10 and 1000), and the 64-row projection of
+        # add_documents (launches: every pca_project call of phase 8)
+        *[entry(f"topk_score_delta_{st}", rows[f"topk_score_delta_{st}"], topk[1], topk[0],
+                f"topk_score_{st}_n_valid", live_launches) for st in ("f32", "int8")],
+        entry("pca_project_n64", rows["pca_project_n64"], csrc + "pca_project.cu",
+              "src/repro/kernels/pca_project.py:56", "pca_project", live_launches),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

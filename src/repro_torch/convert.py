@@ -43,7 +43,8 @@ def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,
     (P, R, m) and ``tail`` (T, R, m) f32 or int8, ``host_pages`` slot ->
     (R, m) page, the page table and its metadata, and ``extents`` as
     sequences of (kind, sealed, start_slot, n_pages, n_rows, row_offset,
-    scale, raw). The metadata arrays are copied."""
+    scale, raw). The metadata arrays are copied; each page's scale row in
+    ``page_scale`` must be its extent's scale, as the reference keeps it."""
     pool_t = as_tensor(np.ascontiguousarray(pool), device)
     dev = pool_t.device
 
@@ -51,7 +52,6 @@ def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,
         t = torch.from_numpy(np.array(a, copy=True))
         return t.pin_memory() if dev.type == "cuda" else t
 
-    tail_host = torch.from_numpy(np.array(tail, copy=True))
     pt = np.array(page_table, np.int32)
     nv = np.array(page_nvalid, np.int32)
     off = np.array(page_offset, np.int32)
@@ -61,13 +61,12 @@ def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,
                             None if e[7] is None else np.array(e[7], np.float32))
                  for e in extents)
     st = PagedIndexStorage(
-        pool=pool_t, tail=tail_host.to(dev, copy=True),
+        pool=pool_t, tail=torch.tensor(np.ascontiguousarray(tail), device=dev),
         page_table=torch.tensor(pt, device=dev),
         page_scale=None if sc is None else torch.tensor(sc, device=dev),
         page_nvalid=torch.tensor(nv, device=dev),
         page_offset=torch.tensor(off, device=dev),
-        pt_host=pt, nvalid_host=nv, offset_host=off, scale_host=sc,
-        tail_host=tail_host,
+        pt_host=pt, nvalid_host=nv, offset_host=off,
         host_pages={int(s): host(p) for s, p in host_pages.items()},
         extents=exts, free_pool=tuple(int(x) for x in free_pool),
         free_tail=tuple(int(x) for x in free_tail), page_rows=int(page_rows),

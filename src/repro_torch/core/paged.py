@@ -1,5 +1,5 @@
-"""Paged index memory over a dense base (port of ``repro/core/paged.py``
-without the segmented, store and cascade parts).
+"""Paged index memory over a dense or segmented base (port of
+``repro/core/paged.py`` without the store and cascade parts).
 
 ``PagedIndexStorage`` keeps an index's rows in fixed ``page_rows``-row
 pages behind an int32 page table:
@@ -20,16 +20,20 @@ the highest pool pages to the host tier.
 Copy-on-write: every step returns a new storage whose changed parts are new
 tensors (a new tail per append, a new pool per compaction, new metadata);
 nothing an in-flight search of an older storage reads is written in place,
-so a server may swap a new index in under traffic. Device copies are made
-on the current stream, which is then synchronised before the new storage is
+so a server may swap a new index in under traffic. A step pushes only what
+it changed: each new device table is a device-side copy of the old one
+with the touched slots scattered in, and a new tail is a copy of the old
+one with the written rows scattered in. Device copies are made on the
+current stream, which is then synchronised before the new storage is
 returned, so a search launched from any thread sees them complete.
 
 A search walks slot runs in ascending order: device runs go straight to
 ``ops.topk_score_paged`` over the pool and tail, host runs stream in waves
 of ``wave_pages`` pages chained through the top-k carry. Results follow the
 (score desc, id asc) order, so they do not depend on where a page lives:
-promote, compact and evict leave them unchanged. Waiting on later items:
-``from_segmented``, ``load`` / ``save`` and the cascade's ``rescore``.
+promote, compact and evict leave them unchanged. ``from_segmented`` pages a
+live ``SegmentedIndex`` byte for byte, each delta becoming a delta extent.
+Waiting on later items: ``load`` / ``save`` and the cascade's ``rescore``.
 """
 from __future__ import annotations
 
@@ -39,7 +43,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import DenseIndex, _project_nofold
+from repro_torch.core.index import DenseIndex, SegmentedIndex, _project_nofold
 from repro_torch.core.quantization import quantize_with_scale, scale_for
 from repro_torch.kernels import ops
 from repro_torch.util import as_tensor
@@ -48,8 +52,8 @@ from repro_torch.util import as_tensor
 class PageExtent(NamedTuple):
     """One logical row range: ``n_rows`` rows in ``n_pages`` contiguous
     slots from ``start_slot``; global ids ``[row_offset, row_offset +
-    n_rows)``. ``scale`` is the extent's int8 dequant scale (copied into
-    the per-page scale rows); ``raw`` is the exact f32 staging kept while a
+    n_rows)``. ``scale`` is the extent's int8 dequant scale (the scale row
+    of each of its pages); ``raw`` is the exact f32 staging kept while a
     delta extent is open (requantised from when an append widens the
     scale)."""
 
@@ -100,19 +104,36 @@ def _paged_topk(pool, tail, pt, scale, nv, off, lo: int, hi: int, Q, *,
                                 finalize=finalize)
 
 
+def _patched(t: torch.Tensor, cap: int, fill, slots: list, values: np.ndarray
+             ) -> torch.Tensor:
+    """A new device table of ``cap`` rows: ``t`` (grown with ``fill``) with
+    ``values`` scattered into rows ``slots``. ``t`` itself is returned when
+    nothing changed, and is never written."""
+    if not slots and cap == t.shape[0]:
+        return t
+    if cap > t.shape[0]:
+        t = torch.cat([t, t.new_full((cap - t.shape[0], *t.shape[1:]), fill)])
+    else:
+        t = t.clone()
+    if slots:
+        idx = torch.tensor(slots, dtype=torch.long).to(t.device)
+        t[idx] = torch.from_numpy(np.ascontiguousarray(values)).to(t.device)
+    return t
+
+
 class _Mut:
-    """Scratch copy-on-write view of a storage: every mutation edits private
-    copies, then ``freeze`` pushes the metadata (and a changed tail) to the
-    device as new tensors."""
+    """Scratch copy-on-write view of a storage: a mutation edits private
+    copies of the host metadata and records the slots it touched and the
+    tail rows it wrote; ``freeze`` pushes just those to new device tensors
+    (``_patched``)."""
 
     def __init__(self, st: "PagedIndexStorage"):
         self.st = st
         self.pt = st.pt_host.copy()
         self.nv = st.nvalid_host.copy()
         self.off = st.offset_host.copy()
-        self.sc = None if st.scale_host is None else st.scale_host.copy()
-        self.tail_host = st.tail_host
-        self._tail_copied = False
+        self.touched: set[int] = set()
+        self.tail_writes: list = []        # (first flat tail row, host rows)
         self.host_pages = dict(st.host_pages)
         self.extents = list(st.extents)
         self.free_pool = list(st.free_pool)
@@ -121,12 +142,6 @@ class _Mut:
     @property
     def R(self) -> int:
         return self.st.page_rows
-
-    def _tail(self) -> torch.Tensor:
-        if not self._tail_copied:
-            self.tail_host = self.tail_host.clone()
-            self._tail_copied = True
-        return self.tail_host
 
     def ensure_slots(self, n_needed: int) -> None:
         cap = self.pt.shape[0]
@@ -139,19 +154,19 @@ class _Mut:
         self.pt = np.concatenate([self.pt, np.full(grow, -1, np.int32)])
         self.nv = np.concatenate([self.nv, np.zeros(grow, np.int32)])
         self.off = np.concatenate([self.off, np.zeros(grow, np.int32)])
-        if self.sc is not None:
-            self.sc = np.concatenate(
-                [self.sc, np.zeros((grow, self.sc.shape[1]), np.float32)])
+
+    def set_page(self, slot: int, phys: int) -> None:
+        self.pt[slot] = phys
+        self.touched.add(slot)
 
     def alloc_page(self, slot: int, offset: int) -> None:
         """Back a fresh logical slot: the tail while arena pages remain,
         then the host tier (an append never fails)."""
         self.ensure_slots(slot + 1)
         if self.free_tail:
-            local = self.free_tail.pop(0)
-            self.pt[slot] = self.st.pool_pages + local
+            self.set_page(slot, self.st.pool_pages + self.free_tail.pop(0))
         else:
-            self.pt[slot] = -1
+            self.set_page(slot, -1)
             self.host_pages[slot] = _host_zeros(
                 (self.R, self.st.dim), self.st.dtype, self.st.device)
         self.nv[slot] = 0
@@ -164,7 +179,7 @@ class _Mut:
             local = phys - self.st.pool_pages
             if local < 0:
                 raise AssertionError("writes only target tail/host pages")
-            self._tail()[local, row0:row0 + rows.shape[0]] = rows
+            self.tail_writes.append((local * self.R + row0, rows))
         else:
             page = _host_zeros((self.R, self.st.dim), self.st.dtype,
                                self.st.device)
@@ -172,30 +187,45 @@ class _Mut:
             page[row0:row0 + rows.shape[0]] = rows
             self.host_pages[slot] = page
         self.nv[slot] = max(int(self.nv[slot]), row0 + rows.shape[0])
+        self.touched.add(slot)
 
-    def set_scale(self, slot: int, scale: np.ndarray) -> None:
-        if self.sc is not None:
-            self.sc[slot] = scale
+    def _scale_rows(self, slots: list) -> np.ndarray:
+        """Each slot's scale row: the scale of the extent that holds it."""
+        out = np.zeros((len(slots), self.st.dim), np.float32)
+        for i, s in enumerate(slots):
+            for e in self.extents:
+                if e.start_slot <= s < e.start_slot + e.n_pages:
+                    out[i] = e.scale
+                    break
+        return out
 
     def freeze(self, pool: torch.Tensor | None = None) -> "PagedIndexStorage":
-        dev = self.st.device
-        tail_dev = (self.tail_host.to(dev, copy=True) if self._tail_copied
-                    else self.st.tail)
-        st = dataclasses.replace(
-            self.st,
-            pool=self.st.pool if pool is None else pool,
-            tail=tail_dev,
-            page_table=_to_device(self.pt, dev),
-            page_scale=None if self.sc is None else _to_device(self.sc, dev),
-            page_nvalid=_to_device(self.nv, dev),
-            page_offset=_to_device(self.off, dev),
+        st = self.st
+        dev = st.device
+        slots = sorted(self.touched)
+        cap = self.pt.shape[0]
+        tail = st.tail
+        if self.tail_writes:
+            flat = np.concatenate([np.arange(r0, r0 + rows.shape[0])
+                                   for r0, rows in self.tail_writes])
+            rows = torch.cat([rows for _, rows in self.tail_writes])
+            tail = tail.clone()
+            tail.view(-1, st.dim)[torch.from_numpy(flat).to(dev)] = rows.to(dev)
+        new = dataclasses.replace(
+            st,
+            pool=st.pool if pool is None else pool,
+            tail=tail,
+            page_table=_patched(st.page_table, cap, -1, slots, self.pt[slots]),
+            page_scale=(None if st.page_scale is None else
+                        _patched(st.page_scale, cap, 0, slots, self._scale_rows(slots))),
+            page_nvalid=_patched(st.page_nvalid, cap, 0, slots, self.nv[slots]),
+            page_offset=_patched(st.page_offset, cap, 0, slots, self.off[slots]),
             pt_host=self.pt, nvalid_host=self.nv, offset_host=self.off,
-            scale_host=self.sc, tail_host=self.tail_host,
             host_pages=self.host_pages, extents=tuple(self.extents),
             free_pool=tuple(self.free_pool), free_tail=tuple(self.free_tail))
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
-        return st
+        return new
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -203,9 +233,11 @@ class PagedIndexStorage:
     """Two device page tiers and a host tier behind one page table.
 
     Immutable: every mutation returns a new storage sharing the untouched
-    tensors. The ``*_host`` numpy mirrors of the metadata are
-    authoritative; the device copies are pushed whole per mutation (small
-    for metadata, O(tail) for the write arena). ``tail_host`` and the host
+    tensors. The ``*_host`` numpy mirrors of the table, row counts and
+    offsets are authoritative; a mutation pushes the slots it touched to
+    device copies of the old tables, and the rows it wrote to a device copy
+    of the old tail. A page's scale row is its extent's scale
+    (``scale_host`` derives the host view from the extents). The host
     pages are CPU tensors in the storage dtype.
     """
 
@@ -218,8 +250,6 @@ class PagedIndexStorage:
     pt_host: np.ndarray
     nvalid_host: np.ndarray
     offset_host: np.ndarray
-    scale_host: np.ndarray | None
-    tail_host: torch.Tensor            # host copy of the write arena
     host_pages: dict                   # slot -> (R, m) host page
     extents: tuple
     free_pool: tuple
@@ -246,7 +276,17 @@ class PagedIndexStorage:
 
     @property
     def quantized(self) -> bool:
-        return self.scale_host is not None
+        return self.page_scale is not None
+
+    @property
+    def scale_host(self) -> np.ndarray | None:
+        """Host view of ``page_scale``: each extent's scale on its slots."""
+        if self.page_scale is None:
+            return None
+        sc = np.zeros((self.pt_host.shape[0], self.dim), np.float32)
+        for e in self.extents:
+            sc[e.start_slot:e.start_slot + e.n_pages] = e.scale
+        return sc
 
     @property
     def n_slots(self) -> int:
@@ -289,14 +329,18 @@ class PagedIndexStorage:
         count oversubscribes: the overflow suffix lives on the host tier.
         The tail arena holds two sealed extents' pages and the table has
         room for twice the pages, as the reference's defaults size them."""
-        R = page_rows
+        return cls._paged(base, page_rows, pool_pages, seal_rows,
+                          max(2 * (-(-seal_rows // page_rows)), 2))
+
+    @classmethod
+    def _paged(cls, base: DenseIndex, R: int, pool_pages: int | None,
+               seal_rows: int, tail_pages: int) -> "PagedIndexStorage":
         vec = base.vectors
         dev = vec.device
         scale = (None if base.scale is None
                  else base.scale.float().cpu().numpy())
         n, m = vec.shape
         npages = -(-n // R) if n else 0
-        tail_pages = max(2 * (-(-seal_rows // R)), 2)
         if pool_pages is None:
             pool_pages = npages + max(tail_pages, 8)
         pool_pages = max(pool_pages, 1)
@@ -322,22 +366,61 @@ class PagedIndexStorage:
             block = _host_zeros((npages - res, R, m), vec.dtype, dev)
             block.view(-1, m)[:n - rows_res].copy_(vec[rows_res:])
             host_pages = {res + i: block[i] for i in range(npages - res)}
-        tail_host = torch.zeros((tail_pages, R, m), dtype=vec.dtype)
         extents = ((PageExtent("base", True, 0, npages, n, 0, scale, None),)
                    if n else ())
         st = cls(
-            pool=pool, tail=tail_host.to(dev, copy=True),
+            pool=pool, tail=torch.zeros((tail_pages, R, m), dtype=vec.dtype, device=dev),
             page_table=_to_device(pt, dev),
             page_scale=None if sc is None else _to_device(sc, dev),
             page_nvalid=_to_device(nv, dev), page_offset=_to_device(off, dev),
-            pt_host=pt, nvalid_host=nv, offset_host=off, scale_host=sc,
-            tail_host=tail_host, host_pages=host_pages, extents=extents,
+            pt_host=pt, nvalid_host=nv, offset_host=off,
+            host_pages=host_pages, extents=extents,
             free_pool=tuple(range(res, pool_pages)),
             free_tail=tuple(range(tail_pages)), page_rows=R,
             seal_rows=seal_rows)
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         return st
+
+    @classmethod
+    def from_segmented(cls, seg: SegmentedIndex, *, page_rows: int = 256,
+                       pool_pages: int | None = None) -> "PagedIndexStorage":
+        """Page a live segmented index byte for byte: the base into the
+        pool, each delta into a delta extent in the tail with its own scale
+        (and its exact f32 staging while it is open). ``seal_rows`` adopts
+        the delta capacity, so later appends evolve the scales as the
+        segmented index would have. The tail holds the adopted deltas'
+        pages plus one open extent's, and at least two extents' (the
+        reference's sizing)."""
+        R = page_rows
+        per_delta = -(-seg.delta_capacity // R)
+        need_tail = sum(-(-d.capacity // R) for d in seg.deltas)
+        st = cls._paged(seg.base, R, pool_pages, seg.delta_capacity,
+                        max(2 * per_delta, need_tail + per_delta, 2))
+        for d in seg.deltas:
+            sealed = d.n_real >= d.capacity
+            st = st._adopt_extent(
+                d.vectors[:d.n_real].cpu(),
+                None if d.scale is None else d.scale.float().cpu().numpy(),
+                raw=None if sealed else d.raw, sealed=sealed)
+        return st
+
+    def _adopt_extent(self, stored: torch.Tensor, scale: np.ndarray | None, *,
+                      raw: np.ndarray | None, sealed: bool) -> "PagedIndexStorage":
+        """Append a whole pre-quantised extent (a segmented delta)."""
+        mut = _Mut(self)
+        R = self.page_rows
+        start_slot = self.n_slots
+        row_offset = self.n_rows
+        n = stored.shape[0]
+        npages = -(-n // R) if n else 0
+        for pi in range(npages):
+            slot = start_slot + pi
+            mut.alloc_page(slot, row_offset + pi * R)
+            mut.write_rows(slot, 0, stored[pi * R:(pi + 1) * R])
+        mut.extents.append(PageExtent("delta", sealed, start_slot, npages,
+                                      n, row_offset, scale, raw))
+        return mut.freeze()
 
     # -- growth (copy-on-write) ---------------------------------------------
     def append_with_ops(self, rows) -> tuple["PagedIndexStorage", list]:
@@ -418,8 +501,6 @@ class PagedIndexStorage:
             slot = start_slot + pi
             mut.alloc_page(slot, row_offset + pi * R)
             mut.write_rows(slot, 0, stored[pi * R:(pi + 1) * R])
-            if scale is not None:
-                mut.set_scale(slot, scale)
         sealed = n >= self.seal_rows
         mut.extents.append(PageExtent(
             "delta", sealed, start_slot, npages, n, row_offset, scale,
@@ -438,8 +519,6 @@ class PagedIndexStorage:
             slot = ext.start_slot + pi
             if pi >= n_pages:              # grow the (last) open extent
                 mut.alloc_page(slot, ext.row_offset + pi * R)
-                if ext.scale is not None:
-                    mut.set_scale(slot, ext.scale)
                 n_pages = pi + 1
             in_page = r - pi * R
             chunk = min(stored.shape[0] - pos, R - in_page)
@@ -468,7 +547,6 @@ class PagedIndexStorage:
             if pi >= ext.n_pages:
                 mut.alloc_page(slot, ext.row_offset + pi * R)
             mut.write_rows(slot, 0, stored_all[pi * R:(pi + 1) * R])
-            mut.set_scale(slot, scale)
         sealed = n >= self.seal_rows
         mut.extents[ei] = ext._replace(
             n_pages=npages, n_rows=n, sealed=sealed, scale=scale,
@@ -509,7 +587,7 @@ class PagedIndexStorage:
                 if phys >= self.pool_pages and mut.free_pool:
                     dst = mut.free_pool.pop(0)
                     sel[dst] = phys - self.pool_pages
-                    mut.pt[slot] = dst
+                    mut.set_page(slot, dst)
                     mut.free_tail.append(phys - self.pool_pages)
                     moved += 1
         pool = (_pool_drain(self.pool, self.tail, _to_device(sel, self.device))
@@ -534,7 +612,7 @@ class PagedIndexStorage:
             for i, slot in enumerate(cands):
                 mut.host_pages[slot] = block[i]
                 mut.free_pool.append(phys[i])
-                mut.pt[slot] = -1
+                mut.set_page(slot, -1)
         return mut.freeze(), len(cands)
 
 
@@ -591,6 +669,14 @@ class PagedIndex:
         st = PagedIndexStorage.from_index(
             base, page_rows=page_rows, pool_pages=pool_pages,
             seal_rows=seal_rows)
+        return cls(storage=st, depth=depth, wave_pages=wave_pages)
+
+    @classmethod
+    def from_segmented(cls, seg: SegmentedIndex, *, page_rows: int = 256,
+                       pool_pages: int | None = None, depth: int = 2,
+                       wave_pages: int = 8) -> "PagedIndex":
+        st = PagedIndexStorage.from_segmented(seg, page_rows=page_rows,
+                                              pool_pages=pool_pages)
         return cls(storage=st, depth=depth, wave_pages=wave_pages)
 
     # -- growth --------------------------------------------------------------

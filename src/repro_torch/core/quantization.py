@@ -45,3 +45,10 @@ def quantize_int8_per_dim(X: torch.Tensor, *, block_rows: int = 1 << 20
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[None, :]
+
+
+def quantization_error(X: torch.Tensor) -> torch.Tensor:
+    """Relative Frobenius reconstruction error of the int8 round trip."""
+    q, s = quantize_int8_per_dim(X)
+    err = dequantize_int8(q, s) - X.float()
+    return torch.linalg.norm(err) / torch.clamp_min(torch.linalg.norm(X.float()), 1e-12)

@@ -4,7 +4,8 @@ A numpy copy of ``repro/data/synthetic.py``: the same seeds give the same
 arrays, so tests can hand one dataset to both packages. ``corpus_on_device``
 draws a corpus from the same model with a ``torch.Generator`` on the card,
 for sizes the host should not build (its numbers differ from
-``make_corpus``'s).
+``make_corpus``'s); ``ood_corpus_on_device`` does the same for
+``make_ood_corpus``, in ``make_corpus``'s encoder space.
 
 Stand-in for MS MARCO + {ANCE, TAS-B, Contriever} embeddings (unavailable
 offline). Generative model:
@@ -80,6 +81,25 @@ def _normalize(X: np.ndarray) -> np.ndarray:
     return X / np.linalg.norm(X, axis=1, keepdims=True).clip(1e-9)
 
 
+def _encoder_space(encoder: str, d: int, seed: int
+                   ) -> tuple[np.ndarray, np.ndarray, np.random.Generator]:
+    """The encoder's spectrum ``lam`` and basis ``F`` (keyed by ``encoder``
+    + ``seed``), and the generator that drew them."""
+    enc_rng = np.random.default_rng(seed * 1_000_003 + abs(hash(encoder)) % (2**31))
+    lam = np.arange(1, d + 1, dtype=np.float64) ** (-ENCODER_PROFILES[encoder]["alpha"])
+    lam /= lam.sum()
+    return lam, _orthonormal(d, d, enc_rng), enc_rng
+
+
+def _domain(lam: np.ndarray, domain_seed: int
+            ) -> tuple[np.random.Generator, np.ndarray]:
+    """A domain's generator and its tilted spectrum: a smooth random factor
+    re-weights the latent directions."""
+    data_rng = np.random.default_rng(domain_seed * 9_000_011 + 5)
+    lam_dom = lam * np.exp(0.5 * data_rng.standard_normal(lam.shape[0]))
+    return data_rng, lam_dom / lam_dom.sum()
+
+
 def make_corpus(encoder: str = "tasb", *, n_docs: int = 20000, d: int = 768,
                 seed: int = 0, domain_seed: int | None = None
                 ) -> tuple[np.ndarray, dict]:
@@ -93,19 +113,12 @@ def make_corpus(encoder: str = "tasb", *, n_docs: int = 20000, d: int = 768,
     PCA transfer (RQ2) meaningful.
     """
     prof = ENCODER_PROFILES[encoder]
-    enc_rng = np.random.default_rng(seed * 1_000_003 + abs(hash(encoder)) % (2**31))
-    lam = np.arange(1, d + 1, dtype=np.float64) ** (-prof["alpha"])
-    lam /= lam.sum()
-    F = _orthonormal(d, d, enc_rng)
+    lam, F, enc_rng = _encoder_space(encoder, d, seed)
     if domain_seed is None:
         data_rng = enc_rng
         lam_dom = lam
     else:
-        data_rng = np.random.default_rng(domain_seed * 9_000_011 + 5)
-        # domain tilt: re-weight latent directions by a smooth random factor
-        tilt = np.exp(0.5 * data_rng.standard_normal(d))
-        lam_dom = lam * tilt
-        lam_dom /= lam_dom.sum()
+        data_rng, lam_dom = _domain(lam, domain_seed)
     Z = data_rng.standard_normal((n_docs, d)) * np.sqrt(lam_dom)[None, :]
     noise = prof["sigma"] * data_rng.standard_normal((n_docs, d)) / np.sqrt(d)
     D = _normalize(Z @ F.T + noise)
@@ -180,6 +193,29 @@ def make_dataset(encoder: str = "tasb", *, n_docs: int = 20000, d: int = 768,
                             encoder=encoder, d=d)
 
 
+def make_ood_corpus(base_encoder: str, *, n_docs: int = 20000, d: int = 768,
+                    seed: int = 0, domain_seed: int = 1234) -> np.ndarray:
+    """A different-domain corpus from the SAME encoder (paper RQ2 setting):
+    same embedding space, different document distribution."""
+    D, _ = make_corpus(base_encoder, n_docs=n_docs, d=d, seed=seed,
+                       domain_seed=domain_seed)
+    return D
+
+
+def _draw_rows(basis: torch.Tensor, noise: float, n_docs: int,
+               g: torch.Generator, chunk_rows: int) -> torch.Tensor:
+    """L2-normalised rows ``xi @ basis + noise * eps`` drawn from ``g`` on
+    the basis's device, ``chunk_rows`` at a time into one output."""
+    dev, d = basis.device, basis.shape[1]
+    out = torch.empty((n_docs, d), dtype=torch.float32, device=dev)
+    for i in range(0, n_docs, chunk_rows):
+        r = min(chunk_rows, n_docs - i)
+        x = torch.randn(r, basis.shape[0], generator=g, device=dev) @ basis
+        x += noise * torch.randn(r, d, generator=g, device=dev)
+        out[i:i + r] = x / x.norm(dim=1, keepdim=True).clamp_min(1e-9)
+    return out
+
+
 def corpus_on_device(encoder: str = "tasb", *, n_docs: int, d: int = 768,
                      seed: int = 0, device: str | torch.device | None = None,
                      chunk_rows: int = 1 << 20) -> torch.Tensor:
@@ -200,11 +236,25 @@ def corpus_on_device(encoder: str = "tasb", *, n_docs: int, d: int = 768,
                                        dtype=torch.float64))
     # z F^T with z = xi * sqrt(lambda)  ==  xi (diag(sqrt(lambda)) F^T)
     basis = (lam.sqrt()[:, None] * F.T).float()
-    noise = prof["sigma"] / float(np.sqrt(d))
-    out = torch.empty((n_docs, d), dtype=torch.float32, device=dev)
-    for i in range(0, n_docs, chunk_rows):
-        r = min(chunk_rows, n_docs - i)
-        x = torch.randn(r, d, generator=g, device=dev) @ basis
-        x += noise * torch.randn(r, d, generator=g, device=dev)
-        out[i:i + r] = x / x.norm(dim=1, keepdim=True).clamp_min(1e-9)
-    return out
+    return _draw_rows(basis, prof["sigma"] / float(np.sqrt(d)), n_docs, g,
+                      chunk_rows)
+
+
+def ood_corpus_on_device(base_encoder: str, *, n_docs: int, d: int = 768,
+                         seed: int = 0, domain_seed: int = 1234,
+                         device: str | torch.device | None = None,
+                         chunk_rows: int = 1 << 20) -> torch.Tensor:
+    """``make_ood_corpus``'s counterpart drawn on ``device`` (default: the
+    card): the same encoder space (``make_corpus``'s basis F and spectrum
+    for ``base_encoder`` and ``seed``) and the same domain tilt, so it
+    pairs with ``make_dataset``'s in-domain corpus as the paper's RQ2
+    setting needs. Only the rows are drawn on the device, from a
+    ``torch.Generator`` seeded with ``domain_seed``, so their numbers
+    differ from ``make_ood_corpus``'s."""
+    dev = default_device(device)
+    lam, F, _ = _encoder_space(base_encoder, d, seed)
+    _, lam_dom = _domain(lam, domain_seed)
+    basis = torch.as_tensor(np.sqrt(lam_dom)[:, None] * F.T, device=dev).float()
+    g = torch.Generator(device=dev).manual_seed(domain_seed)
+    return _draw_rows(basis, ENCODER_PROFILES[base_encoder]["sigma"] / float(np.sqrt(d)),
+                      n_docs, g, chunk_rows)

@@ -115,8 +115,10 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     the chunk kernel once, then for k <= 32 the merge kernel once per
     level, else the select's kernels. ``launches`` counts calls and
     ``cuda_launches`` the CUDA launches the C side reports, both keyed by
-    mode: the storage dtype in plain mode, else ``"row_ids"``; a call with
-    k > 32 also counts in ``topk_select_cuda.launches`` under its mode.
+    mode: the storage dtype in plain mode (``<dtype>_n_valid`` when
+    ``n_valid`` masks rows, as a live delta segment's search does), else
+    ``"row_ids"``; a call with k > 32 also counts in
+    ``topk_select_cuda.launches`` under its mode.
     """
     tensors = [D, Q] + ([] if row_ids is None else [row_ids])
     if D.device.type != "cuda" or any(t.device != D.device for t in tensors):
@@ -160,7 +162,8 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
 
     with torch.cuda.device(D.device):
         launched = _call_groups(B, lambda b: topk_plan(n, k, b)[0], call, D.device)
-    mode = "row_ids" if row_ids is not None else _STORE[D.dtype]
+    mode = ("row_ids" if row_ids is not None
+            else _STORE[D.dtype] + ("_n_valid" if nv < n else ""))
     topk_score_cuda.launches[mode] += 1
     topk_score_cuda.cuda_launches[mode] += launched
     if select:
@@ -168,8 +171,10 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     return out_s, out_i
 
 
-topk_score_cuda.launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
-topk_score_cuda.cuda_launches = dict.fromkeys(("f32", "bf16", "int8", "row_ids"), 0)
+_DENSE_MODES = ("f32", "bf16", "int8", "f32_n_valid", "bf16_n_valid", "int8_n_valid",
+                "row_ids")
+topk_score_cuda.launches = dict.fromkeys(_DENSE_MODES, 0)
+topk_score_cuda.cuda_launches = dict.fromkeys(_DENSE_MODES, 0)
 
 
 def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int
@@ -369,6 +374,5 @@ def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
     return out_s, out_i
 
 
-topk_select_cuda.launches = dict.fromkeys(
-    ("f32", "bf16", "int8", "row_ids", *_PAGED_MODES, "keys"), 0)
+topk_select_cuda.launches = dict.fromkeys((*_DENSE_MODES, *_PAGED_MODES, "keys"), 0)
 topk_select_cuda.cuda_launches = {"keys": 0}

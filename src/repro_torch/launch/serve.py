@@ -1,6 +1,6 @@
 """Retrieval serving entry point: batched queries against a PCA-pruned index
-(port of ``repro/launch/serve.py``: the flat single-index path, dense or
-paged).
+(port of ``repro/launch/serve.py``: the single-device path, dense,
+segmented or paged).
 
 The paper's online path, end to end:
   1. build the offline artefacts (PCA transform W_m + pruned index D̂)
@@ -23,9 +23,18 @@ lives in ``--page-rows``-row pages behind a page table, so appends,
 promotion, compaction and eviction are pointer swaps that ``swap_index``
 installs under traffic. ``--page-pool P`` caps the device pool at P pages;
 the overflow stays in pinned host memory and streams in waves.
-``--delta-capacity`` is the row count at which an appended extent seals.
-The sharded, store, live-append, cascade and fleet modes of the reference
-are not ported yet.
+
+``--live-append R`` serves through a ``SegmentedIndex`` (or the
+``PagedIndex`` itself under ``--paged``) while an appender thread adds
+synthetic documents in 64-row blocks at R rows/s through an
+``IndexUpdater`` attached to the server: every append swaps a fresh
+segment set in between batches, and the run ends with a compaction.
+``--delta-capacity`` is the fixed capacity of each delta segment and the
+row count at which a paged delta extent seals.
+
+The reference's ``--sharded`` (queue 1 item 5), ``--load-index`` /
+``--save-index`` (item 3), ``--cascade`` and its live branch (item 4),
+``--fleet`` (item 6) and ``--compare-full`` modes are not ported yet.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 50000 \\
@@ -34,6 +43,8 @@ Examples:
       --n-docs 8000 --dim 128 --open-loop 200
   PYTHONPATH=src python -m repro_torch.launch.serve --paged --page-rows 256 \\
       --page-pool 96            # oversubscribed: the rest streams from host
+  PYTHONPATH=src python -m repro_torch.launch.serve --live-append 300 \\
+      --quantize-int8           # appends swapped in under load, then compact
 """
 from __future__ import annotations
 
@@ -46,7 +57,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from repro_torch.core.index import DenseIndex
+from repro_torch.core.index import DenseIndex, SegmentedIndex
+from repro_torch.core.maintenance import IndexUpdater
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.data.synthetic import make_dataset
@@ -169,9 +181,13 @@ def _results_to_host(scores: torch.Tensor, ids: torch.Tensor):
     return hs, hi, event
 
 
+Index = DenseIndex | SegmentedIndex | PagedIndex
+
+
 class RetrievalServer:
-    """Batched query server over a ``DenseIndex`` or a ``PagedIndex`` (any
-    index with ``device``, ``dim``, ``search`` and ``search_projected``).
+    """Batched query server over a ``DenseIndex``, ``SegmentedIndex`` or
+    ``PagedIndex`` (any index with ``device``, ``dim``, ``search`` and
+    ``search_projected``).
 
     With a pruner attached every batch runs ``search_projected``
     (projection + scale fold + top-k); without one, plain ``search``.
@@ -190,7 +206,7 @@ class RetrievalServer:
 
     _KEEP = object()   # swap_index sentinel: leave the projection alone
 
-    def __init__(self, index: DenseIndex | PagedIndex, pruner: StaticPruner | None,
+    def __init__(self, index: Index, pruner: StaticPruner | None,
                  k: int = 10, max_batch: int = 32,
                  pipeline_depth: int = 3,
                  bucket_batches: bool = False):
@@ -235,7 +251,7 @@ class RetrievalServer:
             t.start()
 
     @staticmethod
-    def _projection(pruner: StaticPruner, index: DenseIndex | PagedIndex):
+    def _projection(pruner: StaticPruner, index: Index):
         W, mean = pruner.projection()
         return (W.to(index.device),
                 None if mean is None else mean.to(index.device))
@@ -328,7 +344,7 @@ class RetrievalServer:
                 f"reply deadline exceeded ({now - r.deadline:.3f}s overdue) "
                 f"— batch never posted"), now)
 
-    def swap_index(self, index: DenseIndex | PagedIndex, pruner=_KEEP) -> None:
+    def swap_index(self, index: Index, pruner=_KEEP) -> None:
         """Atomically install a new index for future batches; in-flight
         batches finish against the old one. ``pruner`` replaces the query
         projection too; by default it is kept."""
@@ -582,6 +598,51 @@ def _drive_open(server: RetrievalServer, Q: np.ndarray, rate: float,
     return out
 
 
+APPEND_BLOCK = 64      # rows per live append
+
+
+def _append_loop(updater: IndexUpdater, rate: float, dim: int,
+                 device: torch.device, stop: threading.Event) -> None:
+    """Append 64-row blocks of synthetic documents at ``rate`` rows/s until
+    ``stop``; each append swaps into the updater's server."""
+    rng = np.random.default_rng(123)
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        block = rng.standard_normal((APPEND_BLOCK, dim)).astype(np.float32)
+        updater.add_documents(torch.as_tensor(block, device=device))
+        delay = APPEND_BLOCK / rate - (time.perf_counter() - t0)
+        if delay > 0:
+            stop.wait(delay)
+
+
+def _report_live(server: RetrievalServer, updater: IndexUpdater) -> None:
+    """The reference's live-append summary, then a compaction swapped into
+    the server and its line."""
+    idx = updater.index
+    if isinstance(idx, PagedIndex):
+        n_ext = sum(1 for e in idx.storage.extents if e.kind == "delta")
+        units = f"{idx.storage.delta_pages} delta page(s), {n_ext} extent(s)"
+    else:
+        units = f"{len(idx.deltas)} delta segment(s)"
+    print(f"[serve] live-append: +{updater.appended_rows} rows in {units}, "
+          f"{server.swap_count} atomic swaps; index now {idx.n} rows")
+    t0 = time.perf_counter()
+    updater.compact()
+    dt_ms = (time.perf_counter() - t0) * 1e3
+    lc = updater.last_compaction or {}
+    if "pages_moved" in lc:
+        print(f"[serve] compaction (paged): {lc['pages_moved']} pages "
+              f"moved, {lc['pages_freed']} freed, {lc['pages_host']} "
+              f"host-tier, in {dt_ms:.0f}ms — pointer swaps, no "
+              f"rebuild; server swapped mid-serve "
+              f"(swap #{server.swap_count})")
+    else:
+        print(f"[serve] compaction: base+deltas -> one fresh base "
+              f"({updater.index.n} rows, fresh scale) in "
+              f"{dt_ms:.0f}ms; server swapped "
+              f"mid-serve (swap #{server.swap_count})")
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-docs", type=int, default=50000)
@@ -609,9 +670,17 @@ def main(argv: list[str] | None = None) -> None:
                     help="cap the device page pool at P pages; overflow "
                          "pages stay in pinned host memory and stream in "
                          "waves (default: everything resident)")
+    ap.add_argument("--live-append", type=float, default=0.0,
+                    metavar="ROWS_PER_S",
+                    help="serve through a SegmentedIndex (or the paged index "
+                         "under --paged) and append synthetic documents at "
+                         "this rate during the drive; every append swaps a "
+                         "fresh segment set into the running server (then "
+                         "compacts at the end)")
     ap.add_argument("--delta-capacity", type=int, default=4096,
-                    help="rows at which an appended extent of a paged "
-                         "index seals")
+                    help="fixed capacity of each delta segment (one kernel "
+                         "operand shape for live appends), and the rows at "
+                         "which an appended extent of a paged index seals")
     ap.add_argument("--open-loop", type=float, default=0.0, metavar="QPS",
                     help="additionally drive Poisson arrivals at QPS and "
                          "report p50/p95/p99 under that load")
@@ -644,9 +713,28 @@ def main(argv: list[str] | None = None) -> None:
     server = RetrievalServer(index, pruner, k=args.k, max_batch=args.batch,
                              pipeline_depth=args.pipeline_depth,
                              bucket_batches=args.bucket_batches)
+    updater = appender = None
+    append_stop = threading.Event()
     try:
-        if args.bucket_batches:
-            server.warmup()
+        # every batch shape once before the drive: on a fresh checkout the
+        # first search also builds the top-k kernel with nvcc (about a
+        # minute), which must not count against the first query's timeout
+        server.warmup()
+        if args.live_append > 0:
+            if not isinstance(index, PagedIndex):
+                # a paged index appends and compacts by pointer swaps itself
+                index = SegmentedIndex.from_index(
+                    index, delta_capacity=args.delta_capacity)
+            server.swap_index(index)
+            updater = IndexUpdater(pruner=pruner, index=index, server=server,
+                                   delta_capacity=args.delta_capacity)
+            appender = threading.Thread(
+                target=_append_loop, daemon=True,
+                args=(updater, args.live_append, args.dim, device, append_stop))
+            print(f"[serve] live-append: {args.live_append:.0f} rows/s "
+                  f"(blocks of {APPEND_BLOCK}, delta capacity "
+                  f"{args.delta_capacity})")
+            appender.start()
         wall, lat = _drive(server, Q)
         stats = server.worker_stats()
         lat_ms = lat * 1e3
@@ -668,7 +756,12 @@ def main(argv: list[str] | None = None) -> None:
                   f"p99={res['p99_ms']:.2f}ms  "
                   f"worker={ostats['worker_qps']:.1f} qps "
                   f"({ostats['occupancy']*100:.0f}% occupancy)")
+        if updater is not None:
+            append_stop.set()
+            appender.join(timeout=30.0)
+            _report_live(server, updater)
     finally:
+        append_stop.set()
         server.close()
 
 

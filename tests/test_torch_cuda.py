@@ -606,3 +606,130 @@ def test_cuda_topk_duplicate_ids():
             torch.testing.assert_close(s1, s2, **TOL)
             _ids_equal_up_to_near_ties(s2, i2, s1, i1)
     torch.cuda.synchronize()
+
+
+def _live_segmented(g, dev, quantize, n_base=20000, m=384, appended=9000, capacity=4096):
+    """A base of ``n_base`` unit rows and ``appended`` more in 64-row blocks
+    (one x9 block, so an int8 delta widens) through ``SegmentedIndex``;
+    returns the index and the appended rows."""
+    import numpy as np
+    from repro_torch.core.index import DenseIndex, SegmentedIndex
+    D = torch.randn(n_base, m, generator=g, device=dev) / m ** 0.5
+    seg = SegmentedIndex.from_index(DenseIndex.build(D, quantize_int8=quantize),
+                                    delta_capacity=capacity)
+    rows = (torch.randn(appended, m, generator=g, device=dev) / m ** 0.5).cpu().numpy()
+    rows[5000:5064] *= 9.0
+    for i in range(0, appended, 64):
+        seg = seg.append(rows[i:i + 64])
+    assert len(seg.deltas) == -(-appended // capacity)
+    return seg, D, np.ascontiguousarray(rows)
+
+
+@pytest.mark.gpu
+def test_cuda_segmented_equals_merged_dense():
+    """On the card every score's fmaf order is fixed, so the segmented f32
+    search (base + fixed-capacity deltas under ``n_valid``) is bitwise the
+    merge of a dense search of the base with a dense index over the
+    appended rows, ids offset by n; the int8 one (mixed scales) matches the
+    f32 search over each segment's dequantised rows up to near-ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import DenseIndex, _topk_merge
+    from repro_torch.kernels import topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    seg, D, rows = _live_segmented(g, dev, quantize=False)
+    extra = DenseIndex(torch.as_tensor(rows, device=dev))
+    base = DenseIndex(D)
+    Q = torch.randn(32, D.shape[1], generator=g, device=dev)
+    for k in (10, 100, 1000):
+        bs, bi = base.search(Q, k=k)
+        es, ei = extra.search(Q, k=k)
+        want = _topk_merge(torch.cat([bs, es], 1), torch.cat([bi, ei + base.n], 1), k)
+        got = seg.search(Q, k=k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # each delta's search against its plain version
+    for d in seg.deltas:
+        for k in (10, 1000):
+            s1, i1 = topk_score.topk_score_cuda(d.vectors, Q, k=k, n_valid=d.n_real)
+            s2, i2 = topk_score.topk_score_plain(d.vectors, Q, k=k, n_valid=d.n_real)
+            torch.testing.assert_close(s1, s2, **TOL)
+            _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    seg8, D8, _ = _live_segmented(g, dev, quantize=True)
+    assert len({tuple(d.scale.tolist()) for d in seg8.deltas}) == len(seg8.deltas)
+    dq = [seg8.base.vectors.float() * seg8.base.scale[None, :]]
+    dq += [d.vectors[:d.n_real].float() * d.scale[None, :] for d in seg8.deltas]
+    oracle = DenseIndex(torch.cat(dq))
+    for k in (10, 1000):
+        s1, i1 = seg8.search(Q, k=k)
+        s2, i2 = oracle.search(Q, k=k)
+        torch.testing.assert_close(s1, s2, **TOL)
+        _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_from_segmented_equals_segmented():
+    """Paging a live segmented index (base pages in the pool, each delta an
+    extent with its own scale) changes no result: bitwise equal, f32 and
+    int8, before and after a further append."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.paged import PagedIndex
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    for quantize in (False, True):
+        seg, D, rows = _live_segmented(g, dev, quantize=quantize)
+        pg = PagedIndex.from_segmented(seg, page_rows=256)
+        assert pg.n == seg.n and pg.storage.seal_rows == seg.delta_capacity
+        Q = torch.randn(32, D.shape[1], generator=g, device=dev)
+        for step in ("adopted", "appended"):
+            for k in (10, 1000):
+                a, b = seg.search(Q, k=k), pg.search(Q, k=k)
+                assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (step, k)
+            seg, pg = seg.append(rows[:100]), pg.append(rows[:100])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_appends_keep_one_kernel_shape(monkeypatch):
+    """Appends build and load no kernel module and never change the delta
+    search's operands: every call sees the (capacity, m) buffer with a
+    growing ``n_valid``, and counts under the ``int8_n_valid`` mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import _build, ops, topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    seg, D, rows = _live_segmented(g, dev, quantize=True, appended=64)
+    Q = torch.randn(32, D.shape[1], generator=g, device=dev)
+    seg.search(Q, k=10)
+    seg.search(Q, k=1000)
+    libs = dict(_build._libs)
+    calls = []
+    topk = ops.topk_score
+
+    def spy(Dx, Qx, *, k, n_valid=None, row_ids=None):
+        calls.append((tuple(Dx.shape), Dx.dtype, n_valid))
+        return topk(Dx, Qx, k=k, n_valid=n_valid, row_ids=row_ids)
+
+    def no_build(*a, **kw):
+        raise AssertionError("an append built a kernel module")
+
+    monkeypatch.setattr(ops, "topk_score", spy)
+    monkeypatch.setattr(_build, "build", no_build)
+    before = topk_score.topk_score_cuda.launches["int8_n_valid"]
+    for i in range(10):
+        seg = seg.append(rows[:64] * 0.5)
+        seg.search(Q, k=10)
+        seg.search(Q, k=1000)
+    assert _build._libs == libs
+    deltas = [c for c in calls if c[2] is not None]     # the base's calls have none
+    assert len(deltas) == 20
+    assert {c[:2] for c in deltas} == {((4096, D.shape[1]), torch.int8)}
+    assert sorted({c[2] for c in deltas}) == [64 * (i + 2) for i in range(10)]
+    assert topk_score.topk_score_cuda.launches["int8_n_valid"] == before + 20
+    torch.cuda.synchronize()

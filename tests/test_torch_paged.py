@@ -261,7 +261,7 @@ def test_paged_plain_large_k_ids_pool(k):
 def _pages(st, reference: bool):
     """Every logical slot's page bytes, read off whichever tier holds it."""
     pool = np.asarray(st.pool)
-    tail = np.asarray(st.tail_host) if reference else st.tail_host.numpy()
+    tail = np.asarray(st.tail_host) if reference else st.tail.numpy()
     out = []
     for slot in range(st.n_slots):
         phys = int(st.pt_host[slot])

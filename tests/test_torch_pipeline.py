@@ -1,7 +1,8 @@
 """The paper's prune-and-search path through the port against ``repro``:
-the Table-1 protocol (benchmarks/table1_indomain.py) on one synthetic
-dataset, fed to both packages from the same numpy arrays. Also: the port
-imports neither JAX nor ``repro``, and defaults to the card."""
+the Table-1 and Table-2 protocols (benchmarks/table1_indomain.py,
+table2_ood.py) on one synthetic dataset, fed to both packages from the
+same numpy arrays, and the port's protocol drivers. Also: the port imports
+neither JAX nor ``repro``, and defaults to the card."""
 import ast
 import pathlib
 
@@ -15,12 +16,15 @@ from repro.core.metrics import (
     evaluate_run as jax_evaluate_run,
     wilcoxon_significant as jax_wilcoxon,
 )
-from repro.data.synthetic import make_dataset as jax_make_dataset
+from repro.data.synthetic import (
+    make_dataset as jax_make_dataset,
+    make_ood_corpus as jax_make_ood_corpus,
+)
 from repro_torch import convert
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.metrics import evaluate_run, wilcoxon_significant
 from repro_torch.core.pruning import StaticPruner
-from repro_torch.data.synthetic import make_dataset
+from repro_torch.data.synthetic import make_dataset, make_ood_corpus, ood_corpus_on_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 METRICS = ("AP", "MRR@10", "nDCG@10")
@@ -126,6 +130,73 @@ def test_table1_protocol_matches_reference_with_carried_state(dataset, cutoff):
         _assert_protocol_matches(_jax_run(jD, jnp.asarray(Q), jp),
                                  _port_run(tD, torch.from_numpy(Q), tp),
                                  dataset.qrels[qs])
+
+
+def test_ood_corpus_equals_reference():
+    for kw in ({}, {"seed": 3, "domain_seed": 77}):
+        np.testing.assert_array_equal(
+            make_ood_corpus("contriever", n_docs=300, d=64, **kw),
+            jax_make_ood_corpus("contriever", n_docs=300, d=64, **kw))
+
+
+def test_ood_corpus_on_device_shares_the_encoder_space():
+    """The device draw of the OOD corpus lives in ``make_corpus``'s encoder
+    space with the OOD domain's spectrum: a PCA fit on it keeps nearly the
+    same energy on the host-drawn OOD corpus as a fit on that corpus."""
+    host = torch.from_numpy(make_ood_corpus("tasb", n_docs=4000, d=64))
+    dev = ood_corpus_on_device("tasb", n_docs=4000, d=64, device="cpu")
+    assert dev.shape == (4000, 64)
+    torch.testing.assert_close(dev.norm(dim=1), torch.ones(4000))
+    W_host = StaticPruner(cutoff=0.5).fit(host).projection()[0]
+    W_dev = StaticPruner(cutoff=0.5).fit(dev).projection()[0]
+    e_host = float(((host @ W_host) ** 2).sum() / (host ** 2).sum())
+    e_dev = float(((host @ W_dev) ** 2).sum() / (host ** 2).sum())
+    assert abs(e_host - e_dev) < 0.01
+
+
+def test_table2_protocol_matches_reference_with_carried_state(dataset):
+    """Table 2 (RQ2): W_m fit OUT of domain on ``make_ood_corpus``, then
+    the in-domain query sets searched. With the reference's fitted state
+    carried across: identical top-10 ids, nDCG@10 / MRR@10 within 1e-6."""
+    ood = make_ood_corpus("tasb", n_docs=4000, d=128)
+    jp = JaxPruner(cutoff=0.5).fit(jnp.asarray(ood))
+    s = jp.state
+    tp = StaticPruner(cutoff=0.5)
+    tp.state = convert.pca_state_from_numpy(
+        np.asarray(s.components), np.asarray(s.eigenvalues), np.asarray(s.mean),
+        int(s.n_samples), s.centered, device="cpu")
+    jD, tD = jnp.asarray(dataset.docs), torch.from_numpy(dataset.docs)
+    for qs, Q in dataset.queries.items():
+        _assert_protocol_matches(_jax_run(jD, jnp.asarray(Q), jp),
+                                 _port_run(tD, torch.from_numpy(Q), tp),
+                                 dataset.qrels[qs])
+
+
+def test_protocol_drivers_on_cpu(tmp_path, capsys):
+    """Each driver runs through its command line on the CPU, prints the
+    reference's table header and writes its JSON where it was told."""
+    import json
+
+    from repro_torch.benchmarks import (
+        fig1_cutoff,
+        fig2_nembed,
+        index_size,
+        table1_indomain,
+        table2_ood,
+    )
+    from repro_torch.benchmarks.common import main
+    small = ["--device", "cpu", "--n-docs", "1200", "--dim", "32"]
+    for mod, head in ((table1_indomain, "### Table 1 — tasb (in-domain PCA)"),
+                      (table2_ood, "### Table 2 — ance (out-of-domain PCA)"),
+                      (fig1_cutoff, "### Fig 1 — DL19 effectiveness vs cutoff"),
+                      (fig2_nembed, "### Fig 2 — nDCG@10 (DL19)"),
+                      (index_size, "index_pca_c50_int8,0,bytes=")):
+        out = tmp_path / f"{mod.__name__}.json"
+        main(mod.__name__.rsplit(".", 1)[1], mod.run, [*small, "--out", str(out)],
+             datasets=mod is not index_size)
+        assert head in capsys.readouterr().out
+        doc = json.loads(out.read_text())
+        assert doc["device"] == "cpu" and doc["n_docs"] == 1200 and doc["results"]
 
 
 def test_table1_protocol_with_own_fit_matches_reference(dataset):

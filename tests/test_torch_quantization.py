@@ -64,3 +64,14 @@ def test_dequantize_equals_reference():
                                          jnp.asarray(s.numpy())))
     np.testing.assert_array_equal(got, want)
     assert np.abs(got - X).max() <= s.numpy().max() / 2 + 1e-7
+
+
+@pytest.mark.parametrize("scale_spread", [1.0, 100.0])
+def test_quantization_error_equals_reference(scale_spread):
+    rng = np.random.default_rng(7)
+    X = (rng.standard_normal((500, 48))
+         * rng.uniform(1.0, scale_spread, 48)).astype(np.float32)
+    got = float(tq.quantization_error(torch.from_numpy(X)))
+    want = float(jq.quantization_error(jnp.asarray(X)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    assert 0.0 < got < 0.01

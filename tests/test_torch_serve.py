@@ -242,6 +242,20 @@ def test_serve_main_runs_on_cpu_when_asked(capsys):
     assert "pruned index: 600 x 16" in out and "open-loop" in out
 
 
+def test_serve_main_warms_up_before_the_first_timed_query(monkeypatch, capsys):
+    """The entry point runs every batch shape once before its drive, with
+    or without bucketing: on a fresh checkout that first search builds the
+    card's top-k kernel, which must not eat the first query's timeout."""
+    warmed = []
+    warmup = serve.RetrievalServer.warmup
+    monkeypatch.setattr(serve.RetrievalServer, "warmup",
+                        lambda self: warmed.append(self.swap_count) or warmup(self))
+    serve.main(["--device", "cpu", "--n-docs", "600", "--dim", "32",
+                "--queries", "8", "--batch", "8", "--live-append", "500"])
+    assert warmed == [0]                      # before the live index swapped in
+    assert "live-append" in capsys.readouterr().out
+
+
 def test_serve_main_defaults_to_cuda():
     """Without --device the entry point serves on the card; with no card it
     raises and names the device instead of quietly using the CPU."""
