@@ -63,11 +63,30 @@ Phases, each printing one JSON line:
      open loop, then compact_async under that traffic: no reply lost,
      health ok, replies after the last swap equal to the final index, the
      compacted base bitwise its rebuild; (d) a paged IndexUpdater: appends
-     with a widen, then compact by pointer swaps, against the plain version.
+     with a widen, then compact by pointer swaps, against the plain version;
+  9. the store, under build/store_smoke/ (each artifact removed when its
+     checks are done; one line per step with the bytes it wrote and the
+     free disk): (a) StaticPruner.build_index_to over the regenerated full
+     corpus in 262,144-row blocks on the card, int8, bitwise equal to phase
+     4's int8 index; (b) the fit inside the build (gram) at the protocol
+     size against the same build on the CPU (plain versions): eigenvalues,
+     the kept subspace and the well-conditioned components up to sign, int8
+     bytes ±1 on at most 0.1 % for the same rotation; (c) the
+     cold start from (a)'s artifact (open + validate, DenseIndex.load, the
+     first answered query through RetrievalServer), page cache dropped and
+     warm, beside a pinned 1 GB host-to-device copy, searches bitwise equal
+     at k = 10 and 1000; (e) IndexUpdater.from_store on it, 10,000 rows of
+     durable 64-row add_documents (one widens) in turns with a store-less
+     updater, SegmentedIndex.load of the store bitwise equal, and the
+     store-backed compact bitwise the store-less one; (d) the f32 index
+     saved and loaded, bitwise (cut to the rows the free disk holds, and
+     said so); (f) phase 7's int8 index with 2,048 host-tier pages, a few
+     appended blocks, PagedIndex.save and load, bitwise equal in search and
+     extent_rows.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
-phase 4 and read just after phase 6; phases 7 (the paged path) and 8 (the
-live path) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
+phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
+live path) and 9 (the store) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -104,7 +123,13 @@ LIVE_DELTAS = [4096, 4096, 1808]
 WIDEN_AT = 5056             # first row of the x9 block (in the second delta)
 LIVE_RATE = 2000.0          # phase 8(c): rows/s appended under traffic
 PAGED_APPEND = 2048         # phase 8(d): rows appended to the paged updater
-LIVE_DOCS = 32_768          # new documents drawn in phase 4 for phase 8
+LIVE_DOCS = 32_768          # new documents drawn in phase 4 for phases 8 and 9
+BUILD_BLOCK = 262_144       # phase 9: rows per card-resident block of a build
+STORE_APPEND = 10_000       # phase 9(e): rows appended durably
+PAGED_STORE_APPEND = 384    # phase 9(f): rows appended before the paged save
+DISK_MARGIN = 2 << 30       # phase 9(d): free disk kept beside the f32 artifact
+FIT_BLOCK = 25_000          # phase 9(b): rows per block of the fit-inside build
+COMP_TOL = 1e-3             # phase 9(b): two fits' kept subspace and conditioned columns
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-5                  # tests/test_kernels.py:126
@@ -1647,6 +1672,368 @@ def phase_live(counters, index_f32, index_int8, pruner, Q, fresh, rows):
     del up, pg
 
 
+def phase_store(counters, index_f32, index_int8, pruner, Q, fresh, n_docs, protocol_docs):
+    """Phase 9: the durable artifact at full width, under build/store_smoke/.
+    (a) the full-corpus int8 build (build_index_to over card-resident blocks
+    of the regenerated corpus) bitwise equal to phase 4's int8 index; (b)
+    the fit inside the build (gram) at the protocol size against the CPU
+    build; (c) the cold start from (a)'s artifact, page cache cold and
+    warm, against a pinned host-to-device copy; (e) durable appends through
+    IndexUpdater.from_store, the reload, and the store-backed compact
+    against the store-less one; (d) the f32 round trip; (f) a paged store
+    with host-tier pages. Each artifact is removed when its checks are
+    done; each step prints one line with the bytes it wrote and the free
+    disk."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import IndexStore, IndexUpdater, SegmentedIndex, save_index
+    from repro_torch.core.index import DenseIndex
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.core.pruning import StaticPruner
+    from repro_torch.data.synthetic import corpus_on_device
+    from repro_torch.launch.serve import RetrievalServer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    root = os.path.join(HERE, "build", "store_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    W, mean = pruner.projection()
+    m = pruner.kept_dims
+    n = index_int8.n
+    Qs = torch.as_tensor(Q[:SEARCH_BATCHES * BATCH], device=dev)
+    batches = [Qs[i:i + BATCH] for i in range(0, len(Qs), BATCH)]
+    summary = {}
+
+    def du(path):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+
+    def step(name, written, **fields):
+        emit("store", step=name, bytes_written=int(written),
+             disk_free_gb=shutil.disk_usage(root).free / 1e9, **fields)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def searches_equal(got, want, what):
+        for k in (K, 1000):
+            for b in batches:
+                if not same(got.search_projected(b, W, k=k, mean=mean),
+                            want.search_projected(b, W, k=k, mean=mean)):
+                    raise AssertionError(f"store {what}: search at k={k} not bitwise equal")
+
+    def block(i):
+        """Documents [i, i + 64) of phase 4's fresh pool, x9 for the block
+        that must widen an int8 delta scale."""
+        j = i % LIVE_DOCS
+        blk = fresh[j:j + APPEND_BLOCK]
+        return blk * 9.0 if i == WIDEN_AT else blk
+
+    # (a) the full-corpus int8 build from card-resident blocks
+    t0 = time.perf_counter()
+    D = corpus_on_device("tasb", n_docs=n_docs, d=DIM, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    with counters.uncounted():
+        if not torch.equal(pruner.prune_index(D[:BUILD_BLOCK]),
+                           index_f32.vectors[:BUILD_BLOCK]):
+            raise AssertionError("store: the regenerated corpus is not phase 4's")
+    path_a = os.path.join(root, "int8")
+    free0 = shutil.disk_usage(root).free
+    t0 = time.perf_counter()
+    st = pruner.build_index_to(
+        path_a, lambda: (D[i:i + BUILD_BLOCK] for i in range(0, n_docs, BUILD_BLOCK)),
+        quantize_int8=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    pos = 0
+    for c in st.iter_chunks():
+        got = torch.from_numpy(np.array(c)).to(dev)
+        if not torch.equal(got, index_int8.vectors[pos:pos + c.shape[0]]):
+            raise AssertionError(f"store (a): chunk at row {pos} differs from phase 4's int8")
+        pos += c.shape[0]
+    if pos != n or not np.array_equal(st.scale(), index_int8.scale.cpu().numpy()):
+        raise AssertionError("store (a): rows or scale differ from phase 4's int8 index")
+    # the host's (the reference's) arithmetic on the same f32 rows: numpy's
+    # divide for the scale, then the first block quantised on the host
+    absmax = index_f32.vectors.abs().amax(0).cpu().numpy()
+    host_scale = np.maximum(absmax, np.float32(1e-12)) / np.float32(127.0)
+    head = index_f32.vectors[:BUILD_BLOCK].cpu().numpy()
+    host_q = np.clip(np.round(head / host_scale[None, :]), -127, 127).astype(np.int8)
+    if not (np.array_equal(st.scale(), host_scale)
+            and np.array_equal(host_q, np.asarray(next(st.iter_chunks())))):
+        raise AssertionError("store (a): scale or bytes differ from the host's arithmetic")
+    art_a = du(path_a)
+    summary["build_s"] = t_build
+    step("a_full_corpus_int8_build", art_a + st.meta["spill_bytes"], rows=n,
+         blocks=-(-n_docs // BUILD_BLOCK), block_rows=BUILD_BLOCK, gen_s=t_gen,
+         build_s=t_build, artifact_bytes=art_a, spill_bytes=st.meta["spill_bytes"],
+         requant_blocks=st.meta["requant_blocks"], chunks=len(st.manifest["chunks"]),
+         bitwise_vs_phase4_int8=True, scale_and_first_block_bitwise_vs_host=True,
+         disk_free_before_gb=free0 / 1e9)
+
+    # (b) the fit inside the build (fit_streaming -> gram) at the protocol
+    # size, against the same build on the CPU from the same blocks
+    Dp = D[:protocol_docs]
+    blocks_dev = [Dp[i:i + FIT_BLOCK] for i in range(0, Dp.shape[0], FIT_BLOCK)]
+    blocks_cpu = [b.cpu() for b in blocks_dev]
+    t0 = time.perf_counter()
+    sb = StaticPruner(cutoff=CUTOFF).build_index_to(os.path.join(root, "fit_card"),
+                                                    blocks_dev, quantize_int8=True)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sh = StaticPruner(cutoff=CUTOFF).build_index_to(os.path.join(root, "fit_cpu"),
+                                                    blocks_cpu, quantize_int8=True,
+                                                    device="cpu")
+    t_cpu = time.perf_counter() - t0
+    # the card's rotation carried to the CPU: the projection alone differs
+    same_rot = StaticPruner(cutoff=CUTOFF)
+    same_rot.state = sb.load_pca(device="cpu")
+    ss = same_rot.build_index_to(os.path.join(root, "fit_cpu_same"), blocks_cpu,
+                                 quantize_int8=True)
+    pc, ph = sb.load_pca(device="cpu"), sh.load_pca(device="cpu")
+    Wc, Wh = pc.components[:, :m], ph.components[:, :m]
+    signs = torch.sign((Wc * Wh).sum(0))
+    col_err = (Wc * signs[None, :] - Wh).abs().amax(0)
+    # an fp32 eigensolver's column i is good to about eps * lambda_1 / gap_i
+    # (gap_i to the nearest other eigenvalue); columns of a near-degenerate
+    # pair are defined only up to a rotation within it, so "equal up to
+    # sign" is held where that bound is small, and the kept subspace as a
+    # whole through its projector
+    lam = pc.eigenvalues.double()
+    gaps = (lam[:-1] - lam[1:]).abs()
+    near = torch.minimum(torch.cat([gaps[:1], gaps]), torch.cat([gaps, gaps[-1:]]))[:m]
+    conditioned = (6e-8 * lam[0] / near.clamp_min(1e-30)) < 1e-4
+    proj_err = float((Wc @ Wc.T - Wh @ Wh.T).abs().max())
+    eig_err = float((pc.eigenvalues - ph.eigenvalues).abs().max() / pc.eigenvalues[0])
+    rc = sb.read_rows(0, sb.n, device="cpu").int()
+    d_same = (rc - ss.read_rows(0, ss.n, device="cpu").int()).abs()
+    d_ind = (rc * signs.int()[None, :] - sh.read_rows(0, sh.n, device="cpu").int()).abs()
+    fit = dict(rows=int(Dp.shape[0]), card_s=t_card, cpu_s=t_cpu,
+               eigenvalues_max_rel_err=eig_err,
+               kept_subspace_projector_max_abs_err=proj_err,
+               conditioned_columns=int(conditioned.sum()),
+               conditioned_max_abs_err_up_to_sign=(float(col_err[conditioned].max())
+                                                   if bool(conditioned.any()) else 0.0),
+               all_columns_max_abs_err_up_to_sign=float(col_err.max()),
+               components_tol=COMP_TOL,
+               same_rotation_max_diff=int(d_same.max()),
+               same_rotation_frac_differ=float((d_same > 0).float().mean()),
+               independent_max_diff=int(d_ind.max()),
+               independent_frac_differ=float((d_ind > 0).float().mean()))
+    written = sum(du(os.path.join(root, p)) for p in ("fit_card", "fit_cpu", "fit_cpu_same"))
+    step("b_fit_inside_build", written, **fit)
+    if (eig_err > 1e-5 or proj_err > COMP_TOL
+            or fit["conditioned_max_abs_err_up_to_sign"] > COMP_TOL):
+        raise AssertionError(f"store (b): the card's fit differs from the CPU's: {fit}")
+    # the parity contract's int8 bar: the same rotation, projected by the
+    # kernel and by the plain version. The independent fit's bytes follow
+    # its rotation within near-degenerate pairs and are reported only
+    if fit["same_rotation_max_diff"] > 1 or fit["same_rotation_frac_differ"] > 1e-3:
+        raise AssertionError(f"store (b): same-rotation int8 bytes differ: {fit}")
+    for p in ("fit_card", "fit_cpu", "fit_cpu_same"):
+        shutil.rmtree(os.path.join(root, p))
+    del D, Dp, blocks_dev, blocks_cpu, rc, d_same, d_ind, head
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the cold start from (a)'s artifact: open + validate, load, first
+    # answered query through RetrievalServer; page cache dropped first
+    def drop_page_cache(path):
+        for f in os.listdir(path):
+            fd = os.open(os.path.join(path, f), os.O_RDONLY)
+            try:
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+            finally:
+                os.close(fd)
+
+    def cold_start(cold):
+        if cold:
+            drop_page_cache(path_a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store = IndexStore.open(path_a)
+        t1 = time.perf_counter()
+        idx = DenseIndex.load(store)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        server = RetrievalServer(idx, store.load_pruner(), k=K, max_batch=BATCH,
+                                 pipeline_depth=3)
+        try:
+            server.query(Q[0], timeout=600.0)
+            t3 = time.perf_counter()
+        finally:
+            server.close()
+        return idx, dict(open_validate_ms=(t1 - t0) * 1e3, load_ms=(t2 - t1) * 1e3,
+                         first_query_ms=(t3 - t2) * 1e3, cold_start_ms=(t3 - t0) * 1e3,
+                         load_gb_per_s=store.nbytes / (t2 - t1) / 1e9)
+
+    can_drop = hasattr(os, "posix_fadvise")
+    starts = {}
+    if can_drop:
+        loaded, starts["cold"] = cold_start(True)
+        del loaded
+    loaded, starts["warm"] = cold_start(False)
+    searches_equal(loaded, index_int8, "(c) int8 reload")
+    host = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    dbuf = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    pinned_ms = cuda_ms(lambda: dbuf.copy_(host, non_blocking=True), reps=5)
+    del host, dbuf, loaded
+    summary["cold_start"] = starts
+    summary["pinned_h2d_gb_per_s"] = (1 << 30) / pinned_ms / 1e6
+    step("c_cold_start", 0, artifact_bytes=art_a, page_cache_dropped=can_drop,
+         bitwise_k10_k1000=True, pinned_h2d_1gb_ms=pinned_ms,
+         pinned_h2d_gb_per_s=summary["pinned_h2d_gb_per_s"], **starts)
+
+    # (e) the live store: durable appends through IndexUpdater.from_store,
+    # in turns with a store-less updater over the same base
+    fsync_ms = []
+    probe = os.path.join(root, "fsync_probe")
+    for _ in range(20):
+        with open(probe, "wb") as f:
+            f.write(b"\0" * 4096)
+            f.flush()
+            t0 = time.perf_counter()
+            os.fsync(f.fileno())
+            fsync_ms.append((time.perf_counter() - t0) * 1e3)
+    os.remove(probe)
+    t0 = time.perf_counter()
+    up = IndexUpdater.from_store(path_a, delta_capacity=DELTA_CAPACITY)
+    torch.cuda.synchronize()
+    t_from = time.perf_counter() - t0
+    plain = IndexUpdater(pruner=pruner, index=index_int8, delta_capacity=DELTA_CAPACITY)
+    t_dur, t_mem = [], []
+    before = None
+    for i in range(0, STORE_APPEND, APPEND_BLOCK):
+        blk = block(i)[:STORE_APPEND - i]
+        if i == WIDEN_AT:
+            before = up.index.deltas[-1].scale.cpu()
+        t0 = time.perf_counter()
+        plain.add_documents(blk)
+        t_mem.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        up.add_documents(blk)
+        t_dur.append(time.perf_counter() - t0)
+        if i == WIDEN_AT and torch.equal(before, up.index.deltas[-1].scale.cpu()):
+            raise AssertionError("store (e): the x9 block did not widen a scale")
+    if [d.n_real for d in up.index.deltas] != LIVE_DELTAS:
+        raise AssertionError(f"store (e): deltas {[d.n_real for d in up.index.deltas]}")
+    searches_equal(up.index, plain.index, "(e) durable vs store-less appends")
+    reloaded = SegmentedIndex.load(path_a, delta_capacity=DELTA_CAPACITY)
+    searches_equal(reloaded, up.index, "(e) SegmentedIndex.load of the live store")
+    del reloaded
+    twin = IndexUpdater(pruner=pruner, index=up.index, delta_capacity=DELTA_CAPACITY)
+    t0 = time.perf_counter()
+    twin.compact()
+    torch.cuda.synchronize()
+    t_plain_compact = time.perf_counter() - t0
+    free_before = shutil.disk_usage(root).free
+    t0 = time.perf_counter()
+    up.compact()
+    torch.cuda.synchronize()
+    t_store_compact = time.perf_counter() - t0
+    a, b = up.index.base, twin.index.base
+    if not (torch.equal(a.vectors, b.vectors) and torch.equal(a.scale, b.scale)):
+        raise AssertionError("store (e): store-backed compact differs from the store-less one")
+    re = IndexStore.open(path_a)
+    if re.n != n + STORE_APPEND or len(re.segments()) != 1:
+        raise AssertionError(f"store (e): compacted artifact holds {re.n} rows")
+    durable = dict(median_ms=float(np.median(t_dur) * 1e3),
+                   p90_ms=float(np.percentile(t_dur, 90) * 1e3),
+                   max_ms=float(np.max(t_dur) * 1e3))
+    storeless = dict(median_ms=float(np.median(t_mem) * 1e3),
+                     p90_ms=float(np.percentile(t_mem, 90) * 1e3))
+    summary["durable_append"] = durable
+    summary["storeless_append"] = storeless
+    summary["store_compact_s"] = t_store_compact
+    summary["storeless_compact_s"] = t_plain_compact
+    step("e_live_store", du(path_a), from_store_s=t_from, appended=STORE_APPEND,
+         block=APPEND_BLOCK, deltas=LIVE_DELTAS, durable_add_documents=durable,
+         storeless_add_documents=storeless,
+         fsync_4k_ms_median=float(np.median(fsync_ms)),
+         reload_bitwise_k10_k1000=True, store_compact_s=t_store_compact,
+         storeless_compact_s=t_plain_compact, compact_base_bitwise_storeless=True,
+         compact_disk_used_gb=(free_before - shutil.disk_usage(root).free) / 1e9,
+         compacted_rows=re.n)
+    del up, plain, twin, a, b
+    shutil.rmtree(path_a)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the f32 round trip, at the largest row count the disk holds
+    path_d = os.path.join(root, "f32")
+    free = shutil.disk_usage(root).free
+    rows_d = n if free >= 4 * m * n + DISK_MARGIN else \
+        (free - DISK_MARGIN) // (4 * m) // BUILD_BLOCK * BUILD_BLOCK
+    if rows_d < BUILD_BLOCK:
+        raise AssertionError(f"store (d): {free / 1e9:.1f} GB free holds no f32 block")
+    src = index_f32 if rows_d == n else DenseIndex(index_f32.vectors[:rows_d])
+    t0 = time.perf_counter()
+    st = save_index(path_d, src, pruner=pruner)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ld = DenseIndex.load(st)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    if not torch.equal(ld.vectors, src.vectors):
+        raise AssertionError("store (d): f32 vectors differ after the round trip")
+    searches_equal(ld, src, "(d) f32 round trip")
+    step("d_f32_round_trip", du(path_d), rows=int(rows_d), cut=rows_d < n,
+         full_rows=n, save_s=t_save, load_s=t_load,
+         load_gb_per_s=st.nbytes / t_load / 1e9, bitwise=True)
+    summary["f32_round_trip"] = dict(rows=int(rows_d), cut=rows_d < n, save_s=t_save,
+                                     load_s=t_load)
+    del ld, src
+    shutil.rmtree(path_d)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) a paged store: phase 7's int8 index with 2,048 host-tier pages,
+    # a few appended blocks (one widens), saved and paged back
+    path_f = os.path.join(root, "paged")
+    npages = -(-n // PAGE_ROWS)
+    pool = max(npages - EVICT_PAGES, npages // 2)
+    pg = PagedIndex.from_index(index_int8, page_rows=PAGE_ROWS, pool_pages=pool,
+                               seal_rows=DELTA_CAPACITY, depth=3, wave_pages=WAVE_PAGES)
+    for i in range(WIDEN_AT - PAGED_STORE_APPEND // 2, WIDEN_AT + PAGED_STORE_APPEND // 2,
+                   APPEND_BLOCK):
+        pg = pg.append(pruner.prune_index(block(i)))
+    t0 = time.perf_counter()
+    pg.save(path_f, pruner=pruner)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pl = PagedIndex.load(path_f, pool_pages=pool, depth=3, wave_pages=WAVE_PAGES)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    a, b = pg.storage, pl.storage
+    if (b.n_host_pages != a.n_host_pages
+            or [(e.kind, e.sealed, e.n_rows) for e in a.extents]
+            != [(e.kind, e.sealed, e.n_rows) for e in b.extents]):
+        raise AssertionError("store (f): paged geometry or lifecycle differs after the load")
+    for ei, e in enumerate(a.extents):
+        for lo in range(0, e.n_rows, BUILD_BLOCK):
+            hi = min(lo + BUILD_BLOCK, e.n_rows)
+            if not torch.equal(a.extent_rows(ei, lo, hi), b.extent_rows(ei, lo, hi)):
+                raise AssertionError(f"store (f): extent {ei} rows [{lo}, {hi}) differ")
+    searches_equal(pl, pg, "(f) paged reload")
+    summary["paged"] = dict(save_s=t_save, load_s=t_load)
+    step("f_paged_store", du(path_f), pages=npages, host_pages=a.n_host_pages,
+         extents=len(a.extents), appended=PAGED_STORE_APPEND, save_s=t_save,
+         load_s=t_load, bitwise_search_and_extent_rows=True)
+    del pg, pl, a, b
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("store_summary", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **summary)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -1705,6 +2092,20 @@ def main():
     missing = [k for k in on_live if live_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the live path: {missing}")
+    # the store path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_store(counters, index_f32, index_int8, pruner, Q, fresh, args.n_docs,
+                args.protocol_docs)
+    torch.cuda.synchronize()
+    store_launches = counters.read()
+    emit("store_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in store_launches.items() if v})
+    on_store = ("gram", "pca_project", "topk_score_f32", "topk_score_int8",
+                "topk_score_int8_n_valid", "topk_score_paged_int8")
+    missing = [k for k in on_store if store_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the store path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches):
         """counter None: a row timed at a shape of its own, whose launches

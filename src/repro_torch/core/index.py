@@ -10,20 +10,25 @@ path. Scores are accumulated in fp32 whatever the index dtype.
 delta segments, each with its own int8 scale, searched per segment and
 merged (``merge_segment_topk``). A delta's search is one ``topk_score``
 call over its whole capacity with ``n_valid`` masking the rows not yet
-appended, so its operand shape never changes as it fills. The paged index
-is in ``core/paged.py``; the sharded, store-backed and cascade indexes are
-not ported yet.
+appended, so its operand shape never changes as it fills.
+
+``DenseIndex.load`` and ``SegmentedIndex.load`` read an ``IndexStore``
+artifact (``core/store.py``) onto a device, the card by default. The paged
+index is in ``core/paged.py``; the sharded and cascade indexes are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.core.quantization import quantize_int8_per_dim, quantize_with_scale, scale_for
+from repro_torch.core.store import IndexStore, IndexStoreError
 from repro_torch.kernels import ops
-from repro_torch.util import as_tensor
+from repro_torch.util import as_tensor, default_device
 
 
 def project_queries(q: torch.Tensor, W: torch.Tensor,
@@ -99,6 +104,23 @@ def _scan_topk(D: torch.Tensor, Q: torch.Tensor, k: int, block: int = 65536
     return bs, bi
 
 
+def _check_flat_loadable(store) -> None:
+    """Refuse to flatten a segmented store whose segments disagree on the
+    int8 scale: a flat load would dequantise delta rows with the base's
+    scale. ``SegmentView``s (one segment by construction) pass."""
+    if getattr(store, "flat_loadable", True):
+        return
+    raise IndexStoreError(
+        f"{store.path}: store has delta segments with per-segment scales — "
+        f"load it with SegmentedIndex.load, not a flat index loader")
+
+
+def _open_store(store):
+    """An ``IndexStore`` from a path or an open handle (a store or one of
+    its segment views)."""
+    return IndexStore.open(store) if isinstance(store, (str, os.PathLike)) else store
+
+
 @dataclasses.dataclass
 class DenseIndex:
     """Flat exact-search index over document embeddings.
@@ -140,6 +162,24 @@ class DenseIndex:
         if dtype is not None:
             v = v.to(dtype)
         return cls(vectors=v.contiguous(), scale=None)
+
+    @classmethod
+    def load(cls, store, *, device=None) -> "DenseIndex":
+        """Load from an on-disk ``IndexStore`` (path or open handle, or one
+        segment's view) onto ``device`` (default: the card).
+
+        The vectors are preallocated on the device and the memory-mapped
+        chunks copied in one slice at a time (``read_into``), so the host
+        never holds a copy of the index beyond the OS page cache.
+        """
+        store = _open_store(store)
+        _check_flat_loadable(store)
+        dev = default_device(device)
+        vectors = torch.empty((store.n, store.dim), dtype=store.dtype, device=dev)
+        store.read_into(vectors)
+        s = store.scale()
+        return cls(vectors=vectors,
+                   scale=None if s is None else torch.from_numpy(s).to(dev))
 
     def _dequeries(self, queries: torch.Tensor) -> torch.Tensor:
         """Fold the int8 scale into the query side: (Dq) = (D_int8)(s ⊙ q)."""
@@ -228,6 +268,13 @@ def _stored(raw: np.ndarray, dtype: torch.dtype) -> np.ndarray:
     if dtype == torch.float32:
         return raw
     return torch.from_numpy(raw).to(dtype).float().numpy()
+
+
+def _host_stored(t: torch.Tensor) -> np.ndarray:
+    """Stored rows copied to the host: bf16 as f32 values (numpy has no
+    bf16), as ``_stored`` keeps them."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,6 +376,26 @@ class DeltaSegment:
             n_real=raw.shape[0], raw=raw), False, new_rows
 
 
+def rehydrate_delta(view, delta_capacity: int, *, device=None) -> DeltaSegment:
+    """Rebuild one ``DeltaSegment`` from a store view on ``device``
+    (default: the card): the stored bytes become the served bytes bit for
+    bit, padded to the stored capacity; ``raw`` is the dequantised f32
+    reconstruction, the best requantisation source that survives a
+    restart."""
+    rows = view.read_rows(0, view.n, device="cpu")
+    s = view.scale()
+    raw = rows.float().numpy()
+    if s is not None:
+        raw = raw * s[None, :].astype(np.float32)
+    cap = int(view.capacity) if view.capacity else max(delta_capacity, view.n)
+    dev = default_device(device)
+    vectors = torch.zeros((cap, view.dim), dtype=rows.dtype, device=dev)
+    vectors[:view.n] = rows.to(dev)
+    return DeltaSegment(vectors=vectors, n_real=view.n,
+                        scale=None if s is None else torch.from_numpy(s).to(dev),
+                        raw=np.ascontiguousarray(raw))
+
+
 @dataclasses.dataclass(frozen=True)
 class SegmentedIndex:
     """Immutable segment set: [base] + deltas, searched as one index.
@@ -356,6 +423,19 @@ class SegmentedIndex:
     def from_index(cls, base: DenseIndex, *, delta_capacity: int = 4096
                    ) -> "SegmentedIndex":
         return cls(base=base, deltas=(), delta_capacity=delta_capacity)
+
+    @classmethod
+    def load(cls, store, *, delta_capacity: int = 4096, device=None
+             ) -> "SegmentedIndex":
+        """Load a (possibly segmented) artifact onto ``device`` (default:
+        the card): segment 0 becomes the base, every delta segment is
+        rehydrated at its stored capacity with its own scale. A pre-segment
+        artifact loads as a single base."""
+        views = _open_store(store).segments()
+        base = DenseIndex.load(views[0], device=device)
+        deltas = [rehydrate_delta(v, delta_capacity, device=base.device)
+                  for v in views[1:]]
+        return cls(base=base, deltas=tuple(deltas), delta_capacity=delta_capacity)
 
     # -- shape --------------------------------------------------------------
     @property
@@ -400,7 +480,8 @@ class SegmentedIndex:
           ("widen",  di, stored_all,  scale)  — scale widened: the delta's
                                                 full requantised contents
         ``stored_*`` are host arrays in storage dtype (int8 already
-        quantised), exactly the bytes the index serves.
+        quantised; bf16 as its values in f32), exactly the bytes the index
+        serves.
         """
         rows = _host_f32(rows)
         if rows.shape[1] != self.dim:
@@ -427,7 +508,7 @@ class SegmentedIndex:
                                          quantize=self.quantized,
                                          dtype=self.storage_dtype, device=self.device)
                 deltas.append(seg)
-                ops_.append(("open", di, seg.vectors[:seg.n_real].cpu().numpy(),
+                ops_.append(("open", di, _host_stored(seg.vectors[:seg.n_real]),
                              None if seg.scale is None else seg.scale.cpu().numpy()))
             pos += take
         return dataclasses.replace(self, deltas=tuple(deltas)), ops_

@@ -1,13 +1,14 @@
 """Index maintenance: segmented live growth and drift-triggered compaction
-(port of ``repro/core/maintenance.py`` without the store and sharded
-paths).
+(port of ``repro/core/maintenance.py`` without the sharded paths).
 
   * ``IndexUpdater.add_documents`` — new documents are rotated with the
     EXISTING ``W_m`` and appended to the open delta segment (no refit, no
     reindex of old docs). Each delta carries its OWN int8 scale, widened per
     append block when needed, so nothing ever clips against the base's
-    frozen scale. With a ``server`` attached, every append installs the new
-    segment set atomically between batches (``RetrievalServer.swap_index``).
+    frozen scale. With a ``store`` attached, every append mirrors durably
+    to disk (the bytes on disk are the bytes being served); with a
+    ``server`` attached, every append installs the new segment set
+    atomically between batches (``RetrievalServer.swap_index``).
   * ``drift_score`` — fraction of a new batch's embedding energy captured by
     the kept subspace, ``||X W_m||² / ||X||²``, against the energy it
     captured at fit time: near 1 the rotation still fits (paper RQ2
@@ -17,31 +18,32 @@ paths).
     the base. Either climbing is the compaction signal.
   * ``needs_refit`` — thresholded policy over all three signals.
   * ``compact()`` — rebuild of base + deltas into ONE fresh base segment
-    (same rotation, fresh corpus-wide scale) on the index's device; the
-    server receives it between batches. ``compact_async()`` runs it
-    off-thread: appends that land mid-compaction are reconciled onto the
-    new base before the swap. A paged index compacts by pointer swaps.
+    (same rotation, fresh corpus-wide scale). Without a store it runs on
+    the index's device; with one it streams through
+    ``StaticPruner.build_index_to(already_projected=True)`` into a sidecar
+    artifact and swaps the directory in atomically. ``compact_async()``
+    runs it off-thread: appends that land mid-compaction are reconciled
+    onto the new base before the swap. A paged index compacts by pointer
+    swaps.
 
-The durable store waits for ROADMAP queue 1 item 3 (``store=`` and
-``store_path=`` raise ``NotImplementedError``; ``from_store`` comes with
-it); the sharded base waits for item 5.
+The sharded base waits for ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.fsio import commit_dir
 from repro_torch.core.index import DenseIndex, SegmentedIndex
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
+from repro_torch.core.store import IndexStore, paged_manifest_block, save_index
 from repro_torch.util import as_tensor
-
-_NO_STORE = ("the index store is not ported yet (ROADMAP queue 1 item 3); "
-             "IndexUpdater keeps its segments in memory only")
 
 
 def _new_rlock():
@@ -87,14 +89,17 @@ class IndexUpdater:
     ``SegmentedIndex``), a ``SegmentedIndex`` or a ``PagedIndex``.
     ``fit_energy`` may be left unset: the reference energy then comes from
     the fitted state (``_eigval_energy``), exactly, with no pass over the
-    fit corpus. ``server``: an optional ``RetrievalServer`` that receives
-    the new index via ``swap_index`` after every mutation.
+    fit corpus. ``store``: an optional ``IndexStore`` (or path) the updater
+    appends through — every delta mutation lands durably, so the on-disk
+    artifact tracks the in-memory segments bit for bit. ``server``: an
+    optional ``RetrievalServer`` that receives the new index via
+    ``swap_index`` after every mutation.
     """
 
     pruner: StaticPruner
     index: SegmentedIndex | PagedIndex
     fit_energy: float | None = None  # energy on the fit corpus (reference)
-    store: object | None = None      # waits for the store (queue 1 item 3)
+    store: IndexStore | None = None  # IndexStore | str | None
     server: object | None = None     # RetrievalServer | None
     delta_capacity: int = 4096
     # telemetry
@@ -110,8 +115,8 @@ class IndexUpdater:
                                                repr=False, compare=False)
 
     def __post_init__(self):
-        if self.store is not None:
-            raise NotImplementedError(_NO_STORE)
+        if isinstance(self.store, (str, bytes, os.PathLike)):
+            self.store = IndexStore.open(self.store)
         if isinstance(self.index, DenseIndex):
             self.index = SegmentedIndex.from_index(
                 self.index, delta_capacity=self.delta_capacity)
@@ -121,11 +126,11 @@ class IndexUpdater:
               store_path: str | None = None, delta_capacity: int = 4096,
               paged: bool = False, page_rows: int = 256,
               pool_pages: int | None = None) -> "IndexUpdater":
-        """Fit + build on the corpus's device. ``paged=True`` serves through
-        ``PagedIndex`` (pointer-swap lifecycle; ``pool_pages`` below the
-        corpus page count oversubscribes device memory)."""
-        if store_path is not None:
-            raise NotImplementedError(_NO_STORE)
+        """Fit + build on the corpus's device; with ``store_path``, also
+        persist the artifact and attach the committed store for durable
+        appends. ``paged=True`` serves through ``PagedIndex`` (pointer-swap
+        lifecycle; ``pool_pages`` below the corpus page count
+        oversubscribes device memory)."""
         corpus = as_tensor(corpus)
         pruner = StaticPruner(cutoff=cutoff).fit(corpus)
         base = pruner.build_index(corpus, quantize_int8=quantize_int8)
@@ -135,16 +140,44 @@ class IndexUpdater:
                                           seal_rows=delta_capacity)
         else:
             index = SegmentedIndex.from_index(base, delta_capacity=delta_capacity)
+        store = None
+        if store_path is not None:
+            store = save_index(store_path, index if paged else base, pruner=pruner)
         return cls(pruner=pruner, index=index,
-                   fit_energy=captured_energy(corpus, pruner),
+                   fit_energy=captured_energy(corpus, pruner), store=store,
                    delta_capacity=delta_capacity)
+
+    @classmethod
+    def from_store(cls, store, *, delta_capacity: int = 4096,
+                   paged: bool | None = None, pool_pages: int | None = None,
+                   device=None) -> "IndexUpdater":
+        """Rehydrate updater state from a committed artifact (cold start)
+        onto ``device`` (default: the card) — base AND delta segments, each
+        with its own scale. ``paged=None`` auto-detects: a store carrying
+        the ``paged`` manifest block reloads as a ``PagedIndex``.
+
+        ``fit_energy`` stays lazy: the fit corpus is not in the store, and
+        the eigenvalue identity gives the same reference.
+        """
+        if not isinstance(store, IndexStore):
+            store = IndexStore.open(store)
+        if paged is None:
+            paged = "paged" in store.manifest
+        if paged:
+            index = PagedIndex.load(store, pool_pages=pool_pages, device=device)
+        else:
+            index = SegmentedIndex.load(store, delta_capacity=delta_capacity,
+                                        device=device)
+        return cls(pruner=store.load_pruner(device=index.device), index=index,
+                   store=store, delta_capacity=delta_capacity)
 
     # -- incremental growth ------------------------------------------------
     def add_documents(self, new_embs) -> int:
         """Rotate with the existing W_m and append to the open delta.
 
-        Copy-on-write: a NEW segment set is built, then installed into the
-        attached server atomically. Nothing ever clips: an int8 delta's
+        Copy-on-write: a NEW segment set is built, mirrored to the store
+        (open/extend/widen ops with the exact stored bytes), then installed
+        into the attached server atomically. Nothing ever clips: an int8 delta's
         scale widens per dim to fit every appended block (requantised from
         the exact f32 staging; the rewrite is bounded by the open delta's
         capacity). Returns the number of rows appended.
@@ -156,7 +189,8 @@ class IndexUpdater:
         X = as_tensor(new_embs, pruner.state.components.device)
         pruned = pruner.prune_index(X).float().cpu().numpy()
         with self._lock:
-            new_index, _ = self.index.append_with_ops(pruned)
+            new_index, ops_ = self.index.append_with_ops(pruned)
+            self._mirror_ops(ops_, new_index)
             self.index = new_index
             self.appended_rows += pruned.shape[0]
             # swap INSIDE the lock: a preempted thread must not install a
@@ -164,6 +198,44 @@ class IndexUpdater:
             if self.server is not None:
                 self.server.swap_index(new_index)
         return int(pruned.shape[0])
+
+    def _mirror_ops(self, ops_, new_index) -> None:
+        """Replay append ops durably (three fsyncs per op: the blob, the
+        manifest and the directory). The op stream is identical for
+        segmented and paged indexes; only the delta-ordinal -> store-segment
+        mapping differs (paged: extents are segments positionally, with
+        base extents a prefix — delta ordinal di is segment ``n_base +
+        di``). A paged mirror finishes with the lifecycle-block swap, which
+        may lag the segment ops across a crash (the loader reconstructs;
+        ``IndexStore._validate_paged``)."""
+        if self.store is None:
+            return
+        paged = isinstance(new_index, PagedIndex)
+        if paged:
+            base_idx = sum(1 for e in new_index.storage.extents if e.kind == "base")
+            capacity = new_index.storage.seal_rows
+        else:
+            base_idx = 1
+        names = [v.name for v in self.store.segments()]
+        dtype = self.store.dtype
+        for op in ops_:
+            kind, di = op[0], op[1]
+            seg_idx = base_idx + di                # store segment position
+            # host rows in the store's dtype (a bf16 index hands its rows
+            # over as f32 values, exactly representable)
+            stored = torch.as_tensor(op[2]).to(dtype)
+            if kind == "open":
+                cap = capacity if paged else new_index.deltas[di].capacity
+                name = self.store.add_delta(scale=op[3], capacity=cap)
+                names.append(name)
+                if stored.shape[0]:
+                    self.store.append(stored, segment=name)
+            elif kind == "extend":
+                self.store.append(stored, segment=names[seg_idx])
+            else:                                   # widen: bounded rewrite
+                self.store.replace_segment(names[seg_idx], [stored], scale=op[3])
+        if paged:
+            self.store.set_paged_state(paged_manifest_block(new_index.storage))
 
     # -- telemetry ---------------------------------------------------------
     @property
@@ -245,15 +317,36 @@ class IndexUpdater:
         return self.drift_score(new_embs) < threshold
 
     # -- compaction --------------------------------------------------------
-    def _iter_dequant_rows(self, index: SegmentedIndex, block_rows: int):
-        """Stream base + delta rows as f32 blocks in global id order: the
-        base dequantised on its device (an f32 multiply per block), then
-        each delta's exact f32 staging."""
-        base = index.base
-        for lo in range(0, base.n, block_rows):
-            rows = base.vectors[lo:lo + block_rows].float()
-            if base.scale is not None:
-                rows = rows * base.scale[None, :]
+    def _iter_dequant_rows(self, index: SegmentedIndex, block_rows: int,
+                           store: IndexStore | None = None):
+        """Stream base + delta rows as f32 blocks in global id order, then
+        each delta's exact f32 staging.
+
+        ``store`` is the caller's locked snapshot of ``self.store`` (or
+        None): the generator runs unlocked while appends mirror to the live
+        store, so it never re-reads the field mid-stream. With a store the
+        base streams from DISK (host O(block)), each block read onto the
+        index's device; otherwise from the device copy. Either way it is
+        dequantised there by one f32 multiply per element."""
+        dev = index.device
+        if store is not None:
+            view = store.segments()[0]
+            n = view.n
+            s = view.scale()
+            scale = None if s is None else torch.from_numpy(s).to(dev)
+
+            def block(lo):
+                return view.read_rows(lo, min(lo + block_rows, n), device=dev)
+        else:
+            base = index.base
+            n, scale = base.n, base.scale
+
+            def block(lo):
+                return base.vectors[lo:lo + block_rows]
+        for lo in range(0, n, block_rows):
+            rows = block(lo).float()
+            if scale is not None:
+                rows = rows * scale[None, :]
             yield rows
         for d in index.deltas:
             for lo in range(0, d.n_real, block_rows):
@@ -262,9 +355,13 @@ class IndexUpdater:
     def _compact_paged(self) -> None:
         """Paged compaction: seal + promote every delta extent and drain
         tail pages into free pool slots — pointer swaps plus one gather,
-        never a corpus rebuild, so it runs entirely under the lock."""
+        never a corpus rebuild, so it runs entirely under the lock. On disk
+        it is one lifecycle-block manifest swap (the page bytes were
+        mirrored at append time)."""
         with self._lock:
             new_index, stats = self.index.compact_pages()
+            if self.store is not None:
+                self.store.set_paged_state(paged_manifest_block(new_index.storage))
             self.index = new_index
             self.compactions += 1
             self.last_compaction = dict(stats)
@@ -276,35 +373,61 @@ class IndexUpdater:
 
         The rotation (``W_m``) is unchanged; compaction re-homogenises the
         quantisation: a single fresh corpus-wide scale replaces the base's
-        and every widened delta scale. The rows are assembled on the
-        index's device (``_iter_dequant_rows`` into one f32 buffer), then
-        ``DenseIndex.build`` quantises them, so the bytes equal a CPU
-        rebuild's. The build runs unlocked; appends racing it are
-        reconciled: rows landed after the snapshot re-append onto the fresh
-        base before the swap.
+        and every widened delta scale.
+
+        Without a store the rows are assembled on the index's device
+        (``_iter_dequant_rows`` into one f32 buffer) and ``DenseIndex.build``
+        quantises them. With a store attached the new artifact builds
+        UNLOCKED at a sidecar path (``<path>.compact``) through
+        ``StaticPruner.build_index_to(already_projected=True)`` (O(block)
+        host memory, int8 spill), the base loads from it, and only the
+        directory swap into the live path (``commit_dir`` rename-aside: a
+        crash leaves the old or the new artifact, never neither) happens
+        under the updater lock, so no append mirror can interleave with
+        the replacement. Both paths give the same bytes. Appends racing the
+        build are reconciled: rows landed after the snapshot re-append
+        onto the fresh base (and mirror to the new artifact) before the
+        swap.
         """
         with self._lock:
-            snapshot = self.index
+            snapshot, pruner = self.index, self.pruner
+            store, n_compactions = self.store, self.compactions
         if isinstance(snapshot, PagedIndex):
             self._compact_paged()
             return
-        rows = torch.empty((snapshot.n, snapshot.dim), dtype=torch.float32,
-                           device=snapshot.device)
-        pos = 0
-        for blk in self._iter_dequant_rows(snapshot, block_rows):
-            rows[pos:pos + blk.shape[0]] = blk
-            pos += blk.shape[0]
-        base = DenseIndex.build(rows, quantize_int8=snapshot.quantized)
-        del rows
+        if store is not None:
+            side_path = store.path + ".compact"
+            side = pruner.build_index_to(
+                side_path,
+                lambda: self._iter_dequant_rows(snapshot, block_rows, store),
+                quantize_int8=snapshot.quantized, already_projected=True,
+                meta={"compactions": n_compactions + 1})
+            # the base materialises from the sidecar before the lock: the
+            # load never blocks appends
+            base = DenseIndex.load(side, device=snapshot.device)
+        else:
+            side_path = None
+            rows = torch.empty((snapshot.n, snapshot.dim), dtype=torch.float32,
+                               device=snapshot.device)
+            pos = 0
+            for blk in self._iter_dequant_rows(snapshot, block_rows):
+                rows[pos:pos + blk.shape[0]] = blk
+                pos += blk.shape[0]
+            base = DenseIndex.build(rows, quantize_int8=snapshot.quantized)
+            del rows
         fresh = SegmentedIndex.from_index(base, delta_capacity=self.delta_capacity)
         with self._lock:
+            if side_path is not None:
+                commit_dir(side_path, self.store.path)     # atomic retire
+                self.store = IndexStore.open(self.store.path)
             # the current segment set extends the snapshot row for row, so
             # the tail [snapshot.n:) is exactly the racing appends
             tail = [d.raw for d in self.index.deltas]
             tail_rows = (np.concatenate(tail)[snapshot.delta_rows:] if tail
                          else np.zeros((0, snapshot.dim), np.float32))
             if tail_rows.shape[0]:
-                fresh = fresh.append(tail_rows)
+                fresh, ops_ = fresh.append_with_ops(tail_rows)
+                self._mirror_ops(ops_, fresh)
             self.index = fresh
             self.compactions += 1
             self.last_compaction = {"rows_rebuilt": int(fresh.n)}
@@ -343,7 +466,8 @@ class IndexUpdater:
     def refit(self, corpus) -> None:
         """Full offline refit (new rotation) on the current corpus
         distribution; unlike ``compact``, this re-fits ``W_m`` itself. A
-        paged index stays paged with its page geometry."""
+        paged index stays paged with its page geometry, and an attached
+        store is rewritten under the new rotation."""
         with self._lock:
             old_index, old_pruner = self.index, self.pruner
         corpus = as_tensor(corpus, old_index.device)
@@ -360,6 +484,13 @@ class IndexUpdater:
         with self._lock:
             self.pruner, self.index, self.fit_energy = pruner, new_index, energy
             self.appended_rows = 0
+            if self.store is not None:
+                # the old artifact is invalid under the new rotation:
+                # replace it atomically at the same path
+                self.store = save_index(
+                    self.store.path,
+                    self.index if isinstance(self.index, PagedIndex) else self.index.base,
+                    pruner=self.pruner)
             if self.server is not None:
                 self.server.swap_index(self.index, pruner=self.pruner)
 

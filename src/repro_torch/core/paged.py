@@ -1,5 +1,5 @@
 """Paged index memory over a dense or segmented base (port of
-``repro/core/paged.py`` without the store and cascade parts).
+``repro/core/paged.py`` without the cascade part).
 
 ``PagedIndexStorage`` keeps an index's rows in fixed ``page_rows``-row
 pages behind an int32 page table:
@@ -33,7 +33,9 @@ of ``wave_pages`` pages chained through the top-k carry. Results follow the
 (score desc, id asc) order, so they do not depend on where a page lives:
 promote, compact and evict leave them unchanged. ``from_segmented`` pages a
 live ``SegmentedIndex`` byte for byte, each delta becoming a delta extent.
-Waiting on later items: ``load`` / ``save`` and the cascade's ``rescore``.
+``save`` writes one store segment per extent, gathered off the tiers by
+``extent_rows``, and ``load`` pages a store back bit for bit. Waiting on a
+later item: the cascade's ``rescore``.
 """
 from __future__ import annotations
 
@@ -43,10 +45,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import DenseIndex, SegmentedIndex, _project_nofold
+from repro_torch.core.index import DenseIndex, SegmentedIndex, _open_store, _project_nofold
 from repro_torch.core.quantization import quantize_with_scale, scale_for
+from repro_torch.core.store import save_paged_index
 from repro_torch.kernels import ops
-from repro_torch.util import as_tensor
+from repro_torch.util import as_tensor, default_device
 
 
 class PageExtent(NamedTuple):
@@ -422,6 +425,34 @@ class PagedIndexStorage:
                                       n, row_offset, scale, raw))
         return mut.freeze()
 
+    def extent_rows(self, ei: int, start: int = 0, stop: int | None = None
+                    ) -> torch.Tensor:
+        """Rows [start, stop) of extent ``ei`` (default: all of them), its
+        stored bytes in global-id order, as a host tensor in the storage
+        dtype. Each page comes off the tier that holds it: pool and tail
+        pages in one device gather per tier and one copy to the host, host
+        pages as they are. The persistence source (``save_paged_index``)
+        and the staging reconstruction of a reloaded open extent."""
+        e = self.extents[ei]
+        R = self.page_rows
+        stop = e.n_rows if stop is None else stop
+        if not 0 <= start <= stop <= e.n_rows:
+            raise ValueError(f"row range [{start}, {stop}) outside extent "
+                             f"{ei}'s [0, {e.n_rows})")
+        p0, p1 = start // R, -(-stop // R)
+        phys = self.pt_host[e.start_slot + p0:e.start_slot + p1]
+        out = torch.empty((p1 - p0, R, self.dim), dtype=self.dtype)
+        P = self.pool_pages
+        for tier, sel, first in ((self.pool, (phys >= 0) & (phys < P), 0),
+                                 (self.tail, phys >= P, P)):
+            sel = np.flatnonzero(sel)
+            if sel.size:
+                idx = torch.from_numpy(phys[sel].astype(np.int64) - first)
+                out[torch.from_numpy(sel)] = tier[idx.to(tier.device)].cpu()
+        for i in np.flatnonzero(phys < 0):
+            out[i] = self.host_pages[e.start_slot + p0 + int(i)]
+        return out.view(-1, self.dim)[start - p0 * R:stop - p0 * R]
+
     # -- growth (copy-on-write) ---------------------------------------------
     def append_with_ops(self, rows) -> tuple["PagedIndexStorage", list]:
         """Append f32 rows; page-pointer swaps only.
@@ -678,6 +709,75 @@ class PagedIndex:
         st = PagedIndexStorage.from_segmented(seg, page_rows=page_rows,
                                               pool_pages=pool_pages)
         return cls(storage=st, depth=depth, wave_pages=wave_pages)
+
+    # -- persistence ---------------------------------------------------------
+    @classmethod
+    def load(cls, store, *, page_rows: int | None = None,
+             pool_pages: int | None = None, seal_rows: int | None = None,
+             depth: int = 2, wave_pages: int = 8, device=None) -> "PagedIndex":
+        """Page an on-disk artifact bit for bit onto ``device`` (default:
+        the card).
+
+        A store written by ``save_paged_index`` carries the ``paged``
+        manifest block (page geometry + extent lifecycle); extent i's bytes
+        are segment i's bytes, so the load reuses the segmented
+        rehydration, then re-applies the recorded extent kinds. The block
+        may LAG the segments (a crash between the append mirror's two
+        manifest swaps): missing trailing extents reload as deltas, and
+        sealed-ness is reconstructed conservatively (every non-last extent
+        is sealed; the last one by row count or the fresh block entry). A
+        plain segmented store (no block) pages directly. ``pool_pages``
+        below the resident page count oversubscribes: the overflow streams
+        from the host tier at search time.
+        """
+        store = _open_store(store)
+        dev = default_device(device)
+        pb = store.manifest.get("paged")
+        if pb is not None:
+            R = int(pb["page_rows"]) if page_rows is None else page_rows
+            S = int(pb["seal_rows"]) if seal_rows is None else seal_rows
+        else:
+            R = 256 if page_rows is None else page_rows
+            S = 4096 if seal_rows is None else seal_rows
+        if pb is not None and pb["extents"] and pb["extents"][0]["kind"] == "delta":
+            # extent 0 is itself a delta (an index grown from empty): adopt
+            # every segment through the writable tiers (tail/host) over a
+            # zero-row base, since pool pages take no writes
+            views = store.segments()
+            s0 = views[0].scale()
+            shim = DenseIndex(
+                vectors=torch.zeros((0, store.dim), dtype=store.dtype, device=dev),
+                scale=None if s0 is None else torch.from_numpy(s0).to(dev))
+            st = PagedIndexStorage.from_index(shim, page_rows=R,
+                                              pool_pages=pool_pages, seal_rows=S)
+            for v in views:
+                st = st._adopt_extent(v.read_rows(0, v.n, device="cpu"), v.scale(),
+                                      raw=None, sealed=True)
+        else:
+            seg = SegmentedIndex.load(store, delta_capacity=S, device=dev)
+            st = PagedIndexStorage.from_segmented(seg, page_rows=R,
+                                                  pool_pages=pool_pages)
+        if pb is not None and st.extents:
+            pbe = pb["extents"]
+            exts = list(st.extents)
+            for i, ext in enumerate(exts):
+                kind = pbe[i]["kind"] if i < len(pbe) else "delta"
+                fresh = i < len(pbe) and int(pbe[i]["n"]) == ext.n_rows
+                sealed = (i < len(exts) - 1 or ext.n_rows >= S
+                          or (fresh and bool(pbe[i]["sealed"])))
+                raw = ext.raw
+                if not sealed and raw is None:
+                    raw = st.extent_rows(i).float().numpy()
+                    if ext.scale is not None:
+                        raw = raw * ext.scale[None, :].astype(np.float32)
+                exts[i] = ext._replace(kind=kind, sealed=sealed,
+                                       raw=None if sealed else raw)
+            st = dataclasses.replace(st, extents=tuple(exts))
+        return cls(storage=st, depth=depth, wave_pages=wave_pages)
+
+    def save(self, path: str, *, pruner=None, meta: dict | None = None):
+        """Persist page-granularly (see ``store.save_paged_index``)."""
+        return save_paged_index(path, self, pruner=pruner, meta=meta)
 
     # -- growth --------------------------------------------------------------
     def append_with_ops(self, rows) -> tuple["PagedIndex", list]:

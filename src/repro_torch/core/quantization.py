@@ -23,6 +23,21 @@ def scale_for(X: np.ndarray) -> np.ndarray:
             / 127.0).astype(np.float32)
 
 
+def scale_from_absmax(absmax: torch.Tensor) -> torch.Tensor:
+    """Per-dim scale ``max(absmax, 1e-12) / 127`` by a true f32 division on
+    any device. A Python-number divisor would make PyTorch's CUDA kernel
+    multiply by its reciprocal instead, which can land one ULP off the
+    reference's divide and move int8 bytes."""
+    a = torch.clamp_min(absmax, 1e-12)
+    return a / torch.full_like(a, 127.0)
+
+
+def quantize_rows(X: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 of X under ``scale`` on X's device: f32 divide, round half to
+    even, clip to ±127."""
+    return torch.clamp(torch.round(X.float() / scale[None, :]), -127, 127).to(torch.int8)
+
+
 def quantize_int8_per_dim(X: torch.Tensor, *, block_rows: int = 1 << 20
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-column int8: (q (n, m) int8, scale (m,) f32).
@@ -35,11 +50,10 @@ def quantize_int8_per_dim(X: torch.Tensor, *, block_rows: int = 1 << 20
     absmax = torch.zeros(m, dtype=torch.float32, device=X.device)
     for i in range(0, n, block_rows):
         absmax = torch.maximum(absmax, X[i:i + block_rows].float().abs().amax(0))
-    scale = torch.clamp_min(absmax, 1e-12) / 127.0
+    scale = scale_from_absmax(absmax)
     q = torch.empty((n, m), dtype=torch.int8, device=X.device)
     for i in range(0, n, block_rows):
-        blk = X[i:i + block_rows].float() / scale[None, :]
-        q[i:i + block_rows] = torch.clamp(torch.round(blk), -127, 127).to(torch.int8)
+        q[i:i + block_rows] = quantize_rows(X[i:i + block_rows], scale)
     return q, scale
 
 

@@ -32,9 +32,18 @@ segment set in between batches, and the run ends with a compaction.
 ``--delta-capacity`` is the fixed capacity of each delta segment and the
 row count at which a paged delta extent seals.
 
-The reference's ``--sharded`` (queue 1 item 5), ``--load-index`` /
-``--save-index`` (item 3), ``--cascade`` and its live branch (item 4),
-``--fleet`` (item 6) and ``--compare-full`` modes are not ported yet.
+``--save-index DIR`` persists what was built (PCA state, pruned vectors,
+int8 scale; a paged index page by page) as an ``IndexStore`` artifact.
+``--load-index DIR`` serves from one instead, with no refit and no
+rebuild: it opens and validates the store, loads it onto the card (paged
+under ``--paged`` or when the manifest carries a ``paged`` block) and
+prints the cold start, from opening the store to the first answered
+query. Under ``--live-append`` the loaded index gets an
+``IndexUpdater.from_store``, so every append is durable.
+
+The reference's ``--sharded`` (queue 1 item 5), ``--cascade`` and its live
+branch (item 4), ``--fleet`` (item 6) and ``--compare-full`` modes are not
+ported yet.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 50000 \\
@@ -45,6 +54,10 @@ Examples:
       --page-pool 96            # oversubscribed: the rest streams from host
   PYTHONPATH=src python -m repro_torch.launch.serve --live-append 300 \\
       --quantize-int8           # appends swapped in under load, then compact
+  PYTHONPATH=src python -m repro_torch.launch.serve --quantize-int8 \\
+      --save-index build/idx    # build once, persist the artifact ...
+  PYTHONPATH=src python -m repro_torch.launch.serve --load-index build/idx
+                                # ... and restart from it
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ from repro_torch.core.index import DenseIndex, SegmentedIndex
 from repro_torch.core.maintenance import IndexUpdater
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
+from repro_torch.core.store import IndexStore, save_index
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.util import default_device
 
@@ -599,6 +613,9 @@ def _drive_open(server: RetrievalServer, Q: np.ndarray, rate: float,
 
 
 APPEND_BLOCK = 64      # rows per live append
+# the cold start's first query may build the top-k kernel with nvcc (about
+# a minute on a fresh checkout), so it waits longer than a served query
+COLD_QUERY_TIMEOUT = 900.0
 
 
 def _append_loop(updater: IndexUpdater, rate: float, dim: int,
@@ -643,6 +660,68 @@ def _report_live(server: RetrievalServer, updater: IndexUpdater) -> None:
               f"mid-serve (swap #{server.swap_count})")
 
 
+def _query_tape(ds, n: int) -> np.ndarray:
+    """``n`` queries: the dataset's dl19 set, tiled."""
+    Q = np.asarray(ds.queries["dl19"])
+    return np.tile(Q, (max(1, n // len(Q) + 1), 1))[:n]
+
+
+def _print_paged(what: str, index: PagedIndex) -> None:
+    stg = index.storage
+    print(f"[serve] {what}: {index.n} x {index.dim} "
+          f"({index.nbytes/2**20:.1f} MiB, {stg.n_slots} pages "
+          f"x {stg.page_rows} rows, {stg.n_host_pages} host-tier)")
+
+
+def _serve_from_store(args, device: torch.device, pool_pages: int | None):
+    """``--load-index``: the restart path. Peeks at the artifact for the
+    query width, then times the cold start proper — open and validate,
+    load, first answered query — and prints it. Returns ``(server,
+    updater or None, query tape)``; under ``--live-append`` the index comes
+    from ``IndexUpdater.from_store``, so appends mirror to the artifact."""
+    src_d = int(IndexStore.open(args.load_index).meta.get("source_dim", args.dim))
+    if src_d != args.dim:
+        print(f"[serve] store was fit at d={src_d}; overriding --dim")
+        args.dim = src_d
+    # a tiny corpus is enough to synthesise the query stream: the served
+    # docs come from the artifact
+    Q = _query_tape(make_dataset("tasb", n_docs=256, d=args.dim,
+                                 query_sets=("dl19",)), args.queries)
+    t_cold = time.perf_counter()
+    store = IndexStore.open(args.load_index)
+    updater = None
+    if args.live_append > 0:
+        updater = IndexUpdater.from_store(
+            store, delta_capacity=args.delta_capacity,
+            paged=True if args.paged else None, pool_pages=pool_pages,
+            device=device)
+        index, pruner = updater.index, updater.pruner
+    else:
+        pruner = store.load_pruner(device=device)
+        if args.paged or "paged" in store.manifest:
+            index = PagedIndex.load(store, page_rows=args.page_rows or None,
+                                    pool_pages=pool_pages, device=device)
+        else:
+            index = DenseIndex.load(store, device=device)
+    if isinstance(index, PagedIndex):
+        _print_paged("loaded paged index", index)
+    elif isinstance(index, SegmentedIndex):
+        print(f"[serve] loaded segmented index: {index.n} x {index.dim} "
+              f"({index.nbytes/2**20:.1f} MiB, {len(index.deltas)} delta "
+              f"segment(s))")
+    else:
+        print(f"[serve] loaded index: {index.n} x {index.dim} "
+              f"({index.nbytes/2**20:.1f} MiB, dtype={index.vectors.dtype})")
+    server = RetrievalServer(index, pruner, k=args.k, max_batch=args.batch,
+                             pipeline_depth=args.pipeline_depth,
+                             bucket_batches=args.bucket_batches)
+    server.query(Q[0], timeout=COLD_QUERY_TIMEOUT)   # closes the cold start
+    print(f"[serve] cold start (open store -> first query): "
+          f"{(time.perf_counter() - t_cold)*1e3:.1f}ms")
+    server.reset_stats()
+    return server, updater, Q
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-docs", type=int, default=50000)
@@ -664,8 +743,9 @@ def main(argv: list[str] | None = None) -> None:
                          "compaction and eviction are pointer swaps, and "
                          "the index may exceed the device pool (see "
                          "--page-pool)")
-    ap.add_argument("--page-rows", type=int, default=256, metavar="R",
-                    help="rows per page (default 256)")
+    ap.add_argument("--page-rows", type=int, default=0, metavar="R",
+                    help="rows per page (default: 256, or the artifact's "
+                         "page geometry under --load-index)")
     ap.add_argument("--page-pool", type=int, default=0, metavar="P",
                     help="cap the device page pool at P pages; overflow "
                          "pages stay in pinned host memory and stream in "
@@ -687,33 +767,48 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="device to build and serve on (default: cuda; "
                          "raises when there is no CUDA device)")
+    ap.add_argument("--save-index", default=None, metavar="DIR",
+                    help="persist the built artifact (PCA state + pruned "
+                         "vectors + int8 scale; a paged index page by page) "
+                         "to DIR for later --load-index restarts")
+    ap.add_argument("--load-index", default=None, metavar="DIR",
+                    help="serve from an on-disk artifact: skips the PCA "
+                         "refit and the index build (the paper's "
+                         "offline/online split); under --live-append the "
+                         "appends mirror durably to DIR")
     args = ap.parse_args(argv)
+    if args.save_index and args.load_index:
+        ap.error("--save-index and --load-index are mutually exclusive")
     device = default_device(args.device)
-
-    print(f"[serve] building corpus n={args.n_docs} d={args.dim} on {device}")
-    ds = make_dataset("tasb", n_docs=args.n_docs, d=args.dim,
-                      query_sets=("dl19",))
-    D = torch.as_tensor(ds.docs, device=device)
-    Q = np.asarray(ds.queries["dl19"])
-    Q = np.tile(Q, (max(1, args.queries // len(Q) + 1), 1))[:args.queries]
-
-    pruner = StaticPruner(cutoff=args.cutoff).fit(D)
-    index = DenseIndex.build(pruner.prune_index(D),
-                             quantize_int8=args.quantize_int8)
-    print(f"[serve] pruned index: {index.n} x {index.dim} "
-          f"({index.nbytes/2**20:.1f} MiB, {index.vectors.dtype})")
-    if args.paged:
-        index = PagedIndex.from_index(index, page_rows=args.page_rows,
-                                      pool_pages=args.page_pool or None,
-                                      seal_rows=args.delta_capacity)
-        stg = index.storage
-        print(f"[serve] paged index: {index.n} x {index.dim} "
-              f"({index.nbytes/2**20:.1f} MiB, {stg.n_slots} pages "
-              f"x {stg.page_rows} rows, {stg.n_host_pages} host-tier)")
-    server = RetrievalServer(index, pruner, k=args.k, max_batch=args.batch,
-                             pipeline_depth=args.pipeline_depth,
-                             bucket_batches=args.bucket_batches)
+    pool_pages = args.page_pool or None
     updater = appender = None
+
+    if args.load_index:
+        server, updater, Q = _serve_from_store(args, device, pool_pages)
+    else:
+        print(f"[serve] building corpus n={args.n_docs} d={args.dim} on {device}")
+        ds = make_dataset("tasb", n_docs=args.n_docs, d=args.dim,
+                          query_sets=("dl19",))
+        D = torch.as_tensor(ds.docs, device=device)
+        Q = _query_tape(ds, args.queries)
+
+        pruner = StaticPruner(cutoff=args.cutoff).fit(D)
+        index = DenseIndex.build(pruner.prune_index(D),
+                                 quantize_int8=args.quantize_int8)
+        print(f"[serve] pruned index: {index.n} x {index.dim} "
+              f"({index.nbytes/2**20:.1f} MiB, {index.vectors.dtype})")
+        if args.paged:
+            index = PagedIndex.from_index(index, page_rows=args.page_rows or 256,
+                                          pool_pages=pool_pages,
+                                          seal_rows=args.delta_capacity)
+            _print_paged("paged index", index)
+        if args.save_index:
+            st = save_index(args.save_index, index, pruner=pruner)
+            print(f"[serve] saved artifact: {args.save_index} "
+                  f"({st.nbytes/2**20:.1f} MiB on disk, n={st.n})")
+        server = RetrievalServer(index, pruner, k=args.k, max_batch=args.batch,
+                                 pipeline_depth=args.pipeline_depth,
+                                 bucket_batches=args.bucket_batches)
     append_stop = threading.Event()
     try:
         # every batch shape once before the drive: on a fresh checkout the
@@ -721,13 +816,16 @@ def main(argv: list[str] | None = None) -> None:
         # minute), which must not count against the first query's timeout
         server.warmup()
         if args.live_append > 0:
-            if not isinstance(index, PagedIndex):
-                # a paged index appends and compacts by pointer swaps itself
-                index = SegmentedIndex.from_index(
-                    index, delta_capacity=args.delta_capacity)
-            server.swap_index(index)
-            updater = IndexUpdater(pruner=pruner, index=index, server=server,
-                                   delta_capacity=args.delta_capacity)
+            if updater is None:
+                index = server.index
+                if not isinstance(index, PagedIndex):
+                    # a paged index appends and compacts by pointer swaps
+                    index = SegmentedIndex.from_index(
+                        index, delta_capacity=args.delta_capacity)
+                server.swap_index(index)
+                updater = IndexUpdater(pruner=server.pruner, index=index,
+                                       delta_capacity=args.delta_capacity)
+            updater.server = server
             appender = threading.Thread(
                 target=_append_loop, daemon=True,
                 args=(updater, args.live_append, args.dim, device, append_stop))

@@ -733,3 +733,135 @@ def test_cuda_appends_keep_one_kernel_shape(monkeypatch):
     assert sorted({c[2] for c in deltas}) == [64 * (i + 2) for i in range(10)]
     assert topk_score.topk_score_cuda.launches["int8_n_valid"] == before + 20
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_store_round_trip_is_bitwise(tmp_path):
+    """Save on the card, load back onto it: dense f32 and int8, the live
+    segmented index (mixed int8 scales) and a paged index with host-tier
+    pages answer bitwise as before, at k = 10 and 1000, and the loaded
+    bytes are the saved ones."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import DenseIndex, SegmentedIndex
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.core.store import IndexStore, save_index
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    Q = torch.randn(32, 96, generator=g, device=dev)
+
+    def same(a, b, what):
+        for k in (10, 1000):
+            x, y = a.search(Q, k=k), b.search(Q, k=k)
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]), (what, k)
+
+    X = torch.randn(20000, 96, generator=g, device=dev)
+    for quant in (False, True):
+        idx = DenseIndex.build(X, quantize_int8=quant)
+        st = save_index(str(tmp_path / f"dense{quant}"), idx, chunk_rows=3000)
+        loaded = DenseIndex.load(st)
+        assert loaded.device.type == "cuda" and torch.equal(loaded.vectors, idx.vectors)
+        same(idx, loaded, f"dense quant={quant}")
+    seg, D, rows = _live_segmented(g, dev, quantize=True, appended=5100)
+    Qs = torch.randn(32, D.shape[1], generator=g, device=dev)
+    st = save_index(str(tmp_path / "seg"), seg)
+    seg2 = SegmentedIndex.load(st, delta_capacity=seg.delta_capacity)
+    for k in (10, 1000):
+        x, y = seg.search(Qs, k=k), seg2.search(Qs, k=k)
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1]), ("segmented", k)
+    pg = PagedIndex.from_index(DenseIndex.build(X, quantize_int8=True), page_rows=256,
+                               pool_pages=60, seal_rows=1024)
+    pg = pg.append(torch.randn(700, 96, generator=g, device=dev).cpu().numpy() * 3)
+    assert pg.storage.n_host_pages > 0
+    pg2 = PagedIndex.load(pg.save(str(tmp_path / "paged")), pool_pages=60)
+    assert pg2.storage.n_host_pages == pg.storage.n_host_pages
+    for ei in range(len(pg.storage.extents)):
+        assert torch.equal(pg.storage.extent_rows(ei), pg2.storage.extent_rows(ei))
+    same(pg, pg2, "paged")
+    assert IndexStore.open(str(tmp_path / "paged")).manifest["paged"]["page_rows"] == 256
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_build_index_to_matches_cpu(tmp_path):
+    """The streaming build from CUDA blocks (pca_project and the on-card
+    absmax and quantise) against the same build from CPU tensors through
+    the plain versions: already-projected blocks give the same bytes and
+    meta; with the projection inside, f32 rows within 1e-5 and int8 bytes
+    equal except ±1 on at most 0.1 %; an unfitted pruner (gram kernel)
+    fits the same components up to sign."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.core.pruning import StaticPruner
+    from repro_torch.core.quantization import quantize_int8_per_dim
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    lam = torch.logspace(0, -2, 128, device=dev)
+    X = torch.randn(40000, 128, generator=g, device=dev) * lam.sqrt()
+    blocks_dev = [X[i:i + 7000] for i in range(0, X.shape[0], 7000)]
+    blocks_cpu = [b.cpu() for b in blocks_dev]
+    card = StaticPruner(cutoff=0.5).fit(X)
+    host = StaticPruner(cutoff=0.5)
+    host.state = dataclasses.replace(
+        card.state, **{f: getattr(card.state, f).cpu()
+                       for f in ("components", "eigenvalues", "mean")})
+    P = card.prune_index(X)
+    # the scale is a true f32 divide on the card as on the host
+    q_card, s_card = quantize_int8_per_dim(P)
+    q_host, s_host = quantize_int8_per_dim(P.cpu())
+    assert torch.equal(s_card.cpu(), s_host) and torch.equal(q_card.cpu(), q_host)
+    proj_dev = [P[i:i + 7000] for i in range(0, P.shape[0], 7000)]
+    for quant in (False, True):
+        a = card.build_index_to(str(tmp_path / f"pd{quant}"), proj_dev,
+                                quantize_int8=quant, already_projected=True)
+        b = host.build_index_to(str(tmp_path / f"ph{quant}"), [p.cpu() for p in proj_dev],
+                                quantize_int8=quant, already_projected=True)
+        assert a.manifest == b.manifest
+        assert torch.equal(a.read_rows(0, a.n, device="cpu"), b.read_rows(0, b.n, device="cpu"))
+        a = card.build_index_to(str(tmp_path / f"d{quant}"), blocks_dev, quantize_int8=quant)
+        b = host.build_index_to(str(tmp_path / f"h{quant}"), blocks_cpu, quantize_int8=quant)
+        ra, rb = a.read_rows(0, a.n, device="cpu"), b.read_rows(0, b.n, device="cpu")
+        if quant:
+            diff = (ra.int() - rb.int()).abs()
+            assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+            np.testing.assert_allclose(a.scale(), b.scale(), rtol=1e-5)
+        else:
+            torch.testing.assert_close(ra, rb, **TOL)
+    fit_card = StaticPruner(cutoff=0.5).build_index_to(str(tmp_path / "fit_d"), blocks_dev,
+                                                       quantize_int8=True)
+    fit_host = StaticPruner(cutoff=0.5).build_index_to(str(tmp_path / "fit_h"), blocks_cpu,
+                                                       quantize_int8=True, device="cpu")
+    Wa = fit_card.load_pca(device="cpu").components[:, :64].numpy()
+    Wb = fit_host.load_pca(device="cpu").components[:, :64].numpy()
+    signs = np.sign(np.sum(Wa * Wb, axis=0))
+    np.testing.assert_allclose(Wa * signs[None, :], Wb, atol=1e-3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_dense_load_bf16(tmp_path):
+    """A bf16 store (uint16 chunks on disk) loads onto the card as bf16,
+    bit for bit, and searches as the saved index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import DenseIndex
+    from repro_torch.core.store import save_index
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(33)
+    idx = DenseIndex.build(torch.randn(30000, 64, generator=g, device=dev),
+                           dtype=torch.bfloat16)
+    st = save_index(str(tmp_path / "bf16"), idx, chunk_rows=4096)
+    assert st.manifest["dtype"] == "bfloat16"
+    loaded = DenseIndex.load(st)
+    assert loaded.vectors.dtype == torch.bfloat16 and loaded.device.type == "cuda"
+    assert torch.equal(loaded.vectors.view(torch.int16), idx.vectors.view(torch.int16))
+    Q = torch.randn(32, 64, generator=g, device=dev)
+    for k in (10, 1000):
+        a, b = idx.search(Q, k=k), loaded.search(Q, k=k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    torch.cuda.synchronize()

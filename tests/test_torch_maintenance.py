@@ -1,14 +1,20 @@
-"""The port's ``IndexUpdater`` on the CPU against ``repro``'s (the store-
-and mesh-free tests of ``tests/test_maintenance.py`` and
-``tests/test_segments.py``).
+"""The port's ``IndexUpdater`` on the CPU against ``repro``'s (the mesh-
+free tests of ``tests/test_maintenance.py``, ``tests/test_segments.py``
+and the updater cases of ``tests/test_store.py`` and
+``tests/test_paged.py``).
 
 The reference's fitted PCA state and base bytes are carried into the port,
 so drift and energy agree within 1e-5, the telemetry exactly (scale
 ratios at 1e-5), and a compaction's int8 bytes exactly. Also: racing
 appends reconciled by a background compaction, a failed one surfacing in
-``health()``, the paged updater's pointer-swap compaction, the store
-waiting for its port, and ``--live-append`` through the port's CLI.
+``health()``, the paged updater's pointer-swap compaction, and
+``--live-append`` through the port's CLI. With a store attached: every
+append mirrors durably and bit for bit (segmented and paged), a cold start
+through ``from_store`` serves the same results in either package, the
+store-backed compaction writes the reference's artifact and the same base
+as the store-less one, and a refit rewrites the artifact.
 """
+import os
 import threading
 import time
 
@@ -17,14 +23,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import SegmentedIndex as JaxSegmented
+from repro.core import SegmentedIndex as JaxSegmented, save_index as jax_save_index
 from repro.core.maintenance import (
     IndexUpdater as JaxUpdater,
     captured_energy as jax_captured_energy,
 )
 from repro.core.pruning import StaticPruner as JaxPruner
 from repro_torch import convert
-from repro_torch.core import IndexUpdater, SegmentedIndex
+from repro_torch.core import IndexStore, IndexUpdater, SegmentedIndex, save_index
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.maintenance import captured_energy
 from repro_torch.core.paged import PagedIndex
@@ -267,8 +273,14 @@ def test_compact_reconciles_racing_appends():
         up._iter_dequant_rows = orig_iter
     assert up.index.n == 480 and up.compactions == 1
     assert len(up.index.deltas) == 1 and up.index.deltas[0].n_real == 30
-    _, ids = up.search(torch.from_numpy(racing[7][None, :]), k=5)
-    assert (450 + 7) in ids[0].tolist()
+    # the racing rows are the new delta's, at ids 450..479: its staging is
+    # their projection, and a search over every row scores racing[7] at id
+    # 457 as its projection's product with itself
+    proj = up.pruner.prune_index(torch.from_numpy(racing)).float()
+    np.testing.assert_array_equal(up.index.deltas[0].raw, proj.numpy())
+    s, ids = up.search(torch.from_numpy(racing[7][None, :]), k=480)
+    at = ids[0].tolist().index(450 + 7)
+    np.testing.assert_allclose(float(s[0, at]), float(proj[7] @ proj[7]), **TOL)
 
 
 def test_telemetry_safe_under_concurrent_appends():
@@ -369,14 +381,224 @@ def test_paged_updater_matches_reference():
     assert 675 in ids[0].tolist()
 
 
-def test_store_waits_for_its_port():
+def test_store_waits_for_its_port(tmp_path):
+    """The store is ported: ``store=`` opens a path and ``store_path=``
+    persists the built artifact, and either attaches it for durable
+    appends."""
     D = torch.from_numpy(_corpus(n=300))
+    up = IndexUpdater.build(D, store_path=str(tmp_path / "a"))
+    assert isinstance(up.store, IndexStore) and up.store.n == 300
     pruner = StaticPruner(cutoff=0.5).fit(D)
-    for call in (lambda: IndexUpdater.build(D, store_path="unused"),
-                 lambda: IndexUpdater(pruner=pruner, index=pruner.build_index(D),
-                                      store="unused")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-            call()
+    save_index(str(tmp_path / "b"), pruner.build_index(D), pruner=pruner)
+    up2 = IndexUpdater(pruner=pruner, index=pruner.build_index(D),
+                       store=str(tmp_path / "b"))
+    assert isinstance(up2.store, IndexStore)
+    for u in (up, up2):
+        u.add_documents(D[:10])
+        assert IndexStore.open(u.store.path).n == 310
+
+
+def _stored_deltas_equal_served(store_path, index):
+    st = IndexStore.open(store_path)
+    views = st.segments()
+    assert len(views) == 1 + len(index.deltas)
+    for v, d in zip(views[1:], index.deltas):
+        assert torch.equal(v.read_rows(0, v.n, device="cpu"), d.vectors[:d.n_real])
+        assert v.capacity == d.capacity
+        if d.scale is not None:
+            np.testing.assert_array_equal(v.scale(), d.scale.numpy())
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_updater_store_mirror_is_bit_identical(tmp_path, quant):
+    """Disk and memory never diverge: after appends (a rollover and a
+    widening rewrite included), the stored delta bytes and scales are the
+    served ones; a cold start from the store answers bitwise the same, and
+    the reference's cold start from the port's store under the parity
+    contract."""
+    D = _corpus(n=400)[:, :48]
+    sp = str(tmp_path / "st")
+    up = IndexUpdater.build(torch.from_numpy(np.ascontiguousarray(D)), cutoff=0.5,
+                            quantize_int8=quant, store_path=sp, delta_capacity=64)
+    for X in (_corpus(seed=5, n=60)[:, :48], 30.0 * _corpus(seed=6, n=30)[:, :48],
+              _corpus(seed=7, n=20)[:, :48]):
+        up.add_documents(torch.from_numpy(np.ascontiguousarray(X)))
+    assert len(up.index.deltas) == 2 and IndexStore.open(sp).n == 510
+    _stored_deltas_equal_served(sp, up.index)
+    Q = torch.from_numpy(np.random.default_rng(8).standard_normal((6, 48)).astype(np.float32))
+    up2 = IndexUpdater.from_store(sp, delta_capacity=64, device="cpu")
+    assert up2.index.n == 510 and up2.fit_energy is None
+    for a, b in zip(up.search(Q, k=10), up2.search(Q, k=10)):
+        assert torch.equal(a, b)
+    jup = JaxUpdater.from_store(sp, delta_capacity=64)
+    _assert_close(jup.search(jnp.asarray(Q.numpy()), k=10), up.search(Q, k=10))
+    # a freshly appended doc is findable after the reload
+    _, ids = up2.search(torch.from_numpy(np.ascontiguousarray(
+        30.0 * _corpus(seed=6, n=30)[3:4, :48])), k=5)
+    assert 463 in ids[0].tolist()
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_from_store_of_a_reference_mirrored_store(tmp_path, quant):
+    """The reference's updater mirrors its appends; the port's cold start
+    from that store rehydrates the reference's segments byte for byte and
+    answers the same."""
+    D = _corpus(n=500)[:, :48]
+    sp = str(tmp_path / "st")
+    jup = JaxUpdater.build(jnp.asarray(D), cutoff=0.5, quantize_int8=quant,
+                           store_path=sp, delta_capacity=64)
+    for X in (_corpus(seed=5, n=90)[:, :48], 9.0 * _corpus(seed=6, n=20)[:, :48]):
+        jup.add_documents(jnp.asarray(X))
+    tup = IndexUpdater.from_store(sp, delta_capacity=64, device="cpu")
+    jre = JaxUpdater.from_store(sp, delta_capacity=64)
+    assert tup.index.n == jup.index.n == 610
+    for td, jd in zip(tup.index.deltas, jre.index.deltas):
+        np.testing.assert_array_equal(td.vectors.numpy(), np.asarray(jd.vectors))
+        np.testing.assert_array_equal(td.raw, jd.raw)
+    Q = np.random.default_rng(9).standard_normal((6, 48)).astype(np.float32)
+    _assert_close(jup.search(jnp.asarray(Q), k=10), tup.search(torch.from_numpy(Q), k=10))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_updater_store_mirror(tmp_path, quant):
+    """A paged updater mirrors page-granularly: ``from_store`` auto-detects
+    the paged block and reloads to the same bits, before and after the
+    pointer-swap compaction (one lifecycle-block swap on disk)."""
+    rng = np.random.default_rng(40)
+    n, d = 600, 48
+    corpus = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    Q = torch.from_numpy(rng.standard_normal((4, d)).astype(np.float32))
+    sp = str(tmp_path / "store")
+    u = IndexUpdater.build(corpus, cutoff=0.5, quantize_int8=quant, store_path=sp,
+                           delta_capacity=96, paged=True, page_rows=32)
+    assert "paged" in u.store.manifest
+
+    def same(a, b):
+        for x, y in zip(a.search(Q, k=6), b.search(Q, k=6)):
+            assert torch.equal(x, y)
+
+    u.add_documents(torch.from_numpy(rng.standard_normal((50, d)).astype(np.float32)))
+    u.add_documents(torch.from_numpy((rng.standard_normal((70, d)) * 5).astype(np.float32)))
+    u2 = IndexUpdater.from_store(sp, device="cpu")
+    assert isinstance(u2.index, PagedIndex)
+    same(u, u2)
+    jre = JaxUpdater.from_store(sp)
+    _assert_close(jre.search(jnp.asarray(Q.numpy()), k=6), u.search(Q, k=6))
+    u.compact()
+    assert set(u.last_compaction) == {"pages_moved", "pages_freed", "pages_host"}
+    kinds = [e["kind"] for e in IndexStore.open(sp).manifest["paged"]["extents"]]
+    assert kinds == ["base"] * len(kinds)
+    u.add_documents(torch.from_numpy(rng.standard_normal((40, d)).astype(np.float32)))
+    same(u, IndexUpdater.from_store(sp, device="cpu"))
+    u.refit(corpus)
+    assert isinstance(u.index, PagedIndex) and IndexStore.open(sp).n == n
+
+
+def _compaction_pair(tmp_path, quant, with_store):
+    """The reference's updater and the port's over the same base bytes and
+    fitted state, the base saved as a store by each package when
+    ``with_store``; then the same rows appended (one block widens)."""
+    rng = np.random.default_rng(4)
+    jup, tup = _pair(_corpus(n=400), quant=quant, delta_capacity=64)
+    if with_store:
+        jup.store = jax_save_index(str(tmp_path / "ref"), jup.index.base, pruner=jup.pruner)
+        tup.store = save_index(str(tmp_path / "port"), tup.index.base, pruner=tup.pruner)
+    for bl in (rng.standard_normal((90, 48)), 7 * rng.standard_normal((20, 48))):
+        bl = bl.astype(np.float32)
+        jup.index, tup.index = jup.index.append(bl), tup.index.append(bl)
+    return jup, tup
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_store_backed_compact_matches_reference(tmp_path, quant):
+    """The store-backed compaction (sidecar build from the stored base and
+    the deltas' staging, then ``commit_dir``) writes the reference's
+    artifact: the same manifest, meta and blobs; the served base is the
+    artifact's; the sidecar is gone."""
+    from test_torch_store import _assert_same_files
+    jup, tup = _compaction_pair(tmp_path, quant, with_store=True)
+    jup.compact(block_rows=64)
+    tup.compact(block_rows=64)
+    assert tup.last_compaction == jup.last_compaction == {"rows_rebuilt": 510}
+    assert tup.store.manifest == jup.store.manifest
+    assert tup.store.meta["compactions"] == 1
+    _assert_same_files(jup.store.path, tup.store.path)
+    assert not os.path.exists(tup.store.path + ".compact")
+    served = tup.index.base
+    np.testing.assert_array_equal(served.vectors.numpy(), np.asarray(jup.index.base.vectors))
+    assert torch.equal(DenseIndex.load(tup.store, device="cpu").vectors, served.vectors)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_store_backed_compact_equals_storeless(tmp_path, quant):
+    """The same segment set compacted with and without a store gives the
+    same base bytes and scale; later appends land on the compacted store."""
+    _, with_store = _compaction_pair(tmp_path, quant, with_store=True)
+    _, without = _compaction_pair(tmp_path / "b", quant, with_store=False)
+    with_store.compact(block_rows=64)
+    without.compact(block_rows=64)
+    a, b = with_store.index.base, without.index.base
+    assert torch.equal(a.vectors, b.vectors)
+    assert (a.scale is None) == (b.scale is None) == (not quant)
+    if quant:
+        assert torch.equal(a.scale, b.scale)
+    assert len(IndexStore.open(with_store.store.path).segments()) == 1
+    with_store.add_documents(torch.from_numpy(_corpus(seed=9, n=30)))
+    assert IndexStore.open(with_store.store.path).n == 540
+    _stored_deltas_equal_served(with_store.store.path, with_store.index)
+
+
+def test_store_backed_compact_reconciles_racing_appends(tmp_path):
+    """Appends that land while the sidecar builds mirror to the live store,
+    then re-append onto the fresh base and mirror to the new artifact."""
+    D = np.ascontiguousarray(_corpus(n=400)[:, :24])
+    sp = str(tmp_path / "st")
+    up = IndexUpdater.build(torch.from_numpy(D), cutoff=0.5, delta_capacity=256,
+                            quantize_int8=True, store_path=sp)
+    up.add_documents(torch.from_numpy(np.ascontiguousarray(_corpus(seed=5, n=50)[:, :24])))
+    racing = np.ascontiguousarray(_corpus(seed=6, n=30)[:, :24])
+    orig_iter = up._iter_dequant_rows
+    started = threading.Event()
+
+    def slow_iter(index, block_rows, store=None):
+        for blk in orig_iter(index, block_rows, store):
+            started.set()
+            time.sleep(0.02)                 # hold the stream open
+            yield blk
+
+    up._iter_dequant_rows = slow_iter
+    try:
+        th = up.compact_async(block_rows=40)
+        assert started.wait(30.0)
+        up.add_documents(torch.from_numpy(racing))   # lands mid-stream
+        th.join(timeout=60.0)
+        assert not th.is_alive()
+    finally:
+        up._iter_dequant_rows = orig_iter
+    assert up.health()["ok"] and up.compactions == 1
+    st = IndexStore.open(sp)
+    assert st.n == up.index.n == 480
+    assert [v.n for v in st.segments()] == [450, 30]
+    _stored_deltas_equal_served(sp, up.index)
+    up2 = IndexUpdater.from_store(sp, delta_capacity=256, device="cpu")
+    Q = torch.from_numpy(racing[:4])
+    for a, b in zip(up.search(Q, k=5), up2.search(Q, k=5)):
+        assert torch.equal(a, b)
+
+
+def test_refit_rewrites_the_store(tmp_path):
+    """A refit replaces the artifact at the same path under the new
+    rotation: the store holds the refit corpus and the new PCA state."""
+    sp = str(tmp_path / "st")
+    up = IndexUpdater.build(torch.from_numpy(_corpus(n=300)), cutoff=0.5, store_path=sp)
+    up.add_documents(torch.from_numpy(_corpus(seed=5, n=40)))
+    shifted = torch.from_numpy(_corpus(seed=9, n=350, domain_seed=3))
+    up.refit(shifted)
+    st = IndexStore.open(sp)
+    assert st.n == 350 and not st.is_segmented
+    np.testing.assert_array_equal(st.load_pca(device="cpu").components.numpy(),
+                                  up.pruner.state.components.numpy())
+    assert not os.path.exists(sp + ".old") and not os.path.exists(sp + ".tmp")
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["segmented", "paged"])

@@ -5,9 +5,13 @@ against ``topk_score_paged_pallas`` in interpret mode and against the
 reference's jnp page walk ``_paged_core``; ``PagedIndex`` against the
 reference ``PagedIndex(backend="jnp")`` through a whole lifecycle, with
 host metadata and int8 page bytes equal exactly; and the port server over
-a paged index under append and eviction swaps. Inputs are made with numpy
-from a seed; scores agree at rtol = atol = 1e-5, ids up to near-ties.
+a paged index under append and eviction swaps; and paged stores written
+by either package paged back by the other (``PagedIndex.load`` with
+host-tier pages, ``extent_rows``, the lifecycle block). Inputs are made
+with numpy from a seed; scores agree at rtol = atol = 1e-5, ids up to
+near-ties.
 """
+import os
 import threading
 
 import jax.numpy as jnp
@@ -15,13 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import DenseIndex as JaxIndex, StaticPruner as JaxPruner
+from repro.core import (
+    DenseIndex as JaxIndex,
+    IndexStore as JaxStore,
+    StaticPruner as JaxPruner,
+    save_index as jax_save_index,
+)
 from repro.core.index import _scan_topk as jax_scan_topk
 from repro.core.paged import PagedIndex as JaxPaged, _paged_core
 from repro.kernels.topk_score import topk_score_paged_pallas
 from repro_torch import convert
 from repro_torch.core.index import DenseIndex
-from repro_torch.core.paged import PagedIndex
+from repro_torch.core.paged import PagedIndex, PagedIndexStorage
+from repro_torch.core.store import IndexStore, save_index, save_paged_index
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.kernels import ops
 from repro_torch.kernels.topk_score import topk_score_paged_cuda
@@ -397,6 +407,155 @@ def test_convert_carries_reference_paged_index_across():
     jpg, tpg = jpg.append(bl), tpg.append(bl)
     _assert_same_state(jpg.storage, tpg.storage, True)
     _assert_close(jpg.search(jnp.asarray(Qm), 8), tpg.search(Qm, 8))
+
+
+# ---------------------------------------------------------------------------
+# paged stores: page-granular round trips across the packages
+# ---------------------------------------------------------------------------
+
+def _grown_both(quant, seed=30):
+    """The same grown paged index in both packages: a 400-row base, a
+    sealed delta extent and an open one that widened (int8)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((400, 24)).astype(np.float32)
+    jpg = JaxPaged.from_index(JaxIndex.build(jnp.asarray(X), quantize_int8=quant),
+                              page_rows=32, seal_rows=96)
+    tpg = PagedIndex.from_index(DenseIndex.build(torch.from_numpy(X), quantize_int8=quant),
+                                page_rows=32, seal_rows=96)
+    for bl in (rng.standard_normal((50, 24)), rng.standard_normal((60, 24)) * 6):
+        bl = bl.astype(np.float32)
+        jpg, tpg = jpg.append(bl), tpg.append(bl)
+    return jpg, tpg
+
+
+def _extent_bytes(st, ei):
+    rows = st.extent_rows(ei)
+    return rows.numpy() if isinstance(rows, torch.Tensor) else np.asarray(rows)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_paged_store_cross_package_round_trip(tmp_path, writer, quant):
+    """Both packages save the same grown paged index to the same manifest
+    and blobs (page-aligned chunks, lifecycle block); the writer's store,
+    paged back by both packages with 5 pool pages (the rest on the host
+    tier), gives the same page state, ``extent_rows`` and answers."""
+    from test_torch_store import _assert_same_files
+    rng = np.random.default_rng(31)
+    Qm = rng.standard_normal((5, 24)).astype(np.float32)
+    jpg, tpg = _grown_both(quant)
+    for ei in range(len(tpg.storage.extents)):
+        np.testing.assert_array_equal(_extent_bytes(tpg.storage, ei),
+                                      _extent_bytes(jpg.storage, ei))
+    js = jax_save_index(str(tmp_path / "ref"), jpg, chunk_rows=100)
+    ts = save_index(str(tmp_path / "port"), tpg, chunk_rows=100)
+    assert ts.manifest == js.manifest and "paged" in ts.manifest
+    for seg in ts.manifest["segments"]:
+        assert all(c["rows"] % 32 == 0 for c in seg["chunks"][:-1])
+    _assert_same_files(js.path, ts.path)
+    path = js.path if writer == "repro" else ts.path
+    jl = JaxPaged.load(JaxStore.open(path), pool_pages=5)
+    tl = PagedIndex.load(IndexStore.open(path), pool_pages=5, device="cpu")
+    assert tl.storage.n_host_pages == jl.storage.n_host_pages > 0
+    assert (tl.storage.page_rows, tl.storage.seal_rows) == (32, 96)
+    assert [(e.kind, e.sealed) for e in tl.storage.extents] == \
+        [(e.kind, e.sealed) for e in tpg.storage.extents]
+    _assert_same_state(jl.storage, tl.storage, quant)
+    for ei in range(len(tl.storage.extents)):
+        np.testing.assert_array_equal(_extent_bytes(tl.storage, ei),
+                                      _extent_bytes(jpg.storage, ei))
+    _assert_close(jpg.search(jnp.asarray(Qm), 8), tl.search(Qm, 8), writer)
+    bl = rng.standard_normal((30, 24)).astype(np.float32)
+    jl, tl = jl.append(bl), tl.append(bl)
+    _assert_same_state(jl.storage, tl.storage, quant)
+
+
+def test_paged_store_host_tier_pages_round_trip(tmp_path):
+    """Saving from an oversubscribed storage (host-tier pages) writes the
+    same bytes as saving the resident one, and reloads bitwise."""
+    rng = np.random.default_rng(32)
+    Qm = torch.from_numpy(rng.standard_normal((5, 24)).astype(np.float32))
+    _, pg = _grown_both(True)
+    pr, po = str(tmp_path / "resident"), str(tmp_path / "oversub")
+    save_paged_index(pr, pg)
+    pg4 = PagedIndex.load(IndexStore.open(pr), pool_pages=5, device="cpu")
+    assert pg4.storage.n_host_pages > 0
+    pg4.save(po)
+    pg5 = PagedIndex.load(po, device="cpu")
+    for got in (pg4, pg5):
+        for a, b in zip(got.search(Qm, 8), pg.search(Qm, 8)):
+            assert torch.equal(a, b)
+    names = sorted(f for f in os.listdir(pr) if f.startswith("vectors"))
+    assert names == sorted(f for f in os.listdir(po) if f.startswith("vectors"))
+    for f in names:
+        np.testing.assert_array_equal(np.load(os.path.join(pr, f)),
+                                      np.load(os.path.join(po, f)))
+
+
+def test_extent_rows_ranges_cross_every_tier(tmp_path):
+    """``extent_rows`` over a row range gathers pool, tail and host pages
+    in id order, whatever range it is given."""
+    _, pg = _grown_both(True)
+    pg, _ = pg.evict(5)
+    st = pg.storage
+    tiers = {("host" if p < 0 else "tail" if p >= st.pool_pages else "pool")
+             for p in st.pt_host[:st.n_slots]}
+    assert tiers == {"host", "tail", "pool"}
+    for ei, e in enumerate(st.extents):
+        full = st.extent_rows(ei)
+        assert tuple(full.shape) == (e.n_rows, 24)
+        for lo, hi in ((0, e.n_rows), (5, e.n_rows - 3), (31, 33), (7, 7)):
+            if 0 <= lo <= hi <= e.n_rows:
+                assert torch.equal(st.extent_rows(ei, lo, hi), full[lo:hi])
+    with pytest.raises(ValueError):
+        st.extent_rows(0, 0, st.extents[0].n_rows + 1)
+
+
+def test_paged_store_append_reload_bit_parity(tmp_path):
+    """Save, reload, append: the reloaded index continues bit for bit."""
+    rng = np.random.default_rng(34)
+    Qm = torch.from_numpy(rng.standard_normal((5, 24)).astype(np.float32))
+    _, pg = _grown_both(True)
+    pg2 = PagedIndex.load(pg.save(str(tmp_path / "idx")), device="cpu")
+    bl = rng.standard_normal((30, 24)).astype(np.float32)
+    a, b = pg.append(bl), pg2.append(bl)
+    # the reload has its own table and tail sizes; extents and bytes agree
+    for ei, (ea, eb) in enumerate(zip(a.storage.extents, b.storage.extents)):
+        assert (ea.kind, ea.sealed, ea.n_rows) == (eb.kind, eb.sealed, eb.n_rows)
+        np.testing.assert_array_equal(ea.scale, eb.scale)
+        assert torch.equal(a.storage.extent_rows(ei), b.storage.extent_rows(ei))
+    for x, y in zip(a.search(Qm, 8), b.search(Qm, 8)):
+        assert torch.equal(x, y)
+
+
+def test_paged_store_empty_grown_index_round_trip(tmp_path):
+    """An index grown from a 0-row base (extent 0 is a delta) round-trips
+    across the packages with its open delta intact and keeps taking
+    appends."""
+    import types
+    from repro.core.paged import PagedIndexStorage as JaxStorage
+    rng = np.random.default_rng(35)
+    m = 24
+    Qm = rng.standard_normal((5, m)).astype(np.float32)
+    jpg = JaxPaged(storage=JaxStorage.from_index(
+        types.SimpleNamespace(vectors=np.zeros((0, m), np.int8),
+                              scale=np.ones(m, np.float32)),
+        page_rows=32, seal_rows=96))
+    tpg = PagedIndex(storage=PagedIndexStorage.from_index(
+        DenseIndex(vectors=torch.zeros((0, m), dtype=torch.int8), scale=torch.ones(m)),
+        page_rows=32, seal_rows=96))
+    bl = rng.standard_normal((40, m)).astype(np.float32)
+    jpg, tpg = jpg.append(bl), tpg.append(bl)
+    js = jax_save_index(str(tmp_path / "ref"), jpg)
+    ts = save_paged_index(str(tmp_path / "port"), tpg)
+    assert ts.manifest == js.manifest
+    jl = JaxPaged.load(JaxStore.open(ts.path))
+    tl = PagedIndex.load(js.path, device="cpu")
+    assert tl.storage.extents[0].kind == "delta" and not tl.storage.extents[0].sealed
+    _assert_same_state(jl.storage, tl.storage, True)
+    _assert_close(jpg.search(jnp.asarray(Qm), 8), tl.search(Qm, 8))
+    bl = rng.standard_normal((20, m)).astype(np.float32)
+    _assert_same_state(jl.append(bl).storage, tl.append(bl).storage, True)
 
 
 # ---------------------------------------------------------------------------

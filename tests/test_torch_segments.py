@@ -5,11 +5,14 @@ reference's op stream, stored bytes, scales and staging exactly, and its
 searches to the reference's at rtol = atol = 1e-5 with ids equal up to
 near-ties; ``PagedIndex.from_segmented`` to the reference's paged state;
 the mixed-scale f32 oracle, global ids after rollover, widening without
-clipping, the delta search's fixed operand shape; and the port server
-under live appends and a compaction swap. Inputs are made with numpy from
-a seed. Bitwise segmented = monolithic is a property of the card's fixed
+clipping, the delta search's fixed operand shape; the port server under
+live appends and a compaction swap; and segmented stores written by
+either package loaded by the other (per-delta bytes, scales and
+capacities exact), with the store's crash windows. Inputs are made with
+numpy from a seed. Bitwise segmented = monolithic is a property of the card's fixed
 sum order and is held there (``tests/test_torch_cuda.py``).
 """
+import os
 import threading
 
 import jax.numpy as jnp
@@ -17,9 +20,21 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import DenseIndex as JaxIndex, SegmentedIndex as JaxSegmented
+from repro.core import (
+    DenseIndex as JaxIndex,
+    IndexStore as JaxStore,
+    SegmentedIndex as JaxSegmented,
+    save_index as jax_save_index,
+)
 from repro.core.paged import PagedIndex as JaxPaged
-from repro_torch.core import IndexUpdater, SegmentedIndex, merge_segment_topk
+from repro_torch.core import (
+    IndexStore,
+    IndexStoreError,
+    IndexUpdater,
+    SegmentedIndex,
+    merge_segment_topk,
+    save_index,
+)
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
@@ -27,6 +42,7 @@ from repro_torch.data.synthetic import make_corpus
 from repro_torch.kernels import _build, ops
 from repro_torch.launch.serve import RetrievalServer
 from test_torch_paged import _assert_close, _assert_same_state
+from test_torch_store import _assert_same_files, _bits
 
 RNG = np.random.default_rng(17)
 
@@ -327,3 +343,137 @@ def test_swap_during_compaction_under_traffic():
             assert int(ids[0]) == doc
     finally:
         server.close()
+
+
+# ---------------------------------------------------------------------------
+# segmented stores: cross-package round trips and crash windows
+# ---------------------------------------------------------------------------
+
+
+def _both_kind(rng, kind, n=300, m=24, capacity=64):
+    """The same base as a reference and a port segmented index: f32, int8
+    or bf16 storage."""
+    X = rng.standard_normal((n, m)).astype(np.float32)
+    if kind == "bf16":
+        jb = JaxIndex.build(jnp.asarray(X), dtype=jnp.bfloat16)
+        tb = DenseIndex.build(torch.from_numpy(X), dtype=torch.bfloat16)
+    else:
+        jb = JaxIndex.build(jnp.asarray(X), quantize_int8=kind == "int8")
+        tb = DenseIndex.build(torch.from_numpy(X), quantize_int8=kind == "int8")
+    return (JaxSegmented.from_index(jb, delta_capacity=capacity),
+            SegmentedIndex.from_index(tb, delta_capacity=capacity))
+
+
+def _assert_same_segments(jseg, tseg):
+    """Base and every delta: bytes, row counts, capacities, scales and
+    staging equal."""
+    np.testing.assert_array_equal(_bits(tseg.base.vectors), _bits(jseg.base.vectors))
+    assert [(d.n_real, d.capacity) for d in tseg.deltas] == \
+        [(d.n_real, d.capacity) for d in jseg.deltas]
+    for td, jd in zip(tseg.deltas, jseg.deltas):
+        np.testing.assert_array_equal(_bits(td.vectors), _bits(jd.vectors))
+        np.testing.assert_array_equal(td.raw, np.asarray(jd.raw, np.float32))
+        assert (td.scale is None) == (jd.scale is None)
+        if td.scale is not None:
+            np.testing.assert_array_equal(td.scale.numpy(), np.asarray(jd.scale))
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8", "bf16"])
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_segmented_store_cross_package_round_trip(tmp_path, writer, kind):
+    """A segmented store (three deltas; int8 ones with mixed scales after a
+    widen) written by either package: the same manifest and blobs, and the
+    other package's ``SegmentedIndex.load`` rehydrates the same segments
+    and answers the same."""
+    rng = np.random.default_rng(31)
+    jseg, tseg = _both_kind(rng, kind)
+    for bl in _blocks(rng):
+        jseg, tseg = jseg.append(bl), tseg.append(bl)
+    js = jax_save_index(str(tmp_path / "ref"), jseg, chunk_rows=128)
+    ts = save_index(str(tmp_path / "port"), tseg, chunk_rows=128)
+    assert ts.manifest == js.manifest
+    assert ts.is_segmented and [v.kind for v in ts.segments()] == \
+        ["base", "delta", "delta", "delta"]
+    _assert_same_files(js.path, ts.path)
+    if kind == "int8":
+        assert not ts.flat_loadable                # mixed per-delta scales
+    path = js.path if writer == "repro" else ts.path
+    jl = JaxSegmented.load(JaxStore.open(path), delta_capacity=64)
+    tl = SegmentedIndex.load(path, delta_capacity=64, device="cpu")
+    # both rehydrate the stored bytes, scales and dequantised staging
+    _assert_same_segments(jl, tl)
+    np.testing.assert_array_equal(_bits(tl.base.vectors), _bits(tseg.base.vectors))
+    for a, b in zip(tl.deltas, tseg.deltas):
+        np.testing.assert_array_equal(_bits(a.vectors), _bits(b.vectors))
+    Qm = rng.standard_normal((5, 24)).astype(np.float32)
+    for k in (9, 100):
+        _assert_close(jseg.search(jnp.asarray(Qm), k), tl.search(Qm, k),
+                      f"{writer} {kind} k={k}")
+    # a reload keeps growing as the reference's reload does
+    bl = (rng.standard_normal((30, 24)) * 3).astype(np.float32)
+    _assert_same_segments(jl.append(bl), tl.append(bl))
+
+
+def test_segmented_load_is_bitwise_the_saved_index(tmp_path):
+    """Within the port: save, reload and search give the saved index's
+    bytes and results exactly (the same code on the same device)."""
+    rng = np.random.default_rng(32)
+    _, tseg = _both_kind(rng, "int8")
+    for bl in _blocks(rng):
+        tseg = tseg.append(bl)
+    loaded = SegmentedIndex.load(save_index(str(tmp_path / "st"), tseg),
+                                 delta_capacity=64, device="cpu")
+    Qm = torch.from_numpy(rng.standard_normal((5, 24)).astype(np.float32))
+    for k in (9, 100):
+        for a, b in zip(tseg.search(Qm, k), loaded.search(Qm, k)):
+            assert torch.equal(a, b)
+
+
+def test_pre_segment_artifact_opens_as_single_base(tmp_path):
+    """An artifact written before segments existed reads as one base
+    segment, and ``SegmentedIndex.load`` serves it like the flat loader."""
+    rng = np.random.default_rng(33)
+    X = rng.standard_normal((500, 32)).astype(np.float32)
+    store = jax_save_index(str(tmp_path / "st"),
+                           JaxIndex.build(jnp.asarray(X), quantize_int8=True))
+    st = IndexStore.open(store.path)
+    assert not st.is_segmented
+    views = st.segments()
+    assert len(views) == 1 and views[0].kind == "base"
+    assert views[0].n == st.n and views[0].offset == 0
+    seg = SegmentedIndex.load(st, device="cpu")
+    flat = DenseIndex.load(st, device="cpu")
+    Q = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    for a, b in zip(flat.search(Q, 10), seg.search(Q, 10)):
+        assert torch.equal(a, b)
+
+
+def test_mixed_scale_store_refuses_flat_load(tmp_path):
+    """A flat load would dequantise delta rows with the base's scale: a
+    store with per-delta scales must load as a SegmentedIndex."""
+    D = _corpus(300, 24)
+    up = IndexUpdater.build(torch.from_numpy(D), cutoff=0.5, quantize_int8=True,
+                            store_path=str(tmp_path / "st"), delta_capacity=128)
+    up.add_documents(torch.from_numpy(9.0 * _corpus(40, 24, seed=5)))
+    st = IndexStore.open(str(tmp_path / "st"))
+    assert not st.flat_loadable
+    with pytest.raises(IndexStoreError, match="SegmentedIndex.load"):
+        DenseIndex.load(st, device="cpu")
+
+
+def test_replace_segment_crash_orphans_ignored(tmp_path):
+    """Orphan blobs of a crashed replace (blob written, manifest not
+    swapped) leave a valid store; a completed replace swaps the rows and
+    deletes the old blobs."""
+    st = save_index(str(tmp_path / "st"),
+                    DenseIndex.build(torch.from_numpy(_corpus(200, 16))))
+    name = st.add_delta(capacity=64)
+    st.append(np.ones((4, 16), np.float32), segment=name)
+    old = [c["file"] for c in st.segments()[1].entry["chunks"]]
+    np.save(os.path.join(st.path, "vectors_999998.npy"), np.zeros((2, 16), np.float32))
+    assert IndexStore.open(st.path).n == 204
+    st.replace_segment(name, [torch.full((6, 16), 2.0)])
+    re = IndexStore.open(st.path)
+    assert re.n == 206
+    assert torch.equal(re.segments()[1].read_rows(0, 6, device="cpu"), torch.full((6, 16), 2.0))
+    assert not any(os.path.exists(os.path.join(st.path, f)) for f in old)

@@ -263,3 +263,51 @@ def test_serve_main_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="'cuda'"):
         serve.main(["--n-docs", "64", "--dim", "16", "--queries", "4"])
+
+
+@pytest.mark.parametrize("mode", ["plain", "paged", "live_append"])
+def test_serve_cli_save_then_load_index(tmp_path, monkeypatch, capsys, mode):
+    """``--save-index`` then a restart with ``--load-index``: the restart
+    prints the cold start, and its server answers as the one that built the
+    artifact (plain, paged, or durable appends through
+    ``IndexUpdater.from_store``, which then grow the artifact)."""
+    import re
+
+    from repro_torch.core.store import IndexStore
+    from test_torch_paged import _assert_close
+    Qfix = np.random.default_rng(3).standard_normal((4, 64)).astype(np.float32)
+    answers = []
+    warmup = serve.RetrievalServer.warmup
+
+    def spy(self):
+        warmup(self)
+        answers.append([self.query(q) for q in Qfix])
+
+    monkeypatch.setattr(serve.RetrievalServer, "warmup", spy)
+    path = str(tmp_path / "idx")
+    common = ["--device", "cpu", "--queries", "16", "--batch", "8", "--k", "10"]
+    serve.main([*common, "--n-docs", "2000", "--dim", "64", "--quantize-int8",
+                "--save-index", path])
+    out = capsys.readouterr().out
+    assert f"saved artifact: {path}" in out
+    extra = {"plain": [], "paged": ["--paged", "--page-rows", "32", "--page-pool", "40"],
+             "live_append": ["--live-append", "2000", "--delta-capacity", "128"]}[mode]
+    serve.main([*common, "--load-index", path, *extra])
+    out = capsys.readouterr().out
+    assert re.search(r"cold start \(open store -> first query\): [0-9.]+ms", out)
+    assert "building corpus" not in out
+    if mode == "paged":
+        assert "loaded paged index: 2000 x 32" in out and "63 pages x 32 rows, 23 host-tier" in out
+    for (ws, wi), (gs, gi) in zip(*answers):
+        _assert_close((ws[None], wi[None]), (gs[None], gi[None]), mode)
+    if mode == "live_append":
+        assert "loaded segmented index: 2000 x 32" in out
+        assert "compaction: base+deltas" in out
+        grown = IndexStore.open(path)
+        assert grown.n > 2000 and grown.meta["compactions"] == 1
+
+
+def test_serve_cli_save_and_load_are_exclusive(tmp_path):
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--save-index", str(tmp_path / "a"),
+                    "--load-index", str(tmp_path / "b")])
