@@ -82,11 +82,34 @@ Phases, each printing one JSON line:
      saved and loaded, bitwise (cut to the rows the free disk holds, and
      said so); (f) phase 7's int8 index with 2,048 host-tier pages, a few
      appended blocks, PagedIndex.save and load, bitwise equal in search and
-     extent_rows.
+     extent_rows;
+ 10. the cascade over phase 4's f32 pruned rows, CascadeIndex.build at
+     64:8 (coarse int8) with the full side f32 and int8, and from_index on
+     the int8 index (its coarse scale and bytes held to numpy): (a) the
+     coarse int8 scan (m 64, k 80; m 128, k 160), the row_ids rescore of a
+     real shortlist and the paged coarse scan against their plain
+     versions; (b) the anchor on a 100,000-row prefix with N = ceil(n/k),
+     bitwise the full search, dense, segmented (10,000 appended rows) and
+     paged, f32 and int8; (c) recall@10 against the full f32 search and
+     the batch time split (projection, coarse scan, the select alone,
+     shortlist, gather, rescore) at 64:8, 128:16 and 128:32, beside the
+     single-resolution batch; (d) a segmented int8 cascade grown by 10,000
+     rows in 64-row blocks while a depth-3 server takes 1,000 qps open
+     loop: no reply lost, then paged and bitwise the segmented one; (e)
+     its store round trip under build/cascade_smoke/, coarse deltas
+     bitwise, segmented and paged loads;
+ 11. the fleet under build/fleet_smoke/: three replicas over the int8
+     artifact at 1,000 qps for 10 s while r1 is killed at 3 s and
+     restarted at 6 s (no accepted reply lost, every OK reply's ids the
+     single server's, health ok after), a timed restart, a good rollout
+     (recall 1.0 on each replica), a row-permuted artifact rolled back
+     after the first replica with no misrouted reply under traffic, and a
+     torn artifact refused while the fleet serves.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
-live path) and 9 (the store) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
+live path), 9 (the store), 10 (the cascade) and 11 (the fleet) are
+counted the same way, each on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -130,6 +153,18 @@ PAGED_STORE_APPEND = 384    # phase 9(f): rows appended before the paged save
 DISK_MARGIN = 2 << 30       # phase 9(d): free disk kept beside the f32 artifact
 FIT_BLOCK = 25_000          # phase 9(b): rows per block of the fit-inside build
 COMP_TOL = 1e-3             # phase 9(b): two fits' kept subspace and conditioned columns
+CASCADE_M = 64              # phase 10: the coarse width of 64:8 (README's operating point)
+CASCADE_N = 8               # phase 10: shortlist depth N (N·k candidates a query)
+CASCADE_CONFIGS = [(64, 8), (128, 16), (128, 32)]   # phase 10(c): M:N points timed
+ANCHOR_DOCS = 100_000       # phase 10(b): rows of the bitwise anchor's prefix
+CASCADE_TAPE = 2048         # phase 10(d): open-loop queries during the appends
+CASCADE_RATE = 1000.0       # phase 10(d): qps offered
+FLEET_REPLICAS = 3          # phase 11
+FLEET_RATE = 1000.0         # phase 11: qps offered
+FLEET_SECONDS = 10.0        # phase 11: the chaos drive's length
+FLEET_KILL_AT = 3.0         # phase 11: r1 killed ...
+FLEET_RESTART_AT = 6.0      # ... and restarted (seconds into the drive)
+ROLLOUT_TAPE = 3000         # phase 11: queries during the bad rollout
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-5                  # tests/test_kernels.py:126
@@ -557,6 +592,12 @@ def paged_edge_cases(dev, randn, checks):
                                ids_equal=eq, near_ties=near))
             if ids_row is None and store == "f32":
                 nb = npages * R
+                P = pg["pool"].shape[0]
+                phys = pg["page_table"][:npages].long()
+                pages = torch.where((phys < P)[:, None, None],
+                                    pg["pool"][phys.clamp(max=P - 1)],
+                                    kw["tail"][(phys - P).clamp(min=0)])
+                gathered = pages.reshape(-1, m)
                 ids_row = dict(
                     shape=[n, m, R, B, k], max_abs_err=ids_check["max_abs_err"],
                     ids_equal=ids_check["ids_equal"], near_ties=ids_check["near_ties"],
@@ -564,7 +605,8 @@ def paged_edge_cases(dev, randn, checks):
                                reps=20),
                     plain_ms=cuda_ms(lambda: plain(*args, 0, npages, Q, k=k, ids_pool=ids,
                                                    **kw), reps=5),
-                    library_ms=None,
+                    library_ms=cuda_ms(lambda: torch.topk(Q @ gathered.T, k), reps=20),
+                    library_call="matmul + topk over the gathered rows",
                     bound=bound(4 * nb * m + 4 * nb + 12 * npages + 4 * B * m
                                 + 8 * B * k, 2 * B * nb * m))
     return ids_row
@@ -838,7 +880,8 @@ def phase_main_path(counters, rows, n_docs):
                                                                      row_ids=short_ids)),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D_short, qhat, k=K,
                                                                  row_ids=short_ids), reps=20),
-            library_ms=None,
+            library_ms=cuda_ms(lambda: torch.topk(qhat @ D_short.T, K), reps=20),
+            library_call="matmul + topk over the gathered rows",
             bound=bound(4 * U * m + 4 * U + 4 * BATCH * m + 8 * BATCH * K,
                         2 * BATCH * U * m))
     # new documents for the live path (phase 8): perturbed corpus rows
@@ -2034,6 +2077,529 @@ def phase_store(counters, index_f32, index_int8, pruner, Q, fresh, n_docs, proto
          **summary)
 
 
+def cascade_split(cas, qb, W, mean, k, keys=None):
+    """One batch of ``cas`` timed whole and in its parts: projection,
+    coarse scan (the list-mode chunk kernel and the select together for
+    N·k > 32), shortlist, gather of the full rows, the ``row_ids`` rescore
+    kernel; ``keys`` (the coarse scan's listed keys) times the select
+    alone, so the list-mode scan is the coarse scan less it."""
+    import torch
+    from repro_torch.core.cascade import _shortlist
+    from repro_torch.core.index import _project_nofold
+    from repro_torch.kernels import ops, topk_score
+    nk = min(cas.n_factor * k, cas.n)
+    qf = _project_nofold(qb, W, mean)
+    _, cids = cas.coarse_topk(qf, nk)
+    uids = _shortlist(cids)
+    full = cas.full
+    q = (qf if full.scale is None else qf * full.scale[None, :]).contiguous()
+    rows_ = full.vectors[uids.long().clamp_min(0)]
+    out = dict(
+        total_ms=cuda_ms(lambda: cas.search_projected(qb, W, k=k, mean=mean), reps=10),
+        projection_ms=cuda_ms(lambda: _project_nofold(qb, W, mean), reps=20),
+        coarse_ms=cuda_ms(lambda: cas.coarse_topk(qf, nk), reps=10),
+        shortlist_ms=cuda_ms(lambda: _shortlist(cids), reps=20),
+        gather_ms=cuda_ms(lambda: full.vectors[uids.long().clamp_min(0)], reps=20),
+        rescore_ms=cuda_ms(lambda: ops.topk_score(rows_, q, k=k, row_ids=uids), reps=20),
+        U=int((uids >= 0).sum()), nk=nk)
+    if keys is not None:
+        out["select_ms"] = cuda_ms(lambda: topk_score.topk_select_cuda(keys, nk), reps=5)
+        out["list_scan_ms"] = out["coarse_ms"] - out["select_ms"]
+    return out
+
+
+def coarse_keys(coarse, qf):
+    """The keys the list-mode chunk kernel writes for a coarse scan (each
+    row's score and id, top bit flipped), for timing the select alone."""
+    import torch
+    from repro_torch.kernels import ref, topk_score
+    qc = (qf[:, :coarse.dim] * coarse.scale[None, :]).contiguous()
+    s = qc @ coarse.vectors.float().T
+    ids = torch.arange(coarse.n, device=s.device, dtype=torch.int32).expand(s.shape[0], -1)
+    return (ref._keys(s, ids) ^ topk_score._SIGN).contiguous()
+
+
+def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
+    """Phase 10: the cascade at full width over phase 4's f32 pruned rows.
+    (a) each kernel at the cascade's shapes against its plain version: the
+    coarse int8 scan (m 64, k 80; m 128, k 160), the row_ids rescore on a
+    real shortlist, the paged coarse scan; (b) the anchor, bitwise on a
+    100,000-row prefix with N = ceil(n / k): dense, segmented with deltas
+    and paged, f32 and int8; (c) recall@10 against the full f32 search and
+    the batch time split at 64:8, 128:16 and 128:32, beside the
+    single-resolution batch; (d) a segmented int8 cascade grown by 10,000
+    rows in 64-row blocks while a depth-3 server serves it open loop, then
+    paged and held bitwise to the segmented one, resident and with 2,048
+    of the full side's pages on the host tier; (e) its store round trip,
+    coarse deltas bitwise, segmented and paged."""
+    import dataclasses
+    import gc
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import CascadeIndex, save_index
+    from repro_torch.core.cascade import _shortlist
+    from repro_torch.core.index import _project_nofold
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.kernels import topk_score
+    from repro_torch.launch.serve import RetrievalServer, _drive_open
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    W, mean = pruner.projection()
+    pruned = index_f32.vectors
+    n, m = pruned.shape
+    Qs = torch.as_tensor(Q[:SEARCH_BATCHES * BATCH], device=dev)
+    batches = [Qs[i:i + BATCH] for i in range(0, len(Qs), BATCH)]
+    qb = batches[0]
+    summary = {}
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    # the two configurations of 64:8: the full resolution f32 and int8
+    t0 = time.perf_counter()
+    cas_f32 = CascadeIndex.build(pruned, m_coarse=CASCADE_M, n_factor=CASCADE_N)
+    cas_int8 = CascadeIndex.build(pruned, m_coarse=CASCADE_M, n_factor=CASCADE_N,
+                                  quantize_int8=True)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if not (cas_f32.full.vectors.data_ptr() == pruned.data_ptr()
+            and torch.equal(cas_int8.full.vectors, index_int8.vectors)
+            and torch.equal(cas_int8.full.scale, index_int8.scale)
+            and torch.equal(cas_f32.coarse.vectors, cas_int8.coarse.vectors)):
+        raise AssertionError("cascade build: the full sides are not phase 4's indexes")
+    # one copy of each side: the int8 configuration shares phase 4's index
+    cas_int8 = dataclasses.replace(cas_int8, full=index_int8, coarse=cas_f32.coarse)
+    coarse64 = cas_f32.coarse
+    # from_index on phase 4's int8 index: dequantised by an f32 multiply,
+    # requantised with its own scale by a true division (held to numpy)
+    cas_fi = CascadeIndex.from_index(index_int8, m_coarse=CASCADE_M, n_factor=CASCADE_N)
+    deq = (index_int8.vectors[:, :CASCADE_M].cpu().numpy().astype(np.float32)
+           * index_int8.scale[:CASCADE_M].cpu().numpy()[None, :])
+    want_scale = (np.maximum(np.abs(deq).max(axis=0), 1e-12) / np.float32(127.0)).astype(
+        np.float32)
+    head = np.clip(np.round(deq[:BUILD_BLOCK] / want_scale[None, :]), -127, 127).astype(np.int8)
+    fi_ok = (np.array_equal(cas_fi.coarse.scale.cpu().numpy(), want_scale)
+             and np.array_equal(cas_fi.coarse.vectors[:BUILD_BLOCK].cpu().numpy(), head))
+    del deq, head
+    if not fi_ok:
+        raise AssertionError("from_index: the coarse int8 scale or bytes differ from numpy's")
+    emit("cascade_build", m_coarse=CASCADE_M, n_factor=CASCADE_N, build_s=t_build,
+         coarse_gb=coarse64.nbytes / 1e9, from_index_bitwise_numpy=True)
+
+    with counters.uncounted():
+        # (a) each kernel at the cascade's shapes against its plain version
+        wide_m, wide_n = CASCADE_CONFIGS[1]
+        cas_wide = CascadeIndex.build(pruned, m_coarse=wide_m, n_factor=wide_n)
+        qf = _project_nofold(qb, W, mean)
+        for coarse, kk in ((coarse64, CASCADE_N * K), (cas_wide.coarse, wide_n * K)):
+            name = f"cascade_coarse_m{coarse.dim}_k{kk}"
+            qc = (qf[:, :coarse.dim] * coarse.scale[None, :]).contiguous()
+            before = topk_score.topk_score_cuda.cuda_launches["int8"]
+            got = topk_score.topk_score_cuda(coarse.vectors, qc, k=kk)
+            per_call = topk_score.topk_score_cuda.cuda_launches["int8"] - before
+            want = topk_score.topk_score_plain(coarse.vectors, qc, k=kk)
+            err, eq, near = compare_topk(*want, *got, name)
+            mc = coarse.dim
+            rows[name] = dict(
+                shape=[n, mc, BATCH, kk], store="int8", max_abs_err=err, ids_equal=eq,
+                near_ties=near, launches_per_call=per_call,
+                ms=cuda_ms(lambda: topk_score.topk_score_cuda(coarse.vectors, qc, k=kk),
+                           reps=10),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(coarse.vectors, qc,
+                                                                     k=kk), reps=2),
+                library_ms=cuda_ms(lambda: torch.topk(qc @ coarse.vectors.T.float(), kk),
+                                   reps=3),
+                library_call="matmul + topk",
+                bound=bound(n * mc + 4 * BATCH * mc + 8 * BATCH * kk, 2 * BATCH * n * mc))
+            del got, want
+        # the row_ids rescore on this batch's real shortlist, full f32 and int8
+        _, cids = cas_f32.coarse_topk(qf, CASCADE_N * K)
+        uids = _shortlist(cids)
+        for name, full in (("cascade_rescore_f32", index_f32),
+                           ("cascade_rescore_int8", index_int8)):
+            rws = full.vectors[uids.long().clamp_min(0)]
+            q = (qf if full.scale is None else qf * full.scale[None, :]).contiguous()
+            got = topk_score.topk_score_cuda(rws, q, k=K, row_ids=uids)
+            want = topk_score.topk_score_plain(rws, q, k=K, row_ids=uids)
+            err, eq, near = compare_topk(*want, *got, name)
+            U, item = rws.shape[0], rws.element_size()
+            live = rws[uids >= 0].float()
+            rows[name] = dict(
+                shape=[U, m, BATCH, K], store=str(full.vectors.dtype).split(".")[1],
+                U_live=int((uids >= 0).sum()), max_abs_err=err, ids_equal=eq,
+                near_ties=near,
+                ms=cuda_ms(lambda: topk_score.topk_score_cuda(rws, q, k=K, row_ids=uids),
+                           reps=20),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(rws, q, k=K,
+                                                                     row_ids=uids), reps=20),
+                library_ms=cuda_ms(lambda: torch.topk(q @ live.T, K), reps=20),
+                library_call="matmul + topk over the live rows",
+                bound=bound(item * U * m + 4 * U + 4 * BATCH * m + 8 * BATCH * K,
+                            2 * BATCH * U * m))
+        # the paged coarse scan (256-row pages, per-page scale)
+        pc = PagedIndex.from_index(coarse64, page_rows=PAGE_ROWS)
+        st = pc.storage
+        npg = st.n_slots
+        qc = qf[:, :CASCADE_M].contiguous()
+        pargs = (st.pool, st.page_table, st.page_nvalid, st.page_offset, 0, npg, qc)
+        pkw = dict(k=CASCADE_N * K, tail=st.tail, page_scale=st.page_scale)
+        got = pc._search_qf(qc, CASCADE_N * K)
+        want = topk_score.topk_score_paged_plain(*pargs, **pkw)
+        err, eq, near = compare_topk(*want, *got, "cascade paged coarse")
+        dense_s = coarse64.search(qc, k=CASCADE_N * K)
+        if not same(got, dense_s):
+            raise AssertionError("cascade: paged coarse scan not bitwise the dense one")
+        rows["cascade_paged_coarse"] = dict(
+            shape=[npg, PAGE_ROWS, CASCADE_M, BATCH, CASCADE_N * K], store="int8",
+            max_abs_err=err, ids_equal=eq, near_ties=near, pages=npg,
+            ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*pargs, **pkw), reps=10),
+            plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(*pargs, **pkw),
+                             reps=1),
+            library_ms=rows[f"cascade_coarse_m{CASCADE_M}_k{CASCADE_N * K}"]["library_ms"],
+            library_call="matmul + topk (dense rows)",
+            dense_ms=rows[f"cascade_coarse_m{CASCADE_M}_k{CASCADE_N * K}"]["ms"],
+            bound=bound(npg * PAGE_ROWS * CASCADE_M + 4 * npg * (CASCADE_M + 3)
+                        + 4 * BATCH * CASCADE_M + 8 * BATCH * CASCADE_N * K,
+                        2 * BATCH * npg * PAGE_ROWS * CASCADE_M))
+        del pc, st, pargs, got, want, dense_s
+    emit("cascade_kernels", **{k: v for k, v in rows.items() if k.startswith("cascade_")})
+
+    # (b) the anchor: N·k >= n makes the cascade bitwise the full search
+    prefix = pruned[:ANCHOR_DOCS]
+    grow = pruner.prune_index(fresh[:LIVE_APPEND]).cpu().numpy()
+    anchor = {}
+    for quant in (False, True):
+        na = ANCHOR_DOCS
+        dense = CascadeIndex.build(prefix, m_coarse=CASCADE_M, n_factor=-(-na // K),
+                                   quantize_int8=quant)
+        seg = CascadeIndex.build(prefix, m_coarse=CASCADE_M,
+                                 n_factor=-(-(na + LIVE_APPEND) // K), quantize_int8=quant
+                                 ).segmented(delta_capacity=DELTA_CAPACITY).append(grow)
+        paged = seg.paged(page_rows=PAGE_ROWS, seal_rows=DELTA_CAPACITY)
+        for b in batches[:2]:
+            if not same(dense.search_projected(b, W, k=K, mean=mean),
+                        dense.full.search_projected(b, W, k=K, mean=mean)):
+                raise AssertionError(f"cascade anchor: dense {quant} not bitwise")
+            want = seg.full.search_projected(b, W, k=K, mean=mean)
+            if not same(seg.search_projected(b, W, k=K, mean=mean), want):
+                raise AssertionError(f"cascade anchor: segmented {quant} not bitwise")
+            if not same(paged.search_projected(b, W, k=K, mean=mean), want):
+                raise AssertionError(f"cascade anchor: paged {quant} not bitwise")
+        anchor["int8" if quant else "f32"] = dict(
+            dense_nk=min(dense.n_factor * K, na), segmented_nk=seg.n,
+            deltas=len(seg.full.deltas), bitwise=True)
+        del dense, seg, paged
+    emit("cascade_anchor", n=ANCHOR_DOCS, appended=LIVE_APPEND, batches=2, **anchor)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) recall@10 against the full f32 search and the batch time split
+    with counters.uncounted():
+        truth = [index_f32.search_projected(b, W, k=K, mean=mean)[1] for b in batches]
+        single = dict(f32_ms=cuda_ms(lambda: index_f32.search_projected(qb, W, k=K,
+                                                                       mean=mean), reps=10),
+                      int8_ms=cuda_ms(lambda: index_int8.search_projected(qb, W, k=K,
+                                                                        mean=mean), reps=10))
+
+        def recall10(index):
+            """Mean top-10 overlap with the full f32 search over the batches."""
+            got = [index.search_projected(b, W, k=K, mean=mean)[1] for b in batches]
+            return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / K
+                                  for t, g in zip(truth, got)
+                                  for a, b in zip(t.cpu(), g.cpu())]))
+
+        single["int8_recall10"] = recall10(index_int8)
+        coarse_of = {CASCADE_M: coarse64, wide_m: cas_wide.coarse}
+        for mc, nf in CASCADE_CONFIGS:
+            coarse = coarse_of[mc]
+            keys = coarse_keys(coarse, _project_nofold(qb, W, mean))
+            for full_name, full in (("f32", index_f32), ("int8", index_int8)):
+                cas = CascadeIndex(coarse=coarse, full=full, n_factor=nf)
+                rec = recall10(cas)
+                split = cascade_split(cas, qb, W, mean, K, keys)
+                emit("cascade_point", config=f"{mc}:{nf}", full=full_name, recall10=rec,
+                     **split, single_f32_ms=single["f32_ms"], single_int8_ms=single["int8_ms"])
+            del keys
+        summary["single"] = single
+    del cas_wide
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) growth under open-loop traffic: 10,000 rows in 64-row blocks
+    live = cas_int8.segmented(delta_capacity=DELTA_CAPACITY)
+    server = RetrievalServer(live, pruner, k=K, max_batch=BATCH, pipeline_depth=3)
+    state = {"index": live, "ms": []}
+
+    def appender():
+        cas = state["index"]
+        for i in range(0, LIVE_APPEND, APPEND_BLOCK):
+            t = time.perf_counter()
+            cas = cas.append(pruner.prune_index(fresh[i:min(i + APPEND_BLOCK, LIVE_APPEND)]))
+            server.swap_index(cas)
+            state["ms"].append((time.perf_counter() - t) * 1e3)
+        state["index"] = cas
+
+    tape = np.tile(Q, (-(-CASCADE_TAPE // len(Q)), 1))[:CASCADE_TAPE]
+    try:
+        server.warmup()
+        th = threading.Thread(target=appender, daemon=True)
+        th.start()
+        res = _drive_open(server, tape, rate=CASCADE_RATE, collect=True)
+        th.join(timeout=120.0)
+        if th.is_alive():
+            raise AssertionError("cascade (d): the appender did not finish")
+        stats = server.worker_stats()
+    finally:
+        server.close()
+    final = state["index"]
+    bad = sum(1 for r in res["results"] if not isinstance(r, tuple)
+              or not bool(((r[1] >= 0) & (r[1] < final.n)).all()))
+    if server.error is not None or res["n_ok"] != res["n"] or res["errors"] or bad:
+        raise AssertionError(f"cascade (d): {res['n'] - res['n_ok']} replies lost, "
+                             f"{bad} malformed, server error {server.error!r}")
+    if final.n != n + LIVE_APPEND or final.coarse.n != final.full.n:
+        raise AssertionError(f"cascade (d): grew to {final.n} rows")
+    paged = final.paged(page_rows=PAGE_ROWS, seal_rows=DELTA_CAPACITY)
+    for b in batches:
+        if not same(paged.search_projected(b, W, k=K, mean=mean),
+                    final.search_projected(b, W, k=K, mean=mean)):
+            raise AssertionError("cascade (d): the paged cascade differs from the segmented")
+    # the same with EVICT_PAGES of the full side's base pages on the host
+    # tier (its suffix), so the rescore gathers shortlist rows off host pages
+    base_pages = -(-final.full.base.n // PAGE_ROWS)
+    capped = final.paged(page_rows=PAGE_ROWS, seal_rows=DELTA_CAPACITY,
+                         pool_pages=base_pages - EVICT_PAGES)
+    if capped.full.storage.n_host_pages != EVICT_PAGES:
+        raise AssertionError(f"cascade (d): {capped.full.storage.n_host_pages} host pages")
+    host_lo = (base_pages - EVICT_PAGES) * PAGE_ROWS
+    host_rows = 0
+    for b in batches:
+        qf = _project_nofold(b, W, mean)
+        uids = _shortlist(capped.coarse_topk(qf, CASCADE_N * K)[1])
+        host_rows += int(((uids >= host_lo) & (uids < final.full.base.n)).sum())
+        if not same(capped.search_projected(b, W, k=K, mean=mean),
+                    final.search_projected(b, W, k=K, mean=mean)):
+            raise AssertionError("cascade (d): the host-tier paged cascade differs "
+                                 "from the segmented")
+    if not host_rows:
+        raise AssertionError("cascade (d): no shortlist row lay in a host page")
+    with counters.uncounted():
+        qf = _project_nofold(qb, W, mean)
+        uids = _shortlist(capped.coarse_topk(qf, CASCADE_N * K)[1])
+        host_tier = dict(
+            host_pages=EVICT_PAGES, shortlist_rows_on_host=host_rows, batches=len(batches),
+            batch_ms=cuda_ms(lambda: capped.search_projected(qb, W, k=K, mean=mean), reps=5),
+            resident_batch_ms=cuda_ms(lambda: paged.search_projected(qb, W, k=K, mean=mean),
+                                      reps=5),
+            segmented_batch_ms=cuda_ms(lambda: final.search_projected(qb, W, k=K, mean=mean),
+                                       reps=5),
+            rescore_ms=cuda_ms(lambda: capped.full.rescore(qf, uids, K), reps=10),
+            resident_rescore_ms=cuda_ms(lambda: paged.full.rescore(qf, uids, K), reps=10),
+            segmented_rescore_ms=cuda_ms(lambda: final.full.rescore(qf, uids, K), reps=10))
+    emit("cascade_host_tier", **host_tier, equals_segmented=True)
+    del capped
+    ms = np.array(state["ms"])
+    summary["live"] = dict(appended=LIVE_APPEND, deltas=len(final.full.deltas),
+                           swaps=server.swap_count, append_ms_p50=float(np.median(ms)),
+                           append_ms_p90=float(np.percentile(ms, 90)),
+                           open_loop={k: v for k, v in res.items() if k != "results"},
+                           tape_qps=tape_qps(res["n"], CASCADE_RATE), **stats)
+    summary["host_tier"] = host_tier
+    emit("cascade_live", **summary["live"], replies_lost=0, paged_equals_segmented=True)
+    del paged
+
+    # (e) the store round trip of the grown segmented int8 cascade
+    root = os.path.join(HERE, "build", "cascade_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "cascade")
+    t0 = time.perf_counter()
+    st = save_index(path, final, pruner=pruner)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ld = CascadeIndex.load(path, m_coarse=CASCADE_M, n_factor=CASCADE_N, segmented=True,
+                           delta_capacity=DELTA_CAPACITY, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    for side in ("coarse", "full"):
+        a, b = getattr(final, side), getattr(ld, side)
+        if not (torch.equal(a.base.vectors, b.base.vectors)
+                and torch.equal(a.base.scale, b.base.scale)
+                and len(a.deltas) == len(b.deltas)):
+            raise AssertionError(f"cascade (e): the {side} base differs after the load")
+        for da, db in zip(a.deltas, b.deltas):
+            if not (torch.equal(da.vectors[:da.n_real], db.vectors[:db.n_real])
+                    and torch.equal(da.scale, db.scale)):
+                raise AssertionError(f"cascade (e): a {side} delta differs after the load")
+    t0 = time.perf_counter()
+    lp = CascadeIndex.load(path, m_coarse=CASCADE_M, n_factor=CASCADE_N, paged=True,
+                           delta_capacity=DELTA_CAPACITY, device=dev)
+    torch.cuda.synchronize()
+    t_paged = time.perf_counter() - t0
+    for b in batches:
+        want = final.search_projected(b, W, k=K, mean=mean)
+        if not (same(ld.search_projected(b, W, k=K, mean=mean), want)
+                and same(lp.search_projected(b, W, k=K, mean=mean), want)):
+            raise AssertionError("cascade (e): a reloaded search differs")
+    summary["store"] = dict(bytes=int(st.nbytes), save_s=t_save, load_s=t_load,
+                            load_paged_s=t_paged,
+                            coarse_deltas=len(st.resolution_deltas(f"m{CASCADE_M}")))
+    emit("cascade_store", **summary["store"], bitwise=True)
+    del ld, lp, final, live, state
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("cascade_summary", peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **summary)
+
+
+def phase_fleet(counters, index_f32, index_int8, pruner, Q):
+    """Phase 11: three replicas over the full-corpus int8 artifact (phase
+    4's int8 index saved again: phase 9 removed its own), under build/
+    fleet_smoke/. An open-loop drive at 1,000 qps for 10 s while a fault
+    plan kills r1 at 3 s and restarts it at 6 s: no accepted reply lost,
+    every OK reply's ids those of the single-server search on the same
+    bytes, health ok after. Then a timed restart, a good rollout (recall
+    1.0 on every replica), a row-permuted artifact (build_index_to over
+    phase 4's pruned rows in a random order) that rolls back after the
+    first replica with zero misrouted replies under traffic, and a torn
+    artifact that is refused while the fleet keeps serving."""
+    import gc
+    import shutil
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import save_index
+    from repro_torch.launch.serve import _drive_open
+    from repro_torch.serving.fleet import FaultEvent, FaultPlan, ReplicaSet, corrupt_artifact
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    W, mean = pruner.projection()
+    n = index_int8.n
+    root = os.path.join(HERE, "build", "fleet_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    v1, v2, vbad = (os.path.join(root, x) for x in ("v1", "v2", "vbad"))
+    t0 = time.perf_counter()
+    save_index(v1, index_int8, pruner=pruner)
+    t_v1 = time.perf_counter() - t0
+    # the single server's answer to each query, on the same bytes
+    with counters.uncounted():
+        want = []
+        for i in range(0, len(Q), BATCH):
+            q = torch.as_tensor(Q[i:i + BATCH], device=dev)
+            nq = q.shape[0]
+            if nq < BATCH:
+                q = torch.cat([q, q.new_zeros(BATCH - nq, q.shape[1])])
+            want.append(index_int8.search_projected(q, W, k=K, mean=mean)[1][:nq].cpu().numpy())
+        want = np.concatenate(want)
+
+    def misrouted(res, qidx):
+        return sum(1 for j, r in enumerate(res["results"])
+                   if isinstance(r, tuple) and not np.array_equal(r[1], want[qidx[j]]))
+
+    def drive(n_q):
+        qidx = np.arange(n_q) % len(Q)
+        res = _drive_open(fleet, Q[qidx], rate=FLEET_RATE, collect=True,
+                          tolerate_errors=True, deadline=2.0)
+        return res, misrouted(res, qidx)
+
+    def summary_of(res):
+        return {k: v for k, v in res.items() if k != "results"}
+
+    t0 = time.perf_counter()
+    fleet = ReplicaSet(v1, replicas=FLEET_REPLICAS, k=K, max_batch=BATCH, pipeline_depth=3,
+                       delta_capacity=DELTA_CAPACITY, probe_queries=Q[:16], device=dev)
+    t_fleet = time.perf_counter() - t0
+    out = {}
+    try:
+        # the kill/restart drive
+        FaultPlan([FaultEvent(FLEET_KILL_AT, "kill", "r1"),
+                   FaultEvent(FLEET_RESTART_AT, "restart", "r1")]).start(fleet)
+        res, mis = drive(int(FLEET_RATE * FLEET_SECONDS))
+        stats, health = fleet.stats(), fleet.health()
+        out["chaos"] = dict(**summary_of(res), tape_qps=tape_qps(res["n"], FLEET_RATE),
+                            misrouted=mis, health_ok=health["ok"],
+                            **{k: stats[k] for k in ("accepted", "completed", "shed",
+                                                     "timed_out", "failed", "failovers",
+                                                     "marked_down", "lost_accepted")})
+        emit("fleet_chaos", replicas=FLEET_REPLICAS, kill_at=FLEET_KILL_AT,
+             restart_at=FLEET_RESTART_AT, **out["chaos"])
+        if stats["lost_accepted"] or mis or not health["ok"]:
+            raise AssertionError(f"fleet chaos: lost_accepted={stats['lost_accepted']}, "
+                                 f"misrouted={mis}, health={health['ok']}")
+        t0 = time.perf_counter()
+        fleet.restart("r2")
+        out["restart_s"] = time.perf_counter() - t0
+        # a good rollout: the same bytes under a new version
+        save_index(v2, index_int8, pruner=pruner)
+        t0 = time.perf_counter()
+        good = fleet.rollout(v2)
+        out["good_rollout"] = dict(seconds=time.perf_counter() - t0, ok=good["ok"],
+                                   per_replica=good["per_replica"])
+        emit("fleet_rollout", kind="good", **out["good_rollout"])
+        if not (good["ok"] and fleet.version == v2
+                and all(p["recall"] == 1.0 for p in good["per_replica"])):
+            raise AssertionError(f"fleet: the good rollout failed: {good}")
+        # a row-permuted artifact: every id it returns is wrong
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        t0 = time.perf_counter()
+        pruner.build_index_to(
+            vbad, lambda: (index_f32.vectors[perm[i:i + BUILD_BLOCK]]
+                           for i in range(0, n, BUILD_BLOCK)),
+            quantize_int8=True, already_projected=True)
+        t_bad = time.perf_counter() - t0
+        del perm
+        result = {}
+        roller = threading.Thread(target=lambda: result.update(fleet.rollout(vbad)),
+                                  daemon=True)
+        t0 = time.perf_counter()
+        roller.start()
+        res, mis = drive(ROLLOUT_TAPE)
+        roller.join(timeout=300.0)
+        stats = fleet.stats()
+        out["bad_rollout"] = dict(build_s=t_bad, seconds=time.perf_counter() - t0,
+                                  rolled_back=result.get("rolled_back"),
+                                  replicas_probed=len(result.get("per_replica", ())),
+                                  per_replica=result.get("per_replica"), misrouted=mis,
+                                  lost_accepted=stats["lost_accepted"],
+                                  drive=summary_of(res))
+        emit("fleet_rollout", kind="row_permuted", **out["bad_rollout"])
+        if not (result.get("rolled_back") and not result.get("ok")
+                and len(result["per_replica"]) == 1 and mis == 0
+                and stats["lost_accepted"] == 0 and fleet.version == v2
+                and set(fleet.router.states().values()) == {"up"}):
+            raise AssertionError(f"fleet: the row-permuted rollout did not roll back "
+                                 f"cleanly ({mis} misrouted): {result}")
+        # a torn artifact is refused before any replica is touched
+        removed = corrupt_artifact(vbad)
+        torn = fleet.rollout(vbad)
+        _, ids = fleet.query(Q[3], timeout=30.0)
+        out["torn"] = dict(removed=os.path.basename(removed), ok=torn["ok"],
+                           rolled_back=torn["rolled_back"], reason=torn.get("reason"),
+                           still_serving=bool(np.array_equal(ids, want[3])))
+        emit("fleet_rollout", kind="torn", **out["torn"])
+        if (torn["ok"] or torn["rolled_back"] or "rejected" not in torn.get("reason", "")
+                or torn["per_replica"] or fleet.version != v2
+                or not out["torn"]["still_serving"] or not fleet.health()["ok"]):
+            raise AssertionError(f"fleet: the torn artifact was not refused cleanly: {torn}")
+    finally:
+        fleet.close()
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("fleet_summary", save_v1_s=t_v1, fleet_start_s=t_fleet, restart_s=out["restart_s"],
+         peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -2106,10 +2672,36 @@ def main():
     missing = [k for k in on_store if store_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the store path: {missing}")
+    # the cascade path, counted on its own (phase 9's corpus and artifacts
+    # are gone by now)
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows)
+    torch.cuda.synchronize()
+    cascade_launches = counters.read()
+    emit("cascade_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in cascade_launches.items() if v})
+    on_cascade = ("pca_project", "topk_score_int8", "topk_select_int8", "topk_score_row_ids",
+                  "topk_score_int8_n_valid", "topk_score_paged_int8")
+    missing = [k for k in on_cascade if cascade_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the cascade path: {missing}")
+    # the fleet path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_fleet(counters, index_f32, index_int8, pruner, Q)
+    torch.cuda.synchronize()
+    fleet_launches = counters.read()
+    emit("fleet_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in fleet_launches.items() if v})
+    if fleet_launches["topk_score_int8"] == 0:
+        raise AssertionError("kernels never launched on the fleet path: ['topk_score_int8']")
 
-    def entry(name, row, source, replaces, counter, counts=launches):
+    def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches
-        are the CUDA launches of one call at that shape."""
+        are the CUDA launches of one call at that shape. ``launches_of``
+        says what a path's counter counts where it is more than this row's
+        shape."""
         b_ms, b_by = row["bound"]
         if counter is None:
             n_launch = row["launches_per_call"]
@@ -2118,6 +2710,8 @@ def main():
             n_launch = counts[counter]
             extra = ({"cuda_launches": counts[counter + "_cuda"]}
                      if counter + "_cuda" in counts else {})
+            if launches_of:
+                extra["launches_of"] = launches_of
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=n_launch, **extra,
                     max_abs_err=row["max_abs_err"],
@@ -2130,7 +2724,7 @@ def main():
                                 "frac_differ", "matmul_topk_ms", "dense_ms",
                                 "cuda_launches_per_call", "page_rows", "pages",
                                 "ranges", "range_sum_bitwise", "n_valid",
-                                "enqueue_ms")})
+                                "enqueue_ms", "library_call", "U_live")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -2179,6 +2773,27 @@ def main():
                 f"topk_score_{st}_n_valid", live_launches) for st in ("f32", "int8")],
         entry("pca_project_n64", rows["pca_project_n64"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:56", "pca_project", live_launches),
+        # the cascade (phase 10): the coarse int8 scan at its shapes (list
+        # mode and the radix select; launches: every int8 plain-mode call
+        # of phase 10, whatever its shape), the row_ids rescore of a real
+        # shortlist (launches: every rescore part of phase 10, both full
+        # dtypes), and the paged coarse scan (launches: every paged int8
+        # call of phase 10)
+        entry(f"topk_score_cascade_coarse_m{CASCADE_M}_k{CASCADE_N * K}",
+              rows[f"cascade_coarse_m{CASCADE_M}_k{CASCADE_N * K}"], topk[1], topk[0],
+              "topk_score_int8", cascade_launches,
+              launches_of="every counted int8 plain-mode call of phase 10: the coarse "
+                          "scans at every n_factor, and the full int8 searches of dense "
+                          "and segmented bases (the anchor, the growth checks, the "
+                          "reloads)"),
+        entry(f"topk_score_cascade_coarse_m{CASCADE_CONFIGS[1][0]}_k"
+              f"{CASCADE_CONFIGS[1][1] * K}",
+              rows[f"cascade_coarse_m{CASCADE_CONFIGS[1][0]}_k{CASCADE_CONFIGS[1][1] * K}"],
+              topk[1], topk[0], None),
+        *[entry(f"topk_score_cascade_rescore_{st}", rows[f"cascade_rescore_{st}"], topk[1],
+                topk[0], "topk_score_row_ids", cascade_launches) for st in ("f32", "int8")],
+        entry("topk_score_paged_cascade_coarse", rows["cascade_paged_coarse"], topk[1], paged,
+              "topk_score_paged_int8", cascade_launches),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

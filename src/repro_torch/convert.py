@@ -1,12 +1,13 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
-``PCAState``, ``DenseIndex`` or ``PagedIndexStorage`` fields, converted
-with ``np.asarray``) into the port's objects. ``load_pca`` reads
+``PCAState``, ``DenseIndex``, ``CascadeIndex`` or ``PagedIndexStorage``
+fields, converted with ``np.asarray``) into the port's objects. ``load_pca`` reads
 ``repro``'s ``pca.npz`` directly."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.cascade import CascadeIndex
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
@@ -30,6 +31,17 @@ def dense_index_from_numpy(vectors: np.ndarray, scale: np.ndarray | None,
     v = as_tensor(np.ascontiguousarray(vectors), device)
     s = None if scale is None else as_tensor(np.asarray(scale, np.float32), device)
     return DenseIndex(vectors=v, scale=s)
+
+
+def cascade_index_from_numpy(coarse_vectors: np.ndarray, coarse_scale: np.ndarray | None,
+                             full_vectors: np.ndarray, full_scale: np.ndarray | None,
+                             n_factor: int = 8, device=None) -> CascadeIndex:
+    """A port ``CascadeIndex`` over a dense cascade's two resolutions: the
+    coarse (n, m_coarse) and full (n, m) vectors, each with its scale (or
+    None), byte for byte."""
+    return CascadeIndex(coarse=dense_index_from_numpy(coarse_vectors, coarse_scale, device),
+                        full=dense_index_from_numpy(full_vectors, full_scale, device),
+                        n_factor=n_factor)
 
 
 def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,

@@ -14,8 +14,8 @@ appended, so its operand shape never changes as it fills.
 
 ``DenseIndex.load`` and ``SegmentedIndex.load`` read an ``IndexStore``
 artifact (``core/store.py``) onto a device, the card by default. The paged
-index is in ``core/paged.py``; the sharded and cascade indexes are not
-ported yet.
+index is in ``core/paged.py``, the cascade in ``core/cascade.py``; the
+sharded index is not ported yet.
 """
 from __future__ import annotations
 
@@ -208,6 +208,28 @@ class DenseIndex:
                             scale=self.scale,
                             mean=None if mean is None else as_tensor(mean, dev))
         return self._topk(q, min(k, self.n))
+
+    def rescore(self, qf: torch.Tensor, uids: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-``k`` of the shortlist ``uids`` (a cascade's second
+        pass) for projected queries ``qf`` (no scale folded): one
+        ``row_ids`` top-k over the gathered rows."""
+        return _rows_rescore(self.vectors, self.scale, qf, uids, 0, self.n, k)
+
+
+def _rows_rescore(D: torch.Tensor, scale: torch.Tensor | None,
+                  qf: torch.Tensor, uids: torch.Tensor, offset: int,
+                  n_valid: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of the shortlist rows one segment holds: the segment's scale
+    folded into the query, the U rows gathered in storage dtype (uids
+    outside [offset, offset + n_valid) point at a clamped row and are
+    masked with id -1), one ``row_ids`` top-k."""
+    q = qf if scale is None else qf * scale[None, :]
+    local = uids.long() - offset
+    valid = (uids >= 0) & (local >= 0) & (local < n_valid)
+    rows = D[local.clamp(0, D.shape[0] - 1)]
+    ids = torch.where(valid, uids, torch.full_like(uids, -1))
+    return ops.topk_score(rows, q.contiguous(), k=k, row_ids=ids)
 
 
 # ---------------------------------------------------------------------------
@@ -539,3 +561,16 @@ class SegmentedIndex:
                             as_tensor(components, dev),
                             None if mean is None else as_tensor(mean, dev))
         return self._merged_topk(q, k)
+
+    def rescore(self, qf: torch.Tensor, uids: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-``k`` of the shortlist ``uids`` for projected queries
+        ``qf``: one ``row_ids`` call per segment (the uids outside it set to
+        -1), merged in ascending id order, which equals a max-combine and
+        top-k over the segments, ties included."""
+        parts = [self.base.rescore(qf, uids, k)]
+        off = self.base.n
+        for d in self.deltas:
+            parts.append(_rows_rescore(d.vectors, d.scale, qf, uids, off, d.n_real, k))
+            off += d.n_real
+        return merge_segment_topk(parts, k)

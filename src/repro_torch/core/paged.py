@@ -1,5 +1,5 @@
 """Paged index memory over a dense or segmented base (port of
-``repro/core/paged.py`` without the cascade part).
+``repro/core/paged.py``).
 
 ``PagedIndexStorage`` keeps an index's rows in fixed ``page_rows``-row
 pages behind an int32 page table:
@@ -34,8 +34,8 @@ of ``wave_pages`` pages chained through the top-k carry. Results follow the
 promote, compact and evict leave them unchanged. ``from_segmented`` pages a
 live ``SegmentedIndex`` byte for byte, each delta becoming a delta extent.
 ``save`` writes one store segment per extent, gathered off the tiers by
-``extent_rows``, and ``load`` pages a store back bit for bit. Waiting on a
-later item: the cascade's ``rescore``.
+``extent_rows``, and ``load`` pages a store back bit for bit. ``rescore``
+is the cascade's second stage over the page tables.
 """
 from __future__ import annotations
 
@@ -45,7 +45,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import DenseIndex, SegmentedIndex, _open_store, _project_nofold
+from repro_torch.core.index import (
+    DenseIndex,
+    SegmentedIndex,
+    _open_store,
+    _project_nofold,
+    merge_segment_topk,
+)
 from repro_torch.core.quantization import quantize_with_scale, scale_for
 from repro_torch.core.store import save_paged_index
 from repro_torch.kernels import ops
@@ -88,14 +94,15 @@ def _host_zeros(shape, dtype: torch.dtype, device: torch.device) -> torch.Tensor
     return torch.zeros(shape, dtype=dtype, pin_memory=device.type == "cuda")
 
 
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A new tensor on ``device`` holding ``a`` (never a view of it). On the
-    card the copy goes through pinned memory on the current stream without
-    blocking the host; PyTorch's pinned allocator keeps the staging block
-    until the copy is done."""
+def _to_device(a: np.ndarray | torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A new tensor on ``device`` holding host array or tensor ``a`` (never
+    a view of it). On the card the copy goes through pinned memory on the
+    current stream without blocking the host; PyTorch's pinned allocator
+    keeps the staging block until the copy is done."""
+    t = torch.as_tensor(a)
     if device.type != "cuda":
-        return torch.tensor(a)
-    return torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _paged_topk(pool, tail, pt, scale, nv, off, lo: int, hi: int, Q, *,
@@ -914,3 +921,61 @@ class PagedIndex:
         mu = None if mean is None else as_tensor(mean, dev)
         Q = torch.atleast_2d(as_tensor(queries, dev))
         return self._search_qf(_project_nofold(Q, W, mu), k)
+
+    # -- cascade rescore -----------------------------------------------------
+    def _shortlist_rows(self, uids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(rows, slot)``: each shortlist uid's stored row (U, m) and the
+        logical slot of its page, on the device. A uid's page is found by
+        its first global id (``page_offset``, ascending over the slots);
+        pool and tail rows are gathered through the page table, the rows in
+        host pages on the host, crossing in one copy. A uid outside [0, n)
+        gets a clamped row, masked by the caller."""
+        st = self.storage
+        dev = st.device
+        u = uids.long().clamp(0, self.n - 1)
+        offs = st.page_offset[:st.n_slots].long()
+        slot = torch.searchsorted(offs, u, right=True) - 1
+        r = u - offs[slot]
+        P, T = st.pool_pages, st.tail.shape[0]
+        phys = st.page_table[slot].long()
+        rows = st.pool[phys.clamp(0, P - 1), r]
+        if T:
+            rows = torch.where((phys >= P)[:, None],
+                               st.tail[(phys - P).clamp(0, T - 1), r], rows)
+        if st.host_pages:
+            sr = torch.stack([slot, r]).cpu().numpy()
+            hit = np.flatnonzero(st.pt_host[sr[0]] < 0)
+            if hit.size:
+                got = torch.stack([st.host_pages[s][i] for s, i in sr[:, hit].T.tolist()])
+                rows[_to_device(hit, dev)] = _to_device(got, dev)
+        return rows, slot
+
+    def rescore(self, qf: torch.Tensor, uids: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-``k`` of the shortlist ``uids`` (the cascade's second
+        stage) for projected queries ``qf``: the shortlist rows are gathered
+        off every tier once, then scored by ``ops.topk_score`` in its
+        ``row_ids`` mode, one call per extent of an int8 index (each folds
+        its extent's scale, the uids of other extents set to -1), one call
+        in all for a float index. The parts merge in ascending id order, so
+        the result is bitwise a segmented index's rescore over the same
+        bytes and scales."""
+        st = self.storage
+        if not self.n:
+            B = qf.shape[0]
+            return (torch.full((B, k), float("-inf"), device=qf.device),
+                    torch.full((B, k), -1, dtype=torch.int32, device=qf.device))
+        rows, slot = self._shortlist_rows(uids)
+        valid = (uids >= 0) & (uids < self.n)
+        if st.page_scale is None:
+            ids = torch.where(valid, uids, torch.full_like(uids, -1))
+            return ops.topk_score(rows, qf.float().contiguous(), k=k, row_ids=ids)
+        parts = []
+        for e in st.extents:
+            if not e.n_rows:
+                continue
+            q = qf.float() * st.page_scale[e.start_slot][None, :]
+            mine = valid & (slot >= e.start_slot) & (slot < e.start_slot + e.n_pages)
+            ids = torch.where(mine, uids, torch.full_like(uids, -1))
+            parts.append(ops.topk_score(rows, q.contiguous(), k=k, row_ids=ids))
+        return merge_segment_topk(parts, k)

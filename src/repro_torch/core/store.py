@@ -33,9 +33,8 @@ pre-segment manifest is a valid single-base segmented store.
 
 **Resolutions.** A manifest may carry ``resolutions``: coarse views of the
 base rows at a smaller width m (the leading PCA columns), with their own
-dtype, scale and optional coarse deltas. The port validates and reads them
-as the reference does; writing a cascade's resolutions waits for the
-cascade (ROADMAP queue 1 item 4).
+dtype, scale and optional coarse deltas. ``save_index`` of a
+``CascadeIndex`` writes them; ``CascadeIndex.load`` reads them back.
 
 Reads are host-streamed: chunks are memory-mapped, and ``DenseIndex.load``
 copies them one slice at a time into a preallocated device tensor, through
@@ -84,24 +83,46 @@ def _meta_of(pruner) -> dict:
 
 def save_index(path: str, index, *, pruner=None, meta: dict | None = None,
                chunk_rows: int = 262144) -> "IndexStore":
-    """Persist an already-built ``DenseIndex``, ``SegmentedIndex`` or
-    ``PagedIndex`` (on any device).
+    """Persist an already-built ``DenseIndex``, ``SegmentedIndex``,
+    ``PagedIndex`` or ``CascadeIndex`` (on any device).
 
     Rows are copied device→host one ``chunk_rows`` slice at a time, so the
     host transient is one chunk. Pass the fitted ``pruner`` to persist the
     PCA state alongside (``IndexStore.load_pruner`` and ``serve
     --load-index`` need it to transform queries).
     """
+    from repro_torch.core.cascade import CascadeIndex
     from repro_torch.core.index import SegmentedIndex
     from repro_torch.core.paged import PagedIndex
     if isinstance(index, PagedIndex):
         return save_paged_index(path, index, pruner=pruner, meta=meta,
                                 chunk_rows=chunk_rows)
-    if hasattr(index, "coarse"):
-        raise NotImplementedError(
-            "saving a cascade index waits for the cascade's port (ROADMAP "
-            "queue 1 item 4); the store already validates and reads "
-            "resolutions")
+    if isinstance(index, CascadeIndex):
+        # the full resolution commits through the flat, segmented or paged
+        # path; the coarse base rides along as a `resolutions` entry, with
+        # the coarse delta segments (or a paged coarse side's later
+        # extents) as its deltas, their exact bytes and scales
+        store = save_index(path, index.full, pruner=pruner, meta=meta,
+                           chunk_rows=chunk_rows)
+        coarse = index.coarse
+        if isinstance(coarse, PagedIndex):
+            cst = coarse.storage
+            exts = cst.extents
+            base_rows = (cst.extent_rows(0) if exts
+                         else torch.zeros((0, cst.dim), dtype=cst.dtype))
+            base_scale = exts[0].scale if exts else None
+            coarse_deltas = [{"rows": cst.extent_rows(i), "scale": e.scale,
+                              "capacity": cst.seal_rows}
+                             for i, e in enumerate(exts) if i > 0]
+        else:
+            cb = getattr(coarse, "base", coarse)
+            base_rows, base_scale = cb.vectors[:cb.n], cb.scale
+            coarse_deltas = [{"rows": d.vectors[:d.n_real], "scale": d.scale,
+                              "capacity": d.capacity}
+                             for d in getattr(coarse, "deltas", ())]
+        store.add_resolution(base_rows, scale=base_scale, chunk_rows=chunk_rows,
+                             deltas=coarse_deltas)
+        return store
     if isinstance(index, SegmentedIndex):
         # the base commits through the flat path, then each delta replays
         # as a durable segment mutation with its own scale and capacity
@@ -340,7 +361,11 @@ class SegmentView:
 
     @property
     def n(self) -> int:
-        return int(self.entry["n"])
+        """Rows of the segment. A resolution entry records none of its own
+        (the reference's format), so its rows are its chunks' rows."""
+        if "n" in self.entry:
+            return int(self.entry["n"])
+        return sum(int(c["rows"]) for c in self.entry["chunks"])
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,6 +1,6 @@
 """Retrieval serving entry point: batched queries against a PCA-pruned index
 (port of ``repro/launch/serve.py``: the single-device path, dense,
-segmented or paged).
+segmented, paged or cascaded, and the replicated fleet).
 
 The paper's online path, end to end:
   1. build the offline artefacts (PCA transform W_m + pruned index D̂)
@@ -41,9 +41,22 @@ prints the cold start, from opening the store to the first answered
 query. Under ``--live-append`` the loaded index gets an
 ``IndexUpdater.from_store``, so every append is durable.
 
-The reference's ``--sharded`` (queue 1 item 5), ``--cascade`` and its live
-branch (item 4), ``--fleet`` (item 6) and ``--compare-full`` modes are not
-ported yet.
+``--cascade M:N`` serves a ``CascadeIndex`` (``core/cascade.py``): a coarse
+scan over the first M PCA dims (int8) keeps N·k candidates per query, then
+one exact full-m rescore of the batch's shortlist. It builds, saves and
+loads like the single index (``--paged`` pages both sides); under
+``--live-append`` an appender grows both resolutions in lockstep and swaps
+each new pair into the server (the reference's cascade branch: no updater,
+no compaction). ``--compare-full`` then drives the same tape against the
+unpruned corpus and prints the speedup.
+
+``--fleet R`` serves through R replicas behind a load-aware router
+(``serving/fleet.py``): it builds (or ``--load-index`` opens) an artifact,
+drives it open loop, and prints the fleet's accounting; ``--fleet-kill S``
+kills replica r1 S seconds into the drive and restarts it 2 s later.
+
+The reference's ``--sharded`` is not ported yet: the flag exists and
+refuses to run.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 50000 \\
@@ -58,6 +71,9 @@ Examples:
       --save-index build/idx    # build once, persist the artifact ...
   PYTHONPATH=src python -m repro_torch.launch.serve --load-index build/idx
                                 # ... and restart from it
+  PYTHONPATH=src python -m repro_torch.launch.serve --cascade 64:8 \
+      --compare-full            # coarse int8 scan + exact rescore
+  PYTHONPATH=src python -m repro_torch.launch.serve --fleet 3 --fleet-kill 2
 """
 from __future__ import annotations
 
@@ -70,6 +86,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core.cascade import CascadeIndex
 from repro_torch.core.index import DenseIndex, SegmentedIndex
 from repro_torch.core.maintenance import IndexUpdater
 from repro_torch.core.paged import PagedIndex
@@ -195,13 +212,13 @@ def _results_to_host(scores: torch.Tensor, ids: torch.Tensor):
     return hs, hi, event
 
 
-Index = DenseIndex | SegmentedIndex | PagedIndex
+Index = DenseIndex | SegmentedIndex | PagedIndex | CascadeIndex
 
 
 class RetrievalServer:
-    """Batched query server over a ``DenseIndex``, ``SegmentedIndex`` or
-    ``PagedIndex`` (any index with ``device``, ``dim``, ``search`` and
-    ``search_projected``).
+    """Batched query server over a ``DenseIndex``, ``SegmentedIndex``,
+    ``PagedIndex`` or ``CascadeIndex`` (any index with ``device``, ``dim``
+    and ``search_projected``, and ``search`` to serve without a pruner).
 
     With a pruner attached every batch runs ``search_projected``
     (projection + scale fold + top-k); without one, plain ``search``.
@@ -632,17 +649,20 @@ def _append_loop(updater: IndexUpdater, rate: float, dim: int,
             stop.wait(delay)
 
 
+def _delta_units(idx) -> str:
+    if isinstance(idx, PagedIndex):
+        n_ext = sum(1 for e in idx.storage.extents if e.kind == "delta")
+        return f"{idx.storage.delta_pages} delta page(s), {n_ext} extent(s)"
+    return f"{len(idx.deltas)} delta segment(s)"
+
+
 def _report_live(server: RetrievalServer, updater: IndexUpdater) -> None:
     """The reference's live-append summary, then a compaction swapped into
     the server and its line."""
     idx = updater.index
-    if isinstance(idx, PagedIndex):
-        n_ext = sum(1 for e in idx.storage.extents if e.kind == "delta")
-        units = f"{idx.storage.delta_pages} delta page(s), {n_ext} extent(s)"
-    else:
-        units = f"{len(idx.deltas)} delta segment(s)"
-    print(f"[serve] live-append: +{updater.appended_rows} rows in {units}, "
-          f"{server.swap_count} atomic swaps; index now {idx.n} rows")
+    print(f"[serve] live-append: +{updater.appended_rows} rows in "
+          f"{_delta_units(idx)}, {server.swap_count} atomic swaps; index now "
+          f"{idx.n} rows")
     t0 = time.perf_counter()
     updater.compact()
     dt_ms = (time.perf_counter() - t0) * 1e3
@@ -673,16 +693,33 @@ def _print_paged(what: str, index: PagedIndex) -> None:
           f"x {stg.page_rows} rows, {stg.n_host_pages} host-tier)")
 
 
-def _serve_from_store(args, device: torch.device, pool_pages: int | None):
-    """``--load-index``: the restart path. Peeks at the artifact for the
-    query width, then times the cold start proper — open and validate,
-    load, first answered query — and prints it. Returns ``(server,
-    updater or None, query tape)``; under ``--live-append`` the index comes
-    from ``IndexUpdater.from_store``, so appends mirror to the artifact."""
-    src_d = int(IndexStore.open(args.load_index).meta.get("source_dim", args.dim))
+def _print_cascade(what: str, index: CascadeIndex) -> None:
+    c = index.coarse
+    paged = isinstance(c, PagedIndex)
+    dtype = c.storage.dtype if paged else getattr(c, "base", c).vectors.dtype
+    print(f"[serve] {what}: {index.n} x {index.dim} (+ coarse "
+          f"m={index.m_coarse} {str(dtype).removeprefix('torch.')}, shortlist "
+          f"{index.n_factor}*k, {index.nbytes/2**20:.1f} MiB"
+          f"{', paged' if paged else ''})")
+
+
+def _adopt_store_dim(args, path: str) -> None:
+    """Take the query width from the artifact's fit (its ``source_dim``)."""
+    src_d = int(IndexStore.open(path).meta.get("source_dim", args.dim))
     if src_d != args.dim:
         print(f"[serve] store was fit at d={src_d}; overriding --dim")
         args.dim = src_d
+
+
+def _serve_from_store(args, device: torch.device, pool_pages: int | None,
+                      cascade_mn: tuple[int, int] | None):
+    """``--load-index``: the restart path. Peeks at the artifact for the
+    query width, then times the cold start proper — open and validate,
+    load, first answered query — and prints it. Returns ``(server,
+    updater or None, query tape)``; under ``--live-append`` a single index
+    comes from ``IndexUpdater.from_store``, so appends mirror to the
+    artifact, and a cascade loads segmented (its appends stay in memory)."""
+    _adopt_store_dim(args, args.load_index)
     # a tiny corpus is enough to synthesise the query stream: the served
     # docs come from the artifact
     Q = _query_tape(make_dataset("tasb", n_docs=256, d=args.dim,
@@ -690,7 +727,14 @@ def _serve_from_store(args, device: torch.device, pool_pages: int | None):
     t_cold = time.perf_counter()
     store = IndexStore.open(args.load_index)
     updater = None
-    if args.live_append > 0:
+    if cascade_mn:
+        pruner = store.load_pruner(device=device)
+        index = CascadeIndex.load(store, m_coarse=cascade_mn[0], n_factor=cascade_mn[1],
+                                  segmented=args.live_append > 0, paged=args.paged,
+                                  page_rows=args.page_rows or None,
+                                  pool_pages=pool_pages,
+                                  delta_capacity=args.delta_capacity, device=device)
+    elif args.live_append > 0:
         updater = IndexUpdater.from_store(
             store, delta_capacity=args.delta_capacity,
             paged=True if args.paged else None, pool_pages=pool_pages,
@@ -703,7 +747,9 @@ def _serve_from_store(args, device: torch.device, pool_pages: int | None):
                                     pool_pages=pool_pages, device=device)
         else:
             index = DenseIndex.load(store, device=device)
-    if isinstance(index, PagedIndex):
+    if isinstance(index, CascadeIndex):
+        _print_cascade("loaded cascade", index)
+    elif isinstance(index, PagedIndex):
         _print_paged("loaded paged index", index)
     elif isinstance(index, SegmentedIndex):
         print(f"[serve] loaded segmented index: {index.n} x {index.dim} "
@@ -722,7 +768,91 @@ def _serve_from_store(args, device: torch.device, pool_pages: int | None):
     return server, updater, Q
 
 
-def main(argv: list[str] | None = None) -> None:
+def _cascade_append_loop(server: RetrievalServer, pruner: StaticPruner,
+                         state: dict, rate: float, dim: int,
+                         device: torch.device, stop: threading.Event) -> None:
+    """``--live-append`` under ``--cascade``: append 64-row blocks of
+    synthetic documents at ``rate`` rows/s to both resolutions of
+    ``state["index"]`` (copy-on-write) and swap each new pair into the
+    server. Only this thread rebinds ``state``."""
+    rng = np.random.default_rng(123)
+    cas = state["index"]
+    while not stop.is_set():
+        t0 = time.perf_counter()
+        block = rng.standard_normal((APPEND_BLOCK, dim)).astype(np.float32)
+        cas = cas.append(pruner.prune_index(torch.as_tensor(block, device=device)))
+        server.swap_index(cas)
+        state["rows"] += APPEND_BLOCK
+        state["index"] = cas
+        delay = APPEND_BLOCK / rate - (time.perf_counter() - t0)
+        if delay > 0:
+            stop.wait(delay)
+
+
+def _serve_fleet(args, device: torch.device) -> None:
+    """``--fleet R``: R replicas behind a Router over one artifact (built
+    here, or ``--load-index``), driven open loop; with ``--fleet-kill`` a
+    kill/restart fault plan runs mid-drive and the accounting the chaos
+    soak asserts is printed."""
+    import tempfile
+
+    # deferred: serving.fleet imports this module
+    from repro_torch.serving.fleet import FaultEvent, FaultPlan, ReplicaSet
+
+    ctx = None
+    if args.load_index:
+        store_path = args.load_index
+        _adopt_store_dim(args, store_path)
+    else:
+        ctx = None if args.save_index else tempfile.TemporaryDirectory()
+        store_path = args.save_index or (ctx.name + "/fleet-store")
+        print(f"[serve] building corpus n={args.n_docs} d={args.dim} on {device}")
+        ds = make_dataset("tasb", n_docs=args.n_docs, d=args.dim, query_sets=("dl19",))
+        D = torch.as_tensor(ds.docs, device=device)
+        pruner = StaticPruner(cutoff=args.cutoff).fit(D)
+        st = save_index(store_path, pruner.build_index(D, quantize_int8=args.quantize_int8),
+                        pruner=pruner)
+        del D
+        print(f"[serve] artifact: {store_path} ({st.nbytes/2**20:.1f} MiB, n={st.n})")
+    Q = _query_tape(make_dataset("tasb", n_docs=256, d=args.dim,
+                                 query_sets=("dl19",)), args.queries)
+    rate = args.open_loop if args.open_loop > 0 else 200.0
+    fleet = None
+    try:
+        fleet = ReplicaSet(store_path, replicas=args.fleet, k=args.k,
+                           max_batch=args.batch, pipeline_depth=args.pipeline_depth,
+                           delta_capacity=args.delta_capacity,
+                           probe_queries=Q[:16], device=device)
+        print(f"[serve] fleet: {args.fleet} replicas, open loop @ "
+              f"{rate:.0f} qps, {len(Q)} queries")
+        if args.fleet_kill > 0:
+            FaultPlan([FaultEvent(args.fleet_kill, "kill", "r1"),
+                       FaultEvent(args.fleet_kill + 2.0, "restart", "r1")]).start(fleet)
+            print(f"[serve] fault plan: kill r1 @ {args.fleet_kill:.1f}s, "
+                  f"restart @ {args.fleet_kill + 2.0:.1f}s")
+        res = _drive_open(fleet, Q, rate=rate, tolerate_errors=True, deadline=2.0)
+        stats = fleet.stats()
+        health = fleet.health()
+        print(f"[serve] fleet drive: {res['achieved_qps']:.1f} qps achieved "
+              f"({res['n_ok']}/{res['n']} ok)  p50={res['p50_ms']:.2f}ms "
+              f"p95={res['p95_ms']:.2f}ms p99={res['p99_ms']:.2f}ms")
+        print(f"[serve] fleet accounting: accepted={stats['accepted']} "
+              f"completed={stats['completed']} shed={stats['shed']} "
+              f"timed_out={stats['timed_out']} failed={stats['failed']} "
+              f"failovers={stats['failovers']} "
+              f"lost_accepted={stats['lost_accepted']}")
+        states = ", ".join(f"{name}={rep['state']}"
+                           for name, rep in health["replicas"].items())
+        print(f"[serve] fleet health: "
+              f"{'ok' if health['ok'] else 'DEGRADED'} ({states})")
+    finally:
+        if fleet is not None:
+            fleet.close()
+        if ctx is not None:
+            ctx.cleanup()
+
+
+def _parse_args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n-docs", type=int, default=50000)
     ap.add_argument("--dim", type=int, default=256)
@@ -753,24 +883,47 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--live-append", type=float, default=0.0,
                     metavar="ROWS_PER_S",
                     help="serve through a SegmentedIndex (or the paged index "
-                         "under --paged) and append synthetic documents at "
-                         "this rate during the drive; every append swaps a "
-                         "fresh segment set into the running server (then "
-                         "compacts at the end)")
+                         "under --paged, or a segmented cascade under "
+                         "--cascade) and append synthetic documents at this "
+                         "rate during the drive; every append swaps a fresh "
+                         "segment set into the running server (then compacts "
+                         "at the end, except a cascade)")
     ap.add_argument("--delta-capacity", type=int, default=4096,
                     help="fixed capacity of each delta segment (one kernel "
                          "operand shape for live appends), and the rows at "
                          "which an appended extent of a paged index seals")
     ap.add_argument("--open-loop", type=float, default=0.0, metavar="QPS",
                     help="additionally drive Poisson arrivals at QPS and "
-                         "report p50/p95/p99 under that load")
+                         "report p50/p95/p99 under that load (the fleet's "
+                         "drive rate under --fleet, default 200)")
+    ap.add_argument("--compare-full", action="store_true",
+                    help="after the drive, drive the same tape against the "
+                         "unpruned corpus and print the speedup")
+    ap.add_argument("--cascade", default=None, metavar="M:N",
+                    help="serve a two-resolution cascade: a coarse scan over "
+                         "the first M PCA dims (int8) keeps N*k candidates "
+                         "per query, then one exact full-m rescore of the "
+                         "shortlist (e.g. 64:8)")
+    ap.add_argument("--fleet", type=int, default=0, metavar="R",
+                    help="serve through a replicated fleet of R servers "
+                         "behind a load-aware router (admission control, "
+                         "retry-with-failover, health-gated maintenance) "
+                         "instead of one bare server")
+    ap.add_argument("--fleet-kill", type=float, default=0.0, metavar="SEC",
+                    help="with --fleet: kill replica r1 SEC seconds into "
+                         "the drive and restart it 2s later, then print the "
+                         "accounting the chaos soak asserts")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the reference's row-sharded index: not ported yet "
+                         "(the port runs on one card); refused")
     ap.add_argument("--device", default="cuda",
                     help="device to build and serve on (default: cuda; "
                          "raises when there is no CUDA device)")
     ap.add_argument("--save-index", default=None, metavar="DIR",
                     help="persist the built artifact (PCA state + pruned "
-                         "vectors + int8 scale; a paged index page by page) "
-                         "to DIR for later --load-index restarts")
+                         "vectors + int8 scale; a paged index page by page; "
+                         "a cascade's coarse view as a resolution) to DIR "
+                         "for later --load-index restarts")
     ap.add_argument("--load-index", default=None, metavar="DIR",
                     help="serve from an on-disk artifact: skips the PCA "
                          "refit and the index build (the paper's "
@@ -779,12 +932,40 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.save_index and args.load_index:
         ap.error("--save-index and --load-index are mutually exclusive")
+    if args.sharded:
+        ap.error("--sharded is not ported yet (the sharded index needs "
+                 "several ranks; the port serves on one card)")
+    if args.paged and args.fleet > 0:
+        ap.error("--paged does not compose with --fleet yet "
+                 "(paged replicas load via the store auto-detect path)")
+    cascade_mn = None
+    if args.cascade:
+        try:
+            mc_s, nf_s = args.cascade.split(":")
+            cascade_mn = (int(mc_s), int(nf_s))
+        except ValueError:
+            ap.error(f"--cascade wants M:N (e.g. 64:8), got {args.cascade!r}")
+        if cascade_mn[0] < 1 or cascade_mn[1] < 1:
+            ap.error("--cascade M and N must both be >= 1")
+    if args.fleet > 0 and (args.cascade or args.live_append > 0):
+        ap.error("--fleet composes with the single-node flat index only "
+                 "(cascade fleet replicas: see ROADMAP)")
+    return args, cascade_mn
+
+
+def main(argv: list[str] | None = None) -> None:
+    args, cascade_mn = _parse_args(argv)
     device = default_device(args.device)
+    if args.fleet > 0:
+        _serve_fleet(args, device)
+        return
     pool_pages = args.page_pool or None
-    updater = appender = None
+    updater = appender = cascade_app = None
+    D = None
 
     if args.load_index:
-        server, updater, Q = _serve_from_store(args, device, pool_pages)
+        server, updater, Q = _serve_from_store(args, device, pool_pages, cascade_mn)
+        pruner = server.pruner
     else:
         print(f"[serve] building corpus n={args.n_docs} d={args.dim} on {device}")
         ds = make_dataset("tasb", n_docs=args.n_docs, d=args.dim,
@@ -793,15 +974,25 @@ def main(argv: list[str] | None = None) -> None:
         Q = _query_tape(ds, args.queries)
 
         pruner = StaticPruner(cutoff=args.cutoff).fit(D)
-        index = DenseIndex.build(pruner.prune_index(D),
-                                 quantize_int8=args.quantize_int8)
-        print(f"[serve] pruned index: {index.n} x {index.dim} "
-              f"({index.nbytes/2**20:.1f} MiB, {index.vectors.dtype})")
-        if args.paged:
-            index = PagedIndex.from_index(index, page_rows=args.page_rows or 256,
-                                          pool_pages=pool_pages,
-                                          seal_rows=args.delta_capacity)
-            _print_paged("paged index", index)
+        if cascade_mn:
+            index = CascadeIndex.build(pruner.prune_index(D), m_coarse=cascade_mn[0],
+                                       n_factor=cascade_mn[1],
+                                       quantize_int8=args.quantize_int8)
+            if args.paged:
+                index = index.paged(page_rows=args.page_rows or 256,
+                                    pool_pages=pool_pages,
+                                    seal_rows=args.delta_capacity)
+            _print_cascade("cascade index", index)
+        else:
+            index = DenseIndex.build(pruner.prune_index(D),
+                                     quantize_int8=args.quantize_int8)
+            print(f"[serve] pruned index: {index.n} x {index.dim} "
+                  f"({index.nbytes/2**20:.1f} MiB, {index.vectors.dtype})")
+            if args.paged:
+                index = PagedIndex.from_index(index, page_rows=args.page_rows or 256,
+                                              pool_pages=pool_pages,
+                                              seal_rows=args.delta_capacity)
+                _print_paged("paged index", index)
         if args.save_index:
             st = save_index(args.save_index, index, pruner=pruner)
             print(f"[serve] saved artifact: {args.save_index} "
@@ -815,7 +1006,23 @@ def main(argv: list[str] | None = None) -> None:
         # first search also builds the top-k kernel with nvcc (about a
         # minute), which must not count against the first query's timeout
         server.warmup()
-        if args.live_append > 0:
+        if args.live_append > 0 and cascade_mn:
+            # copy-on-write: append grows both resolutions and swap_index
+            # installs the pair at once; no updater (the reference's branch)
+            index = server.index
+            if isinstance(index.full, DenseIndex):
+                index = index.segmented(delta_capacity=args.delta_capacity)
+            server.swap_index(index)
+            cascade_app = {"rows": 0, "index": index}
+            appender = threading.Thread(
+                target=_cascade_append_loop, daemon=True,
+                args=(server, pruner, cascade_app, args.live_append, args.dim,
+                      device, append_stop))
+            print(f"[serve] live-append (cascade): {args.live_append:.0f} "
+                  f"rows/s (blocks of {APPEND_BLOCK}, delta capacity "
+                  f"{args.delta_capacity})")
+            appender.start()
+        elif args.live_append > 0:
             if updater is None:
                 index = server.index
                 if not isinstance(index, PagedIndex):
@@ -854,13 +1061,37 @@ def main(argv: list[str] | None = None) -> None:
                   f"p99={res['p99_ms']:.2f}ms  "
                   f"worker={ostats['worker_qps']:.1f} qps "
                   f"({ostats['occupancy']*100:.0f}% occupancy)")
-        if updater is not None:
+        if cascade_app is not None:
+            append_stop.set()
+            appender.join(timeout=30.0)
+            cas = cascade_app["index"]
+            print(f"[serve] live-append (cascade): +{cascade_app['rows']} rows "
+                  f"in {_delta_units(cas.full)} per resolution, "
+                  f"{server.swap_count} atomic swaps; index now {cas.n} rows "
+                  f"(both resolutions)")
+        elif updater is not None:
             append_stop.set()
             appender.join(timeout=30.0)
             _report_live(server, updater)
     finally:
         append_stop.set()
         server.close()
+
+    if args.compare_full and args.load_index:
+        print("[serve] --compare-full needs the raw corpus; skipped under "
+              "--load-index")
+    elif args.compare_full:
+        server2 = RetrievalServer(DenseIndex.build(D), None, k=args.k,
+                                  max_batch=args.batch,
+                                  pipeline_depth=args.pipeline_depth)
+        try:
+            server2.warmup()
+            wall_full, _ = _drive(server2, Q)   # the same query order and batching
+        finally:
+            server2.close()
+        print(f"[serve] full:   {args.queries / wall_full:.1f} qps  "
+              f"speedup={wall_full / wall:.2f}x "
+              f"(O(d/m) predicts {args.dim / pruner.kept_dims:.2f}x)")
 
 
 if __name__ == "__main__":

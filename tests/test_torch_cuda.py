@@ -865,3 +865,83 @@ def test_cuda_dense_load_bf16(tmp_path):
         a, b = idx.search(Q, k=k), loaded.search(Q, k=k)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     torch.cuda.synchronize()
+
+
+def _cascade_fixture(g, dev, n=6000, d=128, m=96):
+    """Pruned f32 rows with a decaying spectrum, a projection and queries,
+    all on the card."""
+    D = torch.randn(n, m, generator=g, device=dev) * torch.logspace(
+        0.5, -1.5, m, device=dev)
+    W = torch.randn(d, m, generator=g, device=dev) / d ** 0.5
+    Q = torch.randn(32, d, generator=g, device=dev)
+    return D, W, Q
+
+
+@pytest.mark.gpu
+def test_cuda_cascade_anchor_is_bitwise():
+    """With N·k >= n the shortlist covers the corpus, and the rescore scores
+    each row with the top-k kernel's own arithmetic: the cascade is bitwise
+    the full-m search, dense, segmented (with deltas) and paged, f32 and
+    int8. Below that depth it is held to the CPU cascade (plain versions)
+    at the parity bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.cascade import CascadeIndex
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    D, W, Q = _cascade_fixture(g, dev)
+    extra = torch.randn(2500, D.shape[1], generator=g, device=dev).cpu().numpy()
+    k = 10
+    for quant in (False, True):
+        n = D.shape[0]
+        cas = CascadeIndex.build(D, m_coarse=32, n_factor=-(-n // k), quantize_int8=quant)
+        for kk in (k, 1000):
+            a, b = cas.search_projected(Q, W, k=kk), cas.full.search_projected(Q, W, k=kk)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), (quant, kk)
+        seg = CascadeIndex.build(D, m_coarse=32, n_factor=-(-(n + 2500) // k),
+                                 quantize_int8=quant).segmented(delta_capacity=1024)
+        seg = seg.append(extra)
+        want = seg.full.search_projected(Q, W, k=k)
+        for got in (seg.search_projected(Q, W, k=k),
+                    seg.paged(page_rows=256).search_projected(Q, W, k=k)):
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), quant
+        shallow = CascadeIndex.build(D, m_coarse=32, n_factor=8, quantize_int8=quant)
+        host = CascadeIndex.build(D.cpu(), m_coarse=32, n_factor=8, quantize_int8=quant)
+        s1, i1 = shallow.search_projected(Q, W, k=k)
+        s2, i2 = host.search_projected(Q.cpu(), W.cpu(), k=k)
+        torch.testing.assert_close(s1.cpu(), s2, **TOL)
+        _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_paged_rescore_equals_segmented():
+    """``PagedIndex.rescore`` (shortlist rows gathered off the pool, the
+    tail and the host pages, one ``row_ids`` call per int8 extent) is
+    bitwise the segmented rescore over the same bytes, resident and with
+    both sides oversubscribed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.cascade import CascadeIndex, _shortlist
+    from repro_torch.core.index import _project_nofold
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(32)
+    D, W, Q = _cascade_fixture(g, dev)
+    extra = torch.randn(3000, D.shape[1], generator=g, device=dev).cpu().numpy()
+    for quant in (False, True):
+        seg = CascadeIndex.build(D, m_coarse=32, n_factor=8, quantize_int8=quant
+                                 ).segmented(delta_capacity=1024).append(extra)
+        qf = _project_nofold(Q, W, None)
+        uids = _shortlist(seg.coarse_topk(qf, 80)[1])
+        want = seg.rescore(qf, uids, 10)
+        for paged in (seg.paged(page_rows=64),
+                      seg.paged(page_rows=64, pool_pages=40, coarse_pool_pages=20,
+                                wave_pages=8)):
+            got = paged.rescore(qf, uids, 10)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), quant
+            got = paged.search_projected(Q, W, k=10)
+            ref = seg.search_projected(Q, W, k=10)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), quant
+    torch.cuda.synchronize()

@@ -311,3 +311,121 @@ def test_serve_cli_save_and_load_are_exclusive(tmp_path):
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", "--save-index", str(tmp_path / "a"),
                     "--load-index", str(tmp_path / "b")])
+
+
+# -- the cascade, the fleet and --compare-full ---------------------------------
+
+
+def _spy_answers(monkeypatch, Qfix):
+    """Record, right after each server's warmup, its replies to ``Qfix``
+    beside the direct ``search_projected`` of the index it serves, each
+    query in a batch padded with zero rows as the server pads it (a
+    cascade's shortlist is shared by the batch)."""
+    answers = []
+    warmup = serve.RetrievalServer.warmup
+
+    def spy(self):
+        warmup(self)
+        W, mean = self._proj
+        pad = np.zeros((self.max_batch - 1, Qfix.shape[1]), np.float32)
+        direct = [self.index.search_projected(np.vstack([q[None], pad]), W,
+                                              k=self.k, mean=mean)
+                  for q in Qfix]
+        answers.append(([self.query(q) for q in Qfix],
+                        [(s[0].numpy(), i[0].numpy()) for s, i in direct]))
+
+    monkeypatch.setattr(serve.RetrievalServer, "warmup", spy)
+    return answers
+
+
+@pytest.mark.parametrize("mode", ["plain", "live", "paged_live"])
+def test_serve_cli_cascade(monkeypatch, capsys, mode):
+    """``--cascade 16:4`` serves a CascadeIndex whose replies are its own
+    direct search; under ``--live-append`` both resolutions grow in
+    lockstep through swaps (paged under ``--paged``)."""
+    Qfix = np.random.default_rng(4).standard_normal((3, 64)).astype(np.float32)
+    answers = _spy_answers(monkeypatch, Qfix)
+    extra = {"plain": [],
+             "live": ["--live-append", "3000", "--delta-capacity", "128"],
+             "paged_live": ["--paged", "--page-rows", "32", "--live-append", "3000",
+                            "--delta-capacity", "128"]}[mode]
+    serve.main(["--device", "cpu", "--n-docs", "1500", "--dim", "64", "--queries", "24",
+                "--batch", "8", "--quantize-int8", "--cascade", "16:4", *extra])
+    out = capsys.readouterr().out
+    assert "cascade index: 1500 x 32 (+ coarse m=16 int8, shortlist 4*k" in out
+    assert ("paged)" in out) == (mode == "paged_live")
+    replies, direct = answers[0]
+    for (s, i), (ws, wi) in zip(replies, direct):
+        np.testing.assert_array_equal(i, wi)
+        np.testing.assert_array_equal(s, ws)
+    if mode != "plain":
+        line = [x for x in out.splitlines() if "live-append (cascade): +" in x][0]
+        assert "per resolution" in line and "(both resolutions)" in line
+        if mode == "paged_live":
+            assert "delta page(s)" in line
+
+
+def test_serve_cli_cascade_save_then_load(tmp_path, monkeypatch, capsys):
+    """A cascade saved with ``--save-index`` restarts from the artifact
+    with ``--load-index --cascade``: the coarse view comes back from the
+    store's resolution and the restart answers as the build did, also
+    segmented under ``--live-append`` and paged under ``--paged``."""
+    import re
+
+    from repro_torch.core.store import IndexStore
+    Qfix = np.random.default_rng(5).standard_normal((3, 64)).astype(np.float32)
+    answers = _spy_answers(monkeypatch, Qfix)
+    path = str(tmp_path / "cas")
+    common = ["--device", "cpu", "--queries", "16", "--batch", "8", "--cascade", "16:4"]
+    serve.main([*common, "--n-docs", "1500", "--dim", "64", "--quantize-int8",
+                "--save-index", path])
+    assert [r["m"] for r in IndexStore.open(path).manifest["resolutions"]] == [16]
+    for extra in ([], ["--live-append", "3000", "--delta-capacity", "128"], ["--paged"]):
+        serve.main([*common, "--load-index", path, *extra])
+        out = capsys.readouterr().out
+        assert "loaded cascade: 1500 x 32 (+ coarse m=16 int8" in out
+        assert re.search(r"cold start \(open store -> first query\): [0-9.]+ms", out)
+    first = answers[0][0]
+    for replies, _ in answers[1:]:
+        for (ws, wi), (gs, gi) in zip(first, replies):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gs, ws)
+
+
+def test_serve_cli_compare_full(tmp_path, capsys):
+    """``--compare-full`` drives the unpruned corpus after the pruned
+    drive and prints the speedup; under ``--load-index`` there is no raw
+    corpus, and it says so."""
+    path = str(tmp_path / "idx")
+    serve.main(["--device", "cpu", "--n-docs", "1200", "--dim", "64", "--queries", "16",
+                "--batch", "8", "--cascade", "16:4", "--compare-full", "--save-index", path])
+    out = capsys.readouterr().out
+    assert "[serve] full:" in out and "speedup=" in out and "predicts 2.00x" in out
+    serve.main(["--device", "cpu", "--queries", "16", "--batch", "8", "--compare-full",
+                "--load-index", path])
+    assert "needs the raw corpus; skipped" in capsys.readouterr().out
+
+
+def test_serve_cli_fleet_with_kill(capsys):
+    """``--fleet 2 --fleet-kill``: two replicas behind the router, r1 killed
+    mid-drive and restarted before the drive ends (3.2 s of arrivals);
+    every accepted reply is accounted for."""
+    serve.main(["--device", "cpu", "--n-docs", "1200", "--dim", "64", "--queries", "640",
+                "--batch", "8", "--fleet", "2", "--fleet-kill", "0.2",
+                "--open-loop", "200", "--quantize-int8"])
+    out = capsys.readouterr().out
+    assert "fleet: 2 replicas, open loop @ 200 qps, 640 queries" in out
+    assert "fault plan: kill r1 @ 0.2s, restart @ 2.2s" in out
+    assert "lost_accepted=0" in out and "fleet health:" in out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--cascade", "64"], ["--cascade", "0:8"], ["--cascade", "a:b"],
+    ["--fleet", "2", "--paged"], ["--fleet", "2", "--cascade", "16:4"],
+    ["--fleet", "2", "--live-append", "100"], ["--sharded"]])
+def test_serve_cli_flag_errors(flags):
+    """The reference's flag errors: a malformed ``--cascade``, ``--fleet``
+    with ``--paged``, ``--cascade`` or ``--live-append``; ``--sharded`` is
+    refused until it is ported."""
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", *flags])
