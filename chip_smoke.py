@@ -104,12 +104,26 @@ Phases, each printing one JSON line:
      single server's, health ok after), a timed restart, a good rollout
      (recall 1.0 on each replica), a row-permuted artifact rolled back
      after the first replica with no misrouted reply under traffic, and a
-     torn artifact refused while the fleet serves.
+     torn artifact refused while the fleet serves;
+ 12. the sharded index over phase 4's indexes, the slots of a (4,) and a
+     (2, 2) mesh all on the card, each shard a row view: (a) 8 batches at
+     k 10 and 100, flat and hierarchical merges, f32 and int8, bitwise
+     equal to the dense search with one top-k launch per shard; (b) each
+     batch timed beside the dense one, the merges alone, one shard's
+     top-k against its plain version; (c) gram_distributed and
+     fit_pca_distributed at 100,000 x 768 and at full size (phase 4's
+     corpus drawn again) against an fp64 Gram and fit_pca; (d) the int8 index saved under build/sharded_smoke/ and
+     loaded sharded, bitwise; (e) a SegmentedIndex over the sharded int8
+     base grown by 10,000 rows (one x9 block), bitwise the same appends
+     over the dense base, compacted onto the same mesh, bitwise the dense
+     compaction; (f) a depth-3 server over the sharded int8 index on each
+     mesh, closed loop, p50 beside the dense server's, replies bitwise the
+     dense search.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
-live path), 9 (the store), 10 (the cascade) and 11 (the fleet) are
-counted the same way, each on its own. Launches made only to compare or time a kernel are not
+live path), 9 (the store), 10 (the cascade), 11 (the fleet) and 12 (the
+sharded index) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -165,6 +179,7 @@ FLEET_SECONDS = 10.0        # phase 11: the chaos drive's length
 FLEET_KILL_AT = 3.0         # phase 11: r1 killed ...
 FLEET_RESTART_AT = 6.0      # ... and restarted (seconds into the drive)
 ROLLOUT_TAPE = 3000         # phase 11: queries during the bad rollout
+SHARD_KS = (K, SHORTLIST_K)  # phase 12: k of the sharded searches (the chunk select, the radix)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 TOL = 1e-5                  # tests/test_kernels.py:126
@@ -2600,6 +2615,326 @@ def phase_fleet(counters, index_f32, index_int8, pruner, Q):
          peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+def fit_agreement(pa, pb, m):
+    """Two fits held by the PR 18 contract: eigenvalues (relative to the
+    largest), the kept m-dim subspace through its projector, and the
+    columns an fp32 eigensolver defines (its column i is good to about
+    eps * lambda_1 / gap_i) up to sign."""
+    import torch
+    Wa, Wb = pa.components[:, :m], pb.components[:, :m]
+    signs = torch.sign((Wa * Wb).sum(0))
+    col_err = (Wa * signs[None, :] - Wb).abs().amax(0)
+    lam = pa.eigenvalues.double()
+    gaps = (lam[:-1] - lam[1:]).abs()
+    near = torch.minimum(torch.cat([gaps[:1], gaps]), torch.cat([gaps, gaps[-1:]]))[:m]
+    conditioned = (6e-8 * lam[0] / near.clamp_min(1e-30)) < 1e-4
+    return dict(eigenvalues_max_rel_err=float((pa.eigenvalues - pb.eigenvalues).abs().max()
+                                              / pa.eigenvalues[0]),
+                kept_subspace_projector_max_abs_err=float((Wa @ Wa.T - Wb @ Wb.T).abs().max()),
+                conditioned_columns=int(conditioned.sum()),
+                conditioned_max_abs_err_up_to_sign=(float(col_err[conditioned].max())
+                                                    if bool(conditioned.any()) else 0.0),
+                all_columns_max_abs_err_up_to_sign=float(col_err.max()))
+
+
+def phase_sharded(counters, index_f32, index_int8, pruner, Q, fresh, rows, protocol_docs):
+    """Phase 12: the sharded index at full width on one card, over phase
+    4's pruned indexes, each slot of a (4,) and a (2, 2) mesh on the card
+    and each shard a row view (8,841,823 rows: shards of 2,210,456 and a
+    last of 2,210,455). (a) search_projected at k 10 and 100, flat and
+    hierarchical, bitwise equal to the dense search, four top-k launches a
+    batch; (b) each batch timed beside the dense one, the merges alone, the
+    per-shard kernel against its plain version; (c) gram_distributed and
+    fit_pca_distributed at the protocol size and at full size (phase 4's
+    corpus drawn again) against fp64 and fit_pca; (d) ShardedDenseIndex.load of the int8 index saved under
+    build/sharded_smoke/, bitwise the built one; (e) a SegmentedIndex over
+    the sharded int8 base grown by 10,000 rows, bitwise the same appends
+    over the dense base, then compacted onto the same mesh, bitwise the
+    dense compaction; (f) a depth-3 server over the sharded int8 index,
+    closed loop, p50 beside the dense server's."""
+    import gc
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import IndexUpdater, SegmentedIndex, save_index
+    from repro_torch.core.index import (ShardedDenseIndex, _merge_stages, _staged_topk_merge,
+                                        project_queries)
+    from repro_torch.core.pca import fit_pca, fit_pca_distributed, gram_distributed
+    from repro_torch.data.synthetic import corpus_on_device
+    from repro_torch.kernels import gram, topk_score
+    from repro_torch.launch.serve import RetrievalServer, _drive, _lat_summary
+    from repro_torch.par.mesh import make_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    meshes = {"4": make_mesh((4,), ("data",), dev), "2x2": make_mesh((2, 2), ("row", "col"), dev)}
+    mesh4 = meshes["4"]
+    W, mean = pruner.projection()
+    m = pruner.kept_dims
+    n = index_int8.n
+    Qs = torch.as_tensor(Q[:SEARCH_BATCHES * BATCH], device=dev)
+    batches = [Qs[i:i + BATCH] for i in range(0, len(Qs), BATCH)]
+    tk = topk_score.topk_score_cuda
+    dense = {"f32": index_f32, "int8": index_int8}
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    # (a) every batch, both meshes and merges, k 10 and 100: bitwise the
+    # dense search, one top-k launch per shard
+    sharded = {}
+    for name, index in dense.items():
+        for mname, mesh in meshes.items():
+            sidx = ShardedDenseIndex.from_rows(index.vectors, mesh, scale=index.scale)
+            starts = range(0, n, sidx.rows_per)
+            if not all(t.data_ptr() == index.vectors[lo:].data_ptr()
+                       for t, lo in zip(sidx.shards, starts)):
+                raise AssertionError(f"sharded {name} {mname}: a shard is not a view")
+            sharded[(name, mname)] = sidx
+    shard_rows = [t.shape[0] for t in sharded[("int8", "4")].shards]
+    checked = 0
+    for name, index in dense.items():
+        for k in SHARD_KS:
+            with counters.uncounted():
+                want = [index.search_projected(b, W, k=k, mean=mean) for b in batches]
+            for mname in meshes:
+                for merge in ("flat", "hierarchical"):
+                    for b, w in zip(batches, want):
+                        before = tk.launches[name]
+                        got = sharded[(name, mname)].search_projected(b, W, k=k, mean=mean,
+                                                                      merge=merge)
+                        if tk.launches[name] - before != 4:
+                            raise AssertionError(f"sharded {name}: {tk.launches[name] - before} "
+                                                 f"top-k launches for 4 shards")
+                        if not same(got, w):
+                            raise AssertionError(f"sharded {name} {mname} {merge} k={k}: not "
+                                                 f"bitwise the dense search")
+                        checked += 1
+    torch.cuda.synchronize()
+    emit("sharded", step="a_bitwise_vs_dense", n=n, m=m, shard_rows=shard_rows,
+         meshes={k: list(v.shape) for k, v in meshes.items()}, ks=list(SHARD_KS),
+         batches_checked=checked, shards_are_views=True, launches_per_batch=4)
+
+    # (b) batch times beside the dense search; the merges alone; the
+    # per-shard kernel at its shape against its plain version
+    times = {}
+    with counters.uncounted():
+        qb = batches[0]
+        for name, index in dense.items():
+            for k in SHARD_KS:
+                row = dict(dense_ms=cuda_ms(lambda: index.search_projected(
+                    qb, W, k=k, mean=mean), reps=10))
+                for mname in meshes:
+                    for merge in ("flat", "hierarchical"):
+                        fn = (lambda s=sharded[(name, mname)], mg=merge:
+                              s.search_projected(qb, W, k=k, mean=mean, merge=mg))
+                        row[f"{mname}_{merge}_ms"] = cuda_ms(fn, reps=10)
+                        row[f"{mname}_{merge}_enqueue_ms"] = enqueue_ms(fn, reps=20)
+                times[f"{name}_k{k}"] = row
+        g = torch.Generator(device=dev).manual_seed(12)
+        merges = {}
+        for k in SHARD_KS:
+            s_all = torch.randn(2, 2, BATCH, k, generator=g, device=dev).sort(
+                dim=-1, descending=True).values
+            i_all = torch.randint(0, n, (2, 2, BATCH, k), generator=g, device=dev,
+                                  dtype=torch.int32)
+            for merge in ("flat", "hierarchical"):
+                stages = _merge_stages(meshes["2x2"], merge)
+                merges[f"k{k}_{merge}_ms"] = cuda_ms(
+                    lambda st=stages: _staged_topk_merge(s_all, i_all, k, st), reps=50)
+        emit("sharded", step="b_times", card_note="4 slots on one card: the fan-out's "
+             "overhead, not a speedup", merges_2x2=merges, **times)
+        for name, index in dense.items():
+            shard = sharded[(name, "4")].shards[0]
+            ns = shard.shape[0]
+            q = project_queries(qb, W, scale=index.scale).contiguous()
+            got = topk_score.topk_score_cuda(shard, q, k=K)
+            want = topk_score.topk_score_plain(shard, q, k=K)
+            err, eq, near = compare_topk(*want, *got, f"topk shard {name}")
+            item = shard.element_size()
+            rows[f"topk_score_shard_{name}"] = dict(
+                shape=[ns, m, BATCH, K], store=name, max_abs_err=err, ids_equal=eq,
+                near_ties=near,
+                ms=cuda_ms(lambda: topk_score.topk_score_cuda(shard, q, k=K), reps=10),
+                enqueue_ms=enqueue_ms(lambda: topk_score.topk_score_cuda(shard, q, k=K)),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(shard, q, k=K), reps=2),
+                library_ms=None,
+                matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ shard.T, K), reps=5)
+                                if item == 4 else None),
+                dense_ms=times[f"{name}_k{K}"]["dense_ms"],
+                bound=bound(item * ns * m + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * ns * m))
+            del got, want
+
+    # (c) the distributed Gram and fit at the protocol size and at full
+    # size (phase 4's corpus, drawn again from its seed)
+    for what, n_rows in (("protocol", protocol_docs), ("full", n)):
+        Dx = corpus_on_device("tasb", n_docs=n_rows, d=DIM, seed=0, device=dev)
+        d = Dx.shape[1]
+        Gd = gram_distributed(Dx, mesh4)                   # one gram launch a strip
+        fit_d = fit_pca_distributed(Dx, mesh4)
+        with counters.uncounted():
+            G1 = gram.gram_cuda(Dx)
+            G64 = torch.zeros((d, d), dtype=torch.float64, device=dev)
+            for i in range(0, n_rows, 1 << 20):
+                c = Dx[i:i + (1 << 20)].double()
+                G64 += c.T @ c
+            del c
+            g64 = float(G64.abs().max())
+            rel_d = float((Gd.double() - G64).abs().max()) / g64
+            rel_1 = float((G1.double() - G64).abs().max()) / g64
+            agree = fit_agreement(fit_pca(Dx), fit_d, m)
+            dist_ms = cuda_ms(lambda: gram_distributed(Dx, mesh4), reps=3)
+            one_ms = cuda_ms(lambda: gram.gram_cuda(Dx), reps=3)
+            if what == "protocol":
+                ns = -(-n_rows // mesh4.size)
+                strip = Dx[:ns]
+                Gs, Gp = gram.gram_cuda(strip), gram.gram_plain(strip)
+                before = gram.gram_cuda.cuda_launches
+                gram.gram_cuda(strip)
+                rows["gram_strip"] = dict(
+                    shape=[ns, d], max_abs_err=float((Gs - Gp).abs().max()),
+                    rel_err_vs_plain_f32=float((Gs - Gp).abs().max() / Gp.abs().max()),
+                    cuda_launches_per_call=gram.gram_cuda.cuda_launches - before,
+                    ms=cuda_ms(lambda: gram.gram_cuda(strip), reps=10),
+                    plain_ms=cuda_ms(lambda: gram.gram_plain(strip), reps=10),
+                    library_ms=cuda_ms(lambda: torch.matmul(strip.T, strip), reps=10),
+                    library_call="matmul(D.T, D)",
+                    bound=bound(4 * ns * d + 4 * d * d, ns * d * (d + 1)))
+                del strip, Gs, Gp
+        emit("sharded", step=f"c_distributed_fit_{what}", rows=n_rows, d=d, slots=mesh4.size,
+             rel_err_vs_f64=rel_d, one_gram_rel_err_vs_f64=rel_1, tolerance=GRAM_TOL,
+             distributed_ms=dist_ms, one_gram_ms=one_ms, components_tol=COMP_TOL, **agree)
+        if rel_d > GRAM_TOL:
+            raise AssertionError(f"gram_distributed ({what}): relative error {rel_d} vs the "
+                                 f"fp64 Gram")
+        if (agree["eigenvalues_max_rel_err"] > 1e-5
+                or agree["kept_subspace_projector_max_abs_err"] > COMP_TOL
+                or agree["conditioned_max_abs_err_up_to_sign"] > COMP_TOL):
+            raise AssertionError(f"fit_pca_distributed ({what}) differs from fit_pca: {agree}")
+        del Dx, G1, G64, Gd, fit_d
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the int8 index saved, then loaded over the (4,) mesh
+    root = os.path.join(HERE, "build", "sharded_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "int8")
+    t0 = time.perf_counter()
+    save_index(path, index_int8, pruner=pruner)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ShardedDenseIndex.load(path, mesh4)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    built = sharded[("int8", "4")]
+    if not (all(torch.equal(a, b) for a, b in zip(loaded.shards, built.shards))
+            and torch.equal(loaded.scale, built.scale)):
+        raise AssertionError("sharded load: shards or scale differ from the built index")
+    for k in SHARD_KS:
+        for b in batches:
+            got = loaded.search_projected(b, W, k=k, mean=mean)
+            with counters.uncounted():
+                want = built.search_projected(b, W, k=k, mean=mean)
+            if not same(got, want):
+                raise AssertionError(f"sharded load: search at k={k} not bitwise the built index")
+    emit("sharded", step="d_load", rows=loaded.n, gb=loaded.nbytes / 1e9, save_s=t_save,
+         load_s=t_load, load_gb_per_s=loaded.nbytes / 1e9 / t_load, bitwise_vs_built=True)
+    del loaded
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the live index over the sharded int8 base, then its compaction
+    new_rows = pruner.prune_index(fresh[:LIVE_APPEND]).float().cpu().numpy()
+    new_rows[WIDEN_AT:WIDEN_AT + APPEND_BLOCK] *= 9.0
+    seg_s = SegmentedIndex.from_index(built, delta_capacity=DELTA_CAPACITY)
+    seg_d = SegmentedIndex.from_index(index_int8, delta_capacity=DELTA_CAPACITY)
+    t_app = []
+    for i in range(0, LIVE_APPEND, APPEND_BLOCK):
+        blk = new_rows[i:i + APPEND_BLOCK]
+        t0 = time.perf_counter()
+        seg_s = seg_s.append(blk)
+        t_app.append(time.perf_counter() - t0)
+        seg_d = seg_d.append(blk)
+    for k in SHARD_KS:
+        for b in batches:
+            got = seg_s.search_projected(b, W, k=k, mean=mean)
+            with counters.uncounted():
+                want = seg_d.search_projected(b, W, k=k, mean=mean)
+            if not same(got, want):
+                raise AssertionError(f"sharded live: search at k={k} not bitwise the dense base's")
+    with counters.uncounted():
+        seg_ms = cuda_ms(lambda: seg_s.search_projected(batches[0], W, k=K, mean=mean), reps=10)
+        seg_dense_ms = cuda_ms(lambda: seg_d.search_projected(batches[0], W, k=K, mean=mean),
+                               reps=10)
+    n_deltas = len(seg_s.deltas)
+    up_s = IndexUpdater(pruner=pruner, index=seg_s, delta_capacity=DELTA_CAPACITY)
+    del seg_s
+    t0 = time.perf_counter()
+    up_s.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    base_s = up_s.index.base
+    if not (isinstance(base_s, ShardedDenseIndex) and base_s.mesh is mesh4
+            and base_s.n == n + LIVE_APPEND and not up_s.index.deltas):
+        raise AssertionError("sharded compact: the base left its mesh")
+    with counters.uncounted():
+        up_d = IndexUpdater(pruner=pruner, index=seg_d, delta_capacity=DELTA_CAPACITY)
+        del seg_d
+        up_d.compact()
+        base_d = up_d.index.base
+        per = base_s.rows_per
+        if not (all(torch.equal(t, base_d.vectors[i * per:i * per + t.shape[0]])
+                    for i, t in enumerate(base_s.shards))
+                and torch.equal(base_s.scale, base_d.scale)):
+            raise AssertionError("sharded compact: bytes differ from the dense compaction")
+    for b in batches:
+        got = up_s.index.search_projected(b, W, k=K, mean=mean)
+        with counters.uncounted():
+            want = up_d.index.search_projected(b, W, k=K, mean=mean)
+        if not same(got, want):
+            raise AssertionError("sharded compact: search not bitwise the dense compaction's")
+    emit("sharded", step="e_live", appended=LIVE_APPEND, deltas=n_deltas,
+         append_ms_p50=float(np.percentile(t_app, 50) * 1e3),
+         batch_ms_segmented_sharded=seg_ms, batch_ms_segmented_dense=seg_dense_ms,
+         compact_s=t_compact, compacted_rows=base_s.n, same_mesh=True, bitwise_vs_dense=True)
+    del up_s, up_d, base_s, base_d, new_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) a depth-3 server over the sharded int8 index, beside the dense one
+    served = {}
+    for what, index in (("sharded_4_flat", sharded[("int8", "4")]),
+                        ("sharded_2x2_hierarchical", ShardedDenseIndex.from_rows(
+                            index_int8.vectors, meshes["2x2"], scale=index_int8.scale,
+                            merge="hierarchical")),
+                        ("dense", index_int8)):
+        ctx = counters.uncounted() if what == "dense" else contextlib.nullcontext()
+        with ctx:
+            server = RetrievalServer(index, pruner, k=K, max_batch=BATCH, pipeline_depth=3)
+            try:
+                server.warmup()
+                wall, lat = _drive(server, Q[:SERVER_CLOSED])
+                served[what] = dict(qps=SERVER_CLOSED / wall, **_lat_summary(lat))
+                replies = [server.query(q) for q in Q[:BATCH]]
+            finally:
+                server.close()
+        pad = torch.zeros((BATCH - 1, DIM), device=dev)
+        with counters.uncounted():
+            for q, (rs, ri) in zip(Q[:BATCH], replies):
+                s, ids = index_int8.search_projected(
+                    torch.cat([torch.as_tensor(q[None], device=dev), pad]), W, k=K, mean=mean)
+                if not (np.array_equal(ri, ids[0].cpu().numpy())
+                        and np.array_equal(rs, s[0].cpu().numpy())):
+                    raise AssertionError(f"server {what}: a reply differs from the dense search")
+    emit("sharded", step="f_server", pipeline_depth=3, batch=BATCH, k=K, queries=SERVER_CLOSED,
+         replies_checked=BATCH, peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **served)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -2696,6 +3031,19 @@ def main():
          **{k: v for k, v in fleet_launches.items() if v})
     if fleet_launches["topk_score_int8"] == 0:
         raise AssertionError("kernels never launched on the fleet path: ['topk_score_int8']")
+    # the sharded path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_sharded(counters, index_f32, index_int8, pruner, Q, fresh, rows, args.protocol_docs)
+    torch.cuda.synchronize()
+    sharded_launches = counters.read()
+    emit("sharded_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in sharded_launches.items() if v})
+    on_sharded = ("gram", "pca_project", "topk_score_f32", "topk_score_int8", "topk_select_f32",
+                  "topk_select_int8", "topk_score_int8_n_valid")
+    missing = [k for k in on_sharded if sharded_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches
@@ -2794,6 +3142,20 @@ def main():
                 topk[0], "topk_score_row_ids", cascade_launches) for st in ("f32", "int8")],
         entry("topk_score_paged_cascade_coarse", rows["cascade_paged_coarse"], topk[1], paged,
               "topk_score_paged_int8", cascade_launches),
+        # the sharded path (phase 12): one shard's search, 2,210,456 of the
+        # 8,841,823 rows (launches: every counted plain-mode call of phase
+        # 12 in that dtype, all per-shard searches of sharded and sharded-base
+        # segmented indexes, k 10 and 100), and one strip's Gram of the
+        # distributed fit (launches: every gram call of phase 12)
+        *[entry(f"topk_score_shard_{st}", rows[f"topk_score_shard_{st}"], topk[1], topk[0],
+                f"topk_score_{st}", sharded_launches,
+                launches_of=f"every counted {st} plain-mode call of phase 12: the per-shard "
+                            f"searches" + (", and the full deltas' of (e)" if st == "int8" else ""))
+          for st in ("f32", "int8")],
+        entry("gram_strip", rows["gram_strip"], csrc + "gram.cu", "src/repro/kernels/gram.py:41",
+              "gram", sharded_launches,
+              launches_of="every gram call of phase 12: one a strip of gram_distributed "
+                          "and fit_pca_distributed"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,14 +1,14 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
-``PCAState``, ``DenseIndex``, ``CascadeIndex`` or ``PagedIndexStorage``
-fields, converted with ``np.asarray``) into the port's objects. ``load_pca`` reads
-``repro``'s ``pca.npz`` directly."""
+``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
+``PagedIndexStorage`` fields, converted with ``np.asarray``) into the port's
+objects. ``load_pca`` reads ``repro``'s ``pca.npz`` directly."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.core.cascade import CascadeIndex
-from repro_torch.core.index import DenseIndex
+from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
 from repro_torch.util import as_tensor
@@ -31,6 +31,18 @@ def dense_index_from_numpy(vectors: np.ndarray, scale: np.ndarray | None,
     v = as_tensor(np.ascontiguousarray(vectors), device)
     s = None if scale is None else as_tensor(np.asarray(scale, np.float32), device)
     return DenseIndex(vectors=v, scale=s)
+
+
+def sharded_index_from_numpy(vectors: np.ndarray, scale: np.ndarray | None,
+                             mesh, n_real: int | None = None,
+                             merge: str = "flat") -> ShardedDenseIndex:
+    """A port ``ShardedDenseIndex`` over ``mesh`` holding the first
+    ``n_real`` rows of ``vectors`` (default: all of them), so a reference
+    index's padded vectors come across without their padding."""
+    v = np.ascontiguousarray(np.asarray(vectors)[:n_real])
+    return ShardedDenseIndex.from_rows(
+        as_tensor(v, mesh.device), mesh, merge=merge,
+        scale=None if scale is None else np.asarray(scale, np.float32))
 
 
 def cascade_index_from_numpy(coarse_vectors: np.ndarray, coarse_scale: np.ndarray | None,

@@ -12,15 +12,23 @@ merged (``merge_segment_topk``). A delta's search is one ``topk_score``
 call over its whole capacity with ``n_valid`` masking the rows not yet
 appended, so its operand shape never changes as it fills.
 
-``DenseIndex.load`` and ``SegmentedIndex.load`` read an ``IndexStore``
-artifact (``core/store.py``) onto a device, the card by default. The paged
-index is in ``core/paged.py``, the cascade in ``core/cascade.py``; the
-sharded index is not ported yet.
+``ShardedDenseIndex`` lays the rows over the slots of a ``DeviceMesh``
+(``par/mesh.py``): each slot searches its contiguous rows with one
+``topk_score`` call, and the per-slot top-k lists merge on the mesh's first
+device in one stage over every axis (flat) or two (hierarchical). The
+slots may repeat a device, as the reference's forced host devices repeat
+one CPU, so a four-slot mesh on one card runs the whole sharded path.
+
+``DenseIndex.load``, ``ShardedDenseIndex.load`` and ``SegmentedIndex.load``
+read an ``IndexStore`` artifact (``core/store.py``) onto a device (the card
+by default) or a mesh. The paged index is in ``core/paged.py``, the cascade
+in ``core/cascade.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+from typing import Literal
 
 import numpy as np
 import torch
@@ -28,7 +36,10 @@ import torch
 from repro_torch.core.quantization import quantize_int8_per_dim, quantize_with_scale, scale_for
 from repro_torch.core.store import IndexStore, IndexStoreError
 from repro_torch.kernels import ops
+from repro_torch.par.mesh import DeviceMesh, on_mesh
 from repro_torch.util import as_tensor, default_device
+
+Merge = Literal["flat", "hierarchical"]
 
 
 def project_queries(q: torch.Tensor, W: torch.Tensor,
@@ -55,10 +66,11 @@ def _project_nofold(Q: torch.Tensor, W: torch.Tensor,
 
 def _topk_merge(scores: torch.Tensor, ids: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of (B, C) candidates with first-occurrence ties (a stable sort,
-    as ``jax.lax.top_k``), returning (B, k) scores and gathered ids."""
+    """Top-k of (..., C) candidates along the last axis with first-occurrence
+    ties (a stable sort, as ``jax.lax.top_k``), returning (..., k) scores
+    and gathered ids."""
     s, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return s[:, :k], torch.gather(ids, 1, idx[:, :k])
+    return s[..., :k], torch.gather(ids, -1, idx[..., :k])
 
 
 def _scan_topk(D: torch.Tensor, Q: torch.Tensor, k: int, block: int = 65536
@@ -146,11 +158,19 @@ class DenseIndex:
         return self.vectors.device
 
     @property
+    def dtype(self) -> torch.dtype:
+        return self.vectors.dtype
+
+    @property
     def nbytes(self) -> int:
         b = self.vectors.numel() * self.vectors.element_size()
         if self.scale is not None:
             b += self.scale.numel() * self.scale.element_size()
         return b
+
+    def rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Stored rows [lo, hi) (a view)."""
+        return self.vectors[lo:hi]
 
     @classmethod
     def build(cls, vectors, *, dtype: torch.dtype | None = None,
@@ -230,6 +250,263 @@ def _rows_rescore(D: torch.Tensor, scale: torch.Tensor | None,
     rows = D[local.clamp(0, D.shape[0] - 1)]
     ids = torch.where(valid, uids, torch.full_like(uids, -1))
     return ops.topk_score(rows, q.contiguous(), k=k, row_ids=ids)
+
+
+# ---------------------------------------------------------------------------
+# Sharded index: rows laid over the slots of a device mesh
+# ---------------------------------------------------------------------------
+
+
+def _rows_per(n: int, ndev: int) -> int:
+    """Rows of each slot, ``ceil(n / ndev)``: the reference's layout, with
+    every padding row at the end."""
+    return -(-n // ndev)
+
+
+def _addressable_shard_ranges(mesh: DeviceMesh, shape: tuple[int, int], n: int,
+                              local=None) -> list[tuple]:
+    """Row ranges of the slots this process materialises.
+
+    One ``(device, start, stop, lo, hi)`` per slot in ``local`` (flat slot
+    positions; default every slot), the way one process of a multi-host job
+    sees its own slots only. ``[start, stop)`` is the slot's window of the
+    padded row space ``shape[0]`` (a multiple of the slot count); ``[lo,
+    hi)`` is its clamp to the ``n`` real rows. A slot may be partly, or
+    when ``n < (ndev - 1) · rows_per`` wholly, padding.
+    """
+    ndev = mesh.size
+    if shape[0] % ndev:
+        raise ValueError(f"padded rows {shape[0]} are not a multiple of the "
+                         f"mesh's {ndev} slots")
+    per = shape[0] // ndev
+    devs = mesh.device_list
+    slots = range(ndev) if local is None else local
+    return [(devs[i], i * per, (i + 1) * per, min(i * per, n), min((i + 1) * per, n))
+            for i in slots]
+
+
+def _slot_ranges(mesh: DeviceMesh, n: int, m: int) -> list[tuple]:
+    """Every slot's ``(device, start, stop, lo, hi)`` for n rows of width m
+    under the reference's layout (n padded to a multiple of the slots)."""
+    return _addressable_shard_ranges(mesh, (_rows_per(n, mesh.size) * mesh.size, m), n)
+
+
+def _merge_stages(mesh: DeviceMesh, merge: Merge) -> tuple[tuple[int, ...], ...]:
+    """A merge's stages as tuples of mesh axis positions: one stage over
+    every axis (flat), or the minor axis first, then the rest
+    (hierarchical; on a one-axis mesh the same single stage)."""
+    if merge not in ("flat", "hierarchical"):
+        raise ValueError(f"merge must be 'flat' or 'hierarchical', got {merge!r}")
+    axes = tuple(range(len(mesh.shape)))
+    if merge == "hierarchical" and len(axes) > 1:
+        return ((axes[-1],), axes[:-1])
+    return (axes,)
+
+
+def _staged_topk_merge(s: torch.Tensor, ids: torch.Tensor, k: int,
+                       stages) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-slot top-k lists across the mesh in stages.
+
+    ``s`` / ``ids`` are (*mesh.shape, B, c) candidates, slot by slot. Each
+    stage (a tuple of mesh axis positions) concatenates the surviving lists
+    over its axes in row-major order, as the reference's tiled all-gather
+    does, and re-selects the top k; after the last stage (B, k) remain. A
+    global top-k entry is a top-k entry of every group it belongs to, so
+    each staging is exact. Stages that run from the minor axes to the major
+    ones (the reference's minor axis first, then the rest) keep the
+    row-major slot order among equal scores, so ties resolve to the lowest
+    id as in the flat merge: the ids are identical.
+    """
+    labels = list(range(s.dim() - 2))           # mesh axes still present
+    for stage in stages:
+        rest = [a for a in labels if a not in stage]
+        perm = ([labels.index(a) for a in rest] + [len(labels)]
+                + [labels.index(a) for a in stage] + [len(labels) + 1])
+        lead = [s.shape[p] for p in perm[:len(rest) + 1]]
+        s, ids = _topk_merge(s.permute(perm).reshape(*lead, -1),
+                             ids.permute(perm).reshape(*lead, -1), k)
+        labels = rest
+    return s, ids
+
+
+@dataclasses.dataclass
+class ShardedDenseIndex:
+    """Index with its rows laid over every slot of a ``DeviceMesh`` (the
+    reference's ``ShardedDenseIndex``).
+
+    Slot i owns rows [i·rows_per, (i+1)·rows_per), rows_per = ceil(n /
+    slots): the reference's layout, every padding row at the end. ``shards[i]``
+    holds slot i's REAL rows on the slot's device, so padding is never
+    stored: the last real shard is simply shorter, and a wholly padded slot
+    holds no row, contributes (-inf, -1) pads and launches nothing. A shard
+    on the input's device is a row view of the input, never a copy.
+
+    Search folds the int8 scale into the query once, runs one
+    ``topk_score`` per slot (the hand-written kernel on the card,
+    ``_scan_topk`` on the CPU) with ids offset by i·rows_per, moves the
+    lists to the mesh's first device and merges them flat (one stage over
+    every axis) or hierarchical (the minor axis, then the rest). On the
+    card a score's sum order does not depend on its shard, so the result
+    is bitwise the dense search of the same rows.
+    """
+
+    shards: tuple[torch.Tensor, ...]
+    mesh: DeviceMesh
+    scale: torch.Tensor | None = None
+    merge: Merge = "flat"
+
+    def __post_init__(self):
+        self.shards = tuple(self.shards)
+        if len(self.shards) != self.mesh.size:
+            raise ValueError(f"{len(self.shards)} shards for a mesh of "
+                             f"{self.mesh.size} slots")
+        n = self.n
+        if n == 0:
+            raise ValueError("a sharded index needs at least one row")
+        first = self.shards[0]
+        ranges = _slot_ranges(self.mesh, n, first.shape[1])
+        for i, ((dev, _, _, lo, hi), t) in enumerate(zip(ranges, self.shards)):
+            if (t.dim() != 2 or t.shape[0] != hi - lo or t.shape[1] != first.shape[1]
+                    or t.dtype != first.dtype or t.device != dev):
+                raise ValueError(f"shard {i}: want ({hi - lo}, {first.shape[1]}) "
+                                 f"{first.dtype} on {dev}, got {tuple(t.shape)} "
+                                 f"{t.dtype} on {t.device}")
+        _merge_stages(self.mesh, self.merge)
+
+    @classmethod
+    def from_rows(cls, rows, mesh: DeviceMesh, *, scale=None,
+                  merge: Merge = "flat") -> "ShardedDenseIndex":
+        """Lay already-stored (n, m) rows over ``mesh``: a slot on the rows'
+        device gets a row view, any other slot a copy of its rows."""
+        v = on_mesh(rows, mesh).contiguous()
+        return cls(shards=tuple(v[lo:hi].to(dev)
+                                for dev, _, _, lo, hi in _slot_ranges(mesh, *v.shape)),
+                   mesh=mesh, scale=None if scale is None else as_tensor(scale, mesh.device),
+                   merge=merge)
+
+    @classmethod
+    def build(cls, vectors, mesh: DeviceMesh, *, quantize_int8: bool = False,
+              merge: Merge = "flat") -> "ShardedDenseIndex":
+        """Shard (n, m) rows over ``mesh``; a tensor stays on its device,
+        anything else goes to the mesh's first device first."""
+        v = on_mesh(vectors, mesh)
+        scale = None
+        if quantize_int8:
+            v, scale = quantize_int8_per_dim(v)
+        return cls.from_rows(v, mesh, scale=scale, merge=merge)
+
+    @classmethod
+    def load(cls, store, mesh: DeviceMesh, *, merge: Merge = "flat") -> "ShardedDenseIndex":
+        """Load an ``IndexStore`` artifact (path or open handle, or one
+        segment's view) over ``mesh``.
+
+        Each slot's real rows are read straight into a tensor on its device
+        (``read_into`` from the slot's first row, through the store's pinned
+        staging on the card), one slot at a time: the host holds no more
+        than a staging slice, and padding never materialises.
+        """
+        store = _open_store(store)
+        _check_flat_loadable(store)
+        shards = []
+        for dev, _, _, lo, hi in _slot_ranges(mesh, store.n, store.dim):
+            t = torch.empty((hi - lo, store.dim), dtype=store.dtype, device=dev)
+            if hi > lo:
+                store.read_into(t, lo)
+            shards.append(t)
+        s = store.scale()
+        return cls(shards=tuple(shards), mesh=mesh,
+                   scale=None if s is None else torch.from_numpy(s).to(mesh.device),
+                   merge=merge)
+
+    @property
+    def n(self) -> int:
+        """Logical (unpadded) row count."""
+        return sum(int(t.shape[0]) for t in self.shards)
+
+    @property
+    def dim(self) -> int:
+        return self.shards[0].shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.device
+
+    @property
+    def rows_per(self) -> int:
+        return _rows_per(self.n, self.mesh.size)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held: the real rows and the scale (no padding is stored)."""
+        b = sum(t.numel() * t.element_size() for t in self.shards)
+        if self.scale is not None:
+            b += self.scale.numel() * self.scale.element_size()
+        return b
+
+    def rows(self, lo: int, hi: int) -> torch.Tensor:
+        """Stored rows [lo, hi) of the logical index: a view where they lie
+        in one shard, else the shards' pieces concatenated on the mesh's
+        first device."""
+        per = self.rows_per
+        parts = []
+        for i, t in enumerate(self.shards):
+            a, b = max(lo, i * per), min(hi, i * per + t.shape[0])
+            if a < b:
+                parts.append(t[a - i * per:b - i * per])
+        if len(parts) == 1:
+            return parts[0]
+        if not parts:
+            return self.shards[0][:0]
+        return torch.cat([p.to(self.device) for p in parts])
+
+    def _topk(self, q: torch.Tensor, k: int, merge: Merge | None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One top-k per slot over a folded query, then the staged merge."""
+        dev, per = self.device, self.rows_per
+        q = q.float().contiguous()
+        B = q.shape[0]
+        scores, ids = [], []
+        for i, shard in enumerate(self.shards):
+            if shard.shape[0] == 0:      # a wholly padded slot: its pads only
+                scores.append(torch.full((B, k), float("-inf"), device=dev))
+                ids.append(torch.full((B, k), -1, dtype=torch.int32, device=dev))
+                continue
+            qi = q.to(shard.device)
+            if shard.device.type == "cuda":
+                s, si = ops.topk_score(shard, qi, k=k)
+            else:
+                s, si = _scan_topk(shard, qi, k)
+            scores.append(s.to(dev))
+            ids.append(torch.where(si >= 0, si + i * per, si).to(dev))
+        shape = (*self.mesh.shape, B, k)
+        stages = _merge_stages(self.mesh, self.merge if merge is None else merge)
+        return _staged_topk_merge(torch.stack(scores).reshape(shape),
+                                  torch.stack(ids).reshape(shape), k, stages)
+
+    def search(self, queries, k: int = 10, merge: Merge | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Exact top-k. Returns (scores (B,k) fp32, ids (B,k) int32) on the
+        mesh's first device; ``merge`` overrides the index's."""
+        q = torch.atleast_2d(as_tensor(queries, self.device)).float()
+        if self.scale is not None:
+            q = q * self.scale[None, :]
+        return self._topk(q, min(k, self.n), merge)
+
+    def search_projected(self, queries, components: torch.Tensor, k: int = 10, *,
+                         mean: torch.Tensor | None = None, merge: Merge | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Raw-query search: the projection and the int8 scale fold run once
+        on the mesh's first device, in the reference's order, then the
+        per-slot top-k and the merge."""
+        dev = self.device
+        q = project_queries(as_tensor(queries, dev), as_tensor(components, dev),
+                            scale=self.scale,
+                            mean=None if mean is None else as_tensor(mean, dev))
+        return self._topk(q, min(k, self.n), merge)
 
 
 # ---------------------------------------------------------------------------
@@ -422,8 +699,8 @@ def rehydrate_delta(view, delta_capacity: int, *, device=None) -> DeltaSegment:
 class SegmentedIndex:
     """Immutable segment set: [base] + deltas, searched as one index.
 
-    The base is a committed ``DenseIndex`` (the offline PCA-pruned
-    artifact); deltas absorb live corpus growth. Every mutation
+    The base is a committed ``DenseIndex`` or ``ShardedDenseIndex`` (the
+    offline PCA-pruned artifact); deltas absorb live corpus growth. Every mutation
     (``append``) returns a NEW ``SegmentedIndex`` sharing the untouched
     segments, so a running ``RetrievalServer`` swaps whole segment sets
     between batches and in-flight batches keep the old set alive.
@@ -437,24 +714,28 @@ class SegmentedIndex:
     dequantised scores.
     """
 
-    base: DenseIndex
+    base: DenseIndex | ShardedDenseIndex
     deltas: tuple[DeltaSegment, ...] = ()
     delta_capacity: int = 4096
 
     @classmethod
-    def from_index(cls, base: DenseIndex, *, delta_capacity: int = 4096
-                   ) -> "SegmentedIndex":
+    def from_index(cls, base: DenseIndex | ShardedDenseIndex, *,
+                   delta_capacity: int = 4096) -> "SegmentedIndex":
         return cls(base=base, deltas=(), delta_capacity=delta_capacity)
 
     @classmethod
-    def load(cls, store, *, delta_capacity: int = 4096, device=None
-             ) -> "SegmentedIndex":
+    def load(cls, store, *, mesh: DeviceMesh | None = None, merge: Merge = "flat",
+             delta_capacity: int = 4096, device=None) -> "SegmentedIndex":
         """Load a (possibly segmented) artifact onto ``device`` (default:
-        the card): segment 0 becomes the base, every delta segment is
-        rehydrated at its stored capacity with its own scale. A pre-segment
+        the card), or with ``mesh`` its base over the mesh: segment 0
+        becomes the base, every delta segment is rehydrated at its stored
+        capacity with its own scale, on the base's device. A pre-segment
         artifact loads as a single base."""
         views = _open_store(store).segments()
-        base = DenseIndex.load(views[0], device=device)
+        if mesh is not None:
+            base = ShardedDenseIndex.load(views[0], mesh, merge=merge)
+        else:
+            base = DenseIndex.load(views[0], device=device)
         deltas = [rehydrate_delta(v, delta_capacity, device=base.device)
                   for v in views[1:]]
         return cls(base=base, deltas=tuple(deltas), delta_capacity=delta_capacity)
@@ -486,7 +767,7 @@ class SegmentedIndex:
 
     @property
     def storage_dtype(self) -> torch.dtype:
-        return self.base.vectors.dtype
+        return self.base.dtype
 
     # -- growth (copy-on-write) ----------------------------------------------
     def append(self, rows) -> "SegmentedIndex":

@@ -1,5 +1,5 @@
 """Index maintenance: segmented live growth and drift-triggered compaction
-(port of ``repro/core/maintenance.py`` without the sharded paths).
+(port of ``repro/core/maintenance.py``).
 
   * ``IndexUpdater.add_documents`` — new documents are rotated with the
     EXISTING ``W_m`` and appended to the open delta segment (no refit, no
@@ -24,9 +24,7 @@
     artifact and swaps the directory in atomically. ``compact_async()``
     runs it off-thread: appends that land mid-compaction are reconciled
     onto the new base before the swap. A paged index compacts by pointer
-    swaps.
-
-The sharded base waits for ROADMAP queue 1 item 5.
+    swaps; a sharded base compacts (and refits) onto the same mesh.
 """
 from __future__ import annotations
 
@@ -39,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.fsio import commit_dir
-from repro_torch.core.index import DenseIndex, SegmentedIndex
+from repro_torch.core.index import DenseIndex, SegmentedIndex, ShardedDenseIndex
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.core.store import IndexStore, paged_manifest_block, save_index
@@ -85,8 +83,9 @@ class IndexUpdater:
     """Segmented (or paged) pruned index + transform with live growth and
     compaction.
 
-    ``index`` may be a bare ``DenseIndex`` (wrapped as a single-base
-    ``SegmentedIndex``), a ``SegmentedIndex`` or a ``PagedIndex``.
+    ``index`` may be a bare ``DenseIndex`` or ``ShardedDenseIndex`` (wrapped
+    as a single-base ``SegmentedIndex``), a ``SegmentedIndex`` or a
+    ``PagedIndex``.
     ``fit_energy`` may be left unset: the reference energy then comes from
     the fitted state (``_eigval_energy``), exactly, with no pass over the
     fit corpus. ``store``: an optional ``IndexStore`` (or path) the updater
@@ -117,7 +116,7 @@ class IndexUpdater:
     def __post_init__(self):
         if isinstance(self.store, (str, bytes, os.PathLike)):
             self.store = IndexStore.open(self.store)
-        if isinstance(self.index, DenseIndex):
+        if isinstance(self.index, (DenseIndex, ShardedDenseIndex)):
             self.index = SegmentedIndex.from_index(
                 self.index, delta_capacity=self.delta_capacity)
 
@@ -148,13 +147,14 @@ class IndexUpdater:
                    delta_capacity=delta_capacity)
 
     @classmethod
-    def from_store(cls, store, *, delta_capacity: int = 4096,
-                   paged: bool | None = None, pool_pages: int | None = None,
-                   device=None) -> "IndexUpdater":
+    def from_store(cls, store, *, mesh=None, merge: str = "flat",
+                   delta_capacity: int = 4096, paged: bool | None = None,
+                   pool_pages: int | None = None, device=None) -> "IndexUpdater":
         """Rehydrate updater state from a committed artifact (cold start)
-        onto ``device`` (default: the card) — base AND delta segments, each
-        with its own scale. ``paged=None`` auto-detects: a store carrying
-        the ``paged`` manifest block reloads as a ``PagedIndex``.
+        onto ``device`` (default: the card), or with ``mesh`` its base over
+        the mesh: base AND delta segments, each with its own scale.
+        ``paged=None`` auto-detects: a store carrying the ``paged`` manifest
+        block reloads as a ``PagedIndex``.
 
         ``fit_energy`` stays lazy: the fit corpus is not in the store, and
         the eigenvalue identity gives the same reference.
@@ -166,8 +166,8 @@ class IndexUpdater:
         if paged:
             index = PagedIndex.load(store, pool_pages=pool_pages, device=device)
         else:
-            index = SegmentedIndex.load(store, delta_capacity=delta_capacity,
-                                        device=device)
+            index = SegmentedIndex.load(store, mesh=mesh, merge=merge,
+                                        delta_capacity=delta_capacity, device=device)
         return cls(pruner=store.load_pruner(device=index.device), index=index,
                    store=store, delta_capacity=delta_capacity)
 
@@ -326,8 +326,9 @@ class IndexUpdater:
         None): the generator runs unlocked while appends mirror to the live
         store, so it never re-reads the field mid-stream. With a store the
         base streams from DISK (host O(block)), each block read onto the
-        index's device; otherwise from the device copy. Either way it is
-        dequantised there by one f32 multiply per element."""
+        index's device; otherwise from the device copy (a sharded base's
+        real rows, shard by shard). Either way it is dequantised there by
+        one f32 multiply per element."""
         dev = index.device
         if store is not None:
             view = store.segments()[0]
@@ -341,8 +342,8 @@ class IndexUpdater:
             base = index.base
             n, scale = base.n, base.scale
 
-            def block(lo):
-                return base.vectors[lo:lo + block_rows]
+            def block(lo):          # a sharded base walks its shards' real rows
+                return base.rows(lo, min(lo + block_rows, n))
         for lo in range(0, n, block_rows):
             rows = block(lo).float()
             if scale is not None:
@@ -377,7 +378,8 @@ class IndexUpdater:
 
         Without a store the rows are assembled on the index's device
         (``_iter_dequant_rows`` into one f32 buffer) and ``DenseIndex.build``
-        quantises them. With a store attached the new artifact builds
+        (or, for a sharded base, ``ShardedDenseIndex.build`` on the same
+        mesh) quantises them. With a store attached the new artifact builds
         UNLOCKED at a sidecar path (``<path>.compact``) through
         ``StaticPruner.build_index_to(already_projected=True)`` (O(block)
         host memory, int8 spill), the base loads from it, and only the
@@ -395,6 +397,8 @@ class IndexUpdater:
         if isinstance(snapshot, PagedIndex):
             self._compact_paged()
             return
+        old_base = snapshot.base
+        mesh = getattr(old_base, "mesh", None)     # a sharded base stays on its mesh
         if store is not None:
             side_path = store.path + ".compact"
             side = pruner.build_index_to(
@@ -404,7 +408,10 @@ class IndexUpdater:
                 meta={"compactions": n_compactions + 1})
             # the base materialises from the sidecar before the lock: the
             # load never blocks appends
-            base = DenseIndex.load(side, device=snapshot.device)
+            if mesh is not None:
+                base = ShardedDenseIndex.load(side, mesh, merge=old_base.merge)
+            else:
+                base = DenseIndex.load(side, device=snapshot.device)
         else:
             side_path = None
             rows = torch.empty((snapshot.n, snapshot.dim), dtype=torch.float32,
@@ -413,7 +420,11 @@ class IndexUpdater:
             for blk in self._iter_dequant_rows(snapshot, block_rows):
                 rows[pos:pos + blk.shape[0]] = blk
                 pos += blk.shape[0]
-            base = DenseIndex.build(rows, quantize_int8=snapshot.quantized)
+            if mesh is not None:
+                base = ShardedDenseIndex.build(rows, mesh, quantize_int8=snapshot.quantized,
+                                               merge=old_base.merge)
+            else:
+                base = DenseIndex.build(rows, quantize_int8=snapshot.quantized)
             del rows
         fresh = SegmentedIndex.from_index(base, delta_capacity=self.delta_capacity)
         with self._lock:
@@ -466,13 +477,21 @@ class IndexUpdater:
     def refit(self, corpus) -> None:
         """Full offline refit (new rotation) on the current corpus
         distribution; unlike ``compact``, this re-fits ``W_m`` itself. A
-        paged index stays paged with its page geometry, and an attached
-        store is rewritten under the new rotation."""
+        paged index stays paged with its page geometry, a sharded base is
+        rebuilt on the same mesh with the same merge, and an attached store
+        is rewritten under the new rotation."""
         with self._lock:
             old_index, old_pruner = self.index, self.pruner
         corpus = as_tensor(corpus, old_index.device)
         pruner = StaticPruner(cutoff=old_pruner.effective_cutoff).fit(corpus)
-        base = pruner.build_index(corpus, quantize_int8=old_index.quantized)
+        old_base = getattr(old_index, "base", None)
+        mesh = getattr(old_base, "mesh", None)
+        if mesh is not None:
+            base = ShardedDenseIndex.build(pruner.prune_index(corpus), mesh,
+                                           quantize_int8=old_index.quantized,
+                                           merge=old_base.merge)
+        else:
+            base = pruner.build_index(corpus, quantize_int8=old_index.quantized)
         if isinstance(old_index, PagedIndex):
             st = old_index.storage
             new_index = PagedIndex.from_index(

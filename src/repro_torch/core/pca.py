@@ -1,5 +1,5 @@
 """PCA decomposition of dense-retrieval embedding indexes (port of
-``repro/core/pca.py`` without the distributed path).
+``repro/core/pca.py``).
 
     D^T D = W Λ W^T              (uncentered Gram eigendecomposition)
     T     = D W                  (rotated index, variance-sorted columns)
@@ -9,7 +9,8 @@
 The paper eigendecomposes the *uncentered* Gram matrix; ``center=True`` is
 classical PCA. On a CUDA tensor the Gram goes through the ``gram`` kernel
 and ``transform`` through the ``pca_project`` kernel; on a CPU tensor both
-run as plain PyTorch.
+run as plain PyTorch. ``fit_pca_distributed`` fits a matrix laid over a
+``DeviceMesh``: one strip Gram per slot, summed on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from repro_torch.core.index import _slot_ranges
 from repro_torch.kernels import ops
+from repro_torch.par.mesh import DeviceMesh, on_mesh
 from repro_torch.util import as_tensor
 
 
@@ -83,6 +86,22 @@ def gram_streaming(batches: Iterable, *, device=None
     return G, colsum, n
 
 
+def gram_distributed(D, mesh: DeviceMesh) -> torch.Tensor:
+    """Gram of an (n, d) matrix laid over ``mesh`` as a sharded index lays
+    its rows: each slot's strip Gram (``gram``: the ``gram`` kernel on the
+    card), summed in slot order on the mesh's first device, the
+    reference's psum. A strip that is all padding adds nothing (zero rows
+    are Gram-neutral), so it launches nothing. A slot on D's device reads
+    its strip as a view; any other gets a copy of its strip."""
+    D = on_mesh(D, mesh)
+    d = D.shape[1]
+    G = torch.zeros((d, d), dtype=torch.float32, device=mesh.device)
+    for dev, _, _, lo, hi in _slot_ranges(mesh, *D.shape):
+        if hi > lo:
+            G += gram(D[lo:hi].to(dev)).to(mesh.device)
+    return G
+
+
 # ---------------------------------------------------------------------------
 # Fit
 # ---------------------------------------------------------------------------
@@ -119,6 +138,15 @@ def fit_pca_streaming(batches: Iterable, *, center: bool = False,
     """Fit PCA over an iterator of row blocks (out-of-core offline path)."""
     G, colsum, n = gram_streaming(batches, device=device)
     return _eig_from_gram(G, colsum, n, center)
+
+
+def fit_pca_distributed(D, mesh: DeviceMesh, *, center: bool = False) -> PCAState:
+    """Fit PCA on a matrix laid over a mesh (``gram_distributed``); the
+    column sum runs over all n real rows."""
+    D = on_mesh(D, mesh)
+    G = gram_distributed(D, mesh)
+    colsum = D.sum(0, dtype=torch.float32).to(G.device)
+    return _eig_from_gram(G, colsum, D.shape[0], center)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """StaticPruner: the paper's offline pipeline as one object (port of
-``repro/core/pruning.py`` without the mesh path).
+``repro/core/pruning.py``).
 
     pruner = StaticPruner(cutoff=0.5).fit(D)     # keep m = d/2 dims
     index = pruner.build_index(D)                # D̂ = D W_m
+    index = pruner.build_index(D, mesh=mesh)     # ... laid over a DeviceMesh
     q_hat = pruner.transform_queries(q)          # q̂ = W_mᵀ q,  O(dm)
     store = pruner.build_index_to(path, blocks)  # streaming build to disk
 """
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import pca as _pca
-from repro_torch.core.index import DenseIndex
+from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.quantization import quantize_rows, scale_from_absmax
 from repro_torch.util import as_tensor
 
@@ -53,6 +54,11 @@ class StaticPruner:
                                             device=device)
         return self
 
+    def fit_distributed(self, D, mesh) -> "StaticPruner":
+        """Fit on a matrix laid over ``mesh`` (one strip Gram per slot)."""
+        self.state = _pca.fit_pca_distributed(D, mesh, center=self.center)
+        return self
+
     # -- dimensionality ------------------------------------------------------
     @property
     def kept_dims(self) -> int:
@@ -84,9 +90,14 @@ class StaticPruner:
                                                    self.state, m)
         return out
 
-    def build_index(self, D, *, quantize_int8: bool = False) -> DenseIndex:
-        """One-stop offline artefact: pruned (optionally int8) search index."""
-        return DenseIndex.build(self.prune_index(D), quantize_int8=quantize_int8)
+    def build_index(self, D, *, quantize_int8: bool = False, mesh=None
+                    ) -> DenseIndex | ShardedDenseIndex:
+        """One-stop offline artefact: pruned (optionally int8) search index,
+        sharded over ``mesh`` when one is given."""
+        pruned = self.prune_index(D)
+        if mesh is not None:
+            return ShardedDenseIndex.build(pruned, mesh, quantize_int8=quantize_int8)
+        return DenseIndex.build(pruned, quantize_int8=quantize_int8)
 
     def build_index_to(self, path: str, corpus_batches, *,
                        quantize_int8: bool = False,

@@ -83,13 +83,16 @@ def _meta_of(pruner) -> dict:
 
 def save_index(path: str, index, *, pruner=None, meta: dict | None = None,
                chunk_rows: int = 262144) -> "IndexStore":
-    """Persist an already-built ``DenseIndex``, ``SegmentedIndex``,
-    ``PagedIndex`` or ``CascadeIndex`` (on any device).
+    """Persist an already-built ``DenseIndex``, ``ShardedDenseIndex``,
+    ``SegmentedIndex``, ``PagedIndex`` or ``CascadeIndex`` (on any device
+    or mesh).
 
     Rows are copied device→host one ``chunk_rows`` slice at a time, so the
-    host transient is one chunk. Pass the fitted ``pruner`` to persist the
-    PCA state alongside (``IndexStore.load_pruner`` and ``serve
-    --load-index`` need it to transform queries).
+    host transient is one chunk. A sharded index writes its real rows only,
+    in the same chunks as the dense index of those rows, byte for byte; a
+    load lays them over whatever mesh it targets. Pass the fitted
+    ``pruner`` to persist the PCA state alongside (``IndexStore.load_pruner``
+    and ``serve --load-index`` need it to transform queries).
     """
     from repro_torch.core.cascade import CascadeIndex
     from repro_torch.core.index import SegmentedIndex
@@ -139,10 +142,9 @@ def save_index(path: str, index, *, pruner=None, meta: dict | None = None,
             writer.put_pca(pruner.state)
         if index.scale is not None:
             writer.set_scale(index.scale)
-        v = index.vectors
         n = index.n
         for start in range(0, n, chunk_rows):
-            writer.append(v[start:min(start + chunk_rows, n)])
+            writer.append(index.rows(start, min(start + chunk_rows, n)))
         info = _meta_of(pruner)
         info["quantize_int8"] = index.scale is not None
         info.update(meta or {})
@@ -283,34 +285,46 @@ def _read_rows_from_chunks(path: str, chunks: list, logical: str, dim: int,
     if not 0 <= start <= stop <= total:
         raise ValueError(f"row range [{start}, {stop}) outside [0, {total})")
     out = np.empty((stop - start, dim), _STORAGE_VIEW.get(logical, logical))
-    pos = 0          # global row index at the current chunk's head
     filled = 0
+    for part in _chunk_parts(path, chunks, start, stop):
+        out[filled:filled + part.shape[0]] = part
+        filled += part.shape[0]
+    return out
+
+
+def _chunk_parts(path: str, chunks: list, start: int, stop: int):
+    """The memory-mapped pieces of rows [start, stop) of a chunk list, in
+    order; chunks outside the range are never opened."""
+    pos = 0          # global row index at the current chunk's head
     for c in chunks:
         rows = c["rows"]
         lo, hi = max(start, pos), min(stop, pos + rows)
         if lo < hi:
-            chunk = _read_chunk(os.path.join(path, c["file"]))
-            out[filled:filled + (hi - lo)] = chunk[lo - pos:hi - pos]
-            filled += hi - lo
+            yield _read_chunk(os.path.join(path, c["file"]))[lo - pos:hi - pos]
         pos += rows
         if pos >= stop:
             break
-    return out
 
 
-def _read_chunks_into(path: str, chunks: list, out: torch.Tensor) -> None:
-    """Copy a chunk list's rows, in order, into the preallocated ``out``.
+def _read_chunks_into(path: str, chunks: list, out: torch.Tensor,
+                      start: int = 0) -> None:
+    """Copy rows [start, start + len(out)) of a chunk list, in order, into
+    the preallocated ``out``.
 
-    On the CPU each memory-mapped chunk is copied straight into ``out``'s
+    On the CPU each memory-mapped piece is copied straight into ``out``'s
     storage. On the card rows go in slices of at most ``_STAGE_BYTES``
     through two pinned staging buffers: a slice is read from the mapped
     file into one buffer while the other's copy to the device runs, and a
     buffer is refilled only after the event behind its last copy."""
+    total = sum(c["rows"] for c in chunks)
+    stop = start + out.shape[0]
+    if not 0 <= start <= stop <= total:
+        raise ValueError(f"row range [{start}, {stop}) outside [0, {total})")
+    parts = _chunk_parts(path, chunks, start, stop)
     if out.device.type != "cuda":
         dst = _np_view(out)
         pos = 0
-        for c in chunks:
-            arr = _read_chunk(os.path.join(path, c["file"]))
+        for arr in parts:
             dst[pos:pos + arr.shape[0]] = arr
             pos += arr.shape[0]
         return
@@ -321,8 +335,7 @@ def _read_chunks_into(path: str, chunks: list, out: torch.Tensor) -> None:
     views = [_np_view(b) for b in ring]
     done: list = [None, None]
     pos = i = 0
-    for c in chunks:
-        arr = _read_chunk(os.path.join(path, c["file"]))
+    for arr in parts:
         for lo in range(0, arr.shape[0], stage):
             part = arr[lo:lo + stage]
             s = i % 2
@@ -389,10 +402,10 @@ class SegmentView:
                                       start, stop)
         return _host_tensor(rows, self.dtype_name).to(default_device(device))
 
-    def read_into(self, out: torch.Tensor) -> None:
-        """Every row, copied chunk by chunk into the preallocated ``out``
-        of shape (n, dim) and the logical dtype."""
-        _read_chunks_into(self.store_path, self.entry["chunks"], out)
+    def read_into(self, out: torch.Tensor, start: int = 0) -> None:
+        """Rows [start, start + len(out)), copied chunk by chunk into the
+        preallocated ``out`` of the logical dtype."""
+        _read_chunks_into(self.store_path, self.entry["chunks"], out, start)
 
     def scale(self) -> np.ndarray | None:
         """The segment's per-dim dequant scale (host f32), if it has one."""
@@ -711,10 +724,10 @@ class IndexStore:
                                       self.n, start, stop)
         return _host_tensor(rows, self.manifest["dtype"]).to(default_device(device))
 
-    def read_into(self, out: torch.Tensor) -> None:
-        """Every row, copied chunk by chunk into the preallocated ``out``
-        of shape (n, dim) and the logical dtype, on its device."""
-        _read_chunks_into(self.path, self.manifest["chunks"], out)
+    def read_into(self, out: torch.Tensor, start: int = 0) -> None:
+        """Rows [start, start + len(out)), copied chunk by chunk into the
+        preallocated ``out`` of the logical dtype, on its device."""
+        _read_chunks_into(self.path, self.manifest["chunks"], out, start)
 
     def scale(self) -> np.ndarray | None:
         """The base per-dim dequant scale (host f32), if the store has one."""

@@ -1,6 +1,6 @@
 """Retrieval serving entry point: batched queries against a PCA-pruned index
-(port of ``repro/launch/serve.py``: the single-device path, dense,
-segmented, paged or cascaded, and the replicated fleet).
+(port of ``repro/launch/serve.py``: dense, sharded, segmented, paged or
+cascaded, and the replicated fleet).
 
 The paper's online path, end to end:
   1. build the offline artefacts (PCA transform W_m + pruned index D̂)
@@ -55,8 +55,16 @@ unpruned corpus and prints the speedup.
 drives it open loop, and prints the fleet's accounting; ``--fleet-kill S``
 kills replica r1 S seconds into the drive and restarts it 2 s later.
 
-The reference's ``--sharded`` is not ported yet: the flag exists and
-refuses to run.
+``--sharded`` lays the pruned index over a mesh of ``--host-devices N``
+slots (default 4) on the run's device (``ShardedDenseIndex``): each slot
+runs its own top-k over its rows and ``--merge flat`` merges the lists in
+one stage, ``--merge hierarchical`` over the squarest 2-D factoring of the
+slots in two. On one card the slots are ``cuda:0`` N times, under
+``--device cpu`` the CPU N times; with ``--device cuda`` on a machine with
+several cards the slots go round-robin over the cards. It builds, saves,
+loads (``--load-index``) and grows under ``--live-append`` (a segmented
+index over the sharded base, compacted onto the same mesh); it refuses
+``--paged``, ``--cascade`` and ``--fleet``, as the reference does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --n-docs 50000 \\
@@ -74,6 +82,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --cascade 64:8 \
       --compare-full            # coarse int8 scan + exact rescore
   PYTHONPATH=src python -m repro_torch.launch.serve --fleet 3 --fleet-kill 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --sharded --host-devices 4 \
+      --merge hierarchical      # a 2 x 2 mesh of slots, two-stage merge
 """
 from __future__ import annotations
 
@@ -87,12 +97,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.cascade import CascadeIndex
-from repro_torch.core.index import DenseIndex, SegmentedIndex
+from repro_torch.core.index import DenseIndex, SegmentedIndex, ShardedDenseIndex
 from repro_torch.core.maintenance import IndexUpdater
 from repro_torch.core.paged import PagedIndex
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.core.store import IndexStore, save_index
 from repro_torch.data.synthetic import make_dataset
+from repro_torch.par.mesh import DeviceMesh, make_mesh
 from repro_torch.util import default_device
 
 
@@ -212,13 +223,14 @@ def _results_to_host(scores: torch.Tensor, ids: torch.Tensor):
     return hs, hi, event
 
 
-Index = DenseIndex | SegmentedIndex | PagedIndex | CascadeIndex
+Index = DenseIndex | ShardedDenseIndex | SegmentedIndex | PagedIndex | CascadeIndex
 
 
 class RetrievalServer:
-    """Batched query server over a ``DenseIndex``, ``SegmentedIndex``,
-    ``PagedIndex`` or ``CascadeIndex`` (any index with ``device``, ``dim``
-    and ``search_projected``, and ``search`` to serve without a pruner).
+    """Batched query server over a ``DenseIndex``, ``ShardedDenseIndex``,
+    ``SegmentedIndex``, ``PagedIndex`` or ``CascadeIndex`` (any index with
+    ``device``, ``dim`` and ``search_projected``, and ``search`` to serve
+    without a pruner).
 
     With a pruner attached every batch runs ``search_projected``
     (projection + scale fold + top-k); without one, plain ``search``.
@@ -678,6 +690,8 @@ def _report_live(server: RetrievalServer, updater: IndexUpdater) -> None:
               f"({updater.index.n} rows, fresh scale) in "
               f"{dt_ms:.0f}ms; server swapped "
               f"mid-serve (swap #{server.swap_count})")
+        if isinstance(updater.index.base, ShardedDenseIndex):
+            _print_sharded("compacted base", updater.index.base)
 
 
 def _query_tape(ds, n: int) -> np.ndarray:
@@ -711,14 +725,38 @@ def _adopt_store_dim(args, path: str) -> None:
         args.dim = src_d
 
 
+def _serve_mesh(ndev: int, merge: str, device: torch.device) -> DeviceMesh:
+    """The reference's serving mesh: 1-D ``("data",)`` for the flat merge;
+    the squarest 2-D ``("row", "col")`` factoring for the hierarchical one
+    (a 1-long second axis degenerates to flat anyway). The slots go over
+    ``device``, or round-robin over the visible cards for a bare
+    ``cuda``."""
+    devices = None if device.type == "cuda" and device.index is None else device
+    if merge == "hierarchical":
+        a = next(d for d in range(int(ndev ** 0.5), 0, -1) if ndev % d == 0)
+        if a > 1:
+            return make_mesh((a, ndev // a), ("row", "col"), devices)
+    return make_mesh((ndev,), ("data",), devices)
+
+
+def _print_sharded(what: str, index: ShardedDenseIndex) -> None:
+    mesh = index.mesh
+    slots = ", ".join(sorted({str(d) for d in mesh.device_list}))
+    print(f"[serve] {what}: {index.n} x {index.dim} over mesh "
+          f"{dict(zip(mesh.axis_names, mesh.shape))} on {slots} "
+          f"({index.nbytes/2**20:.1f} MiB, {index.dtype}, merge={index.merge})")
+
+
 def _serve_from_store(args, device: torch.device, pool_pages: int | None,
-                      cascade_mn: tuple[int, int] | None):
+                      cascade_mn: tuple[int, int] | None, mesh: DeviceMesh | None):
     """``--load-index``: the restart path. Peeks at the artifact for the
     query width, then times the cold start proper — open and validate,
     load, first answered query — and prints it. Returns ``(server,
     updater or None, query tape)``; under ``--live-append`` a single index
     comes from ``IndexUpdater.from_store``, so appends mirror to the
-    artifact, and a cascade loads segmented (its appends stay in memory)."""
+    artifact, and a cascade loads segmented (its appends stay in memory).
+    With ``mesh`` (``--sharded``) the index, or the updater's base, loads
+    over the mesh."""
     _adopt_store_dim(args, args.load_index)
     # a tiny corpus is enough to synthesise the query stream: the served
     # docs come from the artifact
@@ -736,25 +774,32 @@ def _serve_from_store(args, device: torch.device, pool_pages: int | None,
                                   delta_capacity=args.delta_capacity, device=device)
     elif args.live_append > 0:
         updater = IndexUpdater.from_store(
-            store, delta_capacity=args.delta_capacity,
-            paged=True if args.paged else None, pool_pages=pool_pages,
-            device=device)
+            store, mesh=mesh, merge=args.merge, delta_capacity=args.delta_capacity,
+            paged=False if mesh is not None else (True if args.paged else None),
+            pool_pages=pool_pages, device=device)
         index, pruner = updater.index, updater.pruner
     else:
         pruner = store.load_pruner(device=device)
-        if args.paged or "paged" in store.manifest:
+        if mesh is not None:
+            index = ShardedDenseIndex.load(store, mesh, merge=args.merge)
+        elif args.paged or "paged" in store.manifest:
             index = PagedIndex.load(store, page_rows=args.page_rows or None,
                                     pool_pages=pool_pages, device=device)
         else:
             index = DenseIndex.load(store, device=device)
     if isinstance(index, CascadeIndex):
         _print_cascade("loaded cascade", index)
+    elif isinstance(index, ShardedDenseIndex):
+        _print_sharded("loaded sharded index", index)
     elif isinstance(index, PagedIndex):
         _print_paged("loaded paged index", index)
     elif isinstance(index, SegmentedIndex):
+        sharded = isinstance(index.base, ShardedDenseIndex)
         print(f"[serve] loaded segmented index: {index.n} x {index.dim} "
               f"({index.nbytes/2**20:.1f} MiB, {len(index.deltas)} delta "
-              f"segment(s))")
+              f"segment(s){', sharded base' if sharded else ''})")
+        if sharded:
+            _print_sharded("sharded base", index.base)
     else:
         print(f"[serve] loaded index: {index.n} x {index.dim} "
               f"({index.nbytes/2**20:.1f} MiB, dtype={index.vectors.dtype})")
@@ -914,8 +959,17 @@ def _parse_args(argv):
                          "the drive and restart it 2s later, then print the "
                          "accounting the chaos soak asserts")
     ap.add_argument("--sharded", action="store_true",
-                    help="the reference's row-sharded index: not ported yet "
-                         "(the port runs on one card); refused")
+                    help="lay the pruned index over a mesh of --host-devices "
+                         "slots on the run's device: a top-k per slot, then a "
+                         "merge of the lists")
+    ap.add_argument("--host-devices", type=int, default=0, metavar="N",
+                    help="with --sharded: the mesh's slots (default 4), each "
+                         "on the run's device (round-robin over the visible "
+                         "cards for a bare --device cuda)")
+    ap.add_argument("--merge", choices=("flat", "hierarchical"), default=None,
+                    help="with --sharded: merge the per-slot lists in one "
+                         "stage over every slot (flat, the default), or in "
+                         "two over the squarest 2-D factoring of the slots")
     ap.add_argument("--device", default="cuda",
                     help="device to build and serve on (default: cuda; "
                          "raises when there is no CUDA device)")
@@ -932,14 +986,23 @@ def _parse_args(argv):
     args = ap.parse_args(argv)
     if args.save_index and args.load_index:
         ap.error("--save-index and --load-index are mutually exclusive")
-    if args.sharded:
-        ap.error("--sharded is not ported yet (the sharded index needs "
-                 "several ranks; the port serves on one card)")
+    if not args.sharded and (args.host_devices or args.merge):
+        ap.error("--host-devices and --merge need --sharded")
+    if args.host_devices < 0:
+        ap.error("--host-devices must be positive")
+    args.host_devices = args.host_devices or (4 if args.sharded else 0)
+    args.merge = args.merge or "flat"
+    if args.paged and args.sharded:
+        ap.error("--paged does not compose with --sharded yet "
+                 "(paged per-shard pools: see ROADMAP)")
     if args.paged and args.fleet > 0:
         ap.error("--paged does not compose with --fleet yet "
                  "(paged replicas load via the store auto-detect path)")
     cascade_mn = None
     if args.cascade:
+        if args.sharded:
+            ap.error("--cascade does not compose with --sharded yet "
+                     "(sharded base rescore: see ROADMAP)")
         try:
             mc_s, nf_s = args.cascade.split(":")
             cascade_mn = (int(mc_s), int(nf_s))
@@ -947,9 +1010,9 @@ def _parse_args(argv):
             ap.error(f"--cascade wants M:N (e.g. 64:8), got {args.cascade!r}")
         if cascade_mn[0] < 1 or cascade_mn[1] < 1:
             ap.error("--cascade M and N must both be >= 1")
-    if args.fleet > 0 and (args.cascade or args.live_append > 0):
+    if args.fleet > 0 and (args.sharded or args.cascade or args.live_append > 0):
         ap.error("--fleet composes with the single-node flat index only "
-                 "(cascade fleet replicas: see ROADMAP)")
+                 "(sharded/cascade fleet replicas: see ROADMAP)")
     return args, cascade_mn
 
 
@@ -960,11 +1023,12 @@ def main(argv: list[str] | None = None) -> None:
         _serve_fleet(args, device)
         return
     pool_pages = args.page_pool or None
+    mesh = _serve_mesh(args.host_devices, args.merge, device) if args.sharded else None
     updater = appender = cascade_app = None
     D = None
 
     if args.load_index:
-        server, updater, Q = _serve_from_store(args, device, pool_pages, cascade_mn)
+        server, updater, Q = _serve_from_store(args, device, pool_pages, cascade_mn, mesh)
         pruner = server.pruner
     else:
         print(f"[serve] building corpus n={args.n_docs} d={args.dim} on {device}")
@@ -983,6 +1047,11 @@ def main(argv: list[str] | None = None) -> None:
                                     pool_pages=pool_pages,
                                     seal_rows=args.delta_capacity)
             _print_cascade("cascade index", index)
+        elif mesh is not None:
+            index = ShardedDenseIndex.build(pruner.prune_index(D), mesh,
+                                            quantize_int8=args.quantize_int8,
+                                            merge=args.merge)
+            _print_sharded("sharded index", index)
         else:
             index = DenseIndex.build(pruner.prune_index(D),
                                      quantize_int8=args.quantize_int8)

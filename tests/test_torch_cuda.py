@@ -945,3 +945,77 @@ def test_cuda_paged_rescore_equals_segmented():
             ref = seg.search_projected(Q, W, k=10)
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), quant
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_equals_dense():
+    """A mesh of slots on the one card: each slot's search is one launch of
+    the top-k kernel over a row view of the index, and since a score's sum
+    order does not depend on its shard, the flat and hierarchical merges
+    are bitwise the dense search, f32 and int8, on (4,) and (2, 2) meshes:
+    with a slot that is all padding (n = 5), k above a shard's rows, and
+    the radix select (k > 32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import DenseIndex, ShardedDenseIndex
+    from repro_torch.kernels import topk_score
+    from repro_torch.par.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+    meshes = [make_mesh((4,), ("data",), dev), make_mesh((2, 2), ("row", "col"), dev)]
+    for n, m in [(20003, 384), (20, 64), (5, 48)]:
+        D = torch.randn(n, m, generator=g, device=dev)
+        D[n - 1] = D[0]                              # a tie across the first and last shard
+        Q = torch.randn(32, m, generator=g, device=dev)
+        for quant in (False, True):
+            dense = DenseIndex.build(D, quantize_int8=quant)
+            for mesh in meshes:
+                sidx = ShardedDenseIndex.build(D, mesh, quantize_int8=quant)
+                if not quant:
+                    assert all(t.data_ptr() == D[lo:].data_ptr() for t, lo in
+                               zip(sidx.shards, range(0, n, sidx.rows_per)))
+                live = sum(1 for t in sidx.shards if t.shape[0])
+                for k in (10, 100):
+                    want = dense.search(Q, k=k)
+                    for merge in ("flat", "hierarchical"):
+                        before = sum(topk_score.topk_score_cuda.launches.values())
+                        got = sidx.search(Q, k=k, merge=merge)
+                        after = sum(topk_score.topk_score_cuda.launches.values())
+                        assert after - before == live
+                        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (
+                            n, quant, mesh.shape, k, merge)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_gram_distributed_equals_gram():
+    """The distributed Gram on a 4-slot mesh of the card (one ``gram``
+    launch per strip, summed in slot order) against one ``gram`` call,
+    within 1e-5 of max |G|; and the distributed fit's eigenvalues within
+    1e-5 of the largest (the PR 18 contract) on a corpus with the
+    protocol's decaying spectrum (a flat random one leaves only the fp32
+    eigensolver's own noise, about 1e-5 of it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.pca import fit_pca, fit_pca_distributed, gram_distributed
+    from repro_torch.data.synthetic import corpus_on_device
+    from repro_torch.kernels import gram
+    from repro_torch.par.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(42)
+    mesh = make_mesh((4,), ("data",), dev)
+    for n, d in [(5, 64), (10003, 256)]:
+        D = torch.randn(n, d, generator=g, device=dev)
+        before = gram.gram_cuda.launches
+        G = gram_distributed(D, mesh)
+        per = -(-n // 4)
+        assert gram.gram_cuda.launches - before == sum(1 for i in range(4) if i * per < n)
+        want = gram.gram_cuda(D)
+        torch.testing.assert_close(G, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    C = corpus_on_device("tasb", n_docs=10003, d=256, seed=0, device=dev)
+    lam = fit_pca(C).eigenvalues
+    torch.testing.assert_close(fit_pca_distributed(C, mesh).eigenvalues, lam,
+                               rtol=0, atol=1e-5 * float(lam[0]))
+    torch.cuda.synchronize()

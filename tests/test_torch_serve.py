@@ -422,10 +422,11 @@ def test_serve_cli_fleet_with_kill(capsys):
 @pytest.mark.parametrize("flags", [
     ["--cascade", "64"], ["--cascade", "0:8"], ["--cascade", "a:b"],
     ["--fleet", "2", "--paged"], ["--fleet", "2", "--cascade", "16:4"],
-    ["--fleet", "2", "--live-append", "100"], ["--sharded"]])
+    ["--fleet", "2", "--live-append", "100"], ["--sharded", "--paged"]])
 def test_serve_cli_flag_errors(flags):
     """The reference's flag errors: a malformed ``--cascade``, ``--fleet``
-    with ``--paged``, ``--cascade`` or ``--live-append``; ``--sharded`` is
-    refused until it is ported."""
+    with ``--paged``, ``--cascade`` or ``--live-append``, and ``--sharded``
+    with ``--paged`` (the other ``--sharded`` refusals are in
+    ``test_torch_sharded.py``)."""
     with pytest.raises(SystemExit):
         serve.main(["--device", "cpu", *flags])
