@@ -2,6 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root; needs one card
+    python3 chip_smoke.py --n-docs 300000 --protocol-docs 20000 --encode-docs 10000
+                                   # a shorter rehearsal
 
 Phases, each printing one JSON line:
   1. device: the card's name, count, and nvidia-smi's name and power limit;
@@ -118,12 +120,29 @@ Phases, each printing one JSON line:
      over the dense base, compacted onto the same mesh, bitwise the dense
      compaction; (f) a depth-3 server over the sharded int8 index on each
      mesh, closed loop, p50 beside the dense server's, replies bitwise the
-     dense search.
+     dense search;
+ 13. the encoder: configs/biencoder_msmarco.CFG at full width (BERT-base,
+     137,491,968 parameters by the config's count), weights from a seeded
+     generator on the card: (a) 8 x 256 encoded on the card and on the CPU,
+     f32 compute within ENCODE_F32_TOL, bf16 at cosine >= ENCODE_BF16_COS
+     per row, the bf16 GELU within one ULP of the CPU's; (b) one
+     encode_corpus batch (8,192 x 256) in --encode-batch micro-batches and
+     query batches of 32 x 32 and 32 x 256, against the bound, with the
+     peak memory; (c) launch.encode's encode -> fit -> prune -> search over
+     --encode-docs passages (default 100,000) and 1,000 queries at seq
+     256 under --quantize-int8 (the int8 index built by pca_project_quant,
+     held to the two-pass build), an f32 pruned index beside it, ids
+     against the plain top-k, MRR@10 (random weights: a check that the
+     pieces connect, not a quality claim); (d) one encoder layer at the
+     micro-batch, op by op against each op's bound, the ops' composition
+     bitwise the layer's, SDPA's time beside the attention (a yardstick
+     the port never calls).
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
-live path), 9 (the store), 10 (the cascade), 11 (the fleet) and 12 (the
-sharded index) are counted the same way, each on its own. Launches made only to compare or time a kernel are not
+live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
+sharded index) and 13 (the encoder) are counted the same way, each on its
+own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -180,8 +199,17 @@ FLEET_KILL_AT = 3.0         # phase 11: r1 killed ...
 FLEET_RESTART_AT = 6.0      # ... and restarted (seconds into the drive)
 ROLLOUT_TAPE = 3000         # phase 11: queries during the bad rollout
 SHARD_KS = (K, SHORTLIST_K)  # phase 12: k of the sharded searches (the chunk select, the radix)
+ENCODE_DOCS = 100_000       # phase 13(c): passages encoded at seq 256 (--encode-docs)
+ENCODE_QUERIES = 1000       # phase 13(c): queries encoded, query i paired with passage i
+ENCODE_BATCH = 1024         # phase 13: rows per encoder micro-batch (--encode-batch)
+ENCODE_PARITY_ROWS = 8      # phase 13(a): sequences encoded on the card and on the CPU
+# phase 13(a): the full-width encoder on the card against the same weights
+# on the CPU; f32 compute sums 12 layers in another order on each side
+ENCODE_F32_TOL = 1e-4       # max |card - CPU| of the unit-norm embeddings
+ENCODE_BF16_COS = 0.999     # per-row cosine, bf16 compute (products round to bf16)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12    # dense, tensor cores
 TOL = 1e-5                  # tests/test_kernels.py:126
 # gram over 8.8M rows: max |kernel - G64| / max |G64|, G64 the plain
 # version's product in fp64. The kernel's longest fp32 chain is 16,384 rows
@@ -193,9 +221,11 @@ def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, bf16_flops=0):
+    """The least time for the work: bytes over the memory rate against fp32
+    FLOP (CUDA cores) plus bf16 FLOP (tensor cores) over their peaks."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = (flops / FP32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2935,12 +2965,355 @@ def phase_sharded(counters, index_f32, index_int8, pruner, Q, fresh, rows, proto
          **served)
 
 
+def median_ms(fn, reps=3):
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
+    each run between its own pair of CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def bf16_ulps(a, b):
+    """Entry-wise distance of two bf16 tensors in bf16 ULPs (ordered bits)."""
+    import torch
+
+    def ordered(x):
+        i = x.cpu().view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def encoder_flops(tokens, seq_len, cfg):
+    """(bf16 FLOP, f32 FLOP) of ``encode`` over ``tokens`` tokens in
+    sequences of ``seq_len``: per layer the four projections, the MLP's three
+    products and P·V in bf16, Q·Kᵀ in f32; the pooled projection is
+    negligible and left out."""
+    d, f = cfg.d_model, cfg.d_ff
+    per_layer_bf16 = 2 * (4 * d * d + 3 * d * f) + 2 * seq_len * d
+    return cfg.n_layers * tokens * per_layer_bf16, cfg.n_layers * tokens * 2 * seq_len * d
+
+
+def phase_encoder(counters, rows, encode_docs, encode_batch):
+    """Phase 13: the bi-encoder at the full width of
+    configs/biencoder_msmarco.CFG (BERT-base: 12 layers, d 768, 12 heads,
+    d_ff 3072, gated GELU MLP, vocab 30,522, max_len 256), weights from a
+    seeded generator on the card. (a) 8 x 256 encoded on the card and on
+    the CPU, f32 compute (max |delta| <= 1e-4) and bf16 (cosine >= 0.999
+    per row), and the bf16 GELU on a 1,024 x 3,072 tensor (within one bf16
+    ULP, share differing printed); (b) one encode_corpus batch (8,192 x
+    256) in micro-batches of ``encode_batch`` rows, and query batches of 32
+    x 32 and 32 x 256, CUDA events, median of 3 after a warm-up, beside the
+    bound, with the peak memory; (c) launch.encode's path: ``encode_docs``
+    passages and 1,000 queries at seq 256, the fit, the prune, the int8
+    index through the fused kernel (held to the two-pass build) and an f32
+    one, the searches at k 10 against the plain top-k, MRR@10; (d) one
+    encoder layer at the micro-batch op by op, each against its bound, the
+    ops' composition held bitwise to the layer, SDPA beside the
+    attention."""
+    import copy
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.biencoder_msmarco import CFG, SHAPES
+    from repro_torch.core.index import DenseIndex
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.data.tokens import pair_batch
+    from repro_torch.kernels import gram, pca_project, topk_score
+    from repro_torch.launch import encode as encode_cli
+    from repro_torch.models import layers as L
+    from repro_torch.models.biencoder import encode, init_biencoder
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = init_biencoder(CFG, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    tensor_params = sum(p.numel() for p in model.parameters())
+    emit("encoder", step="init", config=dataclasses.asdict(CFG),
+         param_count=CFG.param_count(), tensor_params=tensor_params, init_s=t_init)
+    if CFG.param_count() != 137_491_968:
+        raise AssertionError(f"encoder: param_count {CFG.param_count()}")
+
+    # (a) the card against the CPU on the same weights
+    seq = CFG.max_len
+    tok = pair_batch(7, 0, batch=ENCODE_PARITY_ROWS, seq_len=seq, vocab=CFG.vocab)["d_tokens"]
+    mask = torch.ones(tok.shape, dtype=torch.int32)
+    cpu_model = copy.deepcopy(model).cpu()
+    f32 = dataclasses.replace(CFG, compute_dtype="float32")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        got32 = encode(model.with_config(f32), tok, mask).cpu()
+        want32 = encode(cpu_model.with_config(f32), tok, mask)
+        got16 = encode(model, tok, mask).cpu()
+        want16 = encode(cpu_model, tok, mask)
+    t_cpu = time.perf_counter() - t0
+    del cpu_model
+    err32 = float((got32 - want32).abs().max())
+    err16 = float((got16 - want16).abs().max())
+    cos16 = float(((got16 * want16).sum(1) / got16.norm(dim=1) / want16.norm(dim=1)).min())
+    x = (torch.randn(1024, CFG.d_ff, generator=torch.Generator().manual_seed(1)) * 2).bfloat16()
+    ulps = bf16_ulps(L.gelu(x.to(dev)), L.gelu(x))
+    gelu_frac, gelu_max = float((ulps != 0).float().mean()), int(ulps.max())
+    emit("encoder", step="a_parity", rows=ENCODE_PARITY_ROWS, seq_len=seq,
+         f32_max_abs_err=err32, f32_tol=ENCODE_F32_TOL, bf16_max_abs_err=err16,
+         bf16_min_cos=cos16, bf16_cos_bar=ENCODE_BF16_COS, gelu_shape=list(x.shape),
+         gelu_frac_differ=gelu_frac, gelu_max_ulps=gelu_max, both_encodes_s=t_cpu)
+    if err32 > ENCODE_F32_TOL or cos16 < ENCODE_BF16_COS or gelu_max > 1:
+        raise AssertionError(f"encoder (a): f32 {err32}, bf16 cos {cos16}, gelu {gelu_max} ulps")
+    if not (torch.isfinite(got16).all() and got16.shape == (ENCODE_PARITY_ROWS, CFG.embed_dim)):
+        raise AssertionError("encoder (a): embeddings not finite or of the wrong shape")
+
+    # (b) times
+    cell = next(s for s in SHAPES if s.name == "encode_corpus").dims
+    nb, seq = cell["global_batch"], cell["seq_len"]
+    g = torch.Generator(device=dev).manual_seed(1)
+    corpus_tok = torch.randint(0, CFG.vocab, (nb, seq), generator=g, device=dev,
+                               dtype=torch.int32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    batch_ms = median_ms(lambda: encode_cli.encode_rows(model, corpus_tok, encode_batch))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bf, ff = encoder_flops(nb * seq, seq, CFG)
+    b_ms, b_by = bound(4 * tensor_params + 4 * nb * seq + 4 * nb * CFG.embed_dim, ff, bf)
+    queries = {}
+    for qs in (32, seq):
+        qt = torch.randint(0, CFG.vocab, (BATCH, qs), generator=g, device=dev,
+                           dtype=torch.int32)
+        qbf, qff = encoder_flops(BATCH * qs, qs, CFG)
+        queries[f"{BATCH}x{qs}"] = dict(
+            ms=median_ms(lambda: encode_cli.encode_rows(model, qt, BATCH), reps=5),
+            enqueue_ms=enqueue_ms(lambda: encode_cli.encode_rows(model, qt, BATCH), reps=5),
+            bound=bound(4 * tensor_params, qff, qbf))
+    emit("encoder", step="b_times", batch=[nb, seq], micro_batch=encode_batch,
+         batch_ms=batch_ms, tokens_per_s=nb * seq / batch_ms * 1e3, bound_ms=b_ms,
+         bound_by=b_by, bf16_flop=bf, f32_flop=ff, queries=queries,
+         peak_allocated_gb=peak_gb, allocated_before_gb=base_gb)
+    del corpus_tok
+
+    # (c) the path, through the entry point: the fit, the prune, the fused
+    # int8 build and the full and int8 searches; the f32 pruned index is
+    # built and searched beside it
+    args = encode_cli.parse_args([
+        "--full", "--seq-len", str(seq), "--n-docs", str(encode_docs),
+        "--n-queries", str(ENCODE_QUERIES), "--cutoff", str(CUTOFF), "--quantize-int8",
+        "--encode-batch", str(encode_batch), "--device", str(dev), "--json"])
+    t0 = time.perf_counter()
+    res = encode_cli.run(args, model=model)   # gram, pca_project(_quant), topk_score
+    index_int8 = res.index
+    index_f32 = DenseIndex.build(res.pruned)
+    qhat = res.pruner.transform_queries(res.Q)                # pca_project
+    s32, i32 = index_f32.search(qhat, k=K)                    # topk_score, f32
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    D, Q, n, d, m = res.D, res.Q, res.D.shape[0], res.D.shape[1], res.pruner.kept_dims
+    W = res.pruner.projection()[0].contiguous()
+    two_pass = quantize_int8_per_dim(res.pruned)
+    qd = (index_int8.vectors.int() - two_pass[0].int()).abs()
+    fused_frac, fused_max = float((qd != 0).float().mean()), int(qd.max())
+    del qd
+    mrr = {"full": res.mrr["full"], "pruned": encode_cli.mrr_at_10(i32),
+           "pruned_int8": res.mrr["pruned"]}
+    if not (torch.isfinite(D).all() and torch.isfinite(Q).all()):
+        raise AssertionError("encoder (c): embeddings not finite")
+    if not (index_int8.dtype == torch.int8 and torch.equal(index_int8.scale, two_pass[1])):
+        raise AssertionError("encoder (c): the int8 index is not under the two-pass scale")
+    if fused_max > 1 or fused_frac > 1e-3:
+        raise AssertionError(f"encoder (c): fused int8 build differs on {fused_frac}")
+    del two_pass
+
+    with counters.uncounted():
+        searched = {"full": (D, Q, None, res.results["full"]),
+                    "f32": (index_f32.vectors, qhat, None, (s32, i32)),
+                    "int8": (index_int8.vectors, qhat, index_int8.scale, res.results["pruned"])}
+        for name, (Dx, q, scale, got) in searched.items():
+            q = (q if scale is None else q * scale[None, :]).contiguous()
+            want = topk_score.topk_score_plain(Dx, q, k=K)
+            err, eq, near = compare_topk(*want, *got, f"encoder (c) {name}")
+            item, nq, mx = Dx.element_size(), q.shape[0], Dx.shape[1]
+            rows[f"topk_score_encoder_{name}"] = dict(
+                shape=[n, mx, nq, K], store="int8" if scale is not None else "f32",
+                max_abs_err=err, ids_equal=eq, near_ties=near,
+                ms=cuda_ms(lambda: topk_score.topk_score_cuda(Dx, q, k=K), reps=10),
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(Dx, q, k=K), reps=3),
+                library_ms=None,
+                matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ Dx.T, K), reps=3)
+                                if item == 4 else None),
+                bound=bound(item * n * mx + 4 * nq * mx + 8 * nq * K, 2 * nq * n * mx))
+        # gram held against the plain version's arithmetic in fp64, as in
+        # phase 4
+        G, Gp = gram.gram_cuda(D), gram.gram_plain(D)
+        D64 = D.double()
+        G64 = D64.T @ D64
+        del D64
+        g64 = float(G64.abs().max())
+        g_err = float((G.double() - G64).abs().max())
+        before = gram.gram_cuda.cuda_launches
+        gram.gram_cuda(D)
+        per_call = gram.gram_cuda.cuda_launches - before
+        rows["gram_encoder"] = dict(
+            shape=[n, d], max_abs_err=g_err, rel_err=g_err / g64,
+            plain_f32_rel_err_vs_f64=float((Gp.double() - G64).abs().max()) / g64,
+            rel_err_vs_plain_f32=float((G - Gp).abs().max() / Gp.abs().max()),
+            cuda_launches_per_call=per_call,
+            ms=cuda_ms(lambda: gram.gram_cuda(D), reps=10),
+            plain_ms=cuda_ms(lambda: gram.gram_plain(D), reps=10),
+            library_ms=cuda_ms(lambda: torch.matmul(D.T, D), reps=10),
+            bound=bound(4 * n * d + 4 * d * d, n * d * (d + 1)))
+        if g_err / g64 > GRAM_TOL:
+            raise AssertionError(f"encoder (c): gram relative error {g_err / g64} vs fp64")
+        p1 = pca_project.pca_project_cuda(D, W)
+        p_err = float((p1 - pca_project.pca_project_plain(D, W)).abs().max())
+        if not torch.equal(p1, res.pruned) or p_err > 1e-4:
+            raise AssertionError(f"encoder (c): pca_project error {p_err}")
+        rows["pca_project_encoder"] = dict(
+            shape=[n, d, m], max_abs_err=p_err,
+            ms=cuda_ms(lambda: pca_project.pca_project_cuda(D, W), reps=10),
+            plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(D, W), reps=10),
+            library_ms=cuda_ms(lambda: torch.matmul(D, W), reps=10),
+            bound=bound(4 * n * d + 4 * d * m + 4 * n * m, 2 * n * d * m))
+        sc = index_int8.scale
+        fused = pca_project.pca_project_quant_cuda(D, W, sc)
+        if not torch.equal(fused, index_int8.vectors):
+            raise AssertionError("encoder (c): the entry point's int8 rows are not the kernel's")
+        qd = (fused.int() - pca_project.pca_project_quant_plain(D, W, sc).int()).abs()
+        q_frac, q_max = float((qd != 0).float().mean()), int(qd.max())
+        if q_max > 1 or q_frac > 1e-3:
+            raise AssertionError(f"encoder (c): pca_project_quant: {q_frac} differ")
+        rows["pca_project_quant_encoder"] = dict(
+            shape=[n, d, m], max_abs_err=q_max, frac_differ=q_frac,
+            ms=cuda_ms(lambda: pca_project.pca_project_quant_cuda(D, W, sc), reps=10),
+            plain_ms=cuda_ms(lambda: pca_project.pca_project_quant_plain(D, W, sc), reps=10),
+            library_ms=None,
+            bound=bound(4 * n * d + 4 * d * m + 4 * m + n * m, 2 * n * d * m))
+        del G, Gp, G64, p1, qd, fused
+    emit("encoder", step="c_path", n_docs=n, n_queries=Q.shape[0], seq_len=seq, d=d, m=m,
+         path_s=t_path, **res.seconds, encode_tokens_per_s=n * seq / res.seconds["encode_s"],
+         mrr10=mrr, fused_vs_two_pass_frac_differ=fused_frac,
+         ids_vs_plain={k: {kk: rows[f"topk_score_encoder_{k}"][kk]
+                           for kk in ("ids_equal", "near_ties", "max_abs_err")}
+                       for k in ("full", "f32", "int8")},
+         eigenvalue_top3=res.pruner.state.eigenvalues[:3].tolist())
+    del res, D, Q, index_f32, index_int8, qhat
+
+    # (d) one layer at the micro-batch, op by op: each op is the layer's
+    # own call (layers.py) on the value the layer gives it, and their
+    # composition is held bitwise to the layer as encode runs it
+    lm = CFG.lm_cfg()
+    lp = model.layers[0]
+    H, dh, f = lm.n_heads, lm.hd, lm.d_ff
+    T = encode_batch * seq
+    xr = torch.randn(encode_batch, seq, lm.d_model, generator=g, device=dev).bfloat16()
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)
+
+    def layer():
+        h, _ = L.apply_attention(lp["attn"], L.apply_layernorm(lp["attn_norm"], xr), pos,
+                                 n_heads=H, n_kv_heads=H, head_dim=dh,
+                                 rope_theta=lm.rope_theta, mode="bidirectional")
+        y = xr + h
+        return y + L.apply_mlp(lp["mlp"], L.apply_layernorm(lp["mlp_norm"], y), act="gelu")
+
+    with torch.inference_mode():
+        xn = L.apply_layernorm(lp["attn_norm"], xr)
+        q0, k0, v = (L.apply_dense(lp["attn"][w], xn).reshape(encode_batch, seq, H, dh)
+                     for w in ("wq", "wk", "wv"))
+        cos, sin = L.rope_tables(pos, dh, lm.rope_theta)
+        q, k = (L.apply_rope(t, cos[None], sin[None]) for t in (q0, k0))
+        s_raw = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        s = s_raw / np.sqrt(dh)
+        p = torch.softmax(s, dim=-1)
+        p16 = p.to(v.dtype)
+        o = torch.einsum("bhqk,bkhd->bqhd", p16, v).reshape(encode_batch, seq, H * dh)
+        h = L.apply_dense(lp["attn"]["wo"], o)
+        y = xr + h
+        yn = L.apply_layernorm(lp["mlp_norm"], y)
+        h1 = L.apply_dense(lp["mlp"]["w1"], yn)
+        a = L.gelu(h1)
+        h3 = L.apply_dense(lp["mlp"]["w3"], yn)
+        ag = a * h3
+        mo = L.apply_dense(lp["mlp"]["w2"], ag)
+        if not (torch.equal(y + mo, layer()) and torch.equal(o, L.dense_attention(
+                q, k, v, pos, pos, "bidirectional", keys_padded=False).reshape(o.shape))):
+            raise AssertionError("encoder (d): the ops' composition is not the layer")
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_err = float((F.scaled_dot_product_attention(qs, ks, vs).transpose(1, 2)
+                          .reshape(o.shape).float() - o.float()).abs().max())
+        BHSS = encode_batch * H * seq * seq
+        wd, wf = 4 * lm.d_model * lm.d_model, 4 * lm.d_model * f   # f32 weights read
+        act, hid = 2 * T * lm.d_model, 2 * T * f                  # bf16 activations
+        table = [
+            # name, fn, bytes, f32 FLOP, bf16 FLOP
+            ("attn_norm (layer norm)", lambda: L.apply_layernorm(lp["attn_norm"], xr),
+             2 * act, 0, 0),
+            *[(f"{w} projection", lambda w=w: L.apply_dense(lp["attn"][w], xn),
+               2 * act + wd, 0, 2 * T * lm.d_model ** 2) for w in ("wq", "wk", "wv")],
+            *[(f"RoPE ({w})", lambda t=t: L.apply_rope(t, cos[None], sin[None]), 2 * act, 0, 0)
+              for w, t in (("q", q0), ("k", k0))],
+            ("QK^T (f32, with the upcasts)",
+             lambda: torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()),
+             2 * act + 4 * BHSS, 2 * BHSS * dh, 0),
+            ("scale (/ sqrt(dh))", lambda: s_raw / np.sqrt(dh), 8 * BHSS, 0, 0),
+            ("softmax (f32)", lambda: torch.softmax(s, dim=-1), 8 * BHSS, 0, 0),
+            ("cast p to bf16", lambda: p.to(v.dtype), 6 * BHSS, 0, 0),
+            ("PV (bf16)", lambda: torch.einsum("bhqk,bkhd->bqhd", p16, v),
+             2 * BHSS + 2 * act, 0, 2 * BHSS * dh),
+            ("attention (dense_attention, all of it)",
+             lambda: L.dense_attention(q, k, v, pos, pos, "bidirectional", keys_padded=False),
+             4 * act, 2 * BHSS * dh, 2 * BHSS * dh),
+            ("wo projection", lambda: L.apply_dense(lp["attn"]["wo"], o), 2 * act + wd, 0,
+             2 * T * lm.d_model ** 2),
+            ("residual add (attn)", lambda: xr + h, 3 * act, 0, 0),
+            ("mlp_norm (layer norm)", lambda: L.apply_layernorm(lp["mlp_norm"], y),
+             2 * act, 0, 0),
+            ("w1 product", lambda: L.apply_dense(lp["mlp"]["w1"], yn), act + wf + hid, 0,
+             2 * T * lm.d_model * f),
+            ("w3 product", lambda: L.apply_dense(lp["mlp"]["w3"], yn), act + wf + hid, 0,
+             2 * T * lm.d_model * f),
+            ("GELU (bf16)", lambda: L.gelu(h1), 2 * hid, 0, 0),
+            ("gate (a * w3 x)", lambda: a * h3, 3 * hid, 0, 0),
+            ("w2 product", lambda: L.apply_dense(lp["mlp"]["w2"], ag), hid + wf + act, 0,
+             2 * T * lm.d_model * f),
+            ("residual add (mlp)", lambda: y + mo, 3 * act, 0, 0),
+        ]
+        ops_rows = []
+        for name, fn, nbytes, f32_flop, bf16_flop in table:
+            b_ms, b_by = bound(nbytes, f32_flop, bf16_flop)
+            ops_rows.append(dict(op=name, ms=median_ms(fn), bound_ms=b_ms, bound_by=b_by))
+        sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs))
+        lbf, lff = encoder_flops(T, seq, dataclasses.replace(CFG, n_layers=1))
+        layer_ms = median_ms(layer)
+    emit("encoder", step="d_layer_ops", micro_batch=[encode_batch, seq], ops=ops_rows,
+         layer_ms=layer_ms, layer_bound_ms=bound(2 * act + wd + 3 * wf, lff, lbf)[0],
+         sum_of_ops_ms=sum(r["ms"] for r in ops_rows if not r["op"].startswith("attention (")),
+         sdpa_library_ms=sdpa_ms, sdpa_vs_dense_attention_max_abs_err=sdpa_err)
+    del xr, xn, q0, k0, q, k, v, s_raw, s, p, p16, o, h, y, yn, h1, a, h3, ag, mo, qs, ks, vs
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
                     help="main-path corpus rows (default: MS MARCO's)")
     ap.add_argument("--protocol-docs", type=int, default=PROTOCOL_DOCS,
                     help="corpus rows of the Table-1 protocol check")
+    ap.add_argument("--encode-docs", type=int, default=ENCODE_DOCS,
+                    help="passages the encoder phase encodes, fits, prunes and searches")
+    ap.add_argument("--encode-batch", type=int, default=ENCODE_BATCH,
+                    help="rows per encoder micro-batch")
     args = ap.parse_args()
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
@@ -3044,6 +3417,19 @@ def main():
     missing = [k for k in on_sharded if sharded_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the sharded path: {missing}")
+    # the encoder's path, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_encoder(counters, rows, args.encode_docs, args.encode_batch)
+    torch.cuda.synchronize()
+    encoder_launches = counters.read()
+    emit("encoder_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in encoder_launches.items() if v})
+    on_encoder = ("gram", "pca_project", "pca_project_quant", "topk_score_f32",
+                  "topk_score_int8")
+    missing = [k for k in on_encoder if encoder_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the encoder path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches
@@ -3156,6 +3542,24 @@ def main():
               "gram", sharded_launches,
               launches_of="every gram call of phase 12: one a strip of gram_distributed "
                           "and fit_pca_distributed"),
+        # the encoder's path (phase 13): the entry point's fit, prune, fused
+        # int8 build and searches over the encoded corpus, and the f32
+        # pruned search beside them (launches: every counted call of phase
+        # 13; the f32 count holds the full and the pruned searches)
+        entry("gram_encoder", rows["gram_encoder"], csrc + "gram.cu",
+              "src/repro/kernels/gram.py:41", "gram", encoder_launches),
+        entry("pca_project_encoder", rows["pca_project_encoder"], csrc + "pca_project.cu",
+              "src/repro/kernels/pca_project.py:56", "pca_project", encoder_launches,
+              launches_of="every pca_project call of phase 13: the prune and the two "
+                          "transform_queries"),
+        entry("pca_project_quant_encoder", rows["pca_project_quant_encoder"],
+              csrc + "pca_project.cu", "src/repro/kernels/pca_project.py:79",
+              "pca_project_quant", encoder_launches),
+        *[entry(f"topk_score_encoder_{name}", rows[f"topk_score_encoder_{name}"], topk[1],
+                topk[0], f"topk_score_{st}", encoder_launches,
+                launches_of=f"every {st} plain-mode call of phase 13"
+                + (": the full and the pruned searches" if st == "f32" else ""))
+          for name, st in (("full", "f32"), ("f32", "f32"), ("int8", "int8"))],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

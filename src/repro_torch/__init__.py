@@ -1,5 +1,5 @@
 """PyTorch/CUDA port of ``repro``: PCA static pruning for dense retrieval on
-one NVIDIA H100.
+one NVIDIA H100, and the bi-encoder that makes the embeddings.
 
 Module names follow ``repro`` so each counterpart is easy to find. The
 package imports neither ``jax`` nor ``repro``. Entry points run on the card

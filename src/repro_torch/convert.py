@@ -1,7 +1,8 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
 ``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
-``PagedIndexStorage`` fields, converted with ``np.asarray``) into the port's
-objects. ``load_pca`` reads ``repro``'s ``pca.npz`` directly."""
+``PagedIndexStorage`` fields, or a bi-encoder's parameter tree, converted
+with ``np.asarray``) into the port's objects. ``load_pca`` reads
+``repro``'s ``pca.npz`` directly."""
 from __future__ import annotations
 
 import numpy as np
@@ -11,6 +12,7 @@ from repro_torch.core.cascade import CascadeIndex
 from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
+from repro_torch.models.biencoder import BiEncoder, BiEncoderConfig
 from repro_torch.util import as_tensor
 
 
@@ -96,3 +98,28 @@ def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,
         free_tail=tuple(int(x) for x in free_tail), page_rows=int(page_rows),
         seal_rows=int(seal_rows))
     return PagedIndex(storage=st, depth=depth, wave_pages=wave_pages)
+
+
+def _tensor_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
+        return as_tensor(a.view(np.uint16).copy(), device).view(torch.bfloat16)
+    return as_tensor(np.array(a, copy=True), device)
+
+
+def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiEncoder:
+    """A port ``BiEncoder`` on ``device`` (default: the card) holding a
+    reference parameter tree: ``embed``, ``pos_embed``, ``final_norm``,
+    ``proj`` and ``layers``, whose every leaf is stacked on a leading
+    ``n_layers`` axis (the reference inits its layers under ``vmap``). The
+    layers come out unstacked, one module each; dtypes are kept."""
+    tree = _tensor_tree(params, device)
+
+    def layer(t, i):
+        return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+
+    stacked = tree.pop("layers")
+    tree["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
+    return BiEncoder(cfg, tree)

@@ -1,1 +1,2 @@
-"""Synthetic corpora (numpy copy of ``repro/data/synthetic.py``)."""
+"""Synthetic corpora and token pipelines (numpy copies of
+``repro/data/synthetic.py`` and ``repro/data/tokens.py``)."""

@@ -11,9 +11,12 @@ def set_fp32_policy() -> None:
     The port is held to the reference at rtol = atol = 1e-5 on scores and to
     equal ids. TF32 keeps about three decimal digits, enough to reorder
     near-ties, so cuBLAS matmuls and cuDNN convolutions may not use it.
+    A bf16 product (the encoder's) accumulates in fp32 to the end: cuBLAS
+    may not reduce split-K partial sums in bf16.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def default_device(device: str | torch.device | None = None) -> torch.device:

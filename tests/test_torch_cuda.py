@@ -1019,3 +1019,91 @@ def test_cuda_gram_distributed_equals_gram():
     torch.testing.assert_close(fit_pca_distributed(C, mesh).eigenvalues, lam,
                                rtol=0, atol=1e-5 * float(lam[0]))
     torch.cuda.synchronize()
+
+
+# the bars of chip_smoke.py phase 13 (a)
+ENCODE_F32_TOL = 1e-4       # max |card - CPU| of f32-compute embeddings
+ENCODE_BF16_COS = 0.999     # per-row cosine of bf16-compute embeddings
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Entry-wise distance of two bf16 tensors in bf16 ULPs (ordered bits)."""
+    def ordered(x):
+        i = x.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a.cpu()) - ordered(b.cpu())).abs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_encode_matches_cpu(compute_dtype):
+    """The example's small encoder on the card against the same weights on
+    the CPU: f32 compute within 1e-4, bf16 compute at cosine >= 0.999 on
+    every row (phase 13 (a)'s bars)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.data.tokens import pair_batch
+    from repro_torch.launch.encode import SMALL_CFG
+    from repro_torch.models.biencoder import encode, init_biencoder
+
+    cfg = dataclasses.replace(SMALL_CFG, compute_dtype=compute_dtype)
+    cpu = init_biencoder(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    card = init_biencoder(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    b = pair_batch(7, 0, batch=16, seq_len=cfg.max_len, vocab=cfg.vocab)
+    mask = np.ones_like(b["d_tokens"])
+    mask[:, 40:] = 0
+    with torch.inference_mode():
+        want = encode(cpu, b["d_tokens"], mask)
+        got = encode(card, b["d_tokens"], mask)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.shape == want.shape
+    got = got.cpu()
+    if compute_dtype == "float32":
+        assert float((got - want).abs().max()) <= ENCODE_F32_TOL
+    else:
+        cos = (got * want).sum(1) / got.norm(dim=1) / want.norm(dim=1)
+        assert float(cos.min()) >= ENCODE_BF16_COS
+
+
+@pytest.mark.gpu
+def test_cuda_gelu_matches_cpu():
+    """The bf16 GELU on the card within one bf16 ULP of the CPU's on every
+    entry (CUDA's and the CPU's f32 tanh may differ by an ULP, which can
+    move a bf16 rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models.layers import gelu
+
+    x = (torch.randn(1024, 3072, generator=torch.Generator().manual_seed(1)) * 2).bfloat16()
+    got = gelu(x.cuda())
+    assert got.dtype == torch.bfloat16
+    assert int(_bf16_ulps(got, gelu(x)).max()) <= 1
+
+
+@pytest.mark.gpu
+def test_cuda_encode_cli_launches_the_kernels(capsys):
+    """``launch.encode`` at a small size on the card: the fit, the prune, the
+    int8 build and the searches go through the gram, pca_project,
+    pca_project_quant and topk_score kernels, and the lines are the
+    example's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import gram, pca_project, topk_score
+    from repro_torch.launch import encode as encode_cli
+
+    before = (gram.gram_cuda.launches, pca_project.pca_project_cuda.launches,
+              dict(topk_score.topk_score_cuda.launches),
+              pca_project.pca_project_quant_cuda.launches)
+    res = encode_cli.main(["--n-docs", "2000", "--n-queries", "64", "--quantize-int8"])
+    torch.cuda.synchronize()
+    assert gram.gram_cuda.launches > before[0]
+    assert pca_project.pca_project_cuda.launches > before[1]
+    assert pca_project.pca_project_quant_cuda.launches > before[3]
+    for mode in ("f32", "int8"):
+        assert topk_score.topk_score_cuda.launches[mode] > before[2][mode]
+    assert res.D.device.type == "cuda" and res.index.dtype == torch.int8
+    out = capsys.readouterr().out
+    assert "[encode] corpus of 2000 docs" in out and "[serve] MRR@10 full=" in out
+    for _, ids in res.results.values():
+        assert ids.shape == (64, 10) and bool((ids >= 0).all())
