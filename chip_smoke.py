@@ -136,19 +136,33 @@ Phases, each printing one JSON line:
      pieces connect, not a quality claim); (d) one encoder layer at the
      micro-batch, op by op against each op's bound, the ops' composition
      bitwise the layer's, SDPA's time beside the attention (a yardstick
-     the port never calls).
+     the port never calls);
+ 14. the training half at the same width (bf16 compute, remat on, seq 128
+     as train_pairs): (a) one step's loss and gradients on 8 pairs x 32
+     tokens on the card and on the CPU, f32 and bf16 compute; (b) the step
+     at the largest power-of-two batch of train_pairs' 4,096 that fits,
+     chosen from the peaks at 128 and 256 pairs: forward, backward with its
+     recompute, optimizer, tokens/s, peak memory, against the bound; (c)
+     launch.train for 20 steps at 256 pairs, checkpoints every 10 under
+     build/train_smoke/, finite and descending; (d) the checkpoint's bytes,
+     its blocking host copy and background write beside a step, a bitwise
+     restore, and a resume at step 10 that gives the step-11 loss; (e)
+     launch.encode --full --steps 20 --batch 256 --seq-len 128
+     --quantize-int8 over 100,000 passages: trained, then encoded, fitted,
+     pruned and searched through the kernels, ids against the plain top-k.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
-sharded index) and 13 (the encoder) are counted the same way, each on its
-own. Launches made only to compare or time a kernel are not
+sharded index), 13 (the encoder) and 14 (the training half) are counted
+the same way, each on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
 """
 import argparse
 import contextlib
+import gc
 import json
 import os
 import re
@@ -207,6 +221,23 @@ ENCODE_PARITY_ROWS = 8      # phase 13(a): sequences encoded on the card and on 
 # on the CPU; f32 compute sums 12 layers in another order on each side
 ENCODE_F32_TOL = 1e-4       # max |card - CPU| of the unit-norm embeddings
 ENCODE_BF16_COS = 0.999     # per-row cosine, bf16 compute (products round to bf16)
+TRAIN_PARITY_PAIRS = 8      # phase 14(a): pairs of the card-against-CPU step ...
+TRAIN_PARITY_SEQ = 32       # ... and their tokens
+# phase 14(a) bars: f32 compute, loss and each gradient leaf within 1e-4 of
+# the CPU's (relative to the leaf's largest entry); bf16 compute, the loss
+# within 1e-2 relative and the flattened gradient at cosine >= 0.999
+TRAIN_F32_TOL = 1e-4
+TRAIN_BF16_LOSS_RTOL = 1e-2
+TRAIN_BF16_COS = 0.999
+TRAIN_PROBE_BATCHES = (128, 256)    # phase 14(b): pairs a step whose peaks predict the fit
+TRAIN_TIMED_STEPS = 3       # phase 14(b): timed steps at the batch that fits (median)
+TRAIN_RUN_BATCH = 256       # phase 14(c, d): pairs a step of the 20-step run
+TRAIN_RUN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+TRAINED_STEPS = 20          # phase 14(e): launch.encode --steps ...
+TRAINED_BATCH = 256         # ... --batch ...
+TRAINED_SEQ = 128           # ... --seq-len (train_pairs' sequence length)
+TRAINED_DOCS = 100_000      # ... --n-docs: the shapes of phase 13(c)'s kernel rows
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -3304,6 +3335,286 @@ def phase_encoder(counters, rows, encode_docs, encode_batch):
     torch.cuda.empty_cache()
 
 
+def train_flops(tokens, seq_len, cfg):
+    """(bf16 FLOP, f32 FLOP) of one training step over ``tokens`` tokens:
+    the forward (``encoder_flops``), its per-layer recompute, and the
+    backward at twice the forward; 6·P_layers·T + 2·P_layers·T in bf16 with
+    P·V, and Q·Kᵀ with its two gradients and its recompute in f32."""
+    bf, ff = encoder_flops(tokens, seq_len, cfg)
+    return 4 * bf, 4 * ff
+
+
+def phase_train(counters, rows, encode_batch):
+    """Phase 14: the bi-encoder's training half at the full width of
+    configs/biencoder_msmarco.CFG (bf16 compute, f32 parameters, remat on,
+    seq 128 as train_pairs). (a) One step's loss and gradients on 8 pairs
+    x 32 tokens on the card and on the CPU from the same seeded weights, f32
+    and bf16 compute; (b) the step at the largest power-of-two batch (of
+    train_pairs' 4,096) that the card holds, chosen from the peaks at 128
+    and 256 pairs and descending on an out-of-memory error: forward,
+    backward with its recompute (and a no-grad forward, the recompute's
+    share), optimizer, tokens/s, peak memory, against the bound; (c)
+    launch.train for 20 steps at 256 pairs, checkpoints every 10 under
+    build/train_smoke/: finite, descending; (d) the checkpoint: bytes, the
+    blocking host copy and the background write beside a step run during
+    it, a bitwise restore, and a resume at step 10 whose step-11 loss is
+    the uninterrupted run's; (e) launch.encode --full --steps 20 --batch 256
+    --seq-len 128 --quantize-int8 over 100,000 passages: train, encode,
+    fit (gram), prune (pca_project), int8 (pca_project_quant), search
+    (topk_score), ids against the plain top-k."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.biencoder_msmarco import CFG, SHAPES
+    from repro_torch.configs.steps import value_and_grad
+    from repro_torch.convert import checkpoint_tree, decay_mask
+    from repro_torch.data.tokens import pair_batch
+    from repro_torch.kernels import topk_score
+    from repro_torch.launch import encode as encode_cli, train as train_cli
+    from repro_torch.models.biencoder import contrastive_loss, init_biencoder
+    from repro_torch.optim import adamw_init, adamw_update
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cell = next(s for s in SHAPES if s.name == "train_pairs").dims
+    seq, cell_batch = cell["seq_len"], cell["global_batch"]
+
+    # (a) one step's loss and gradients, the card against the CPU
+    models = {d: init_biencoder(CFG, generator=torch.Generator().manual_seed(0), device=d)
+              .requires_grad_(True) for d in ("cpu", dev)}
+    b = pair_batch(0, 0, batch=TRAIN_PARITY_PAIRS, seq_len=TRAIN_PARITY_SEQ, vocab=CFG.vocab)
+    parity = {}
+    t0 = time.perf_counter()
+    for cd in ("float32", "bfloat16"):
+        c = dataclasses.replace(CFG, compute_dtype=cd)
+        (lc, gc_), (lg, gg) = (value_and_grad(contrastive_loss, m.with_config(c), b)
+                               for m in models.values())
+        leaf_err = {n: float((gg[n].cpu() - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                    for n, g in gc_.items()}
+        a = torch.cat([g.flatten() for g in gc_.values()]).double()
+        v = torch.cat([gg[n].cpu().flatten() for n in gc_]).double()
+        parity[cd] = dict(loss_card=float(lg), loss_cpu=float(lc),
+                          loss_rel_err=abs(float(lg) - float(lc)) / abs(float(lc)),
+                          grad_max_leaf_rel_err=max(leaf_err.values()),
+                          grad_worst_leaf=max(leaf_err, key=leaf_err.get),
+                          grad_cos=float(a @ v / a.norm() / v.norm()))
+        del gc_, gg, a, v
+    emit("train", step="a_parity", pairs=TRAIN_PARITY_PAIRS, seq_len=TRAIN_PARITY_SEQ,
+         f32_tol=TRAIN_F32_TOL, bf16_loss_rtol=TRAIN_BF16_LOSS_RTOL, bf16_cos_bar=TRAIN_BF16_COS,
+         seconds=time.perf_counter() - t0, **parity)
+    f32, b16 = parity["float32"], parity["bfloat16"]
+    if (f32["loss_rel_err"] > TRAIN_F32_TOL or f32["grad_max_leaf_rel_err"] > TRAIN_F32_TOL
+            or b16["loss_rel_err"] > TRAIN_BF16_LOSS_RTOL or b16["grad_cos"] < TRAIN_BF16_COS):
+        raise AssertionError(f"train (a): card against CPU {parity}")
+    model = models[dev]
+    del models
+
+    # (b) the step at the largest power-of-two batch the card holds
+    named = dict(model.named_parameters())
+    opt = adamw_init(named, decay_mask(named))
+    lr = torch.tensor(1e-4)
+    n_params = sum(p.numel() for p in named.values())
+
+    def batch_of(n_pairs, t=0):
+        return {k: torch.from_numpy(x).to(dev)
+                for k, x in pair_batch(0, t, batch=n_pairs, seq_len=seq, vocab=CFG.vocab).items()}
+
+    def one_step(bt):
+        loss, grads = value_and_grad(contrastive_loss, model, bt)
+        adamw_update(grads, opt, named, lr)
+        return loss
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    probes = {}
+    for nb in TRAIN_PROBE_BATCHES:
+        bt = batch_of(nb)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one_step(bt)
+        torch.cuda.synchronize()
+        probes[nb] = torch.cuda.max_memory_allocated()
+        del bt
+    (b0, p0), (b1, p1) = sorted(probes.items())
+    per_pair = (p1 - p0) / (b1 - b0)
+    predict = {nb: p0 + per_pair * (nb - b0) for nb in (cell_batch, cell_batch // 2,
+                                                         cell_batch // 4, cell_batch // 8)}
+    tries, fits = [], None
+    for nb in sorted(predict, reverse=True):
+        if predict[nb] > total:
+            tries.append(dict(batch=nb, predicted_peak_gb=predict[nb] / 1e9, tried=False))
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            bt = batch_of(nb)
+            one_step(bt)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            tries.append(dict(batch=nb, predicted_peak_gb=predict[nb] / 1e9, tried=True,
+                              oom=str(e).splitlines()[0][:160],
+                              peak_at_oom_gb=torch.cuda.max_memory_allocated() / 1e9))
+            bt = None
+            continue
+        tries.append(dict(batch=nb, predicted_peak_gb=predict[nb] / 1e9, tried=True,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        fits = nb
+        break
+    if fits is None:
+        raise AssertionError(f"train (b): no batch of {sorted(predict)} fits: {tries}")
+    torch.cuda.reset_peak_memory_stats()
+    parts = {"forward": [], "backward": [], "optimizer": [], "no_grad_forward": []}
+    for _ in range(TRAIN_TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        with torch.enable_grad():
+            loss = contrastive_loss(model, bt)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(named.values()))
+        ev[2].record()
+        adamw_update(dict(zip(named, grads)), opt, named, lr)
+        ev[3].record()
+        del grads, loss
+        with torch.no_grad():
+            contrastive_loss(model, bt)
+        ev[4].record()
+        ev[4].synchronize()
+        for i, k in enumerate(("forward", "backward", "optimizer", "no_grad_forward")):
+            parts[k].append(ev[i].elapsed_time(ev[i + 1]))
+    peak = torch.cuda.max_memory_allocated()
+    med = {k: sorted(v)[len(v) // 2] for k, v in parts.items()}
+    step_ms = med["forward"] + med["backward"] + med["optimizer"]
+    tokens = 2 * fits * seq
+    bf, ff = train_flops(tokens, seq, CFG)
+    fb, fs = encoder_flops(tokens, seq, CFG)
+    bounds = {
+        "step": bound(4 * 7 * n_params, ff, bf),
+        "forward": bound(4 * n_params, fs, fb),
+        "backward": bound(4 * 2 * n_params, 3 * fs, 3 * fb),     # recompute + 2x forward
+        "recompute": bound(4 * n_params, fs, fb),
+        "optimizer": bound(4 * 7 * n_params, 0),    # p, g, mu, nu read; p, mu, nu written
+    }
+    emit("train", step="b_step", batch=fits, seq_len=seq, cell_batch=cell_batch,
+         tokens=tokens, probe_peak_gb={str(k): v / 1e9 for k, v in probes.items()},
+         per_pair_gb=per_pair / 1e9, card_memory_gb=total / 1e9, tries=tries,
+         ms={k: med[k] for k in ("forward", "backward", "optimizer")},
+         recompute_ms_est=med["no_grad_forward"], step_ms=step_ms,
+         tokens_per_s=tokens / step_ms * 1e3, peak_allocated_gb=peak / 1e9,
+         bound_ms={k: v[0] for k, v in bounds.items()},
+         bound_by={k: v[1] for k, v in bounds.items()}, bf16_flop=bf, f32_flop=ff,
+         timed_steps=TRAIN_TIMED_STEPS, all_ms=parts)
+    del bt, model, named, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) launch.train: 20 steps at full width, checkpoints every 10
+    root = os.path.join(HERE, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "ck")
+    run = dict(steps=TRAIN_RUN_STEPS, smoke=False, ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY,
+               seed=0, batch=TRAIN_RUN_BATCH, device=dev, log_every=TRAIN_CKPT_EVERY)
+    t0 = time.perf_counter()
+    out = train_cli.train("biencoder-msmarco", resume="none", **run)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    losses = out["losses"]
+    emit("train", step="c_steps", batch=TRAIN_RUN_BATCH, seq_len=seq, steps=out["steps_run"],
+         seconds=t_run, first_loss=losses[0], last_loss=losses[-1], losses=losses)
+    if not (len(losses) == TRAIN_RUN_STEPS and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train (c): losses not finite and descending: {losses}")
+
+    # (d) the checkpoint: a bitwise restore of step 20, a timed save with a
+    # step run during its write, and a resume at step 10
+    model, opt = out["model"], out["opt_state"]
+    mgr = CheckpointManager(ckpt)
+    tree = checkpoint_tree(model, opt)
+    back, at = mgr.restore(tree)
+    leaves = lambda t: [x for v in t for x in _tree_leaves(v)]
+    bitwise = all(torch.equal(x, y) for x, y in zip(leaves(tree), leaves(back)))
+    step_dir = os.path.join(ckpt, f"step_{at:010d}")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    del back
+    timed = CheckpointManager(os.path.join(root, "timed"), keep_n=1)
+    bt = batch_of(TRAIN_RUN_BATCH, TRAIN_RUN_STEPS)
+    named = dict(model.named_parameters())
+    step_times = []
+    del tree
+    for during in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if during:
+            timed.save(at + 1, checkpoint_tree(model, opt))
+            t_copy = time.perf_counter() - t0
+        loss, grads = value_and_grad(contrastive_loss, model, bt)
+        adamw_update(grads, opt, named, lr)
+        float(loss)
+        step_times.append(time.perf_counter() - t0)
+        del grads
+    writing_after_step = any(t.is_alive() for t in timed._pending)
+    timed.wait()
+    t_save = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(ckpt, f"step_{at:010d}"))       # leaves step 10 the latest
+    res_out = train_cli.train("biencoder-msmarco", resume="auto",
+                              **{**run, "steps": 1, "log_every": 0})
+    resumed = res_out["losses"][0]
+    emit("train", step="d_checkpoint", step_restored=at, bytes=nbytes, restore_bitwise=bitwise,
+         save_host_copy_s=t_copy, save_total_s=t_save, step_s_alone=step_times[0],
+         step_s_with_save=step_times[1] - t_copy, save_still_writing_after_step=writing_after_step,
+         resumed_at=TRAIN_CKPT_EVERY, resumed_loss=resumed,
+         uninterrupted_loss=losses[TRAIN_CKPT_EVERY],
+         resumed_rel_err=abs(resumed - losses[TRAIN_CKPT_EVERY]) / abs(losses[TRAIN_CKPT_EVERY]))
+    if not bitwise or abs(resumed - losses[TRAIN_CKPT_EVERY]) > 1e-5 * abs(resumed):
+        raise AssertionError(f"train (d): restore bitwise {bitwise}, resumed loss {resumed} "
+                             f"against {losses[TRAIN_CKPT_EVERY]}")
+    del out, res_out, model, opt, bt, named
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the entry point: train, then encode, fit, prune, build int8, search
+    args = encode_cli.parse_args([
+        "--full", "--steps", str(TRAINED_STEPS), "--batch", str(TRAINED_BATCH),
+        "--seq-len", str(TRAINED_SEQ), "--n-docs", str(TRAINED_DOCS),
+        "--n-queries", str(ENCODE_QUERIES), "--cutoff", str(CUTOFF), "--quantize-int8",
+        "--encode-batch", str(encode_batch), "--device", str(dev), "--json"])
+    t0 = time.perf_counter()
+    res = encode_cli.run(args)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    ids_vs_plain = {}
+    with counters.uncounted():
+        qhat = res.pruner.transform_queries(res.Q)
+        for name, (Dx, q, scale) in {"full": (res.D, res.Q, None),
+                                     "int8": (res.index.vectors, qhat, res.index.scale)}.items():
+            q = (q if scale is None else q * scale[None, :]).contiguous()
+            want = topk_score.topk_score_plain(Dx, q, k=K)
+            got = res.results["full" if name == "full" else "pruned"]
+            err, eq, near = compare_topk(*want, *got, f"train (e) {name}")
+            ids_vs_plain[name] = dict(ids_equal=eq, near_ties=near, max_abs_err=err)
+    if not (torch.isfinite(res.D).all() and torch.isfinite(res.Q).all()
+            and all(np.isfinite(res.losses)) and len(res.losses) == TRAINED_STEPS):
+        raise AssertionError("train (e): losses or embeddings not finite")
+    emit("train", step="e_trained_path", steps=TRAINED_STEPS, batch=TRAINED_BATCH,
+         seq_len=TRAINED_SEQ, n_docs=res.D.shape[0], n_queries=res.Q.shape[0],
+         m=res.pruner.kept_dims, index_dtype=str(res.index.dtype), path_s=t_path,
+         **res.seconds, first_loss=res.losses[0], last_loss=res.losses[-1], mrr10=res.mrr,
+         ids_vs_plain=ids_vs_plain)
+    del res, qhat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    return [tree]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-docs", type=int, default=N_DOCS,
@@ -3417,6 +3728,11 @@ def main():
     missing = [k for k in on_sharded if sharded_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the sharded path: {missing}")
+    # the indexes of phases 4-12 are not needed past them: the encoder and
+    # the trainer get the card
+    del index_f32, index_int8, pruner, Q, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
     # the encoder's path, counted on its own
     counters.zero()
     t0 = time.perf_counter()
@@ -3430,6 +3746,18 @@ def main():
     missing = [k for k in on_encoder if encoder_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the encoder path: {missing}")
+    # the training half, counted on its own: its trained encode -> fit ->
+    # prune -> search launches the kernels
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_train(counters, rows, args.encode_batch)
+    torch.cuda.synchronize()
+    train_launches = counters.read()
+    emit("train_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in train_launches.items() if v})
+    missing = [k for k in on_encoder if train_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the training path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches

@@ -1,3 +1,3 @@
 """Architecture configs of the port (copies of ``repro/configs``): the shape
-cells and the bi-encoder's config. The registry waits for the model zoo,
-since it imports every family."""
+cells, the bi-encoder's config and its training step. The registry waits
+for the model zoo, since it imports every family."""

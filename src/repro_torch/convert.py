@@ -1,9 +1,12 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
 ``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
-``PagedIndexStorage`` fields, or a bi-encoder's parameter tree, converted
-with ``np.asarray``) into the port's objects. ``load_pca`` reads
-``repro``'s ``pca.npz`` directly."""
+``PagedIndexStorage`` fields, or a bi-encoder's parameter tree and its AdamW
+state, converted with ``np.asarray``) into the port's objects, and a
+bi-encoder and its AdamW state back into the reference's trees.
+``load_pca`` reads ``repro``'s ``pca.npz`` directly."""
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -123,3 +126,132 @@ def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiE
     stacked = tree.pop("layers")
     tree["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
     return BiEncoder(cfg, tree)
+
+
+# ---------------------------------------------------------------------------
+# the reference's stacked layer tree <-> the port's named tensors
+# ---------------------------------------------------------------------------
+
+
+def _put(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _stacked(name: str) -> bool:
+    """Whether the parameter ``name`` is one layer's slice of a leaf that the
+    reference stacks over its layers."""
+    return name.split(".")[0] == "layers"
+
+
+def decay_mask(named: Mapping[str, torch.Tensor]) -> dict[str, bool]:
+    """The reference's AdamW decay mask (a leaf with ndim >= 2) by the port's
+    names, for ``optim.adamw_init``: a stacked leaf has one dimension more
+    than its ``layers.<i>.…`` tensor, so every per-layer tensor decays (the
+    layer norms' ``(d,)`` scales and biases too) and ``final_norm`` does
+    not."""
+    return {n: t.ndim + _stacked(n) >= 2 for n, t in named.items()}
+
+
+def stack_layers(named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors named as ``named_parameters()`` names them, as the
+    reference's tree: nested dicts, with each ``layers.<i>.<path>`` tensor
+    stacked over i (on its device) into the leaf ``layers/<path>``."""
+    tree, per_layer = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if _stacked(name):
+            per_layer.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        else:
+            _put(tree, parts, t)
+    for path, by_layer in per_layer.items():
+        _put(tree, ("layers", *path), torch.stack([by_layer[i] for i in range(len(by_layer))]))
+    return tree
+
+
+def unstack_layers(tree: Mapping) -> dict:
+    """The inverse of ``stack_layers``: a reference tree's leaves by the
+    port's names, each ``layers/<path>`` leaf split on its leading axis
+    into ``layers.<i>.<path>`` (views, not copies)."""
+    out = {}
+    for path, v in _leaves(tree):
+        if path[0] == "layers":
+            for i in range(v.shape[0]):
+                out[".".join(("layers", str(i), *path[1:]))] = v[i]
+        else:
+            out[".".join(path)] = v
+    return out
+
+
+def _numpy_tree(tree):
+    """Tensors as numpy copies; bf16 widens to f32, exactly (numpy has no bf16)."""
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).to("cpu", copy=True).numpy()
+
+
+def biencoder_to_numpy(model: BiEncoder) -> dict:
+    """The model's parameters as the reference's tree of numpy arrays
+    (layers stacked on a leading axis): the inverse of
+    ``biencoder_from_numpy`` (bf16 parameters come back as their f32
+    values)."""
+    return _numpy_tree(stack_layers(dict(model.named_parameters())))
+
+
+def adamw_state_tree(state: Mapping) -> dict:
+    """An ``optim.adamw`` state as the reference's ``adamw_init`` tree of
+    tensors: ``mu`` and ``nu`` stacked as the parameters are, and ``step``."""
+    return {"mu": stack_layers(state["mu"]), "nu": stack_layers(state["nu"]),
+            "step": state["step"]}
+
+
+def adamw_state_to_numpy(state: Mapping) -> dict:
+    """``adamw_state_tree`` as numpy arrays (``step`` a 0-d int32 array)."""
+    return _numpy_tree(adamw_state_tree(state))
+
+
+def adamw_state_from_numpy(tree: Mapping, device=None) -> dict:
+    """A reference AdamW state (``mu``, ``nu`` stacked trees, ``step``) as
+    the port's, on ``device`` (default: the card); each moment a fresh
+    contiguous f32 tensor named as the model's parameters are, and the
+    reference's decay mask."""
+    def moments(t):
+        return {n: as_tensor(np.array(v, dtype=np.float32, copy=True), device)
+                for n, v in unstack_layers(t).items()}
+
+    mu = moments(tree["mu"])
+    return {"mu": mu, "nu": moments(tree["nu"]),
+            "step": as_tensor(np.asarray(tree["step"], dtype=np.int32).reshape(()), device),
+            "decay": decay_mask(mu)}
+
+
+@torch.no_grad()
+def checkpoint_tree(model: BiEncoder, opt_state: Mapping) -> tuple[dict, dict]:
+    """``(params, opt_state)`` as the reference checkpoints them: its trees,
+    layers stacked, as tensors on the model's device."""
+    return stack_layers(dict(model.named_parameters())), adamw_state_tree(opt_state)
+
+
+@torch.no_grad()
+def restore_into(model: BiEncoder, opt_state: dict, tree: tuple[dict, dict]) -> None:
+    """Copy a ``checkpoint_tree``-shaped tree into the model's parameters
+    and the optimizer state, in place."""
+    params, opt = tree
+    named = dict(model.named_parameters())
+    for name, t in unstack_layers(params).items():
+        named[name].copy_(t)
+    for key in ("mu", "nu"):
+        for name, t in unstack_layers(opt[key]).items():
+            opt_state[key][name].copy_(t)
+    opt_state["step"] = opt["step"].to(torch.int32)
+

@@ -1,24 +1,32 @@
-"""Encode -> prune -> serve entry point: the bi-encoder encodes a corpus and
-its queries, a PCA pruner is fitted on the encoded corpus, the corpus is
-pruned into a ``DenseIndex`` and searched (port of the encode, prune and
-serve half of ``examples/train_biencoder.py``).
+"""Train -> encode -> prune -> serve entry point (port of
+``examples/train_biencoder.py``): with ``--steps N`` the bi-encoder is
+first trained for N steps as the example trains it, then it encodes a
+corpus and its queries, a PCA pruner is fitted on the encoded corpus, and
+the corpus is pruned into a ``DenseIndex`` and searched.
 
-Tokens are the example's synthetic query/document pairs
+Training is the example's loop: in-batch-negative contrastive loss on
+``pair_batch(0, t, batch=--batch, seq_len=--seq-len)``, AdamW at
+``warmup_cosine(3e-4, N // 10, N)``, a ``[train]`` line every 25 steps and,
+under ``--ckpt-dir``, a checkpoint every 100 steps (the last 2 kept); a
+run whose ``--ckpt-dir`` holds a checkpoint resumes from its latest step.
+With ``--steps 0`` (the default) the weights are the seeded random init
+(``--seed``; the same seed gives the same weights on the CPU and the card).
+
+Corpus tokens are the example's synthetic query/document pairs
 (``pair_batch(7, i, batch=64, …)``); query i's relevant document is
-document i. The weights are a seeded random init (``--seed``; the same
-seed gives the same weights on the CPU and the card): the training half
-comes with the trainer. The encoder runs in micro-batches of
+document i. The encoder runs in micro-batches of
 ``--encode-batch`` rows under ``torch.inference_mode()``; the fit (``gram``
 kernel), the prune (``pca_project``), the int8 build under
 ``--quantize-int8`` (``pca_project_quant``) and the searches
 (``topk_score``) run on the card's hand-written kernels.
 
-Prints the example's ``[encode]``, ``[prune]`` and ``[serve] MRR@10
-full=… pruned=…`` lines; ``--json`` adds one JSON line with each stage's
-seconds.
+Prints the example's ``[train]``, ``[encode]``, ``[prune]`` and ``[serve]
+MRR@10 full=… pruned=…`` lines; ``--json`` adds one JSON line with each
+stage's seconds.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.encode --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.encode --device cpu --steps 200
   PYTHONPATH=src python -m repro_torch.launch.encode --full --seq-len 256 \\
       --n-docs 100000 --n-queries 1000 --quantize-int8 --json
 """
@@ -32,14 +40,19 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import biencoder_msmarco
+from repro_torch.configs.steps import make_train_step
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.metrics import evaluate_run, mean_metrics
 from repro_torch.core.pruning import StaticPruner
 from repro_torch.core.quantization import scale_from_absmax
 from repro_torch.data.tokens import pair_batch
 from repro_torch.kernels import ops
-from repro_torch.models.biencoder import BiEncoder, BiEncoderConfig, encode, init_biencoder
+from repro_torch.launch.train import resume_latest, train_loop
+from repro_torch.models.biencoder import (BiEncoder, BiEncoderConfig, contrastive_loss, encode,
+                                          init_biencoder)
+from repro_torch.optim import warmup_cosine
 from repro_torch.util import as_tensor, default_device
 
 # the example's reduced config (examples/train_biencoder.py, without --full)
@@ -48,6 +61,36 @@ SMALL_CFG = BiEncoderConfig(n_layers=4, d_model=128, n_heads=4, d_ff=512,
                             compute_dtype="float32", remat=False)
 PAIR_SEED = 7       # the example's corpus seed
 PAIR_BATCH = 64     # ... and its batch of pairs
+TRAIN_SEED = 0      # the example's training pairs: pair_batch(0, t, ...)
+BASE_LR = 3e-4      # warmup_cosine(3e-4, steps // 10, steps)
+LOG_EVERY = 25
+CKPT_EVERY = 100
+CKPT_KEEP = 2
+
+
+def train_encoder(model: BiEncoder, steps: int, batch: int, seq_len: int,
+                  ckpt_dir: str | None = None) -> list[float]:
+    """The example's training loop, in place on ``model``: ``steps`` AdamW
+    steps of contrastive loss on ``pair_batch(0, t, …)``, lr
+    ``warmup_cosine(3e-4, steps // 10, steps)(t)``; under ``ckpt_dir`` a
+    checkpoint every 100 steps (2 kept), and a resume from its latest one.
+    Returns the losses of the steps run; leaves the parameters' gradients
+    off."""
+    if steps <= 0:
+        return []
+    model.requires_grad_(True)
+    step_fn, opt_init = make_train_step(contrastive_loss,
+                                        lr=warmup_cosine(BASE_LR, steps // 10, steps))
+    opt = opt_init(model)
+    mgr = CheckpointManager(ckpt_dir, keep_n=CKPT_KEEP) if ckpt_dir else None
+    start = resume_latest(mgr, model, opt)
+    losses = train_loop(model, opt, step_fn,
+                        lambda t: pair_batch(TRAIN_SEED, t, batch=batch, seq_len=seq_len,
+                                             vocab=model.cfg.vocab),
+                        start=start, stop=steps, mgr=mgr, ckpt_every=CKPT_EVERY,
+                        log_every=LOG_EVERY)
+    model.requires_grad_(False)
+    return losses
 
 
 def pair_tokens(n_docs: int, n_queries: int, seq_len: int, vocab: int
@@ -101,10 +144,12 @@ def mrr_at_10(ids: torch.Tensor) -> float:
 
 @dataclasses.dataclass
 class EncodeRun:
-    """What one run built: the model, the encoded corpus ``D`` and queries
-    ``Q``, the fitted pruner, the pruned rows and their index, each search's
-    (scores, ids), MRR@10 and each stage's seconds."""
+    """What one run built: the model, its training losses, the encoded
+    corpus ``D`` and queries ``Q``, the fitted pruner, the pruned rows and
+    their index, each search's (scores, ids), MRR@10 and each stage's
+    seconds."""
     model: BiEncoder
+    losses: list
     D: torch.Tensor
     Q: torch.Tensor
     pruner: StaticPruner
@@ -117,6 +162,11 @@ class EncodeRun:
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=0,
+                    help="training steps before encoding (default 0: the seeded init)")
+    ap.add_argument("--batch", type=int, default=32, help="pairs a training step")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint the training here every 100 steps, and resume from it")
     ap.add_argument("--full", action="store_true",
                     help="the BERT-base-width config (configs/biencoder_msmarco.py); "
                          "default: the example's reduced config")
@@ -138,8 +188,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 
 def run(args: argparse.Namespace, model: BiEncoder | None = None) -> EncodeRun:
-    """Encode, fit, prune, build and search as ``args`` say, printing the
-    example's lines. ``model`` replaces the seeded init (its config is used)."""
+    """Train, encode, fit, prune, build and search as ``args`` say, printing
+    the example's lines. ``model`` replaces the seeded init (its config is
+    used; ``--steps`` trains it in place)."""
     dev = default_device(args.device)
 
     def sync():
@@ -152,9 +203,13 @@ def run(args: argparse.Namespace, model: BiEncoder | None = None) -> EncodeRun:
                                device=dev)
     cfg = model.cfg
     print(f"[biencoder] {cfg.param_count()/1e6:.1f}M params")
+    secs = {}
+    t0 = time.perf_counter()
+    losses = train_encoder(model, args.steps, args.batch, args.seq_len, args.ckpt_dir)
+    sync()
+    secs["train_s"] = time.perf_counter() - t0
     d_tok, q_tok = pair_tokens(args.n_docs, args.n_queries, args.seq_len, cfg.vocab)
     print(f"[encode] corpus of {args.n_docs} docs")
-    secs = {}
     t0 = time.perf_counter()
     D = encode_rows(model, d_tok, args.encode_batch)
     Q = encode_rows(model, q_tok, args.encode_batch)
@@ -188,10 +243,11 @@ def run(args: argparse.Namespace, model: BiEncoder | None = None) -> EncodeRun:
         print(json.dumps({"device": str(dev), "config": cfg.name,
                           "param_count": cfg.param_count(), "n_docs": args.n_docs,
                           "n_queries": args.n_queries, "seq_len": args.seq_len,
+                          "train_steps": len(losses), "final_loss": losses[-1] if losses else None,
                           "kept_dims": pruner.kept_dims, "index_dtype": str(index.dtype),
                           **{f"mrr10_{k}": v for k, v in mrr.items()}, **secs}))
-    return EncodeRun(model=model, D=D, Q=Q, pruner=pruner, pruned=pruned, index=index,
-                     results=results, mrr=mrr, seconds=secs)
+    return EncodeRun(model=model, losses=losses, D=D, Q=Q, pruner=pruner, pruned=pruned,
+                     index=index, results=results, mrr=mrr, seconds=secs)
 
 
 def main(argv: list[str] | None = None) -> EncodeRun:

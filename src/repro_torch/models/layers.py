@@ -5,7 +5,8 @@ Conventions, as in the reference:
     leaves under ``nn.ModuleDict`` nodes, so a model holds them as modules
     and its ``state_dict`` keys follow the reference's tree. Init fns take
     an explicit ``torch.Generator`` and draw on its device. Parameters are
-    made with ``requires_grad=False``: this is the inference forward
+    made with ``requires_grad=False``; a trainer turns their gradients on
+    (``module.requires_grad_(True)``)
   * weights are (d_in, d_out) and applied as ``x @ w``, so a reference
     tree carries across without a transpose
   * ``compute_dtype`` casts happen at apply time; parameters keep their
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    """``t`` as a parameter without gradients; a parameter passes through."""
+    """``t`` as a parameter without gradients; a parameter passes through
+    (and keeps its ``requires_grad``)."""
     return t if isinstance(t, nn.Parameter) else nn.Parameter(t, requires_grad=False)
 
 

@@ -105,19 +105,9 @@ def _inputs(seed, shape, dt):
 
 def _jax_tree(model: B.BiEncoder) -> dict:
     """The port model's parameters as the reference's tree (layers stacked
-    on a leading axis), as JAX arrays."""
-    def arr(t):
-        return jnp.asarray(t.detach().float().numpy()).astype(
-            jnp.bfloat16 if t.dtype == torch.bfloat16 else jnp.float32)
-
-    def tree(m):
-        return {k: tree(v) if isinstance(v, torch.nn.Module) else arr(v)
-                for k, v in (m.items() if hasattr(m, "items") else m)}
-
-    layers = [tree(lp) for lp in model.layers]
-    return {"embed": arr(model.embed), "pos_embed": arr(model.pos_embed),
-            "layers": jax.tree.map(lambda *xs: jnp.stack(xs), *layers),
-            "final_norm": tree(model.final_norm), "proj": tree(model.proj)}
+    on a leading axis), as JAX arrays in the model's parameter dtype."""
+    jdt = jnp.bfloat16 if model.cfg.param_dtype == "bfloat16" else jnp.float32
+    return jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), convert.biencoder_to_numpy(model))
 
 
 def _cos_rows(a, b):

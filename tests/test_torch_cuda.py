@@ -5,6 +5,8 @@ a machine without it:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1107,3 +1109,90 @@ def test_cuda_encode_cli_launches_the_kernels(capsys):
     assert "[encode] corpus of 2000 docs" in out and "[serve] MRR@10 full=" in out
     for _, ids in res.results.values():
         assert ids.shape == (64, 10) and bool((ids >= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_train_step_matches_cpu(compute_dtype):
+    """The smoke config (remat on) on the card against the same weights and
+    batch on the CPU: the loss and gradients at the init, then one train
+    step each. f32: losses at rtol 1e-4, each gradient leaf within 1e-4 of
+    its largest entry; bf16: losses at rtol 1e-2, the flattened gradient at
+    cosine >= 0.999 (phase 14 (a)'s bars)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs import biencoder_msmarco
+    from repro_torch.configs.steps import make_train_step, value_and_grad
+    from repro_torch.data.tokens import pair_batch
+    from repro_torch.models.biencoder import contrastive_loss, init_biencoder
+
+    cfg = dataclasses.replace(biencoder_msmarco.smoke_cfg(), remat=True,
+                              compute_dtype=compute_dtype)
+    models = [init_biencoder(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+              .requires_grad_(True) for dev in ("cpu", "cuda")]
+    b = pair_batch(0, 0, batch=8, seq_len=16, vocab=cfg.vocab)
+    (l_cpu, g_cpu), (l_card, g_card) = (value_and_grad(contrastive_loss, m, b) for m in models)
+    step, opt_init = make_train_step(contrastive_loss)
+    opts = [opt_init(m) for m in models]
+    stepped = [float(step(m, o, b)["loss"]) for m, o in zip(models, opts)]
+    torch.cuda.synchronize()
+    assert l_card.device.type == "cuda" and int(opts[1]["step"]) == 1
+    rtol = 1e-4 if compute_dtype == "float32" else 1e-2
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=rtol)
+    np.testing.assert_allclose(stepped[1], stepped[0], rtol=rtol)
+    if compute_dtype == "float32":
+        for n, g in g_cpu.items():
+            assert float((g_card[n].cpu() - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+    else:
+        a = torch.cat([g.flatten() for g in g_cpu.values()])
+        c = torch.cat([g_card[n].cpu().flatten() for n in g_cpu])
+        assert float(a @ c / a.norm() / c.norm()) >= 0.999
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip(tmp_path):
+    """A checkpoint of card tensors (a trained model and its AdamW state)
+    restores bitwise onto the card, and its files are the same bytes as the
+    CPU copy's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import CheckpointManager, save_pytree
+    from repro_torch.configs import biencoder_msmarco
+    from repro_torch.configs.steps import make_train_step
+    from repro_torch.data.tokens import pair_batch
+    from repro_torch.convert import checkpoint_tree
+    from repro_torch.models.biencoder import contrastive_loss, init_biencoder
+
+    cfg = biencoder_msmarco.smoke_cfg()
+    model = init_biencoder(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cuda").requires_grad_(True)
+    step, opt_init = make_train_step(contrastive_loss)
+    opt = opt_init(model)
+    step(model, opt, pair_batch(0, 0, batch=8, seq_len=16, vocab=cfg.vocab))
+    tree = checkpoint_tree(model, opt)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, tree)
+    mgr.wait()
+    back, s = mgr.restore(tree)
+    assert s == 1
+    flat = lambda t: [x for v in t for x in _leaves(v)]
+    for a, b in zip(flat(tree), flat(back)):
+        assert b.device.type == "cuda" and torch.equal(a, b)
+    cpu_tree = tuple(_tree_map(lambda x: x.detach().cpu(), v) for v in tree)
+    save_pytree(str(tmp_path / "cpu"), cpu_tree, extra={"step": 1})
+    for f in os.listdir(tmp_path / "cpu"):
+        assert (tmp_path / "cpu" / f).read_bytes() == (
+            tmp_path / "ck" / "step_0000000001" / f).read_bytes(), f
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
