@@ -149,13 +149,28 @@ Phases, each printing one JSON line:
      restore, and a resume at step 10 that gives the step-11 loss; (e)
      launch.encode --full --steps 20 --batch 256 --seq-len 128
      --quantize-int8 over 100,000 passages: trained, then encoded, fitted,
-     pruned and searched through the kernels, ids against the plain top-k.
+     pruned and searched through the kernels, ids against the plain top-k;
+ 15. the decoder-LM family: (a) the smoke configs of qwen2, mixtral and
+     arctic on the card against the CPU (f32 loss, gradients, prefill and
+     decode logits, MoE aux loss, the arch's optimizer step; bf16 loss and
+     gradient cosine); (b) qwen2-1.5b at full width in bf16: prefill of
+     32,768 tokens and decode_step against a 32,768-slot static cache at
+     the largest batch that fits, against their bounds, and decode at p
+     equal to the full forward at p on a 64-token prompt; (c) one
+     qwen2-1.5b train step at seq 4,096 in 4 micro-batches at the largest
+     global batch that fits; (d) mixtral-8x7b cut to 4 layers: the window's
+     prefill, then decode_step_sliding past position 524,000 (wrapped),
+     with the MoE layers' share; (e) launch.train --arch smollm-135m (full
+     config) for 20 steps with checkpoints under build/lm_smoke/: specs in
+     the manifest equal param_specs, a bitwise resume, and an elastic
+     restore onto a (2, 2) mesh of the card's slots.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
-sharded index), 13 (the encoder) and 14 (the training half) are counted
-the same way, each on its own. Launches made only to compare or time a kernel are not
+sharded index), 13 (the encoder), 14 (the training half) and 15 (the
+LM family, which runs none of the kernels) are counted the same way, each
+on its own. Launches made only to compare or time a kernel are not
 counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -238,6 +253,26 @@ TRAINED_STEPS = 20          # phase 14(e): launch.encode --steps ...
 TRAINED_BATCH = 256         # ... --batch ...
 TRAINED_SEQ = 128           # ... --seq-len (train_pairs' sequence length)
 TRAINED_DOCS = 100_000      # ... --n-docs: the shapes of phase 13(c)'s kernel rows
+LM_PARITY_ARCHS = ("qwen2-1.5b", "mixtral-8x7b", "arctic-480b")    # phase 15(a)
+# phase 15(a) bars: f32 compute, loss and each gradient leaf within 1e-4 of
+# the CPU's (relative to the leaf's largest entry), logits within 1e-4
+# absolute; the MoE aux loss within 1e-5; bf16 loss within 1e-2 relative and
+# the flattened gradient at cosine >= 0.999
+LM_F32_TOL = 1e-4
+LM_AUX_TOL = 1e-5
+LM_BF16_COS = 0.999
+SERVE_ARCH = "qwen2-1.5b"   # phase 15(b, c)
+PREFILL_BATCH = 1           # phase 15(b): sequences of prefill_32k's 32 (~10 s each)
+DECODE_BATCHES = (128, 64, 32, 16, 8)   # phase 15(b): decode_32k's 128, then halved
+LM_CHECK_PROMPT = 64        # phase 15(b): decode at p against the full forward
+LM_TRAIN_K = 4              # phase 15(c): micro-batches of the train step ...
+LM_TRAIN_PROBES = (4, 8)    # ... global batches whose peaks predict the fit ...
+LM_TRAIN_BATCHES = (128, 64, 32, 16, 8)     # ... then tried largest first (train_4k's 256)
+MIXTRAL_LAYERS = 4          # phase 15(d): of mixtral's 32 (2.90 GB of bf16 weights each)
+LONG_POS = 524_288 + 2 * 4096 + 17      # phase 15(d): first position decoded, past 524,000
+LM_RUN_BATCH = 4            # phase 15(e): sequences a step (4 micro-batches of 1) ...
+LM_RUN_STEPS = 20           # ... steps of launch.train --arch smollm-135m
+LM_RUN_CKPT_EVERY = 10
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -3609,6 +3644,457 @@ def phase_train(counters, rows, encode_batch):
     torch.cuda.empty_cache()
 
 
+def lm_bound(cfg, *, kind, B, S, pos=None, n_layers=None):
+    """(bytes, f32 FLOP, bf16 FLOP) that one call of the LM's ``kind`` step
+    must move and do, counted as the port's functions compute it: bf16
+    parameters (training: f32 with their gradient and AdamW's two moments,
+    28 bytes each), the products of every parameter with every token (6x
+    for a training step: forward and backward), and attention in f32 over
+    every tile it computes (blocked self-attention computes masked tiles
+    too; a decode step scores all S cache slots)."""
+    L = n_layers or cfg.n_layers
+    d, V, H, hd = cfg.d_model, cfg.vocab, cfg.n_heads, cfg.hd
+    kv = cfg.n_kv_heads * hd
+    P = cfg.param_count()
+    emb = V * d * (1 if cfg.tie_embeddings else 2)
+    P_layers = P - emb - d
+    if kind == "train":
+        tokens = B * S
+        f32 = 3 * 4 * B * S * S * H * hd * L            # Q·Kᵀ and P·V, forward + backward
+        return 28 * P, f32, 6 * P * tokens
+    if kind == "prefill":
+        blk = -(-S // cfg.attn_q_chunk) * cfg.attn_q_chunk
+        f32 = 4 * B * blk * blk * H * hd * L if S > cfg.blocked_attn_threshold else \
+            4 * B * S * S * H * hd * L
+        bf16 = 2 * P_layers * B * S + 2 * V * d * B
+        return 2 * P + 2 * L * B * S * kv * 2, f32, bf16
+    # decode / decode_long: every cache slot scored, the slots up to pos read
+    live = min(pos + 1, S)
+    f32 = 4 * B * S * H * hd * L
+    bf16 = 2 * (P_layers + V * d) * B
+    return 2 * P + 2 * L * B * live * kv * 2, f32, bf16
+
+
+def _leaf_err(a, b):
+    """max |a - b| over max |b|, on the CPU in f64."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _cos_t(a, b):
+    a, b = a.detach().double().cpu().flatten(), b.detach().double().cpu().flatten()
+    return float(a @ b / a.norm() / b.norm())
+
+
+def phase_lm(counters):
+    """Phase 15: the decoder-LM family. (a) Card against CPU on the smoke
+    configs of qwen2 (QKV bias, tied embeddings), mixtral (MoE, sliding
+    window) and arctic (dense residual, Adafactor), the same seeded weights
+    and tokens: f32 loss, prefill and decode logits and each gradient leaf
+    within LM_F32_TOL, the MoE aux loss within LM_AUX_TOL, the arch's
+    optimizer step from the same gradients within 1e-6, bf16 loss and
+    gradient cosine >= LM_BF16_COS. (b) qwen2-1.5b at full width, bf16
+    weights: prefill at prefill_32k's 32,768 tokens, decode_step against
+    decode_32k's static 32,768-slot cache at the largest batch the card
+    holds (picked from the peaks at 1 and 2 sequences), each against its
+    bound; and decode at position p equal to the full forward's logits at
+    p on a short prompt (f32 compute). (c) qwen2-1.5b, one train step at
+    seq 4,096 in 4 micro-batches at the largest global batch that fits:
+    forward, backward and optimizer ms, tokens/s against the bound, peak.
+    (d) mixtral-8x7b at full width with its depth cut to MIXTRAL_LAYERS:
+    prefill of the 4,096-token window, then decode_step_sliding at B 1 past
+    position 524,000 (the rolling buffer wrapped), ms a step and the MoE
+    layers' share. (e) launch.train --arch smollm-135m (full config, 20
+    steps at a cut batch, checkpoints every 10 under build/lm_smoke/): the
+    manifest's specs equal param_specs on the run's mesh, a resume from
+    step 10 replays step 11 bitwise, and an elastic restore onto a (2, 2)
+    mesh of the card's slots gives the saved values."""
+    import dataclasses
+    import json as _json
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import registry, steps
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe as M, transformer as T
+    from repro_torch.optim import adafactor_update, adamw_update
+    from repro_torch.par import sharding as SH
+    from repro_torch.par.mesh import make_mesh
+    from repro_torch.util import flatten_with_paths
+
+    dev = torch.device("cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) card against CPU on the smoke configs
+    t0 = time.perf_counter()
+    parity, bad = {}, []
+    for arch in LM_PARITY_ARCHS:
+        cfg = registry.get_smoke_cfg(arch)
+        models = {d: T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device=d)
+                  for d in ("cpu", dev)}
+        b = token_batch(0, 0, batch=4, seq_len=32, vocab=cfg.vocab)
+        r = {}
+        for cd in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=cd)
+            out = {}
+            for d, m in models.items():
+                mm = m.with_config(c).requires_grad_(True)
+                out[d] = steps.value_and_grad(steps._lm_loss, mm, b)
+                mm.requires_grad_(False)
+            (lc, gc_), (lg, gg) = out["cpu"], out[dev]
+            if cd == "float32":
+                r["loss_rel_err"] = abs(float(lg) - float(lc)) / abs(float(lc))
+                errs = {n: _leaf_err(gg[n], g) for n, g in gc_.items()}
+                r["grad_max_leaf_rel_err"] = max(errs.values())
+                r["grad_worst_leaf"] = max(errs, key=errs.get)
+                # the arch's optimizer from the CPU's gradients on both sides
+                opt = registry.get_arch(arch).optimizer
+                init, update = steps._opt_pack(opt)
+                moved = {}
+                for d, m in models.items():
+                    mm = T.init_lm(cfg, generator=torch.Generator().manual_seed(0), device=d)
+                    mm.requires_grad_(True)
+                    named = dict(mm.named_parameters())
+                    update({n: g.to(d) for n, g in gc_.items()}, init(mm), named,
+                           torch.tensor(1e-2))
+                    moved[d] = named
+                r["optimizer"] = opt
+                r["optimizer_step_max_abs_err"] = max(
+                    float((moved[dev][n].detach().cpu() - p.detach()).abs().max())
+                    for n, p in moved["cpu"].items())
+                with torch.no_grad():
+                    aux = {d: T.forward_hidden(m.with_config(c), b["tokens"])[1]
+                           for d, m in models.items()}
+                r["aux_cpu"], r["aux_abs_err"] = float(aux["cpu"]), abs(
+                    float(aux[dev]) - float(aux["cpu"]))
+                # prefill, then decode (static cache; mixtral: also the rolling buffer)
+                lo = {}
+                for d, m in models.items():
+                    mc = m.with_config(c)
+                    pl, cache = T.prefill(mc, b["tokens"][:, :24], cache_len=32)
+                    dl, _ = T.decode_step(mc, cache, b["tokens"][:, 24], 24)
+                    seq = [pl, dl]
+                    if cfg.sliding_window:
+                        W = cfg.sliding_window
+                        _, rc = T.prefill(mc, b["tokens"], cache_len=W)
+                        seq.append(T.decode_step_sliding(mc, rc, b["tokens"][:, 0], 3 * W + 5)[0])
+                    lo[d] = seq
+                r["logits_max_abs_err"] = max(float((x.cpu() - y).abs().max())
+                                              for x, y in zip(lo[dev], lo["cpu"]))
+                if (r["loss_rel_err"] > LM_F32_TOL or r["grad_max_leaf_rel_err"] > LM_F32_TOL
+                        or r["logits_max_abs_err"] > LM_F32_TOL
+                        or r["aux_abs_err"] > LM_AUX_TOL
+                        or r["optimizer_step_max_abs_err"] > 1e-6):
+                    bad.append(arch)
+            else:
+                r["bf16_loss_rel_err"] = abs(float(lg) - float(lc)) / abs(float(lc))
+                r["bf16_grad_cos"] = _cos_t(torch.cat([gg[n].cpu().flatten() for n in gc_]),
+                                            torch.cat([g.flatten() for g in gc_.values()]))
+                if r["bf16_loss_rel_err"] > 1e-2 or r["bf16_grad_cos"] < LM_BF16_COS:
+                    bad.append(arch + ":bf16")
+            del out, gc_, gg
+        parity[arch] = r
+    emit("lm", step="a_parity", seconds=time.perf_counter() - t0, f32_tol=LM_F32_TOL,
+         aux_tol=LM_AUX_TOL, bf16_cos_bar=LM_BF16_COS, **parity)
+    if bad:
+        raise AssertionError(f"lm (a): card against CPU out of bounds for {bad}: {parity}")
+    del models
+
+    # (b) qwen2-1.5b at full width, serving
+    spec = registry.get_arch(SERVE_ARCH)
+    cfg = dataclasses.replace(spec.cfg, param_dtype="bfloat16")
+    S = spec.cell("prefill_32k").dims["seq_len"]
+    S_dec = spec.cell("decode_32k").dims["seq_len"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    rng = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (PREFILL_BATCH, S), generator=rng, device=dev,
+                           dtype=torch.int32)
+    T.prefill(model, prompt[:, :2048])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    logits, cache = T.prefill(model, prompt)
+    ev[1].record()
+    ev[1].synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    prefill_peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.isfinite(logits).all()) or tuple(cache[0].shape) != (
+            cfg.n_layers, PREFILL_BATCH, S, cfg.n_kv_heads, cfg.hd):
+        raise AssertionError("lm (b): prefill logits not finite or cache misshapen")
+    del logits, cache
+    pb, pf, pbf = lm_bound(cfg, kind="prefill", B=PREFILL_BATCH, S=S)
+    p_bound = bound(pb, pf, pbf)
+
+    # decode at p against the full forward (f32 compute), a short prompt
+    c32 = model.with_config(dataclasses.replace(cfg, compute_dtype="float32"))
+    short = prompt[:, :LM_CHECK_PROMPT + 1]
+    with torch.no_grad():
+        h, _ = T.forward_hidden(c32, short)
+        full = T._unembed(c32, h)[:, LM_CHECK_PROMPT]
+    _, cache = T.prefill(c32, short[:, :LM_CHECK_PROMPT], cache_len=LM_CHECK_PROMPT + 1)
+    step_logits, _ = T.decode_step(c32, cache, short[:, LM_CHECK_PROMPT], LM_CHECK_PROMPT)
+    dec_err = float((step_logits - full).abs().max())
+    dec_ok = bool(torch.allclose(step_logits, full, rtol=1e-4, atol=1e-4))
+    del h, full, cache, step_logits, c32
+
+    # decode_step against decode_32k's cache: the batch from the peaks at 1 and 2
+    def decode_peak(Bd):
+        shape = (cfg.n_layers, Bd, S_dec, cfg.n_kv_heads, cfg.hd)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kc = torch.randn(shape, generator=rng, device=dev, dtype=torch.bfloat16)
+        vc = torch.randn(shape, generator=rng, device=dev, dtype=torch.bfloat16)
+        tok = torch.randint(0, cfg.vocab, (Bd,), generator=rng, device=dev, dtype=torch.int32)
+        lg, _ = T.decode_step(model, (kc, vc), tok, S_dec - 1)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(), (kc, vc, tok, lg)
+
+    p1 = decode_peak(1)[0]
+    p2 = decode_peak(2)[0]
+    per_seq = p2 - p1
+    predict = {bd: p1 + per_seq * (bd - 1) for bd in DECODE_BATCHES}
+    tries, fits, st = [], None, None
+    for bd in sorted(predict, reverse=True):
+        if predict[bd] > 0.95 * total:
+            tries.append(dict(batch=bd, predicted_peak_gb=predict[bd] / 1e9, tried=False))
+            continue
+        try:
+            peak, st = decode_peak(bd)
+        except torch.cuda.OutOfMemoryError as e:
+            tries.append(dict(batch=bd, predicted_peak_gb=predict[bd] / 1e9, tried=True,
+                              oom=str(e).splitlines()[0][:160]))
+            st = None
+            continue
+        tries.append(dict(batch=bd, predicted_peak_gb=predict[bd] / 1e9, tried=True,
+                          peak_gb=peak / 1e9))
+        fits = bd
+        break
+    if fits is None:
+        raise AssertionError(f"lm (b): no decode batch fits: {tries}")
+    kc, vc, tok, lg = st
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("lm (b): decode logits not finite")
+    dec_ms = median_ms(lambda: T.decode_step(model, (kc, vc), tok, S_dec - 1), reps=3)
+    db, df, dbf = lm_bound(cfg, kind="decode", B=fits, S=S_dec, pos=S_dec - 1)
+    d_bound = bound(db, df, dbf)
+    emit("lm", step="b_serve", arch=SERVE_ARCH, weights_gb=weights / 1e9,
+         prefill=dict(batch=PREFILL_BATCH, cell_batch=spec.cell("prefill_32k").dims[
+             "global_batch"], seq_len=S, ms=prefill_ms, ms_per_token=prefill_ms / (
+                 PREFILL_BATCH * S), tokens_per_s=PREFILL_BATCH * S / prefill_ms * 1e3,
+             peak_gb=prefill_peak / 1e9, bound_ms=p_bound[0], bound_by=p_bound[1],
+             bytes=pb, f32_flop=pf, bf16_flop=pbf),
+         decode=dict(batch=fits, cell_batch=spec.cell("decode_32k").dims["global_batch"],
+                     cache_slots=S_dec, pos=S_dec - 1, ms=dec_ms, ms_per_token=dec_ms / fits,
+                     tokens_per_s=fits / dec_ms * 1e3, peak_gb=tries[-1]["peak_gb"],
+                     peak_1_gb=p1 / 1e9, per_sequence_gb=per_seq / 1e9, tries=tries,
+                     cache_gb=2 * kc.numel() * kc.element_size() / 1e9,
+                     bound_ms=d_bound[0], bound_by=d_bound[1], bytes=db, f32_flop=df,
+                     bf16_flop=dbf),
+         decode_vs_full=dict(prompt=LM_CHECK_PROMPT, compute="float32",
+                             max_abs_err=dec_err, allclose_1e4=dec_ok))
+    if not dec_ok:
+        raise AssertionError(f"lm (b): decode at {LM_CHECK_PROMPT} differs from the full "
+                             f"forward by {dec_err}")
+    del model, kc, vc, tok, lg, st, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one qwen2-1.5b train step, seq 4,096, 4 micro-batches
+    cfg = spec.cfg
+    seq = spec.cell("train_4k").dims["seq_len"]
+    model = T.init_lm(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    model.requires_grad_(True)
+    step, opt_init = steps.make_train_step(steps._lm_loss, "adamw", microbatch=LM_TRAIN_K,
+                                           accum_dtype=cfg.grad_accum_dtype)
+    opt = opt_init(model)
+    named = dict(model.named_parameters())
+
+    def lm_batch(nb, t=0):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in token_batch(0, t, batch=nb, seq_len=seq, vocab=cfg.vocab).items()}
+
+    def train_peak(nb):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bt = lm_batch(nb)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = step(model, opt, bt)
+        ev[1].record()
+        ev[1].synchronize()
+        return torch.cuda.max_memory_allocated(), bt, out, ev[0].elapsed_time(ev[1])
+
+    # the peaks at the two smallest global batches predict the rest; the
+    # largest predicted to fit is tried (descending on an out-of-memory
+    # error), and its step, the first at that batch, is the one timed
+    (q0, _, _, _), (q1, _, _, _) = (train_peak(nb) for nb in LM_TRAIN_PROBES)
+    per_seq_train = (q1 - q0) / (LM_TRAIN_PROBES[1] - LM_TRAIN_PROBES[0])
+    tries, fits = [], None
+    for nb in LM_TRAIN_BATCHES:
+        pred = q0 + per_seq_train * (nb - LM_TRAIN_PROBES[0])
+        if pred > 0.9 * total:
+            tries.append(dict(batch=nb, predicted_peak_gb=pred / 1e9, tried=False))
+            continue
+        try:
+            peak, bt, out, step_ms = train_peak(nb)
+        except torch.cuda.OutOfMemoryError as e:
+            tries.append(dict(batch=nb, predicted_peak_gb=pred / 1e9, tried=True,
+                              oom=str(e).splitlines()[0][:160]))
+            bt = out = None
+            continue
+        tries.append(dict(batch=nb, predicted_peak_gb=pred / 1e9, tried=True,
+                          peak_gb=peak / 1e9))
+        fits = nb
+        break
+    if fits is None:
+        raise AssertionError(f"lm (c): no train batch fits: {tries}")
+    # one micro-batch's forward and backward, and the optimizer, alone
+    mb = {k: v[:fits // LM_TRAIN_K] for k, v in bt.items()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    with torch.enable_grad():
+        loss = steps._lm_loss(model, mb)
+    ev[1].record()
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    ev[2].record()
+    adamw_update(grads, opt, named, torch.tensor(1e-4))
+    ev[3].record()
+    ev[3].synchronize()
+    fwd, bwd, optm = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    del grads, loss
+    tokens = fits * seq
+    tb, tf, tbf = lm_bound(cfg, kind="train", B=fits, S=seq)
+    t_bound = bound(tb, tf, tbf)
+    emit("lm", step="c_train", arch=SERVE_ARCH, batch=fits, seq_len=seq,
+         microbatch=LM_TRAIN_K, cell_batch=spec.cell("train_4k").dims["global_batch"],
+         probe_peak_gb={str(nb): q / 1e9 for nb, q in zip(LM_TRAIN_PROBES, (q0, q1))},
+         per_sequence_gb=per_seq_train / 1e9, tries=tries, loss=float(out["loss"]),
+         step_ms=step_ms, microbatch_ms=dict(forward=fwd, backward=bwd), optimizer_ms=optm,
+         tokens=tokens, tokens_per_s=tokens / step_ms * 1e3, peak_gb=peak / 1e9,
+         bound_ms=t_bound[0], bound_by=t_bound[1], bytes=tb, f32_flop=tf, bf16_flop=tbf)
+    if not np.isfinite(float(out["loss"])):
+        raise AssertionError("lm (c): non-finite loss")
+    del model, opt, named, bt, mb, out, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) mixtral-8x7b, depth cut: prefill the window, then the rolling buffer past 524,000
+    mspec = registry.get_arch("mixtral-8x7b")
+    mcfg = dataclasses.replace(mspec.cfg, param_dtype="bfloat16", n_layers=MIXTRAL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    model = T.init_lm(mcfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    W = mcfg.sliding_window
+    B_long = mspec.cell("long_500k").dims["global_batch"]
+    win = torch.randint(0, mcfg.vocab, (B_long, W), generator=rng, device=dev,
+                        dtype=torch.int32)
+    T.prefill(model, win[:, :512])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    _, cache = T.prefill(model, win, cache_len=W)
+    ev[1].record()
+    ev[1].synchronize()
+    m_prefill_ms = ev[0].elapsed_time(ev[1])
+    pos = [LONG_POS]
+
+    def long_step():
+        lg, _ = T.decode_step_sliding(model, cache, win[:, pos[0] % W], pos[0])
+        pos[0] += 1
+        return lg
+
+    lg = long_step()
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("lm (d): decode_step_sliding logits not finite")
+    m_step_ms = median_ms(long_step, reps=5)
+    xn = torch.randn((B_long, 1, mcfg.d_model), generator=rng, device=dev,
+                     dtype=torch.bfloat16)
+    with torch.no_grad():
+        moe_ms = median_ms(lambda: [M.apply_moe(
+            lp["moe"], xn, n_experts=mcfg.n_experts, top_k=mcfg.top_k,
+            capacity_factor=mcfg.capacity_factor, group_size=mcfg.moe_group_size,
+            act=mcfg.act, compute_dtype=mcfg.cdt) for lp in model.layers], reps=5)
+    lb, lf, lbf = lm_bound(mcfg, kind="decode_long", B=B_long, S=W, pos=LONG_POS)
+    l_bound = bound(lb, lf, lbf)
+    emit("lm", step="d_long", arch="mixtral-8x7b", n_layers=MIXTRAL_LAYERS,
+         full_layers=mspec.cfg.n_layers, window=W, batch=B_long,
+         weights_gb=sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+         prefill_window_ms=m_prefill_ms, first_pos=LONG_POS, wrapped_slot=LONG_POS % W,
+         ms_per_step=m_step_ms, moe_ms=moe_ms, moe_share=moe_ms / m_step_ms,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, bound_ms=l_bound[0],
+         bound_by=l_bound[1], bytes=lb, f32_flop=lf, bf16_flop=lbf)
+    del model, cache, win, lg, xn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) launch.train --arch smollm-135m, full config, checkpoints, resume, elastic restore
+    root = os.path.join(HERE, "build", "lm_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "ck")
+    run = dict(steps=LM_RUN_STEPS, smoke=False, ckpt_dir=ckpt, ckpt_every=LM_RUN_CKPT_EVERY,
+               seed=0, batch=LM_RUN_BATCH, device=dev, log_every=LM_RUN_CKPT_EVERY)
+    t0 = time.perf_counter()
+    res = train_cli.train("smollm-135m", resume="none", **run)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    losses = res["losses"]
+    bundle = res["bundle"]
+    at = LM_RUN_STEPS
+    with open(os.path.join(ckpt, f"step_{at:010d}", "manifest.json")) as f:
+        manifest = {e["path"]: e["spec"] for e in _json.load(f)["leaves"]}
+    named = dict(res["model"].named_parameters())
+    pspec = SH.param_specs(convert.reference_shapes(named), bundle.mesh,
+                           SH.lm_rules_dp_only())
+    want = {f"0/{p}": s.to_json() for p, s in flatten_with_paths(pspec)}
+    specs_ok = all(manifest[p] == s for p, s in want.items()) and all(
+        manifest[p] == s.to_json() for p, s in flatten_with_paths(bundle.in_specs[:2]))
+    # elastic restore of step 20 onto a (2, 2) mesh of the card's slots
+    tree = convert.checkpoint_tree(res["model"], res["opt_state"])
+    mesh22 = make_mesh((2, 2), ("data", "model"), dev)
+    placed, _ = CheckpointManager(ckpt).restore(tree, at, mesh=mesh22)
+    saved = dict(flatten_with_paths(tree))
+    elastic_ok, sharded_leaves = True, 0
+    for p, st in flatten_with_paths(placed):
+        elastic_ok &= bool(torch.equal(st.full(), saved[p]))
+        for slot, s in enumerate(st.shards):
+            elastic_ok &= bool(torch.equal(
+                s, saved[p][SH.shard_index(st.shape, st.spec, mesh22, slot)]))
+        sharded_leaves += any(part is not None for part in st.spec)
+    del placed, tree
+    # resume from step 10: step 11's loss bitwise
+    shutil.rmtree(os.path.join(ckpt, f"step_{at:010d}"))
+    res2 = train_cli.train("smollm-135m", resume="auto", **{**run, "steps": 1, "log_every": 0})
+    resumed = res2["losses"][0]
+    emit("lm", step="e_launch_train", arch="smollm-135m", batch=LM_RUN_BATCH,
+         seq_len=bundle.meta["dims"]["seq_len"], microbatch=bundle.meta["microbatch"],
+         steps=res["steps_run"], seconds=t_run, first_loss=losses[0], last_loss=losses[-1],
+         mesh=list(bundle.mesh.shape), manifest_specs_equal_param_specs=specs_ok,
+         elastic_mesh=[2, 2], elastic_bitwise=elastic_ok, elastic_sharded_leaves=sharded_leaves,
+         resumed_at=LM_RUN_CKPT_EVERY, resumed_loss=resumed,
+         uninterrupted_loss=losses[LM_RUN_CKPT_EVERY],
+         resume_bitwise=resumed == losses[LM_RUN_CKPT_EVERY])
+    if not (len(losses) == LM_RUN_STEPS and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"lm (e): losses not finite and descending: {losses}")
+    if not (specs_ok and elastic_ok and resumed == losses[LM_RUN_CKPT_EVERY]):
+        raise AssertionError(f"lm (e): specs {specs_ok}, elastic {elastic_ok}, resumed "
+                             f"{resumed} against {losses[LM_RUN_CKPT_EVERY]}")
+    del res, res2
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
@@ -3758,6 +4244,15 @@ def main():
     missing = [k for k in on_encoder if train_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the training path: {missing}")
+    # the LM family, counted on its own: it runs none of the kernels (no
+    # Pallas kernel of the reference is on the LM's path)
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_lm(counters)
+    torch.cuda.synchronize()
+    lm_launches = counters.read()
+    emit("lm_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in lm_launches.items() if v})
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``repro``: PCA static pruning for dense retrieval on
-one NVIDIA H100, and the bi-encoder that makes the embeddings.
+one NVIDIA H100, the bi-encoder that makes the embeddings, and the model
+zoo's decoder LMs.
 
 Module names follow ``repro`` so each counterpart is easy to find. The
 package imports neither ``jax`` nor ``repro``. Entry points run on the card

@@ -1,3 +1,3 @@
 """Architecture configs of the port (copies of ``repro/configs``): the shape
-cells, the bi-encoder's config and its training step. The registry waits
-for the model zoo, since it imports every family."""
+cells, the decoder LMs' and the bi-encoder's configs, the registry and the
+step bundles. The GNN and recsys families are not yet ported."""

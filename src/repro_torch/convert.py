@@ -1,9 +1,10 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
 ``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
-``PagedIndexStorage`` fields, or a bi-encoder's parameter tree and its AdamW
-state, converted with ``np.asarray``) into the port's objects, and a
-bi-encoder and its AdamW state back into the reference's trees.
-``load_pca`` reads ``repro``'s ``pca.npz`` directly."""
+``PagedIndexStorage`` fields, or a bi-encoder's or decoder LM's parameter
+tree and its AdamW or Adafactor state, converted with ``np.asarray``) into
+the port's objects, and models and optimizer states back into the
+reference's trees, whose layers are stacked on a leading axis. A KV cache
+keeps the reference's (L, B, S, Hkv, Dh) layout and needs no conversion."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -16,6 +17,7 @@ from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
 from repro_torch.models.biencoder import BiEncoder, BiEncoderConfig
+from repro_torch.models.transformer import LM, TransformerConfig
 from repro_torch.util import as_tensor
 
 
@@ -112,20 +114,34 @@ def _tensor_tree(tree, device):
     return as_tensor(np.array(a, copy=True), device)
 
 
-def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiEncoder:
-    """A port ``BiEncoder`` on ``device`` (default: the card) holding a
-    reference parameter tree: ``embed``, ``pos_embed``, ``final_norm``,
-    ``proj`` and ``layers``, whose every leaf is stacked on a leading
-    ``n_layers`` axis (the reference inits its layers under ``vmap``). The
-    layers come out unstacked, one module each; dtypes are kept."""
+def _unstacked_tree(params: dict, n_layers: int, device) -> dict:
+    """A reference parameter tree as tensors on ``device``, its ``layers``
+    subtree (every leaf stacked on a leading ``n_layers`` axis: the
+    reference inits its layers under ``vmap``) split into one tree per
+    layer (views); dtypes are kept."""
     tree = _tensor_tree(params, device)
 
     def layer(t, i):
         return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
 
     stacked = tree.pop("layers")
-    tree["layers"] = [layer(stacked, i) for i in range(cfg.n_layers)]
-    return BiEncoder(cfg, tree)
+    tree["layers"] = [layer(stacked, i) for i in range(n_layers)]
+    return tree
+
+
+def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiEncoder:
+    """A port ``BiEncoder`` on ``device`` (default: the card) holding a
+    reference parameter tree: ``embed``, ``pos_embed``, ``final_norm``,
+    ``proj`` and the stacked ``layers``."""
+    return BiEncoder(cfg, _unstacked_tree(params, cfg.n_layers, device))
+
+
+def lm_from_numpy(params: dict, cfg: TransformerConfig, device=None) -> LM:
+    """A port ``LM`` on ``device`` (default: the card) holding a reference
+    ``init_lm`` tree: ``embed``, ``final_norm``, ``unembed`` unless tied, and
+    the stacked ``layers`` (MoE layers' ``moe/router/w`` (L, d, E) and
+    expert leaves (L, E, d, f) included)."""
+    return LM(cfg, _unstacked_tree(params, cfg.n_layers, device))
 
 
 # ---------------------------------------------------------------------------
@@ -200,11 +216,24 @@ def _numpy_tree(tree):
     return (t.float() if t.dtype == torch.bfloat16 else t).to("cpu", copy=True).numpy()
 
 
+def reference_shapes(named: Mapping[str, torch.Tensor]) -> dict:
+    """The reference's tree of the parameters ``named``, as meta tensors of
+    its (stacked) shapes and dtypes: what its sharding rules read. No
+    memory is touched."""
+    return stack_layers({n: t.to("meta") for n, t in named.items()})
+
+
 def biencoder_to_numpy(model: BiEncoder) -> dict:
     """The model's parameters as the reference's tree of numpy arrays
     (layers stacked on a leading axis): the inverse of
     ``biencoder_from_numpy`` (bf16 parameters come back as their f32
     values)."""
+    return _numpy_tree(stack_layers(dict(model.named_parameters())))
+
+
+def lm_to_numpy(model: LM) -> dict:
+    """The inverse of ``lm_from_numpy``, as ``biencoder_to_numpy`` is of
+    ``biencoder_from_numpy``."""
     return _numpy_tree(stack_layers(dict(model.named_parameters())))
 
 
@@ -235,23 +264,53 @@ def adamw_state_from_numpy(tree: Mapping, device=None) -> dict:
             "decay": decay_mask(mu)}
 
 
+def adafactor_state_to_numpy(state: Mapping) -> dict:
+    """An ``optim.adafactor`` state (already the reference's tree: ``v`` of
+    ``vr`` / ``vc`` or ``v`` per stacked leaf, and ``step``) as numpy."""
+    return _numpy_tree(state)
+
+
+def adafactor_state_from_numpy(tree: Mapping, device=None) -> dict:
+    """A reference Adafactor state as the port's, on ``device`` (default:
+    the card): fresh f32 statistics and an int32 ``step``."""
+    def leaf(v):
+        if isinstance(v, Mapping):
+            return {k: leaf(x) for k, x in v.items()}
+        return as_tensor(np.array(v, dtype=np.float32, copy=True), device)
+
+    return {"v": leaf(tree["v"]),
+            "step": as_tensor(np.asarray(tree["step"], dtype=np.int32).reshape(()), device)}
+
+
+def _is_adafactor(opt_state: Mapping) -> bool:
+    return "v" in opt_state
+
+
 @torch.no_grad()
-def checkpoint_tree(model: BiEncoder, opt_state: Mapping) -> tuple[dict, dict]:
+def checkpoint_tree(model: torch.nn.Module, opt_state: Mapping) -> tuple[dict, dict]:
     """``(params, opt_state)`` as the reference checkpoints them: its trees,
-    layers stacked, as tensors on the model's device."""
-    return stack_layers(dict(model.named_parameters())), adamw_state_tree(opt_state)
+    layers stacked, as tensors on the model's device. An AdamW state's
+    moments are stacked as the parameters are; an Adafactor state is in
+    that layout already."""
+    opt = dict(opt_state) if _is_adafactor(opt_state) else adamw_state_tree(opt_state)
+    return stack_layers(dict(model.named_parameters())), opt
 
 
 @torch.no_grad()
-def restore_into(model: BiEncoder, opt_state: dict, tree: tuple[dict, dict]) -> None:
+def restore_into(model: torch.nn.Module, opt_state: dict, tree: tuple[dict, dict]) -> None:
     """Copy a ``checkpoint_tree``-shaped tree into the model's parameters
     and the optimizer state, in place."""
     params, opt = tree
     named = dict(model.named_parameters())
     for name, t in unstack_layers(params).items():
         named[name].copy_(t)
-    for key in ("mu", "nu"):
-        for name, t in unstack_layers(opt[key]).items():
-            opt_state[key][name].copy_(t)
+    if _is_adafactor(opt_state):
+        have = dict(_leaves(opt_state["v"]))
+        for path, t in _leaves(opt["v"]):
+            have[path].copy_(t)
+    else:
+        for key in ("mu", "nu"):
+            for name, t in unstack_layers(opt[key]).items():
+                opt_state[key][name].copy_(t)
     opt_state["step"] = opt["step"].to(torch.int32)
 

@@ -1,34 +1,38 @@
-"""Training entry point for the bi-encoder family, with checkpoint and restart
-(port of ``repro/launch/train.py``; the other families wait for the model
-zoo and the registry).
+"""Training entry point for the decoder-LM and bi-encoder families, with
+checkpoint and restart (port of ``repro/launch/train.py``; the GNN and
+recsys families are not yet ported and are refused).
 
-  * the step is ``configs.steps.make_train_step(contrastive_loss)``: AdamW
-    at the reference bundle's constant lr of 1e-4, gradients by autograd
-    through the encoder (per-layer recompute when the config's ``remat``
-    is set);
+  * the step is the cell's bundle's (``configs.steps``): for an LM,
+    ``forward_train``'s loss in ``microbatch`` sequential micro-batches
+    (gradients summed in ``grad_accum_dtype``) and the arch's optimizer
+    (Adafactor for arctic-480b, AdamW otherwise); for the bi-encoder
+    ``contrastive_loss`` and AdamW; the reference bundle's constant lr of
+    1e-4, gradients by autograd (per-layer recompute when the config's
+    ``remat`` is set);
   * ``--resume auto`` restores the latest complete checkpoint under
-    ``--ckpt-dir`` (the reference's format: either package's checkpoints
-    restore in the other);
+    ``--ckpt-dir`` (the reference's format, with the bundle's spec tree in
+    its manifest: either package's checkpoints restore in the other);
   * async checkpoints every ``--ckpt-every`` steps, the last 3 kept;
   * ``train_loop`` and ``resume_latest`` are shared with ``launch.encode
     --steps``;
-  * deterministic data: batch t is ``pair_batch(seed, t, …)``, prefetched
-    on a background thread (depth 2), so a resumed job replays the same
-    batches;
+  * deterministic data: batch t is ``token_batch(seed, t, …)`` (LM) or
+    ``pair_batch(seed, t, …)`` (bi-encoder), prefetched on a background
+    thread (depth 2), so a resumed job replays the same batches;
   * a non-finite loss raises.
 
-``--smoke`` swaps in the config's ``smoke_cfg`` and the reference's smoke
-cell (seq 16 × batch 8), so the whole path (init → steps → checkpoint →
-resume) runs on the CPU in seconds. Without it the run is
-``configs/biencoder_msmarco.CFG`` at BERT-base width on the ``train_pairs``
-cell (seq 128 × 4,096 pairs, which one H100 80GB holds with per-layer
-recompute); ``--batch`` sets another number of pairs a step, for a
-shorter run.
+``--smoke`` swaps in the arch's ``smoke_cfg`` and the reference's smoke
+cell (LM: seq 32 × batch 8; bi-encoder: seq 16 × 8) on a 1 × 1 host mesh
+of the run's device, so the whole path (init → steps → checkpoint →
+resume) runs on the CPU in seconds. Without it the run is the arch's full
+config on its first train cell, with specs resolved on the production
+mesh (16 × 16, or 2 × 16 × 16 under ``--multi-pod``), as the reference
+writes them; the steps run on the one card, so ``--batch`` sets the
+one-card cut of the cell's global batch (sequences, or pairs).
 
 Examples:
-  PYTHONPATH=src python -m repro_torch.launch.train --arch biencoder-msmarco \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --device cpu --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
-  PYTHONPATH=src python -m repro_torch.launch.train --arch biencoder-msmarco \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --batch 8 \\
       --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
 """
 from __future__ import annotations
@@ -41,28 +45,35 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import biencoder_msmarco
+from repro_torch.configs import registry
 from repro_torch.configs.base import ArchSpec, ShapeCell
-from repro_torch.configs.steps import make_train_step
+from repro_torch.configs.steps import BUNDLE_BUILDERS, _opt_pack
 from repro_torch.convert import checkpoint_tree, restore_into
-from repro_torch.data.tokens import Prefetcher, pair_batch
-from repro_torch.models.biencoder import BiEncoder, contrastive_loss, init_biencoder
+from repro_torch.data.tokens import Prefetcher, pair_batch, token_batch
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.models.biencoder import init_biencoder
+from repro_torch.models.transformer import init_lm
 from repro_torch.util import as_tensor, default_device
 
-
-def _spec(arch: str, smoke: bool) -> ArchSpec:
-    spec = biencoder_msmarco.spec()
-    if arch != spec.arch_id:
-        raise ValueError(f"--arch {arch!r}: the port trains only {spec.arch_id!r}; the "
-                         f"registry and the LM, MoE, GNN and recsys families are not "
-                         f"ported yet")
-    if not smoke:
-        return spec
-    cell = ShapeCell("smoke", "train", dict(seq_len=16, global_batch=8))
-    return dataclasses.replace(spec, cfg=biencoder_msmarco.smoke_cfg(), shapes=(cell,))
+_SMOKE_CELLS = {"lm": ShapeCell("smoke", "train", dict(seq_len=32, global_batch=8)),
+                "biencoder": ShapeCell("smoke", "train", dict(seq_len=16, global_batch=8))}
 
 
-def resume_latest(mgr: CheckpointManager | None, model: BiEncoder, opt_state: dict) -> int:
+def _smoke_spec(arch_id: str) -> ArchSpec:
+    spec = registry.get_arch(arch_id)
+    return dataclasses.replace(spec, cfg=registry.get_smoke_cfg(arch_id),
+                               shapes=(_SMOKE_CELLS[spec.family],))
+
+
+def make_batch_fn(spec: ArchSpec, cell: ShapeCell, seed: int):
+    """t -> batch t as host arrays: a pure function of (seed, t)."""
+    d = cell.dims
+    make = token_batch if spec.family == "lm" else pair_batch
+    return lambda t: make(seed, t, batch=d["global_batch"], seq_len=d["seq_len"],
+                          vocab=spec.cfg.vocab)
+
+
+def resume_latest(mgr: CheckpointManager | None, model, opt_state: dict) -> int:
     """Restore ``mgr``'s latest checkpoint into the model and the optimizer
     state, in place; return its step (0 when there is none)."""
     if mgr is None or mgr.latest_step() is None:
@@ -73,14 +84,15 @@ def resume_latest(mgr: CheckpointManager | None, model: BiEncoder, opt_state: di
     return step
 
 
-def train_loop(model: BiEncoder, opt_state: dict, step_fn, batch_fn, *, start: int, stop: int,
+def train_loop(model, opt_state: dict, step_fn, batch_fn, *, start: int, stop: int,
                mgr: CheckpointManager | None = None, ckpt_every: int = 0,
-               log_every: int = 0) -> list[float]:
+               log_every: int = 0, spec_tree=None) -> list[float]:
     """Steps ``start`` to ``stop - 1``, in place: batch t is ``batch_fn(t)``
     (host arrays, made on a background thread, depth 2) and goes to
     ``step_fn(model, opt_state, batch, t)`` (``make_train_step``'s). A
-    checkpoint under ``mgr`` every ``ckpt_every`` steps, a ``[train]`` line
-    every ``log_every``; a non-finite loss raises. Returns the losses."""
+    checkpoint under ``mgr`` (with ``spec_tree``'s specs) every
+    ``ckpt_every`` steps, a ``[train]`` line every ``log_every``; a
+    non-finite loss raises. Returns the losses."""
     dev = model.device
     prefetch = Prefetcher(batch_fn, start_step=start, depth=2)
     losses = []
@@ -98,7 +110,7 @@ def train_loop(model: BiEncoder, opt_state: dict, step_fn, batch_fn, *, start: i
                 dt = (time.time() - t0) / len(losses)
                 print(f"[train] step {i+1:4d} loss {loss:.4f} ({dt*1e3:.0f} ms/step)")
             if mgr and ckpt_every and (i + 1) % ckpt_every == 0:
-                mgr.save(i + 1, checkpoint_tree(model, opt_state))
+                mgr.save(i + 1, checkpoint_tree(model, opt_state), spec_tree=spec_tree)
     finally:
         prefetch.close()
         if mgr:
@@ -108,32 +120,35 @@ def train_loop(model: BiEncoder, opt_state: dict, step_fn, batch_fn, *, start: i
 
 def train(arch: str, *, steps: int, smoke: bool, ckpt_dir: str | None,
           ckpt_every: int, resume: str, seed: int, shape: str | None = None,
-          batch: int | None = None, device=None, log_every: int = 10) -> dict:
+          batch: int | None = None, multi_pod: bool = False, device=None,
+          log_every: int = 10) -> dict:
     """Train ``steps`` steps (after any resumed ones). Returns the
-    reference's dict: ``final_loss``, ``losses``, ``steps_run``, and the
-    ``model`` and its ``opt_state``."""
+    reference's dict: ``final_loss``, ``losses``, ``steps_run``, the
+    ``model`` and its ``opt_state``; and the ``bundle`` (its ``mesh`` and
+    spec trees)."""
     dev = default_device(device)
-    spec = _spec(arch, smoke)
+    spec = _smoke_spec(arch) if smoke else registry.get_arch(arch)
     cell = spec.shapes[0] if shape is None else spec.cell(shape)
     if cell.kind != "train":
         raise ValueError(f"shape {cell.name!r} is a {cell.kind} cell, not a train cell")
-    seq_len = cell.dims["seq_len"]
-    global_batch = batch or cell.dims["global_batch"]
+    if batch:
+        cell = dataclasses.replace(cell, dims={**cell.dims, "global_batch": batch})
+    mesh = make_host_mesh(device=dev) if smoke else make_production_mesh(multi_pod=multi_pod)
+    bundle = BUNDLE_BUILDERS[spec.family](spec, cell, mesh)
 
-    model = init_biencoder(spec.cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    init = init_lm if spec.family == "lm" else init_biencoder
+    model = init(spec.cfg, generator=torch.Generator().manual_seed(seed), device=dev)
     model.requires_grad_(True)
-    step_fn, opt_init = make_train_step(contrastive_loss, spec.optimizer)
+    opt_init, _ = _opt_pack(spec.optimizer)
     opt_state = opt_init(model)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = resume_latest(mgr, model, opt_state) if resume == "auto" else 0
-    losses = train_loop(model, opt_state, step_fn,
-                        lambda t: pair_batch(seed, t, batch=global_batch, seq_len=seq_len,
-                                             vocab=spec.cfg.vocab),
+    losses = train_loop(model, opt_state, bundle.fn, make_batch_fn(spec, cell, seed),
                         start=start, stop=start + steps, mgr=mgr, ckpt_every=ckpt_every,
-                        log_every=log_every)
+                        log_every=log_every, spec_tree=bundle.in_specs[:2])
     return {"final_loss": losses[-1] if losses else None,
             "losses": losses, "steps_run": len(losses),
-            "model": model, "opt_state": opt_state}
+            "model": model, "opt_state": opt_state, "bundle": bundle}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -143,7 +158,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=None,
-                    help="pairs a step (default: the cell's global batch)")
+                    help="sequences (LM) or pairs (bi-encoder) a step: the one-card cut "
+                         "of the cell's global batch (default: all of it)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="resolve the specs on the two-pod production mesh")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", default="auto", choices=["auto", "none"])
@@ -153,7 +171,8 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
     out = train(args.arch, steps=args.steps, smoke=args.smoke, ckpt_dir=args.ckpt_dir,
                 ckpt_every=args.ckpt_every, resume=args.resume, seed=args.seed,
-                shape=args.shape, batch=args.batch, device=args.device)
+                shape=args.shape, batch=args.batch, multi_pod=args.multi_pod,
+                device=args.device)
     final = "none" if out["final_loss"] is None else f"{out['final_loss']:.4f}"
     print(f"[train] done: {out['steps_run']} steps, final loss {final}")
     return out

@@ -75,16 +75,6 @@ class BiEncoderConfig:
                 + self.max_len * d + d * self.embed_dim)
 
 
-def _module(tree) -> nn.Module:
-    """A parameter (sub)tree as modules: tensor leaves -> ``ParameterDict``,
-    mappings of subtrees -> ``ModuleDict``; modules pass through."""
-    if isinstance(tree, nn.Module):
-        return tree
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: L._param(v) for k, v in tree.items()})
-    return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
-
-
 class BiEncoder(nn.Module):
     """The encoder's parameters under the reference's tree: ``embed``
     (vocab, d), ``pos_embed`` (max_len, d), ``layers`` (one
@@ -101,9 +91,9 @@ class BiEncoder(nn.Module):
         self.cfg = cfg
         self.embed = L._param(params["embed"])
         self.pos_embed = L._param(params["pos_embed"])
-        self.layers = nn.ModuleList([_module(lp) for lp in params["layers"]])
-        self.final_norm = _module(params["final_norm"])
-        self.proj = _module(params["proj"])
+        self.layers = nn.ModuleList([L.as_module(lp) for lp in params["layers"]])
+        self.final_norm = L.as_module(params["final_norm"])
+        self.proj = L.as_module(params["proj"])
 
     @property
     def device(self) -> torch.device:
@@ -120,22 +110,23 @@ class BiEncoder(nn.Module):
         return encode(self, tokens, mask)
 
 
-def init_biencoder(cfg: BiEncoderConfig, *, generator: torch.Generator,
+def init_biencoder(cfg: BiEncoderConfig, *, generator: torch.Generator | None,
                    device=None) -> BiEncoder:
     """The reference's init distributions: N(0, 1) · 0.02 for both
     embeddings, N(0, 1) / sqrt(d_in) for every dense weight, ones / zeros
     for the layer norms. Draws come from ``generator`` on its device, in a
     fixed order, so a seed gives the same weights on the CPU and the card;
-    the model then goes to ``device`` (default: the card)."""
+    the model then goes to ``device`` (default: the card). Without a
+    generator, shapes only: ``device`` must be ``"meta"``."""
     dev = default_device(device)
     lm = cfg.lm_cfg()
-    g = generator
-    embed = (torch.randn(cfg.vocab, cfg.d_model, generator=g, device=g.device) * 0.02).to(lm.pdt)
-    pos = (torch.randn(cfg.max_len, cfg.d_model, generator=g, device=g.device) * 0.02).to(lm.pdt)
+    g, gd = generator, L.gen_device(generator)
+    embed = (torch.randn(cfg.vocab, cfg.d_model, generator=g, device=gd) * 0.02).to(lm.pdt)
+    pos = (torch.randn(cfg.max_len, cfg.d_model, generator=g, device=gd) * 0.02).to(lm.pdt)
     layers = [_init_layer(g, lm) for _ in range(lm.n_layers)]
     model = BiEncoder(cfg, dict(
         embed=embed, pos_embed=pos, layers=layers,
-        final_norm=L.init_layernorm(cfg.d_model, lm.pdt, g.device),
+        final_norm=L.init_layernorm(cfg.d_model, lm.pdt, gd),
         proj=L.init_dense(g, cfg.d_model, cfg.embed_dim, dtype=lm.pdt)))
     return model.to(dev)
 

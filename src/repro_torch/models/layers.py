@@ -4,7 +4,8 @@ Conventions, as in the reference:
   * parameters are nested mappings of tensors: here ``nn.ParameterDict``
     leaves under ``nn.ModuleDict`` nodes, so a model holds them as modules
     and its ``state_dict`` keys follow the reference's tree. Init fns take
-    an explicit ``torch.Generator`` and draw on its device. Parameters are
+    an explicit ``torch.Generator`` and draw on its device (no generator:
+    the meta device, shapes without memory). Parameters are
     made with ``requires_grad=False``; a trainer turns their gradients on
     (``module.requires_grad_(True)``)
   * weights are (d_in, d_out) and applied as ``x @ w``, so a reference
@@ -39,19 +40,59 @@ def _param(t: torch.Tensor) -> nn.Parameter:
     return t if isinstance(t, nn.Parameter) else nn.Parameter(t, requires_grad=False)
 
 
+class ParamTree(nn.Module):
+    """A node of the tree that holds tensors (parameters) and subtrees
+    (modules) side by side, as the reference's MoE node holds ``router``
+    beside ``w1``; read with ``[key]`` and ``in``."""
+
+    def __init__(self, tree):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(k, _param(v))
+            else:
+                self.add_module(k, as_module(v))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def as_module(tree) -> nn.Module:
+    """A parameter (sub)tree as modules: tensor leaves -> ``ParameterDict``,
+    mappings of subtrees -> ``ModuleDict``, both at once -> ``ParamTree``;
+    modules pass through."""
+    if isinstance(tree, nn.Module):
+        return tree
+    tensors = [isinstance(v, torch.Tensor) for v in tree.values()]
+    if all(tensors):
+        return nn.ParameterDict({k: _param(v) for k, v in tree.items()})
+    if not any(tensors):
+        return nn.ModuleDict({k: as_module(v) for k, v in tree.items()})
+    return ParamTree(tree)
+
+
+def gen_device(generator: torch.Generator | None) -> torch.device:
+    """Where ``generator`` draws; without one, the meta device."""
+    return torch.device("meta") if generator is None else generator.device
+
+
 # ---------------------------------------------------------------------------
 # Linear / norms
 # ---------------------------------------------------------------------------
 
 
-def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
+def init_dense(generator: torch.Generator | None, d_in: int, d_out: int, *,
                bias: bool = False, dtype=torch.float32,
                scale: float | None = None) -> nn.ParameterDict:
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
-    w = torch.randn(d_in, d_out, generator=generator, device=generator.device) * scale
+    dev = gen_device(generator)
+    w = torch.randn(d_in, d_out, generator=generator, device=dev) * scale
     p = nn.ParameterDict({"w": _param(w.to(dtype))})
     if bias:
-        p["b"] = _param(torch.zeros((d_out,), dtype=dtype, device=generator.device))
+        p["b"] = _param(torch.zeros((d_out,), dtype=dtype, device=dev))
     return p
 
 

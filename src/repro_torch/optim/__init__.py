@@ -1,7 +1,11 @@
-"""Optimisation substrate of the port: AdamW and the LR schedules (Adafactor,
-the rowwise optimiser and gradient compression wait for the model zoo)."""
-from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, global_norm
+"""Optimisation substrate of the port: AdamW (with its ZeRO-1 specs),
+Adafactor and the LR schedules (the rowwise optimiser and gradient
+compression wait for the recsys family)."""
+from repro_torch.optim.adafactor import AdafactorConfig, adafactor_init, adafactor_update
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
+                                     opt_state_specs, zero1_specs)
 from repro_torch.optim.schedule import constant_lr, warmup_cosine
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
-           "constant_lr", "warmup_cosine"]
+__all__ = ["AdafactorConfig", "adafactor_init", "adafactor_update",
+           "AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+           "opt_state_specs", "zero1_specs", "constant_lr", "warmup_cosine"]

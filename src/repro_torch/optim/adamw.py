@@ -15,8 +15,10 @@ per-layer norms that are ``(L, d)`` leaves there and decay
 (``convert.decay_mask``). Without one, the rule applies to the tensors as
 given.
 
-``zero1_specs`` and ``opt_state_specs`` (the moments sharded over the data
-axes) wait for the port of ``par/sharding.py``.
+``zero1_specs`` and ``opt_state_specs`` give the ZeRO-1 layout of the
+moments: each parameter's spec with one more dim sharded over the data
+axes. They take the reference's trees (``convert.reference_shapes``), as
+the specs describe its stacked leaves.
 """
 from __future__ import annotations
 
@@ -24,6 +26,10 @@ import dataclasses
 from collections.abc import Mapping
 
 import torch
+
+from repro_torch.par.mesh import DeviceMesh
+from repro_torch.par.sharding import P, PartitionSpec, axis_sizes, logical_to_physical
+from repro_torch.util import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +85,41 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
     state["step"] = step
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of the moments
+# ---------------------------------------------------------------------------
+
+
+def zero1_specs(param_spec_tree, params_shape, mesh: DeviceMesh):
+    """Extend each param spec by sharding one more dim over the dp axes."""
+    dp = logical_to_physical("dp", mesh)
+    sizes = axis_sizes(mesh)
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+
+    def extend(spec: PartitionSpec, leaf) -> PartitionSpec:
+        parts = list(spec) + [None] * (len(leaf.shape) - len(spec))
+        used: set = set()
+        for part in parts:
+            if part is None:
+                continue
+            used.update(part if isinstance(part, tuple) else (part,))
+        if used.intersection(dp):   # dp axes already consumed (e.g. FSDP rows)
+            return P(*parts)
+        for d, cur in enumerate(parts):
+            if cur is None and leaf.shape[d] % dp_size == 0 and leaf.shape[d] > 1:
+                parts[d] = dp if len(dp) > 1 else dp[0]
+                return P(*parts)
+        return P(*parts)
+
+    return tree_map(extend, param_spec_tree, params_shape)
+
+
+def opt_state_specs(param_spec_tree, params_shape, mesh: DeviceMesh, *,
+                    zero1: bool = True) -> dict:
+    mom = (zero1_specs(param_spec_tree, params_shape, mesh)
+           if zero1 else param_spec_tree)
+    return {"mu": mom, "nu": mom, "step": P()}

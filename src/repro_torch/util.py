@@ -1,5 +1,7 @@
-"""Device resolution and the fp32 precision policy of the port."""
+"""Device resolution, the fp32 precision policy and tree helpers of the port."""
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -43,3 +45,43 @@ def as_tensor(x, device: str | torch.device | None = None) -> torch.Tensor:
     if not a.flags.writeable:   # e.g. a view of a JAX array: torch needs its own
         a = a.copy()
     return torch.as_tensor(a, device=default_device(device))
+
+
+# ---------------------------------------------------------------------------
+# trees: nested mappings, tuples and lists, flattened as JAX flattens them
+# ---------------------------------------------------------------------------
+
+
+def flatten_with_paths(tree, prefix: str = "") -> list:
+    """(path, leaf) pairs in JAX's flattening order: a mapping's keys
+    sorted, a tuple's or list's positions, joined by ``/``."""
+    if isinstance(tree, Mapping):
+        items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, (tuple, list)):
+        items = [(str(i), v) for i, v in enumerate(tree)]
+    else:
+        return [(prefix, tree)]
+    out = []
+    for k, v in items:
+        out.extend(flatten_with_paths(v, f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def map_with_paths(fn, tree, prefix: str = ""):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``."""
+    if isinstance(tree, Mapping):
+        return {k: map_with_paths(fn, v, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_paths(fn, v, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of trees of the same structure."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)

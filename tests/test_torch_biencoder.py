@@ -194,9 +194,15 @@ def test_shapes_and_spec_match_reference():
 
 
 def test_moe_layer_raises_until_ported():
-    cfg = T.TransformerConfig(n_experts=4)
-    with pytest.raises(NotImplementedError, match="moe"):
-        T._init_layer(torch.Generator().manual_seed(0), cfg)
+    """Ported: an MoE layer has the reference's ``moe`` node (router and
+    (E, d, f) experts), and Arctic's dense residual beside it."""
+    cfg = T.TransformerConfig(n_experts=4, d_model=32, d_ff=48)
+    lp = T._init_layer(torch.Generator().manual_seed(0), cfg)
+    assert "mlp" not in lp and lp["moe"]["router"]["w"].shape == (32, 4)
+    assert lp["moe"]["w1"].shape == (4, 32, 48) and lp["moe"]["w2"].shape == (4, 48, 32)
+    lp = T._init_layer(torch.Generator().manual_seed(0), dataclasses.replace(
+        cfg, dense_residual=True, residual_d_ff=24))
+    assert lp["mlp"]["w1"]["w"].shape == (32, 24) and "w3" in lp["moe"]
 
 
 # ---------------------------------------------------------------------------

@@ -1196,3 +1196,106 @@ def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _lm_pair(arch, **kw):
+    """(config, CPU model, card model): an LM smoke config's seeded weights
+    on both devices."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import init_lm
+
+    cfg = dataclasses.replace(registry.get_smoke_cfg(arch), **kw)
+    return cfg, *(init_lm(cfg, generator=torch.Generator().manual_seed(0), device=d)
+                  for d in ("cpu", "cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b", "arctic-480b"])
+def test_cuda_lm_matches_cpu_f32(arch):
+    """An LM smoke config (qwen2: QKV bias, tied embeddings; mixtral: MoE,
+    sliding window; arctic: dense residual) on the card against its CPU run
+    (chip_smoke.py phase 15 (a)): loss and each gradient leaf within 1e-4
+    (of the leaf's largest entry), the MoE aux loss within 1e-5, prefill and
+    decode logits within 1e-4, the arch's optimizer step from the same
+    gradients within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import registry, steps
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import transformer as T
+
+    cfg, cpu, card = _lm_pair(arch)
+    b = token_batch(0, 0, batch=4, seq_len=32, vocab=cfg.vocab)
+    out = [steps.value_and_grad(steps._lm_loss, m.requires_grad_(True), b) for m in (cpu, card)]
+    (l_cpu, g_cpu), (l_card, g_card) = out
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-4)
+    for n, g in g_cpu.items():
+        assert float((g_card[n].cpu() - g).abs().max()) <= 1e-4 * float(g.abs().max()), n
+    for m in (cpu, card):
+        m.requires_grad_(False)
+    with torch.no_grad():
+        aux = [float(T.forward_hidden(m, b["tokens"])[1]) for m in (cpu, card)]
+    assert abs(aux[1] - aux[0]) <= 1e-5
+    logits = []
+    for m in (cpu, card):
+        pl, cache = T.prefill(m, b["tokens"][:, :24], cache_len=32)
+        dl, _ = T.decode_step(m, cache, b["tokens"][:, 24], 24)
+        seq = [pl, dl]
+        if cfg.sliding_window:
+            _, rc = T.prefill(m, b["tokens"], cache_len=cfg.sliding_window)
+            seq.append(T.decode_step_sliding(m, rc, b["tokens"][:, 0],
+                                             3 * cfg.sliding_window + 5)[0])
+        logits.append(seq)
+    for x, y in zip(*logits):
+        assert y.device.type == "cuda" and float((y.cpu() - x).abs().max()) <= 1e-4
+    init, update = steps._opt_pack(registry.get_arch(arch).optimizer)
+    for m in (cpu, card):
+        m.requires_grad_(True)
+        named = dict(m.named_parameters())
+        update({n: g.to(named[n].device) for n, g in g_cpu.items()}, init(m), named,
+               torch.tensor(1e-2))
+    for (n, p), q in zip(cpu.named_parameters(), card.parameters()):
+        assert float((q.detach().cpu() - p.detach()).abs().max()) <= 1e-6, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b", "arctic-480b"])
+def test_cuda_lm_matches_cpu_bf16(arch):
+    """bf16 compute: the loss within 1e-2 relative and the flattened
+    gradient at cosine >= 0.999 of the CPU run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import steps
+    from repro_torch.data.tokens import token_batch
+
+    cfg, cpu, card = _lm_pair(arch, compute_dtype="bfloat16")
+    b = token_batch(0, 1, batch=4, seq_len=32, vocab=cfg.vocab)
+    (l_cpu, g_cpu), (l_card, g_card) = (
+        steps.value_and_grad(steps._lm_loss, m.requires_grad_(True), b) for m in (cpu, card))
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-2)
+    a = torch.cat([g.flatten() for g in g_cpu.values()]).double()
+    c = torch.cat([g_card[n].cpu().flatten() for n in g_cpu]).double()
+    assert float(a @ c / a.norm() / c.norm()) >= 0.999
+
+
+@pytest.mark.gpu
+def test_cuda_lm_train_step_microbatched():
+    """The micro-batched step (K = 4, bf16 accumulation, Adafactor: arctic's
+    recipe at its smoke width) on the card against the CPU: the loss within
+    1e-4 relative, finite parameters on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import steps
+    from repro_torch.data.tokens import token_batch
+
+    cfg, cpu, card = _lm_pair("arctic-480b")
+    b = token_batch(0, 2, batch=8, seq_len=32, vocab=cfg.vocab)
+    losses = []
+    for m in (cpu, card):
+        m.requires_grad_(True)
+        step, opt_init = steps.make_train_step(steps._lm_loss, "adafactor", microbatch=4,
+                                               accum_dtype="bfloat16")
+        losses.append(float(step(m, opt_init(m), b)["loss"]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    assert all(bool(torch.isfinite(p).all()) for p in card.parameters())

@@ -355,8 +355,8 @@ def test_make_train_step_matches_reference(compute_dtype):
         np.testing.assert_allclose(float(out["loss"]), float(jm["loss"]), rtol=1e-2)
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=2.2e-4, err_msg=k)
-    with pytest.raises(ValueError, match="adafactor"):
-        make_train_step(B.contrastive_loss, "adafactor")
+    with pytest.raises(ValueError, match="rowwise"):
+        make_train_step(B.contrastive_loss, "rowwise")
 
 
 # ---------------------------------------------------------------------------
@@ -618,8 +618,8 @@ def test_train_cli_and_refusals(tmp_path, capsys):
     assert out["steps_run"] == 2 and out["model"].cfg == biencoder_msmarco.smoke_cfg()
     assert capsys.readouterr().out.strip().endswith(
         f"[train] done: 2 steps, final loss {out['final_loss']:.4f}")
-    with pytest.raises(ValueError, match="smollm-135m.*not ported"):
-        train_cli.train("smollm-135m", steps=1, smoke=True, ckpt_dir=None, ckpt_every=0,
+    with pytest.raises(ValueError, match="graphcast.*not yet ported"):
+        train_cli.train("graphcast", steps=1, smoke=True, ckpt_dir=None, ckpt_every=0,
                         resume="none", seed=0, device="cpu")
     with pytest.raises(ValueError, match="not a train cell"):
         train_cli.train("biencoder-msmarco", steps=1, smoke=False, ckpt_dir=None,
@@ -628,8 +628,8 @@ def test_train_cli_and_refusals(tmp_path, capsys):
 
 
 def test_train_raises_on_a_non_finite_loss(monkeypatch):
-    monkeypatch.setattr(train_cli, "contrastive_loss",
-                        lambda m, b: B.contrastive_loss(m, b) * float("nan"))
+    real = B.contrastive_loss
+    monkeypatch.setattr(B, "contrastive_loss", lambda m, b: real(m, b) * float("nan"))
     with pytest.raises(FloatingPointError, match="step 0"):
         train_cli.train("biencoder-msmarco", steps=2, smoke=True, ckpt_dir=None,
                         ckpt_every=0, resume="none", seed=0, device="cpu")
