@@ -163,15 +163,32 @@ Phases, each printing one JSON line:
      with the MoE layers' share; (e) launch.train --arch smollm-135m (full
      config) for 20 steps with checkpoints under build/lm_smoke/: specs in
      the manifest equal param_specs, a bitwise resume, and an elastic
-     restore onto a (2, 2) mesh of the card's slots.
+     restore onto a (2, 2) mesh of the card's slots;
+ 16. the recsys family: (a) the smoke configs of the two-tower, DLRM,
+     DeepFM and AutoInt on the card against the CPU (f32 loss, gradients
+     per leaf, the arch's step: rowwise AdaGrad tables and accumulators or
+     AdamW, CTR forwards, retrieval ids); (b) the two-tower at full width:
+     the candidate index from item_embedding over 1,000,448 items, fitted
+     (gram) and pruned to m = 128 (pca_project), retrieval_cand at k 100
+     through its bundle (full d 256, pruned f32, pruned int8, int8 with a
+     4,096-row delta, int8 under hier_merge on a (2, 2) mesh of the card's
+     slots), ids against the plain top-k, recall@100 against the full
+     search, and compress_tables over the 1,048,576 x 256 item table; (c)
+     one train_batch step at the largest batch that fits (65,536 first),
+     serve_p99 and serve_bulk, against their bounds, with peak memory; (d)
+     DLRM with its tables cut to 2^24 rows (45.0 GB): a rowwise step at
+     65,536 in place, peak under tables + 20 GB; DeepFM and AutoInt whole:
+     a rowwise step and serve_p99; (e) launch.train --arch deepfm (full
+     config, 20 steps, checkpoints under build/recsys_smoke/) and a
+     bitwise resume.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
-sharded index), 13 (the encoder), 14 (the training half) and 15 (the
-LM family, which runs none of the kernels) are counted the same way, each
-on its own. Launches made only to compare or time a kernel are not
-counted. Then one line {"kernels": [...]}, the nvidia-smi
+sharded index), 13 (the encoder), 14 (the training half), 15 (the LM
+family, which runs none of the kernels) and 16 (the recsys family) are
+counted the same way, each on its own. Launches made only to compare or
+time a kernel are not counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
 """
@@ -273,6 +290,26 @@ LONG_POS = 524_288 + 2 * 4096 + 17      # phase 15(d): first position decoded, p
 LM_RUN_BATCH = 4            # phase 15(e): sequences a step (4 micro-batches of 1) ...
 LM_RUN_STEPS = 20           # ... steps of launch.train --arch smollm-135m
 LM_RUN_CKPT_EVERY = 10
+RECSYS_ARCHS = ("two-tower-retrieval", "dlrm-mlperf", "deepfm", "autoint")   # phase 16(a)
+RECSYS_PARITY_BATCH = 32    # phase 16(a): the reference launcher's smoke cell
+# phase 16(a) bars (PERF.md §2): f32 loss and each gradient leaf within 1e-4
+# of the CPU's (relative to the leaf's largest entry), forwards within 1e-4
+# absolute; after one step the parameters and tables within 1e-6 absolute,
+# the accumulators and moments within 1e-4 of the leaf's largest entry
+RECSYS_F32_TOL = 1e-4
+RECSYS_STEP_TOL = 1e-6
+TT_CANDIDATES = 1_000_448   # phase 16(b): retrieval_cand's 10^6, rounded up to 512 as the bundle
+TT_CUTOFF = 0.5             # ... pruned 256 -> 128
+TT_DELTA_ROWS = 4096        # ... a delta of this capacity (delta_rows) ...
+TT_DELTA_LIVE = 4000        # ... holding this many new items (n_valid below the capacity)
+TT_USER = 5                 # ... the query's user id
+TT_EMBED_BLOCK = 262_144    # items through item_embedding at a time
+TT_TRAIN_BATCHES = (65536, 32768, 16384, 8192)  # phase 16(c): train_batch's 65,536, then halved
+TT_TIMED_STEPS = 3          # ... timed steps at the batch that fits (median)
+DLRM_ROW_CAP = 1 << 24      # phase 16(d): rows a DLRM table keeps (five Criteo-TB tables cut)
+RECSYS_TRAIN_BATCH = 65536  # phase 16(d, e): train_batch's global batch, whole on one card
+RECSYS_RUN_STEPS = 20       # phase 16(e): launch.train --arch deepfm steps ...
+RECSYS_RUN_CKPT_EVERY = 10  # ... and its checkpoint interval
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -4095,6 +4132,466 @@ def phase_lm(counters):
     torch.cuda.empty_cache()
 
 
+def topk_row(D, q, k, *, n_valid=None, reps=10):
+    """A kernel row for one top-k shape: the kernel against its plain
+    version (ids up to near-ties, scores at TOL), their times, matmul +
+    topk beside them where D is f32, and the bound (each row read once)."""
+    import torch
+    from repro_torch.kernels import topk_score
+    want = topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid)
+    got = topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid)
+    n, m = D.shape
+    nv = n if n_valid is None else n_valid
+    err, eq, near = compare_topk(*want, *got, f"recsys top-k {tuple(D.shape)} {D.dtype}")
+    item, B = D.element_size(), q.shape[0]
+    return dict(
+        shape=[n, m, B, k], store={1: "int8", 4: "f32"}[item], n_valid=nv,
+        max_abs_err=err, ids_equal=eq, near_ties=near,
+        ms=cuda_ms(lambda: topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid), reps=reps),
+        plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid),
+                         reps=3),
+        library_ms=None,
+        matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ D[:nv].T, k), reps=reps)
+                        if item == 4 else None),
+        bound=bound(item * nv * m + 4 * B * m + 8 * B * k, 2 * B * nv * m))
+
+
+def gram_row(D):
+    """A kernel row for ``gram`` at D's shape, held to the plain version's
+    product in fp64 (as phase 4 holds it)."""
+    import torch
+    from repro_torch.kernels import gram
+    n, d = D.shape
+    G, Gp = gram.gram_cuda(D), gram.gram_plain(D)
+    D64 = D.double()
+    G64 = D64.T @ D64
+    del D64
+    g64 = float(G64.abs().max())
+    g_err = float((G.double() - G64).abs().max())
+    if g_err / g64 > GRAM_TOL:
+        raise AssertionError(f"recsys: gram relative error {g_err / g64} at {tuple(D.shape)}")
+    return dict(shape=[n, d], max_abs_err=g_err, rel_err=g_err / g64,
+                plain_f32_rel_err_vs_f64=float((Gp.double() - G64).abs().max()) / g64,
+                ms=cuda_ms(lambda: gram.gram_cuda(D), reps=10),
+                plain_ms=cuda_ms(lambda: gram.gram_plain(D), reps=10),
+                library_ms=cuda_ms(lambda: torch.matmul(D.T, D), reps=10),
+                bound=bound(4 * n * d + 4 * d * d, n * d * (d + 1)))
+
+
+def pca_project_row(D, W, want=None):
+    """A kernel row for ``pca_project`` at D's and W's shapes; ``want`` (the
+    path's output) must be within 1e-4 of the kernel's, and whether it is
+    bitwise is recorded."""
+    import torch
+    from repro_torch.kernels import pca_project
+    n, d = D.shape
+    m = W.shape[1]
+    p1 = pca_project.pca_project_cuda(D, W)
+    err = float((p1 - pca_project.pca_project_plain(D, W)).abs().max())
+    path_err = 0.0 if want is None else float((p1 - want).abs().max())
+    if err > 1e-4 or path_err > 1e-4:
+        raise AssertionError(f"recsys: pca_project error {err}, against the path's "
+                             f"{path_err} at {tuple(D.shape)}")
+    return dict(shape=[n, d, m], max_abs_err=err,
+                path_bitwise=want is None or bool(torch.equal(p1, want)),
+                ms=cuda_ms(lambda: pca_project.pca_project_cuda(D, W), reps=10),
+                plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(D, W), reps=10),
+                library_ms=cuda_ms(lambda: torch.matmul(D, W), reps=10),
+                bound=bound(4 * n * d + 4 * d * m + 4 * n * m, 2 * n * d * m))
+
+
+def recsys_batch(cfg, B, t=0):
+    from repro_torch.data.recsys import ctr_batch, two_tower_batch
+    if cfg.kind == "two_tower":
+        return two_tower_batch(0, t, batch=B, user_vocab=cfg.user_vocab,
+                               item_vocab=cfg.item_vocab)
+    return ctr_batch(0, t, batch=B, vocab_sizes=cfg.vocab_sizes, n_dense=cfg.n_dense)
+
+
+def bundle_bound(meta):
+    """The least time of a bundle's step from its analytic bytes and model
+    FLOPs (f32: the recsys family computes in f32)."""
+    return bound(meta["analytic_bytes"], meta["model_flops"])
+
+
+def phase_recsys(counters, rows):
+    """Phase 16: the recsys family. (a) The smoke configs of all four archs
+    on the card against the CPU from the same seeded weights and batch: f32
+    loss and gradients per leaf, the arch's step (the rowwise step for
+    DLRM, DeepFM and AutoInt, AdamW for the two-tower) on parameters,
+    tables, accumulators and moments, the CTR forward and the two-tower's
+    retrieval ids. (b) The two-tower at full width: the candidate index
+    from item_embedding over retrieval_cand's 1,000,448 items, fitted
+    (gram) and pruned to m = 128 (pca_project), int8 by the per-dim
+    absmax; retrieval_cand through its bundle four ways (full d 256, pruned
+    f32, pruned int8, int8 with a 4,096-row delta holding 4,000 new items)
+    and the pruned int8 one again under hier_merge on a (2, 2) mesh of the
+    card's slots: ids against the plain top-k, each search's ms against its
+    bound, recall@100 of the pruned searches against the full one (random
+    weights: a check that the pieces connect). compress_tables over the
+    item table (1,048,576 x 256 -> 128). (c) One train_batch step at the
+    largest batch that fits (65,536 first, halved on an out-of-memory
+    error), serve_p99 and serve_bulk forwards, each against its bundle's
+    bound, with the peak memory. (d) DLRM with each table cut to 2^24
+    rows (45.0 GB of tables): one rowwise step at 65,536, in place, the
+    peak under tables + 20 GB; DeepFM and AutoInt at full config: a
+    rowwise step at 65,536 and serve_p99 each. (e) launch.train --arch
+    deepfm (full config) for 20 steps with checkpoints every 10 under
+    build/recsys_smoke/, and a resume from step 10 that replays step 11
+    bitwise."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs import registry, steps
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.core.index import _topk_merge, project_queries
+    from repro_torch.core.pruning import StaticPruner
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.core.table_compress import compress_tables
+    from repro_torch.kernels import topk_score
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import recsys as R
+    from repro_torch.par.mesh import make_mesh
+    from repro_torch.util import flatten_with_paths
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh11 = make_mesh((1, 1), ("data", "model"), dev)
+    mesh22 = make_mesh((2, 2), ("data", "model"), dev)
+
+    def bundle(arch, cfg, cell, mesh=mesh11):
+        spec = dataclasses.replace(registry.get_arch(arch), cfg=cfg)
+        return steps.recsys_bundle(spec, cell, mesh)
+
+    def on(batch, d):
+        return {k: torch.as_tensor(v, device=d) for k, v in batch.items()}
+
+    # (a) card against CPU on the smoke configs
+    t0 = time.perf_counter()
+    parity, bad = {}, []
+    train = ShapeCell("smoke", "train", dict(batch=RECSYS_PARITY_BATCH))
+    for arch in RECSYS_ARCHS:
+        cfg = registry.get_smoke_cfg(arch)
+        opt_name = registry.get_arch(arch).optimizer
+        b = recsys_batch(cfg, RECSYS_PARITY_BATCH)
+        out = {}
+        for d in ("cpu", dev):
+            m = R.init_recsys(cfg, generator=torch.Generator().manual_seed(0), device=d)
+            m.requires_grad_(True)
+            loss_fn = R.two_tower_loss if cfg.kind == "two_tower" else R.bce_loss
+            loss, grads = steps.value_and_grad(loss_fn, m, on(b, d))
+            init, _ = steps._opt_pack(opt_name)
+            opt = init(m)
+            bd = bundle(arch, cfg, train, make_mesh((1, 1), ("data", "model"), d))
+            step_loss = bd.fn(m, opt, on(b, d))["loss"]
+            tree = convert.checkpoint_tree(m, opt)
+            with torch.no_grad():
+                if cfg.kind == "two_tower":
+                    items = torch.arange(cfg.item_vocab, device=d)
+                    fwd = R.score_candidates(m, torch.tensor([TT_USER], device=d),
+                                             R.item_embedding(m, items), k=100)
+                else:
+                    fwd = R.forward_ctr(m, on(b, d))
+            out[d] = (loss, grads, step_loss, tree, fwd)
+        (lc, gc_, slc, tc, fc), (lg, gg, slg, tg, fg) = out["cpu"], out[dev]
+        r = {"optimizer": opt_name,
+             "loss_rel_err": abs(float(lg) - float(lc)) / abs(float(lc)),
+             "step_loss_rel_err": abs(float(slg) - float(slc)) / abs(float(slc))}
+        errs = {n: _leaf_err(gg[n], g) for n, g in gc_.items()}
+        r["grad_max_leaf_rel_err"] = max(errs.values())
+        r["grad_worst_leaf"] = max(errs, key=errs.get)
+        flat_c = dict(flatten_with_paths(tc))
+        flat_g = dict(flatten_with_paths(tg))
+        p_err = max(float((flat_g[p].detach().cpu() - v.detach()).abs().max())
+                    for p, v in flat_c.items() if p.startswith("0/"))
+        s_err = max(_leaf_err(flat_g[p], v) for p, v in flat_c.items()
+                    if p.startswith("1/") and v.is_floating_point() and bool(v.abs().max() > 0))
+        r["step_params_max_abs_err"], r["step_state_max_leaf_rel_err"] = p_err, s_err
+        if cfg.kind == "two_tower":
+            r["retrieval_ids_near_ties"] = compare_topk(*fc, *fg, f"recsys (a) {arch}")[2]
+            bad_fwd = False
+        else:
+            r["forward_max_abs_err"] = float((fg.cpu() - fc).abs().max())
+            bad_fwd = r["forward_max_abs_err"] > RECSYS_F32_TOL
+        if (r["loss_rel_err"] > RECSYS_F32_TOL or r["step_loss_rel_err"] > RECSYS_F32_TOL
+                or r["grad_max_leaf_rel_err"] > RECSYS_F32_TOL or bad_fwd
+                or p_err > RECSYS_STEP_TOL or s_err > RECSYS_F32_TOL):
+            bad.append(arch)
+        parity[arch] = r
+        del out
+    emit("recsys", step="a_parity", seconds=time.perf_counter() - t0, f32_tol=RECSYS_F32_TOL,
+         step_tol=RECSYS_STEP_TOL, **parity)
+    if bad:
+        raise AssertionError(f"recsys (a): card against CPU out of bounds for {bad}: {parity}")
+
+    # (b) the two-tower at full width: the candidate index and retrieval_cand
+    arch = "two-tower-retrieval"
+    spec = registry.get_arch(arch)
+    cfg = spec.cfg
+    t0 = time.perf_counter()
+    model = R.init_recsys(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    C = TT_CANDIDATES
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        full = torch.cat([R.item_embedding(model, torch.arange(i, min(i + TT_EMBED_BLOCK, C),
+                                                              device=dev))
+                          for i in range(0, C, TT_EMBED_BLOCK)])
+        torch.cuda.synchronize()
+        t_embed = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pruner = StaticPruner(cutoff=TT_CUTOFF).fit(full)              # gram
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pruned = pruner.prune_index(full)                               # pca_project
+        torch.cuda.synchronize()
+        t_prune = time.perf_counter() - t0
+        m = pruner.kept_dims
+        W = pruner.projection()[0].contiguous()
+        q8, scale = quantize_int8_per_dim(pruned)
+        new = R.item_embedding(model, torch.arange(C, C + TT_DELTA_LIVE, device=dev))
+        d8, dscale = quantize_int8_per_dim(project_queries(new, W))
+        delta = torch.zeros((TT_DELTA_ROWS, m), dtype=torch.int8, device=dev)
+        delta[:TT_DELTA_LIVE] = d8
+        users = torch.tensor([TT_USER], device=dev)
+        u = R.user_embedding(model, users)
+        q = project_queries(u, W)
+    base = dict(batch=1, n_candidates=C)
+    ways = {"full": ({}, (full,), mesh11),
+            "pruned_f32": (dict(index_dim=m), (pruned, W, torch.ones(m, device=dev)), mesh11),
+            "pruned_int8": (dict(index_dim=m, int8=1), (q8, W, scale), mesh11),
+            "int8_delta": (dict(index_dim=m, int8=1, delta_rows=TT_DELTA_ROWS),
+                           (q8, W, scale, delta, dscale, TT_DELTA_LIVE), mesh11),
+            "int8_hier": (dict(index_dim=m, int8=1, hier_merge=1), (q8, W, scale), mesh22)}
+    results, searches = {}, {}
+    for name, (dims, args, mesh) in ways.items():
+        bd = bundle(arch, cfg, ShapeCell("retrieval_cand", "retrieval", {**base, **dims}), mesh)
+        with torch.no_grad():
+            s, i = bd.fn(model, *args, users)
+            torch.cuda.synchronize()
+            with counters.uncounted():
+                ms = cuda_ms(lambda: bd.fn(model, *args, users), reps=10)
+        results[name] = (s, i)
+        searches[name] = dict(ms=ms, bound_ms=bundle_bound(bd.meta)[0], n_candidates=C,
+                              index_dim=bd.meta["index_dim"], int8=bd.meta["index_int8"])
+    with counters.uncounted(), torch.no_grad():
+        # each search against the plain top-k on the same operands
+        plain = {"full": topk_score.topk_score_plain(full, u.contiguous(), k=100),
+                 "pruned_f32": topk_score.topk_score_plain(pruned, q.contiguous(), k=100),
+                 "pruned_int8": topk_score.topk_score_plain(
+                     q8, (q * scale[None, :]).contiguous(), k=100)}
+        plain["int8_hier"] = plain["pruned_int8"]
+        ds = topk_score.topk_score_plain(delta, (q * dscale[None, :]).contiguous(), k=100,
+                                         n_valid=TT_DELTA_LIVE)
+        plain["int8_delta"] = _topk_merge(
+            torch.cat([plain["pruned_int8"][0], ds[0]], 1),
+            torch.cat([plain["pruned_int8"][1], torch.where(ds[1] >= 0, ds[1] + C, ds[1])], 1),
+            100)
+        for name, got in results.items():
+            err, eq, near = compare_topk(*plain[name], *got, f"recsys (b) {name}")
+            searches[name].update(max_abs_err=err, ids_equal=eq, near_ties=near)
+        if not torch.equal(results["int8_hier"][1], results["pruned_int8"][1]):
+            raise AssertionError("recsys (b): the hierarchical merge's ids differ from the flat")
+        full_ids = set(results["full"][1][0].tolist())
+        recall = {name: len(full_ids & set(results[name][1][0].tolist())) / 100
+                  for name in ("pruned_f32", "pruned_int8", "int8_delta")}
+        in_delta = int((results["int8_delta"][1] >= C).sum())
+        # the kernels at this path's shapes
+        rows["topk_score_recsys_f32_d256"] = topk_row(full, u.contiguous(), 100)
+        rows["topk_score_recsys_f32_m128"] = topk_row(pruned, q.contiguous(), 100)
+        qs = (q * scale[None, :]).contiguous()
+        rows["topk_score_recsys_int8_m128"] = topk_row(q8, qs, 100)
+        rows["topk_score_recsys_delta_int8"] = topk_row(
+            delta, (q * dscale[None, :]).contiguous(), 100, n_valid=TT_DELTA_LIVE)
+        shard = q8[:C // 4]
+        rows["topk_score_recsys_shard_int8"] = topk_row(shard, qs, 100)
+        rows["gram_recsys"] = gram_row(full)
+        rows["pca_project_recsys"] = pca_project_row(full, W, pruned)
+    emit("recsys", step="b_retrieval", arch=arch, init_s=t_init, embed_s=t_embed,
+         fit_s=t_fit, prune_s=t_prune, kept_dims=m, candidates=C, delta_rows=TT_DELTA_ROWS,
+         delta_live=TT_DELTA_LIVE, recall_at_100_vs_full=recall, delta_ids_in_top100=in_delta,
+         hier_ids_equal_flat=True, searches=searches,
+         eigenvalue_top3=pruner.state.eigenvalues[:3].tolist())
+    del full, pruned, q8, delta, new, results, plain
+
+    # compress_tables over the item table (the same fit and prune, on a table)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        (ct,), cp = compress_tables([model.item_embed])            # gram, pca_project
+        torch.cuda.synchronize()
+        t_compress = time.perf_counter() - t0
+        with counters.uncounted():
+            sample = model.item_embed[:100_000]
+            rows["gram_table_compress"] = gram_row(sample)
+            rows["pca_project_table_compress"] = pca_project_row(
+                model.item_embed, cp.projection()[0].contiguous(), ct)
+    emit("recsys", step="d_compress_tables", table=list(model.item_embed.shape),
+         pruned=list(ct.shape), kept_dims=cp.kept_dims, seconds=t_compress,
+         bytes_full=model.item_embed.numel() * 4, bytes_pruned=ct.numel() * 4)
+    del ct, cp
+
+    # (c) two-tower training and serving at full width
+    model.requires_grad_(True)
+    init, _ = steps._opt_pack(spec.optimizer)
+    opt = init(model)
+    trained, tried = None, {}
+    for B in TT_TRAIN_BATCHES:
+        bd = bundle(arch, cfg, ShapeCell("train_batch", "train", dict(batch=B)))
+        batch = on(recsys_batch(cfg, B), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            loss = float(bd.fn(model, opt, batch)["loss"])
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError as e:
+            tried[B] = dict(oom=str(e).split("\n")[0][:200],
+                            peak_at_oom_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del e
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        ms = median_ms(lambda: bd.fn(model, opt, batch), reps=TT_TIMED_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        b_ms, b_by = bundle_bound(bd.meta)
+        trained = dict(batch=B, first_step_s=first, loss=loss, ms=ms, bound_ms=b_ms,
+                       bound_by=b_by, bound_frac=b_ms / ms, peak_gb=peak / 1e9,
+                       samples_per_s=B / ms * 1e3)
+        del batch
+        break
+    if trained is None or not np.isfinite(trained["loss"]):
+        raise AssertionError(f"recsys (c): no train_batch step ran: {tried}")
+    model.requires_grad_(False)
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = {}
+    for cell in ("serve_p99", "serve_bulk"):
+        c = spec.cell(cell)
+        bd = bundle(arch, cfg, c)
+        batch = recsys_batch(cfg, c.dims["batch"])
+        batch = on({k: batch[k] for k in ("user_ids", "item_ids")}, dev)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            out = bd.fn(model, batch)
+            ms = cuda_ms(lambda: bd.fn(model, batch), reps=10)
+        if not (out.shape == (c.dims["batch"],) and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"recsys (c): {cell} output {tuple(out.shape)} not finite")
+        b_ms, b_by = bundle_bound(bd.meta)
+        served[cell] = dict(batch=c.dims["batch"], ms=ms, bound_ms=b_ms, bound_by=b_by,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("recsys", step="c_two_tower", arch=arch, params=cfg.param_count(),
+         train=trained, train_tried_oom=tried, serve=served)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) DLRM with its tables cut to 2^24 rows; DeepFM and AutoInt whole
+    ctr = {}
+    for arch in ("dlrm-mlperf", "deepfm", "autoint"):
+        spec = registry.get_arch(arch)
+        cfg = spec.cfg
+        if arch == "dlrm-mlperf":
+            cfg = dataclasses.replace(cfg, vocab_sizes=tuple(min(v, DLRM_ROW_CAP)
+                                                             for v in cfg.vocab_sizes))
+        t0 = time.perf_counter()
+        model = R.init_recsys(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        model.requires_grad_(True)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        table_bytes = sum(t.numel() * t.element_size() for t in model.tables)
+        init, _ = steps._opt_pack(spec.optimizer)
+        opt = init(model)
+        bd = bundle(arch, cfg, ShapeCell("train_batch", "train",
+                                         dict(batch=RECSYS_TRAIN_BATCH)))
+        ptrs = [t.data_ptr() for t in model.tables]
+        touched = torch.as_tensor(recsys_batch(cfg, RECSYS_TRAIN_BATCH)["sparse"][:8, 0],
+                                  device=dev).long()
+        probe = model.tables[0][touched].clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for t in range(2):
+            batch = on(recsys_batch(cfg, RECSYS_TRAIN_BATCH, t), dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(bd.fn(model, opt, batch, t)["loss"]))
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        in_place = [t.data_ptr() for t in model.tables] == ptrs
+        moved = bool((probe != model.tables[0][touched]).any(1).all())
+        model.requires_grad_(False)
+        del opt
+        sp = spec.cell("serve_p99")
+        sb = bundle(arch, cfg, sp)
+        batch = on(recsys_batch(cfg, sp.dims["batch"]), dev)
+        with torch.no_grad():
+            logits = sb.fn(model, batch)
+            s_ms = cuda_ms(lambda: sb.fn(model, batch), reps=10)
+        b_ms, b_by = bundle_bound(bd.meta)
+        sb_ms, sb_by = bundle_bound(sb.meta)
+        ctr[arch] = dict(
+            tables_gb=table_bytes / 1e9, rows=sum(cfg.vocab_sizes), init_s=t_init,
+            losses=losses, first_step_ms=times[0], step_ms=times[1], bound_ms=b_ms,
+            bound_by=b_by, samples_per_s=RECSYS_TRAIN_BATCH / times[1] * 1e3,
+            peak_gb=peak / 1e9, peak_over_tables_gb=(peak - table_bytes) / 1e9,
+            tables_in_place=in_place, touched_rows_moved=moved,
+            serve_p99=dict(ms=s_ms, bound_ms=sb_ms, bound_by=sb_by))
+        if arch == "dlrm-mlperf":
+            ctr[arch]["cut"] = f"each table at most {DLRM_ROW_CAP:,} rows"
+        # DLRM's bar: no copy of its 45 GB of tables fits under 20 GB more
+        if not (all(np.isfinite(losses)) and in_place and moved
+                and bool(torch.isfinite(logits).all())
+                and (arch != "dlrm-mlperf" or peak - table_bytes < 20e9)):
+            raise AssertionError(f"recsys (d): {arch}: {ctr[arch]}")
+        del model, batch, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit("recsys", step="d_ctr", train_batch=RECSYS_TRAIN_BATCH, **ctr)
+
+    # (e) launch.train --arch deepfm, full config, checkpoints, resume
+    root = os.path.join(HERE, "build", "recsys_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "ck")
+    run = dict(steps=RECSYS_RUN_STEPS, smoke=False, ckpt_dir=ckpt,
+               ckpt_every=RECSYS_RUN_CKPT_EVERY, seed=0, batch=RECSYS_TRAIN_BATCH, device=dev,
+               log_every=RECSYS_RUN_CKPT_EVERY)
+    t0 = time.perf_counter()
+    res = train_cli.train("deepfm", resume="none", **run)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    losses = res["losses"]
+    del res
+    gc.collect()
+    shutil.rmtree(os.path.join(ckpt, f"step_{RECSYS_RUN_STEPS:010d}"))
+    res2 = train_cli.train("deepfm", resume="auto", **{**run, "steps": 1, "log_every": 0})
+    resumed = res2["losses"][0]
+    emit("recsys", step="e_launch_train", arch="deepfm", batch=RECSYS_TRAIN_BATCH,
+         steps=len(losses), seconds=t_run, first_loss=losses[0], last_loss=losses[-1],
+         resumed_at=RECSYS_RUN_CKPT_EVERY, resumed_loss=resumed,
+         uninterrupted_loss=losses[RECSYS_RUN_CKPT_EVERY],
+         resume_bitwise=resumed == losses[RECSYS_RUN_CKPT_EVERY])
+    if not (len(losses) == RECSYS_RUN_STEPS and all(np.isfinite(losses))):
+        raise AssertionError(f"recsys (e): losses not finite: {losses}")
+    if resumed != losses[RECSYS_RUN_CKPT_EVERY]:
+        raise AssertionError(f"recsys (e): resumed {resumed} against "
+                             f"{losses[RECSYS_RUN_CKPT_EVERY]}")
+    del res2
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
@@ -4253,6 +4750,20 @@ def main():
     lm_launches = counters.read()
     emit("lm_path_launches", seconds=time.perf_counter() - t0,
          **{k: v for k, v in lm_launches.items() if v})
+    # the recsys family, counted on its own: the two-tower's candidate index
+    # is fitted, pruned and searched through the kernels
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_recsys(counters, rows)
+    torch.cuda.synchronize()
+    recsys_launches = counters.read()
+    emit("recsys_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in recsys_launches.items() if v})
+    on_recsys = ("gram", "pca_project", "topk_score_f32", "topk_score_int8", "topk_select",
+                 "topk_score_int8_n_valid")
+    missing = [k for k in on_recsys if recsys_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the recsys path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches
@@ -4281,7 +4792,7 @@ def main():
                                 "frac_differ", "matmul_topk_ms", "dense_ms",
                                 "cuda_launches_per_call", "page_rows", "pages",
                                 "ranges", "range_sum_bitwise", "n_valid",
-                                "enqueue_ms", "library_call", "U_live")})
+                                "enqueue_ms", "library_call", "U_live", "path_bitwise")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -4383,6 +4894,33 @@ def main():
                 launches_of=f"every {st} plain-mode call of phase 13"
                 + (": the full and the pruned searches" if st == "f32" else ""))
           for name, st in (("full", "f32"), ("f32", "f32"), ("int8", "int8"))],
+        # the recsys path (phase 16): retrieval_cand's searches at B 1, k 100
+        # over the two-tower's 1,000,448 candidates (full d 256, pruned f32
+        # and int8 m 128, the delta, one slot of the (2, 2) mesh), the index's
+        # fit and prune, and compress_tables' fit sample and table
+        *[entry(f"topk_score_recsys_{name}", rows[f"topk_score_recsys_{name}"], topk[1],
+                topk[0], counter, recsys_launches, launches_of=what)
+          for name, counter, what in (
+              ("f32_d256", "topk_score_f32", "every f32 plain-mode call of phase 16: the "
+               "full and pruned f32 searches (and the smoke configs' on the card)"),
+              ("f32_m128", "topk_score_f32", "every f32 plain-mode call of phase 16"),
+              ("int8_m128", "topk_score_int8", "every int8 plain-mode call of phase 16: the "
+               "pruned int8 and delta bases, and the four slots under hier_merge"),
+              ("delta_int8", "topk_score_int8_n_valid", None),
+              ("shard_int8", "topk_score_int8", "every int8 plain-mode call of phase 16"))],
+        entry("gram_recsys", rows["gram_recsys"], csrc + "gram.cu",
+              "src/repro/kernels/gram.py:41", "gram", recsys_launches,
+              launches_of="every gram call of phase 16: the index's fit and compress_tables'"),
+        entry("gram_table_compress", rows["gram_table_compress"], csrc + "gram.cu",
+              "src/repro/kernels/gram.py:41", "gram", recsys_launches,
+              launches_of="every gram call of phase 16"),
+        entry("pca_project_recsys", rows["pca_project_recsys"], csrc + "pca_project.cu",
+              "src/repro/kernels/pca_project.py:56", "pca_project", recsys_launches,
+              launches_of="every pca_project call of phase 16: the index's prune (four "
+                          "262,144-row blocks) and compress_tables' (four)"),
+        entry("pca_project_table_compress", rows["pca_project_table_compress"],
+              csrc + "pca_project.cu", "src/repro/kernels/pca_project.py:56", "pca_project",
+              recsys_launches, launches_of="every pca_project call of phase 16"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

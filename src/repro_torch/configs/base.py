@@ -59,3 +59,11 @@ def lm_shapes(sub_quadratic: bool) -> tuple[ShapeCell, ...]:
 
 def round_up(v: int, mult: int) -> int:
     return -(-v // mult) * mult
+
+
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train", dict(batch=65536)),
+    ShapeCell("serve_p99", "serve", dict(batch=512)),
+    ShapeCell("serve_bulk", "serve", dict(batch=262144)),
+    ShapeCell("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)),
+)

@@ -2,8 +2,9 @@
 of ``repro/configs/registry.py``).
 
 Every architecture of the reference is listed, in its order. The decoder
-LMs and the paper's bi-encoder are ported; the GNN and recsys families are
-not yet, and asking for one raises a ``ValueError`` that says so.
+LMs, the recsys family (DLRM, AutoInt, DeepFM, the two-tower retrieval
+model) and the paper's bi-encoder are ported; the GNN family (graphcast)
+is not yet, and asking for it raises a ``ValueError`` that says so.
 """
 from __future__ import annotations
 
@@ -11,11 +12,15 @@ from typing import Iterator
 
 from repro_torch.configs import (
     arctic_480b,
+    autoint,
     biencoder_msmarco,
+    deepfm,
+    dlrm_mlperf,
     mixtral_8x7b,
     phi3_medium_14b,
     qwen2_1_5b,
     smollm_135m,
+    two_tower_retrieval,
 )
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.configs.steps import BUNDLE_BUILDERS, StepBundle
@@ -28,10 +33,10 @@ _MODULES = {
     "phi3-medium-14b": phi3_medium_14b,
     "smollm-135m": smollm_135m,
     "graphcast": "gnn",
-    "dlrm-mlperf": "recsys",
-    "autoint": "recsys",
-    "deepfm": "recsys",
-    "two-tower-retrieval": "recsys",
+    "dlrm-mlperf": dlrm_mlperf,
+    "autoint": autoint,
+    "deepfm": deepfm,
+    "two-tower-retrieval": two_tower_retrieval,
     # the paper's own encoder (examples/launcher; not a graded cell)
     "biencoder-msmarco": biencoder_msmarco,
 }

@@ -1,10 +1,12 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
 ``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
-``PagedIndexStorage`` fields, or a bi-encoder's or decoder LM's parameter
-tree and its AdamW or Adafactor state, converted with ``np.asarray``) into
-the port's objects, and models and optimizer states back into the
-reference's trees, whose layers are stacked on a leading axis. A KV cache
-keeps the reference's (L, B, S, Hkv, Dh) layout and needs no conversion."""
+``PagedIndexStorage`` fields, or a bi-encoder's, decoder LM's or recsys
+model's parameter tree and its AdamW, Adafactor or rowwise state, converted
+with ``np.asarray``) into the port's objects, and models and optimizer
+states back into the reference's trees, whose layers are stacked on a
+leading axis and whose lists (a recsys model's ``tables``, MLP stacks and
+``attn_layers``) stay lists. A KV cache keeps the reference's (L, B, S,
+Hkv, Dh) layout and needs no conversion."""
 from __future__ import annotations
 
 from collections.abc import Mapping
@@ -17,6 +19,7 @@ from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
 from repro_torch.models.biencoder import BiEncoder, BiEncoderConfig
+from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import LM, TransformerConfig
 from repro_torch.util import as_tensor
 
@@ -108,6 +111,8 @@ def paged_index_from_numpy(pool: np.ndarray, tail: np.ndarray,
 def _tensor_tree(tree, device):
     if isinstance(tree, dict):
         return {k: _tensor_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensor_tree(v, device) for v in tree]
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: carry the bits
         return as_tensor(a.view(np.uint16).copy(), device).view(torch.bfloat16)
@@ -136,6 +141,15 @@ def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiE
     return BiEncoder(cfg, _unstacked_tree(params, cfg.n_layers, device))
 
 
+def recsys_from_numpy(params: dict, cfg: RecsysConfig, device=None) -> RecsysModel:
+    """A port ``RecsysModel`` on ``device`` (default: the card) holding a
+    reference ``init_recsys`` tree: ``tables`` (and DeepFM's
+    ``first_order``) lists of tables, MLP stacks and AutoInt's
+    ``attn_layers`` lists of layers, the two-tower's ``user_embed`` /
+    ``item_embed``; dtypes are kept."""
+    return RecsysModel(cfg, _tensor_tree(params, device))
+
+
 def lm_from_numpy(params: dict, cfg: TransformerConfig, device=None) -> LM:
     """A port ``LM`` on ``device`` (default: the card) holding a reference
     ``init_lm`` tree: ``embed``, ``final_norm``, ``unembed`` unless tied, and
@@ -156,11 +170,23 @@ def _put(tree: dict, path, value) -> None:
 
 
 def _leaves(tree, prefix=()):
-    for k, v in tree.items():
-        if isinstance(v, Mapping):
+    items = tree.items() if isinstance(tree, Mapping) else (
+        (str(i), v) for i, v in enumerate(tree))
+    for k, v in items:
+        if isinstance(v, (Mapping, list)):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
+
+
+def _listed(tree):
+    """Mappings whose keys are all positions ("0", "1", ...) as lists."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listed(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out) and sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def _stacked(name: str) -> bool:
@@ -181,7 +207,8 @@ def decay_mask(named: Mapping[str, torch.Tensor]) -> dict[str, bool]:
 def stack_layers(named: Mapping[str, torch.Tensor]) -> dict:
     """Tensors named as ``named_parameters()`` names them, as the
     reference's tree: nested dicts, with each ``layers.<i>.<path>`` tensor
-    stacked over i (on its device) into the leaf ``layers/<path>``."""
+    stacked over i (on its device) into the leaf ``layers/<path>``, and a
+    node of positions (``tables.0``, ``tables.1``, ...) a list."""
     tree, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
@@ -191,7 +218,7 @@ def stack_layers(named: Mapping[str, torch.Tensor]) -> dict:
             _put(tree, parts, t)
     for path, by_layer in per_layer.items():
         _put(tree, ("layers", *path), torch.stack([by_layer[i] for i in range(len(by_layer))]))
-    return tree
+    return _listed(tree)
 
 
 def unstack_layers(tree: Mapping) -> dict:
@@ -212,6 +239,8 @@ def _numpy_tree(tree):
     """Tensors as numpy copies; bf16 widens to f32, exactly (numpy has no bf16)."""
     if isinstance(tree, Mapping):
         return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
     t = tree.detach()
     return (t.float() if t.dtype == torch.bfloat16 else t).to("cpu", copy=True).numpy()
 
@@ -234,6 +263,12 @@ def biencoder_to_numpy(model: BiEncoder) -> dict:
 def lm_to_numpy(model: LM) -> dict:
     """The inverse of ``lm_from_numpy``, as ``biencoder_to_numpy`` is of
     ``biencoder_from_numpy``."""
+    return _numpy_tree(stack_layers(dict(model.named_parameters())))
+
+
+def recsys_to_numpy(model: RecsysModel) -> dict:
+    """The inverse of ``recsys_from_numpy``: the model's parameters as the
+    reference's tree of numpy arrays, lists as lists."""
     return _numpy_tree(stack_layers(dict(model.named_parameters())))
 
 
@@ -282,17 +317,55 @@ def adafactor_state_from_numpy(tree: Mapping, device=None) -> dict:
             "step": as_tensor(np.asarray(tree["step"], dtype=np.int32).reshape(()), device)}
 
 
+def rowwise_state_tree(state: Mapping) -> dict:
+    """A rowwise state (``configs.steps.rowwise_opt_init``'s: AdamW over the
+    non-table parameters and one accumulator a table) as the reference's
+    tree: ``{"adamw": {"mu", "nu", "step"}, "acc": [...]}``."""
+    return {"adamw": adamw_state_tree(state["adamw"]), "acc": list(state["acc"])}
+
+
+def rowwise_state_to_numpy(state: Mapping) -> dict:
+    """``rowwise_state_tree`` as numpy arrays."""
+    return _numpy_tree(rowwise_state_tree(state))
+
+
+def rowwise_state_from_numpy(tree: Mapping, device=None) -> dict:
+    """A reference rowwise state as the port's, on ``device`` (default: the
+    card): the AdamW part as ``adamw_state_from_numpy`` gives it, each
+    accumulator a fresh f32 tensor."""
+    return {"adamw": adamw_state_from_numpy(tree["adamw"], device),
+            "acc": [as_tensor(np.array(a, dtype=np.float32, copy=True), device)
+                    for a in tree["acc"]]}
+
+
 def _is_adafactor(opt_state: Mapping) -> bool:
     return "v" in opt_state
+
+
+def _is_rowwise(opt_state: Mapping) -> bool:
+    return "acc" in opt_state
+
+
+def _restore_adamw(state: dict, tree: Mapping) -> None:
+    for key in ("mu", "nu"):
+        for name, t in unstack_layers(tree[key]).items():
+            state[key][name].copy_(t)
+    state["step"] = tree["step"].to(torch.int32)
 
 
 @torch.no_grad()
 def checkpoint_tree(model: torch.nn.Module, opt_state: Mapping) -> tuple[dict, dict]:
     """``(params, opt_state)`` as the reference checkpoints them: its trees,
-    layers stacked, as tensors on the model's device. An AdamW state's
-    moments are stacked as the parameters are; an Adafactor state is in
-    that layout already."""
-    opt = dict(opt_state) if _is_adafactor(opt_state) else adamw_state_tree(opt_state)
+    layers stacked, lists as lists, as tensors on the model's device. An
+    AdamW state's moments are stacked as the parameters are; an Adafactor
+    state is in that layout already; a rowwise state is its AdamW part and
+    the accumulators (``rowwise_state_tree``)."""
+    if _is_rowwise(opt_state):
+        opt = rowwise_state_tree(opt_state)
+    elif _is_adafactor(opt_state):
+        opt = dict(opt_state)
+    else:
+        opt = adamw_state_tree(opt_state)
     return stack_layers(dict(model.named_parameters())), opt
 
 
@@ -304,13 +377,15 @@ def restore_into(model: torch.nn.Module, opt_state: dict, tree: tuple[dict, dict
     named = dict(model.named_parameters())
     for name, t in unstack_layers(params).items():
         named[name].copy_(t)
-    if _is_adafactor(opt_state):
+    if _is_rowwise(opt_state):
+        _restore_adamw(opt_state["adamw"], opt["adamw"])
+        for a, t in zip(opt_state["acc"], opt["acc"]):
+            a.copy_(t)
+    elif _is_adafactor(opt_state):
         have = dict(_leaves(opt_state["v"]))
         for path, t in _leaves(opt["v"]):
             have[path].copy_(t)
+        opt_state["step"] = opt["step"].to(torch.int32)
     else:
-        for key in ("mu", "nu"):
-            for name, t in unstack_layers(opt[key]).items():
-                opt_state[key][name].copy_(t)
-    opt_state["step"] = opt["step"].to(torch.int32)
+        _restore_adamw(opt_state, opt)
 

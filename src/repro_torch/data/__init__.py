@@ -1,2 +1,3 @@
-"""Synthetic corpora and token pipelines (numpy copies of
-``repro/data/synthetic.py`` and ``repro/data/tokens.py``)."""
+"""Synthetic corpora, token pipelines and recsys batches (numpy copies of
+``repro/data/synthetic.py``, ``repro/data/tokens.py`` and
+``repro/data/recsys.py``)."""

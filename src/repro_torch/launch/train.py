@@ -1,38 +1,45 @@
-"""Training entry point for the decoder-LM and bi-encoder families, with
-checkpoint and restart (port of ``repro/launch/train.py``; the GNN and
-recsys families are not yet ported and are refused).
+"""Training entry point for the decoder-LM, recsys and bi-encoder
+families, with checkpoint and restart (port of ``repro/launch/train.py``;
+the GNN family, graphcast, is not yet ported and is refused).
 
   * the step is the cell's bundle's (``configs.steps``): for an LM,
     ``forward_train``'s loss in ``microbatch`` sequential micro-batches
     (gradients summed in ``grad_accum_dtype``) and the arch's optimizer
     (Adafactor for arctic-480b, AdamW otherwise); for the bi-encoder
-    ``contrastive_loss`` and AdamW; the reference bundle's constant lr of
-    1e-4, gradients by autograd (per-layer recompute when the config's
-    ``remat`` is set);
+    ``contrastive_loss`` and AdamW; for the two-tower model its in-batch
+    softmax and AdamW; for DLRM, DeepFM and AutoInt the rowwise step
+    (rows gathered outside autograd, rowwise AdaGrad on the tables in
+    place, AdamW on the rest); the reference bundle's constant lr of 1e-4,
+    gradients by autograd (per-layer recompute when the config's ``remat``
+    is set);
   * ``--resume auto`` restores the latest complete checkpoint under
     ``--ckpt-dir`` (the reference's format, with the bundle's spec tree in
     its manifest: either package's checkpoints restore in the other);
   * async checkpoints every ``--ckpt-every`` steps, the last 3 kept;
   * ``train_loop`` and ``resume_latest`` are shared with ``launch.encode
     --steps``;
-  * deterministic data: batch t is ``token_batch(seed, t, …)`` (LM) or
-    ``pair_batch(seed, t, …)`` (bi-encoder), prefetched on a background
-    thread (depth 2), so a resumed job replays the same batches;
+  * deterministic data: batch t is ``token_batch(seed, t, …)`` (LM),
+    ``pair_batch(seed, t, …)`` (bi-encoder), ``two_tower_batch`` or
+    ``ctr_batch(seed, t, …)`` (recsys), prefetched on a background thread
+    (depth 2), so a resumed job replays the same batches;
   * a non-finite loss raises.
 
 ``--smoke`` swaps in the arch's ``smoke_cfg`` and the reference's smoke
-cell (LM: seq 32 × batch 8; bi-encoder: seq 16 × 8) on a 1 × 1 host mesh
-of the run's device, so the whole path (init → steps → checkpoint →
-resume) runs on the CPU in seconds. Without it the run is the arch's full
-config on its first train cell, with specs resolved on the production
-mesh (16 × 16, or 2 × 16 × 16 under ``--multi-pod``), as the reference
-writes them; the steps run on the one card, so ``--batch`` sets the
-one-card cut of the cell's global batch (sequences, or pairs).
+cell (LM: seq 32 × batch 8; bi-encoder: seq 16 × 8; recsys: batch 32) on
+a 1 × 1 host mesh of the run's device, so the whole path (init → steps →
+checkpoint → resume) runs on the CPU in seconds. Without it the run is the
+arch's full config on its first train cell, with specs resolved on the
+production mesh (16 × 16, or 2 × 16 × 16 under ``--multi-pod``), as the
+reference writes them; the steps run on the one card, so ``--batch`` sets
+the one-card cut of the cell's global batch (sequences, pairs, or recsys
+samples of ``train_batch``'s 65,536).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --smoke --device cpu --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --batch 8 \\
+      --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --batch 65536 \\
       --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
 """
 from __future__ import annotations
@@ -49,14 +56,18 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.configs.steps import BUNDLE_BUILDERS, _opt_pack
 from repro_torch.convert import checkpoint_tree, restore_into
+from repro_torch.data.recsys import ctr_batch, two_tower_batch
 from repro_torch.data.tokens import Prefetcher, pair_batch, token_batch
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.biencoder import init_biencoder
+from repro_torch.models.recsys import init_recsys
 from repro_torch.models.transformer import init_lm
 from repro_torch.util import as_tensor, default_device
 
 _SMOKE_CELLS = {"lm": ShapeCell("smoke", "train", dict(seq_len=32, global_batch=8)),
-                "biencoder": ShapeCell("smoke", "train", dict(seq_len=16, global_batch=8))}
+                "biencoder": ShapeCell("smoke", "train", dict(seq_len=16, global_batch=8)),
+                "recsys": ShapeCell("smoke", "train", dict(batch=32))}
+_INITS = {"lm": init_lm, "biencoder": init_biencoder, "recsys": init_recsys}
 
 
 def _smoke_spec(arch_id: str) -> ArchSpec:
@@ -68,6 +79,14 @@ def _smoke_spec(arch_id: str) -> ArchSpec:
 def make_batch_fn(spec: ArchSpec, cell: ShapeCell, seed: int):
     """t -> batch t as host arrays: a pure function of (seed, t)."""
     d = cell.dims
+    cfg = spec.cfg
+    if spec.family == "recsys":
+        if cfg.kind == "two_tower":
+            return lambda t: two_tower_batch(seed, t, batch=d["batch"],
+                                             user_vocab=cfg.user_vocab,
+                                             item_vocab=cfg.item_vocab)
+        return lambda t: ctr_batch(seed, t, batch=d["batch"], vocab_sizes=cfg.vocab_sizes,
+                                   n_dense=cfg.n_dense)
     make = token_batch if spec.family == "lm" else pair_batch
     return lambda t: make(seed, t, batch=d["global_batch"], seq_len=d["seq_len"],
                           vocab=spec.cfg.vocab)
@@ -132,12 +151,13 @@ def train(arch: str, *, steps: int, smoke: bool, ckpt_dir: str | None,
     if cell.kind != "train":
         raise ValueError(f"shape {cell.name!r} is a {cell.kind} cell, not a train cell")
     if batch:
-        cell = dataclasses.replace(cell, dims={**cell.dims, "global_batch": batch})
+        key = "batch" if spec.family == "recsys" else "global_batch"
+        cell = dataclasses.replace(cell, dims={**cell.dims, key: batch})
     mesh = make_host_mesh(device=dev) if smoke else make_production_mesh(multi_pod=multi_pod)
     bundle = BUNDLE_BUILDERS[spec.family](spec, cell, mesh)
 
-    init = init_lm if spec.family == "lm" else init_biencoder
-    model = init(spec.cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    model = _INITS[spec.family](spec.cfg, generator=torch.Generator().manual_seed(seed),
+                                device=dev)
     model.requires_grad_(True)
     opt_init, _ = _opt_pack(spec.optimizer)
     opt_state = opt_init(model)
@@ -158,8 +178,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=None,
-                    help="sequences (LM) or pairs (bi-encoder) a step: the one-card cut "
-                         "of the cell's global batch (default: all of it)")
+                    help="sequences (LM), pairs (bi-encoder) or samples (recsys) a step: "
+                         "the one-card cut of the cell's global batch (default: all of it)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="resolve the specs on the two-pod production mesh")
     ap.add_argument("--ckpt-dir", default=None)

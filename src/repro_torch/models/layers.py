@@ -332,7 +332,7 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-_ACTS = {"gelu": gelu, "silu": silu}
+_ACTS = {"gelu": gelu, "silu": silu, "relu": torch.relu}
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, *,
@@ -354,3 +354,26 @@ def apply_mlp(p, x: torch.Tensor, *, act: str = "silu",
     if "w3" in p:
         a = a * apply_dense(p["w3"], x, compute_dtype)
     return apply_dense(p["w2"], a, compute_dtype)
+
+
+def init_mlp_stack(generator: torch.Generator | None, dims: tuple[int, ...], *,
+                   bias: bool = True, dtype=torch.float32) -> nn.ModuleList:
+    """Plain MLP tower (recsys): dims = (in, h1, ..., out); one ``init_dense``
+    a layer, a list as the reference's."""
+    return nn.ModuleList([init_dense(generator, dims[i], dims[i + 1], bias=bias, dtype=dtype)
+                          for i in range(len(dims) - 1)])
+
+
+def apply_mlp_stack(layers, x: torch.Tensor, *, act: str = "relu",
+                    final_act: bool = False, compute_dtype=torch.float32) -> torch.Tensor:
+    """Each layer's dense, then ``act`` after every layer but the last (and
+    after the last too under ``final_act``)."""
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}; the port has {sorted(_ACTS)}")
+    actfn = _ACTS[act]
+    n = len(layers)
+    for i, p in enumerate(layers):
+        x = apply_dense(p, x, compute_dtype)
+        if i < n - 1 or final_act:
+            x = actfn(x)
+    return x

@@ -1299,3 +1299,75 @@ def test_cuda_lm_train_step_microbatched():
         losses.append(float(step(m, opt_init(m), b)["loss"]))
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
     assert all(bool(torch.isfinite(p).all()) for p in card.parameters())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "int8"])
+def test_cuda_topk_b1_k100_retrieval(store):
+    """``retrieval_cand``'s search shape at a smaller n: one query, k = 100
+    (the chunk kernel's list mode and the radix select), f32 at d 256 and m
+    128 or int8 at m 128, with and without an n_valid mask (a delta), and
+    through ``score_candidates``: ids equal to the plain version's up to
+    near-ties, scores at 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+    from repro_torch.models import recsys as R
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    for n, m in ([(100_000, 256), (100_003, 128)] if store == "f32" else [(100_003, 128)]):
+        D = torch.randn(n, m, generator=g, device=dev)
+        q = torch.randn(1, m, generator=g, device=dev)
+        if store == "int8":
+            D, scale = quantize_int8_per_dim(D)
+            q = q * scale[None, :]
+        for n_valid in (None, n - 77):
+            want = topk_score.topk_score_plain(D, q, k=100, n_valid=n_valid)
+            got = topk_score.topk_score_cuda(D, q, k=100, n_valid=n_valid)
+            torch.testing.assert_close(got[0], want[0], **TOL)
+            _ids_equal_up_to_near_ties(*want, *got)
+    cfg = R.RecsysConfig(kind="two_tower", embed_dim=32, tower_mlp=(64, 32),
+                         user_vocab=64, item_vocab=4096)
+    model = R.init_recsys(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    with torch.no_grad():
+        index = R.item_embedding(model, torch.arange(4096, device=dev))
+        before = topk_score.topk_score_cuda.launches["f32"]
+        got = R.score_candidates(model, torch.tensor([5], device=dev), index, k=100)
+        assert topk_score.topk_score_cuda.launches["f32"] == before + 1
+        want = topk_score.topk_score_plain(index, R.user_embedding(
+            model, torch.tensor([5], device=dev)), k=100)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    _ids_equal_up_to_near_ties(*want, *got)
+
+
+@pytest.mark.gpu
+def test_cuda_rowwise_update_in_place_and_deterministic():
+    """The rowwise AdaGrad update on the card: in place (the table and the
+    accumulator keep their storage), bitwise the same from the same state
+    twice (heavy duplicates: no float atomics), equal to the CPU's update
+    at 1e-6, and rows outside the batch untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.optim import rowwise as RW
+
+    rng = np.random.default_rng(0)
+    V, E, n = 5000, 64, 65536
+    table = rng.standard_normal((V, E)).astype(np.float32)
+    idx = np.minimum((rng.pareto(1.2, n) * V / 50).astype(np.int64), V - 1).astype(np.int32)
+    grad = rng.standard_normal((n, E)).astype(np.float32)
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        t = torch.tensor(table, device=dev)
+        a = torch.zeros(V, device=dev)
+        ptr = (t.data_ptr(), a.data_ptr())
+        RW.rowwise_adagrad_update(t, a, torch.tensor(idx, device=dev),
+                                  torch.tensor(grad, device=dev), 0.01)
+        assert (t.data_ptr(), a.data_ptr()) == ptr
+        out.append((t.cpu(), a.cpu()))
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    torch.testing.assert_close(out[0][0], out[2][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(out[0][1], out[2][1], rtol=1e-6, atol=1e-6)
+    untouched = np.setdiff1d(np.arange(V), idx)
+    assert torch.equal(out[0][0][untouched], torch.tensor(table)[untouched])
