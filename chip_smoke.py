@@ -180,14 +180,29 @@ Phases, each printing one JSON line:
      65,536 in place, peak under tables + 20 GB; DeepFM and AutoInt whole:
      a rowwise step and serve_p99; (e) launch.train --arch deepfm (full
      config, 20 steps, checkpoints under build/recsys_smoke/) and a
-     bitwise resume.
+     bitwise resume;
+ 17. the GNN family (graphcast: 16 layers, h 512, bf16 compute, f32
+     parameters, remat): (a) the smoke config on the card against the CPU,
+     each aggregator with and without an edge mask, f32 loss, gradients and
+     one AdamW step, bf16 by cosine; (b) a full-width step twice from one
+     state, bitwise; (c) one AdamW step a cell at the published sizes
+     (molecule, full_graph_sm, minibatch_lg through the fanout sampler over
+     a 232,965-node, 114,615,892-edge power-law CSR graph, ogb_products cut
+     by the smallest power of two that fits), each against its one-card
+     bound, with peak memory and the gathers' and segment sums' share; (d)
+     launch.train --arch graphcast (20 steps, checkpoints under
+     build/gnn_smoke/) and a bitwise resume; (e) launch.dryrun --all --mesh
+     both on meta tensors, in DRYRUN_JOBS processes started after (c), so
+     that no timed phase shares the host with it: every cell of every
+     family accounted for, and the roofline tables.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
 sharded index), 13 (the encoder), 14 (the training half), 15 (the LM
-family, which runs none of the kernels) and 16 (the recsys family) are
-counted the same way, each on its own. Launches made only to compare or
+family, which runs none of the kernels), 16 (the recsys family) and 17
+(the GNN family, which runs none either) are counted the same way, each
+on its own. Launches made only to compare or
 time a kernel are not counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -310,6 +325,20 @@ DLRM_ROW_CAP = 1 << 24      # phase 16(d): rows a DLRM table keeps (five Criteo-
 RECSYS_TRAIN_BATCH = 65536  # phase 16(d, e): train_batch's global batch, whole on one card
 RECSYS_RUN_STEPS = 20       # phase 16(e): launch.train --arch deepfm steps ...
 RECSYS_RUN_CKPT_EVERY = 10  # ... and its checkpoint interval
+GNN_AGGS = ("sum", "mean", "max")   # phase 17(a): every aggregator, masked and not
+# phase 17(a) bars: f32 compute, loss and each gradient leaf within 1e-4 of the
+# CPU's (relative to the leaf's largest entry), parameters after one AdamW
+# step within 1e-4 absolute; bf16 compute, outputs per node row and the
+# flattened gradient at cosine >= 0.999
+GNN_F32_TOL = 1e-4
+GNN_BF16_COS = 0.999
+GNN_TIMED_STEPS = 5         # phase 17(c): timed steps a cell (median), after one warm-up
+GNN_OGB_FACTORS = (16, 32, 64, 128)     # phase 17(c): ogb_products' nodes and edges divided
+                                        # by the first of these that fits one card
+GNN_RUN_STEPS = 20          # phase 17(d): launch.train --arch graphcast steps ...
+GNN_RUN_CKPT_EVERY = 10     # ... and its checkpoint interval
+DRYRUN_JOBS = 8             # phase 17(e): processes of the dry run (the host's cores)
+DRYRUN_TIMEOUT = 300        # ... seconds it may take, from its start after 17(c)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -4592,6 +4621,423 @@ def phase_recsys(counters, rows):
     torch.cuda.empty_cache()
 
 
+def start_dryrun():
+    """Phase 17(e): ``launch.dryrun --all --mesh both`` over every cell of
+    every family on meta tensors, in DRYRUN_JOBS processes at the lowest CPU
+    priority, its records under build/experiments/dryrun and its lines in
+    build/experiments/dryrun.log. It needs no card; phase_gnn starts it
+    after its timed cells and collects it after (d)."""
+    out = os.path.join(HERE, "build", "experiments")
+    os.makedirs(out, exist_ok=True)
+    log = open(os.path.join(out, "dryrun.log"), "w")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both", "--force", "--jobs", str(DRYRUN_JOBS),
+         "--out", os.path.join(out, "dryrun")],
+        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE, start_new_session=True)
+    return proc, log, time.perf_counter()
+
+
+def stop_dryrun(proc):
+    """Kill the dry run and its worker processes (one process group) if it
+    is still running."""
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def gnn_graph(n_nodes, n_edges, d_feat, d_edge, d_out, dev, seed, power_law=False):
+    """A seeded graph batch drawn on ``dev``: edges uniform (or with both
+    ends zipf-weighted, exponent 0.8, as data/graph.py's random_graph),
+    f32 features, edge mask and node mask all ones."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if power_law:
+        w = 1.0 / torch.arange(1, n_nodes + 1, device=dev, dtype=torch.float64) ** 0.8
+        cdf = torch.cumsum(w, 0)
+        cdf /= cdf[-1].clone()
+        ends = [torch.searchsorted(cdf, torch.rand(n_edges, generator=g, device=dev,
+                                                   dtype=torch.float64)).clamp_(max=n_nodes - 1)
+                for _ in range(2)]
+        ei = torch.stack(ends).int()
+    else:
+        ei = torch.randint(0, n_nodes, (2, n_edges), generator=g, device=dev).int()
+    return {"nodes": torch.randn(n_nodes, d_feat, generator=g, device=dev),
+            "edges": torch.randn(n_edges, d_edge, generator=g, device=dev),
+            "edge_index": ei,
+            "edge_mask": torch.ones(n_edges, device=dev),
+            "targets": torch.randn(n_nodes, d_out, generator=g, device=dev),
+            "node_mask": torch.ones(n_nodes, device=dev)}
+
+
+def gnn_kernel_share(step):
+    """Device time of one call of ``step`` under torch.profiler, split into
+    the gathers (index_select), the segment reductions (segment_reduce) and
+    the plan (sort, searchsorted): each a share of all kernel time, or None
+    when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    parts = {"gather": 0.0, "segment": 0.0, "plan": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if not t:
+            continue
+        name = ev.key.lower()
+        if "segment" in name:
+            parts["segment"] += t
+        elif "index_select" in name or "indexselect" in name or "gather" in name:
+            parts["gather"] += t
+        elif "sort" in name or "searchsorted" in name or "radix" in name:
+            parts["plan"] += t
+        else:
+            parts["other"] += t
+    total = sum(parts.values())
+    if not total:
+        return None
+    return {"kernel_ms": total / 1e3, **{f"{k}_share": v / total for k, v in parts.items()}}
+
+
+def phase_gnn(counters):
+    """Phase 17: the GNN family (graphcast: 16 layers, h 512, bf16 compute,
+    f32 parameters, remat). (a) The smoke config on the card against the
+    CPU from the same seeded weights, for each aggregator with and without
+    an edge mask, on a graph with tied messages (repeated edges) and
+    isolated nodes: f32 loss, each gradient leaf and the parameters after
+    one AdamW step; bf16 compute (227 outputs) by cosine. (b) Determinism:
+    one full-width step on the minibatch_lg batch, twice from the same
+    state: the same loss and parameters, bit for bit. (c) One AdamW step a
+    cell at the published sizes: molecule (128 graphs of 30 nodes and 64
+    edges), full_graph_sm (Cora: 2,708 nodes, 10,556 edges, 1,433
+    features), minibatch_lg (the fanout sampler, 1,024 seeds, fanouts
+    15/10, over a seeded power-law graph of 232,965 nodes and 114,615,892
+    edges in CSR; a 232,965 x 602 feature table on the card gathered by the
+    sampled ids; the loss on the seeds) and ogb_products with its nodes
+    and edges divided by the first power of two in GNN_OGB_FACTORS whose
+    step fits: ms a step (median of GNN_TIMED_STEPS after a warm-up)
+    against the one-card bound max(counted FLOPs / 989e12, analytic bytes /
+    3.35e12), peak memory, and the gathers' and segment sums' share of the
+    step's kernel time. (d) launch.train --arch graphcast (full config, its
+    first cell) for 20 steps with checkpoints every 10 under
+    build/gnn_smoke/, and a resume from step 10 that replays step 11
+    bitwise. (e) The dry run (``start_dryrun``), started once (c) is timed
+    and running beside (d): every cell of every family on both meshes ok,
+    or skipped with the reference's reason, or an error naming its op; the
+    slowest cells' counting seconds; the roofline tables."""
+    import dataclasses
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry, steps
+    from repro_torch.data.graph import CSRGraph, NeighborSampler
+    from repro_torch.launch import flops as F
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import gnn as G
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = registry.get_arch("graphcast")
+    prod = make_production_mesh()
+
+    def leaf_errs(ga, gb):
+        return {k: float((ga[k].float().cpu() - gb[k].float().cpu()).abs().max())
+                / max(float(ga[k].float().abs().max()), 1e-30) for k in ga}
+
+    def flat_cos(ga, gb):
+        a = torch.cat([ga[k].float().cpu().reshape(-1) for k in sorted(ga)])
+        b = torch.cat([gb[k].float().cpu().reshape(-1) for k in sorted(gb)])
+        return float(a @ b / a.norm() / b.norm())
+
+    def rows_cos(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        return float(((a * b).sum(1) / a.norm(dim=1) / b.norm(dim=1)).min())
+
+    # (a) card against CPU on the smoke config, tied messages, isolated nodes
+    t0 = time.perf_counter()
+    smoke = registry.get_smoke_cfg("graphcast")
+    rng = np.random.default_rng(0)
+    n, e, live, dup = 60, 240, 50, 24
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, live, e)
+    ei = np.stack([np.concatenate([src, src[:dup]]), np.concatenate([dst, dst[:dup]])])
+    edges = rng.standard_normal((e, smoke.d_edge_in)).astype(np.float32)
+    host = {"nodes": rng.standard_normal((n, smoke.d_in)).astype(np.float32),
+            "edges": np.concatenate([edges, edges[:dup]]),
+            "edge_index": ei.astype(np.int32),
+            "edge_mask": (rng.random(e + dup) < 0.8).astype(np.float32),
+            "targets": rng.standard_normal((n, smoke.d_out)).astype(np.float32),
+            "node_mask": (rng.random(n) < 0.7).astype(np.float32)}
+    parity, bad = {}, []
+    for agg in GNN_AGGS:
+        for masked in (False, True):
+            cfg = dataclasses.replace(smoke, aggregator=agg, remat=True)
+            b = dict(host) if masked else {k: v for k, v in host.items() if k != "edge_mask"}
+            out = {}
+            for d in ("cpu", dev):
+                m = G.init_gnn(cfg, generator=torch.Generator().manual_seed(0), device=d)
+                m.requires_grad_(True)
+                bd = {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+                loss, grads = steps.value_and_grad(G.mse_loss, m, bd)
+                step, init = steps.make_train_step(G.mse_loss, "adamw")
+                opt = init(m)
+                step(m, opt, bd)
+                out[d] = (float(loss), grads, {k: v.detach() for k, v in m.named_parameters()})
+            (lc, gc_, pc), (lg, gg, pg) = out["cpu"], out[dev]
+            gerr = max(leaf_errs(gc_, gg).values())
+            perr = max(float((pc[k] - pg[k].cpu()).abs().max()) for k in pc)
+            r = dict(loss_cpu=lc, loss_card=lg, loss_err=abs(lc - lg), grad_leaf_err=gerr,
+                     param_err_after_adamw=perr)
+            parity[f"{agg}{'_masked' if masked else ''}"] = r
+            if not (abs(lc - lg) <= GNN_F32_TOL * max(abs(lc), 1.0) and gerr <= GNN_F32_TOL
+                    and perr <= GNN_F32_TOL):
+                bad.append((agg, masked, r))
+    bcfg = dataclasses.replace(smoke, compute_dtype="bfloat16", d_hidden=64, d_out=227,
+                               remat=True)
+    b16 = dict(host, targets=rng.standard_normal((n, 227)).astype(np.float32))
+    outs = {}
+    for d in ("cpu", dev):
+        m = G.init_gnn(bcfg, generator=torch.Generator().manual_seed(1), device=d)
+        m.requires_grad_(True)
+        bd = {k: torch.as_tensor(v, device=d) for k, v in b16.items()}
+        with torch.no_grad():
+            y = G.forward(m, bd["nodes"], bd["edges"], bd["edge_index"], bd["edge_mask"])
+        outs[d] = (y, steps.value_and_grad(G.mse_loss, m, bd)[1])
+    bf16 = dict(out_row_cos_min=rows_cos(outs["cpu"][0], outs[dev][0]),
+                grad_cos=flat_cos(outs["cpu"][1], outs[dev][1]))
+    emit("gnn", step="a_parity", seconds=time.perf_counter() - t0, f32=parity, bf16=bf16)
+    if bad or min(bf16.values()) < GNN_BF16_COS:
+        raise AssertionError(f"gnn (a): card against CPU: {bad} {bf16}")
+
+    # the minibatch_lg graph: power-law CSR drawn on the card, sampled on the host
+    t0 = time.perf_counter()
+    lg_cell = spec.cell("minibatch_lg")
+    nd = lg_cell.dims
+    big = gnn_graph(nd["n_nodes"], nd["n_edges"], 1, 1, 1, dev, seed=0, power_law=True)
+    src, dst = big["edge_index"][0].long(), big["edge_index"][1].long()
+    del big
+    order = torch.argsort(src, stable=True)
+    indptr = torch.zeros(nd["n_nodes"] + 1, dtype=torch.int64, device=dev)
+    indptr[1:] = torch.cumsum(torch.bincount(src, minlength=nd["n_nodes"]), 0)
+    csr = CSRGraph(indptr=indptr.cpu().numpy(), indices=dst[order].int().cpu().numpy(),
+                   n_nodes=nd["n_nodes"])
+    del src, dst, order, indptr
+    t_graph = time.perf_counter() - t0
+    sampler = NeighborSampler(csr, (nd["fanout0"], nd["fanout1"]), nd["batch_nodes"], seed=0)
+    t0 = time.perf_counter()
+    sample = sampler.sample()
+    t_sample = time.perf_counter() - t0
+    gf = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn(nd["n_nodes"], nd["d_feat"], generator=gf, device=dev)
+    ids = torch.as_tensor(sample["node_ids"], device=dev).long()
+    E = sample["edge_index"].shape[1]
+    mb = {"nodes": table.index_select(0, ids),
+          "edges": torch.randn(E, spec.cfg.d_edge_in, generator=gf, device=dev),
+          "edge_index": torch.as_tensor(sample["edge_index"], device=dev),
+          "edge_mask": torch.ones(E, device=dev),
+          "targets": torch.randn(ids.shape[0], spec.cfg.d_out, generator=gf, device=dev),
+          "node_mask": torch.as_tensor(sample["seed_mask"], device=dev)}
+    emit("gnn", step="minibatch_graph", nodes=csr.n_nodes, edges=int(csr.indices.shape[0]),
+         build_s=t_graph, sample_ms=t_sample * 1e3, sampled_nodes=int(ids.shape[0]),
+         unique_nodes=int(sample["node_mask"].sum()), sampled_edges=E,
+         table_gb=table.numel() * 4 / 1e9)
+    del table, csr, sampler
+
+    def cell_run(cell):
+        b = steps.gnn_bundle(spec, cell, prod)
+        acc = F.step_cost(b)
+        cfg = dataclasses.replace(spec.cfg, d_in=cell.dims["d_feat"])
+        model = G.init_gnn(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        model.requires_grad_(True)
+        return b, acc, model, b.opt_init(model)
+
+    # (b) determinism: the same full-width step twice from the same state
+    t0 = time.perf_counter()
+    b, acc, model, opt = cell_run(lg_cell)
+    b.fn(model, opt, mb)            # a state with moments to replay from
+    state0 = [t.detach().clone() for t in (*model.parameters(), *opt["mu"].values(),
+                                           *opt["nu"].values())]
+    step0 = opt["step"].clone()
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, v in zip((*model.parameters(), *opt["mu"].values(), *opt["nu"].values()),
+                            state0):
+                t.copy_(v)
+        opt["step"] = step0.clone()
+        loss = b.fn(model, opt, mb)["loss"]
+        runs.append((loss.clone(), [p.detach().clone() for p in model.parameters()]))
+    same_loss = torch.equal(runs[0][0], runs[1][0])
+    same_params = all(torch.equal(a, c) for a, c in zip(runs[0][1], runs[1][1]))
+    emit("gnn", step="b_determinism", cell="minibatch_lg", seconds=time.perf_counter() - t0,
+         loss=float(runs[0][0]), loss_bitwise=same_loss, params_bitwise=same_params)
+    if not (same_loss and same_params):
+        raise AssertionError("gnn (b): a repeated full-width step is not bitwise")
+    del runs, state0, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one AdamW step a cell at the published sizes
+    def timed(cell, batch, extra):
+        torch.cuda.reset_peak_memory_stats()
+        b, acc, model, opt = cell_run(cell)
+        losses, times = [], []
+        for i in range(GNN_TIMED_STEPS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(float(b.fn(model, opt, batch, i)["loss"]))
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        share = gnn_kernel_share(lambda: b.fn(model, opt, batch))
+        t_ops = acc["flops"] / BF16_FLOP_PER_S * 1e3
+        t_bytes = b.meta["analytic_bytes"] / HBM_BYTES_PER_S * 1e3
+        row = dict(nodes=b.meta["n_nodes"], edges=b.meta["n_edges"],
+                   d_feat=cell.dims["d_feat"], first_ms=times[0],
+                   ms=statistics.median(times[1:]), bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   counted_flops=acc["flops"], model_flops=b.meta["model_flops"],
+                   analytic_bytes=b.meta["analytic_bytes"], peak_gb=peak / 1e9,
+                   losses=losses, kernels=share, **extra)
+        del model, opt
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"gnn (c): {cell.name}: losses not finite: {losses}")
+        return row
+
+    cells = {}
+    t0 = time.perf_counter()
+    cells["minibatch_lg"] = timed(lg_cell, mb, dict(seeds=nd["batch_nodes"]))
+    del mb
+    for name in ("molecule", "full_graph_sm"):
+        cell = spec.cell(name)
+        b = steps.gnn_bundle(spec, cell, prod)
+        batch = gnn_graph(b.meta["n_nodes"], b.meta["n_edges"], cell.dims["d_feat"],
+                          spec.cfg.d_edge_in, spec.cfg.d_out, dev, seed=2,
+                          power_law=name == "full_graph_sm")
+        if name == "molecule":     # 128 graphs: edges stay inside each graph
+            d = cell.dims
+            local = torch.randint(0, d["n_nodes"], (2, d["batch"], d["n_edges"]), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(3))
+            off = (torch.arange(d["batch"], device=dev) * d["n_nodes"])[None, :, None]
+            batch["edge_index"] = (local + off).reshape(2, -1).int()
+        cells[name] = timed(cell, batch, {})
+        del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    ogb = spec.cell("ogb_products")
+    tried = []
+    for factor in GNN_OGB_FACTORS:
+        cut = dataclasses.replace(ogb, dims={**ogb.dims, "n_nodes": ogb.dims["n_nodes"] // factor,
+                                             "n_edges": ogb.dims["n_edges"] // factor})
+        try:
+            b = steps.gnn_bundle(spec, cut, prod)
+            batch = gnn_graph(b.meta["n_nodes"], b.meta["n_edges"], cut.dims["d_feat"],
+                              spec.cfg.d_edge_in, spec.cfg.d_out, dev, seed=4,
+                              power_law=True)
+            cells["ogb_products"] = timed(cut, batch, dict(
+                cut_factor=factor, cut=f"nodes and edges / {factor}",
+                full_nodes=ogb.dims["n_nodes"], full_edges=ogb.dims["n_edges"]))
+            break
+        except torch.OutOfMemoryError:
+            tried.append(dict(factor=factor, peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+            batch = b = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    if "ogb_products" not in cells:
+        raise AssertionError(f"gnn (c): ogb_products fits at no factor of {GNN_OGB_FACTORS}")
+    cells["ogb_products"]["did_not_fit"] = tried
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("gnn", step="c_cells", seconds=time.perf_counter() - t0, **cells)
+    dryrun = start_dryrun()
+    try:
+        _gnn_launcher_and_dryrun(dev, dryrun)
+    finally:
+        stop_dryrun(dryrun[0])
+        dryrun[1].close()
+
+
+def _gnn_launcher_and_dryrun(dev, dryrun):
+    """Phase 17(d) and (e), while the dry run counts: see ``phase_gnn``."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline, train as train_cli
+
+    # (d) launch.train --arch graphcast, full config, checkpoints, resume
+    root = os.path.join(HERE, "build", "gnn_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "ck")
+    run = dict(steps=GNN_RUN_STEPS, smoke=False, ckpt_dir=ckpt, ckpt_every=GNN_RUN_CKPT_EVERY,
+               seed=0, device=dev, log_every=GNN_RUN_CKPT_EVERY)
+    t0 = time.perf_counter()
+    res = train_cli.train("graphcast", resume="none", **run)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    losses = res["losses"]
+    first_cell = res["bundle"].meta["shape"]
+    del res
+    gc.collect()
+    shutil.rmtree(os.path.join(ckpt, f"step_{GNN_RUN_STEPS:010d}"))
+    res2 = train_cli.train("graphcast", resume="auto", **{**run, "steps": 1, "log_every": 0})
+    resumed = res2["losses"][0]
+    emit("gnn", step="d_launch_train", arch="graphcast", cell=first_cell, steps=len(losses),
+         seconds=t_run, first_loss=losses[0], last_loss=losses[-1],
+         resumed_at=GNN_RUN_CKPT_EVERY, resumed_loss=resumed,
+         uninterrupted_loss=losses[GNN_RUN_CKPT_EVERY],
+         resume_bitwise=resumed == losses[GNN_RUN_CKPT_EVERY])
+    if not (len(losses) == GNN_RUN_STEPS and all(np.isfinite(losses))):
+        raise AssertionError(f"gnn (d): losses not finite: {losses}")
+    if resumed != losses[GNN_RUN_CKPT_EVERY]:
+        raise AssertionError(f"gnn (d): resumed {resumed} against "
+                             f"{losses[GNN_RUN_CKPT_EVERY]}")
+    del res2
+    shutil.rmtree(root)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the dry run over every cell, started after (c)
+    proc, _, t_start = dryrun
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (t0 - t_start)))
+    waited = time.perf_counter() - t0
+    art = os.path.join(HERE, "build", "experiments", "dryrun")
+    recs = roofline.load_records(art)
+    want = [(s.arch_id, c.name, m) for s, c in registry.cells() for m in ("pod", "multipod")]
+    got = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
+    missing = [k for k in want if k not in got]
+    status = {}
+    for r in recs:
+        status[r["status"]] = status.get(r["status"], 0) + 1
+    unaccounted = [k for k, r in got.items()
+                   if not (r["status"] == "ok"
+                           or (r["status"] == "skipped" and r.get("reason"))
+                           or (r["status"] == "error" and r.get("op")))]
+    rows = [a for a in map(roofline.analyse, recs) if a]
+    emit("gnn", step="e_dryrun", rc=rc, cells=len(want), records=len(recs), status=status,
+         missing=missing, unaccounted=unaccounted, total_s=time.perf_counter() - t_start,
+         waited_s=waited, jobs=DRYRUN_JOBS, count_s=sum(r.get("count_s", 0) for r in recs),
+         slowest=[(r["arch"], r["shape"], r["mesh"], r["count_s"]) for r in sorted(
+             (r for r in recs if "count_s" in r), key=lambda r: -r["count_s"])[:8]])
+    for mesh in ("pod", "multipod"):
+        print(roofline.fmt_table(sorted((r for r in rows if r["mesh"] == mesh),
+                                        key=lambda r: (r["arch"], r["shape"]))), flush=True)
+    if rc != 0 or missing or unaccounted or len(recs) != len(want):
+        raise AssertionError(f"gnn (e): dry run rc {rc}, missing {missing}, "
+                             f"unaccounted {unaccounted}")
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
@@ -4619,6 +5065,12 @@ def main():
     import torch
     import repro_torch  # noqa: F401  (sets the fp32 policy)
     phase_build()
+    run_phases(args, smi)
+
+
+def run_phases(args, smi):
+    """Phases 3-17 and the closing lines."""
+    import torch
     ids_row = phase_edge_cases()
     counters = Counters()
     rows = {}
@@ -4764,6 +5216,18 @@ def main():
     missing = [k for k in on_recsys if recsys_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the recsys path: {missing}")
+    # the GNN family, counted on its own: it runs none of the kernels (the
+    # reference computes its step outside Pallas), and the dry run collected
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_gnn(counters)
+    torch.cuda.synchronize()
+    gnn_launches = counters.read()
+    emit("gnn_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in gnn_launches.items() if v})
+    if any(gnn_launches.values()):
+        raise AssertionError(f"a kernel launched on the GNN path: "
+                             f"{ {k: v for k, v in gnn_launches.items() if v} }")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches

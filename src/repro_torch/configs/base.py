@@ -67,3 +67,16 @@ RECSYS_SHAPES = (
     ShapeCell("serve_bulk", "serve", dict(batch=262144)),
     ShapeCell("retrieval_cand", "retrieval", dict(batch=1, n_candidates=1_000_000)),
 )
+
+
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "train",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    ShapeCell("minibatch_lg", "train_sampled",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout0=15, fanout1=10, d_feat=602)),
+    ShapeCell("ogb_products", "train",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100)),
+    ShapeCell("molecule", "train",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=32)),
+)

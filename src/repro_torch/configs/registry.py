@@ -1,10 +1,10 @@
 """Architecture registry: ``--arch`` lookup, shape cells, step bundles (port
 of ``repro/configs/registry.py``).
 
-Every architecture of the reference is listed, in its order. The decoder
-LMs, the recsys family (DLRM, AutoInt, DeepFM, the two-tower retrieval
-model) and the paper's bi-encoder are ported; the GNN family (graphcast)
-is not yet, and asking for it raises a ``ValueError`` that says so.
+Every architecture of the reference is listed, in its order, and ported:
+the decoder LMs, the GNN family (graphcast), the recsys family (DLRM,
+AutoInt, DeepFM, the two-tower retrieval model) and the paper's
+bi-encoder.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.configs import (
     biencoder_msmarco,
     deepfm,
     dlrm_mlperf,
+    graphcast,
     mixtral_8x7b,
     phi3_medium_14b,
     qwen2_1_5b,
@@ -32,7 +33,7 @@ _MODULES = {
     "qwen2-1.5b": qwen2_1_5b,
     "phi3-medium-14b": phi3_medium_14b,
     "smollm-135m": smollm_135m,
-    "graphcast": "gnn",
+    "graphcast": graphcast,
     "dlrm-mlperf": dlrm_mlperf,
     "autoint": autoint,
     "deepfm": deepfm,
@@ -50,13 +51,10 @@ def list_archs(include_extra: bool = False) -> tuple[str, ...]:
 
 def _module(arch_id: str):
     try:
-        mod = _MODULES[arch_id]
+        return _MODULES[arch_id]
     except KeyError:
         raise KeyError(f"unknown arch {arch_id!r}; "
                        f"known: {sorted(_MODULES)}") from None
-    if isinstance(mod, str):
-        raise ValueError(f"arch {arch_id!r}: the {mod} family is not yet ported")
-    return mod
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -68,11 +66,8 @@ def get_smoke_cfg(arch_id: str):
 
 
 def cells(include_skipped: bool = True) -> Iterator[tuple[ArchSpec, ShapeCell]]:
-    """Every (arch × shape) dry-run cell of the ported architectures, in
-    registry order."""
+    """Every (arch × shape) dry-run cell, in registry order."""
     for arch_id in ARCHS:
-        if isinstance(_MODULES[arch_id], str):
-            continue
         spec = get_arch(arch_id)
         for cell in spec.shapes:
             if cell.skip_reason and not include_skipped:

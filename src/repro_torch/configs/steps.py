@@ -1,13 +1,16 @@
 """Training steps and step bundles (port of ``repro/configs/steps.py``: the
-decoder-LM, recsys and bi-encoder families).
+decoder-LM, GNN, recsys and bi-encoder families).
 
 A ``StepBundle`` is what the launcher needs for one (arch × shape × mesh)
 cell: the step function, shape stand-ins for every input (meta tensors in
 the reference's trees, layers stacked: nothing is allocated), the spec trees
 the arch's sharding rules resolve on the mesh (``par.sharding``) and the
-analytic ``meta`` (model FLOPs, bytes, tokens, micro-batches). It has no
-``jit`` and no ``lower``: the port runs eagerly, and places nothing by the
-specs (one card); the launcher writes them into its checkpoints.
+analytic ``meta`` (model FLOPs, bytes, tokens, micro-batches), and the
+model on the meta device (``model``) with, for a train step, its optimizer
+state's init (``opt_init``): what ``launch.flops`` runs the step on to
+count it. It has no ``jit`` and no ``lower``: the port runs eagerly, and
+places nothing by the specs (one card); the launcher writes them into its
+checkpoints.
 
 The step (``make_train_step``) takes a model, its optimizer state and a
 batch, and updates both in place. With ``microbatch`` K > 1 the batch's
@@ -39,7 +42,7 @@ from repro_torch.convert import (adamw_state_tree, decay_mask, reference_shapes,
                                  unstack_layers)
 from repro_torch.core.index import (ShardedDenseIndex, _delta_topk, _topk_merge,
                                     merge_segment_topk, project_queries)
-from repro_torch.models import biencoder as BE, recsys as R, transformer as T
+from repro_torch.models import biencoder as BE, gnn as G, recsys as R, transformer as T
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.optim.adafactor import adafactor_init, adafactor_update
 from repro_torch.optim.adamw import adamw_init, adamw_update, opt_state_specs
@@ -68,6 +71,8 @@ class StepBundle:
     mesh: DeviceMesh
     donate: tuple = ()
     meta: dict = dataclasses.field(default_factory=dict)
+    model: nn.Module | None = None          # the parameters on the meta device
+    opt_init: Callable | None = None        # model -> optimizer state (train steps)
 
 
 # ---------------------------------------------------------------------------
@@ -79,12 +84,17 @@ def value_and_grad(loss_fn: Callable, model: nn.Module, batch: Mapping
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """``(loss, grads)``: ``loss_fn(model, batch)`` (gradients enabled) and
     its gradient with respect to each of the model's parameters, by name.
-    The parameters' ``.grad`` is left alone."""
+    A parameter the loss does not reach raises, unless the model names it
+    in ``unreached_params`` (the GNN's last edge norm): that one gets zeros,
+    as JAX gives. The parameters' ``.grad`` is left alone."""
     params = dict(model.named_parameters())
+    unreached = frozenset(getattr(model, "unreached_params", ()))
+    live = [n for n in params if n not in unreached]
     with torch.enable_grad():
         loss = loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), dict(zip(params, grads))
+        grads = dict(zip(live, torch.autograd.grad(loss, [params[n] for n in live])))
+    return loss.detach(), {n: grads[n] if n in grads else torch.zeros_like(p)
+                           for n, p in params.items()}
 
 
 def _is_table(name: str) -> bool:
@@ -214,11 +224,12 @@ def _opt_sds(named_meta: Mapping, optimizer: str) -> dict:
     return adamw_state_tree(adamw_init(named_meta))
 
 
-def _train_bundle(name, mesh, named_meta, param_spec, batch_sds, batch_spec, loss_fn,
+def _train_bundle(name, mesh, model, param_spec, batch_sds, batch_spec, loss_fn,
                   optimizer, meta, microbatch: int = 1,
                   accum_dtype=torch.float32) -> StepBundle:
-    step, _ = make_train_step(loss_fn, optimizer, microbatch=microbatch,
-                              accum_dtype=accum_dtype)
+    step, opt_init = make_train_step(loss_fn, optimizer, microbatch=microbatch,
+                                     accum_dtype=accum_dtype)
+    named_meta = dict(model.named_parameters())
     params_sds = reference_shapes(named_meta)
     opt_sds = _opt_sds(named_meta, optimizer)
     opt_spec = _zero1_like(opt_sds, param_spec, params_sds, mesh, optimizer)
@@ -228,7 +239,7 @@ def _train_bundle(name, mesh, named_meta, param_spec, batch_sds, batch_spec, los
         in_specs=(param_spec, opt_spec, batch_spec),
         out_specs=(param_spec, opt_spec, {"loss": P()}),
         donate=(0, 1),
-        meta=meta)
+        meta=meta, model=model, opt_init=opt_init)
 
 
 # ---------------------------------------------------------------------------
@@ -237,10 +248,10 @@ def _train_bundle(name, mesh, named_meta, param_spec, batch_sds, batch_spec, los
 
 
 def _lm_param_sds(cfg: T.TransformerConfig, serve: bool):
-    """(the parameters on the meta device by port name, the config): serving
-    takes bf16 parameters, as the reference's serving bundles do."""
+    """(the model on the meta device, the config): serving takes bf16
+    parameters, as the reference's serving bundles do."""
     c = dataclasses.replace(cfg, param_dtype="bfloat16") if serve else cfg
-    return dict(T.init_lm(c, generator=None, device="meta").named_parameters()), c
+    return T.init_lm(c, generator=None, device="meta"), c
 
 
 def _lm_mem_bytes(cfg: T.TransformerConfig, kind: str, B: int, S: int) -> int:
@@ -284,19 +295,19 @@ def lm_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBundle:
     name = f"{spec_.arch_id}:{cell.name}"
 
     if cell.kind == "train":
-        named, _ = _lm_param_sds(cfg, serve=False)
-        pspec = SH.param_specs(reference_shapes(named), mesh, rules)
+        model, _ = _lm_param_sds(cfg, serve=False)
+        pspec = SH.param_specs(reference_shapes(dict(model.named_parameters())), mesh, rules)
         batch_sds = {"tokens": sds((B, S), torch.int32), "labels": sds((B, S), torch.int32)}
         bspec = {"tokens": P(dp, None), "labels": P(dp, None)}
         meta["model_flops"] = 6 * cfg.active_param_count() * B * S
         meta["tokens"] = B * S
         mb, adt = _microbatch_of(cfg)
         meta["microbatch"] = mb
-        return _train_bundle(name, mesh, named, pspec, batch_sds, bspec, _lm_loss,
+        return _train_bundle(name, mesh, model, pspec, batch_sds, bspec, _lm_loss,
                              spec_.optimizer, meta, microbatch=mb, accum_dtype=adt)
 
-    named, cfg_s = _lm_param_sds(cfg, serve=True)
-    params_sds = reference_shapes(named)
+    model, cfg_s = _lm_param_sds(cfg, serve=True)
+    params_sds = reference_shapes(dict(model.named_parameters()))
     pspec = SH.param_specs(params_sds, mesh, rules)
     hd = cfg.hd
     meta["model_flops"] = 2 * cfg.active_param_count() * B * (
@@ -309,7 +320,7 @@ def lm_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBundle:
             args=(params_sds, sds((B, S), torch.int32)),
             in_specs=(pspec, P(dp, None)),
             out_specs=(P(dp, None), (cache_spec, cache_spec)),
-            meta=meta)
+            meta=meta, model=model)
 
     if cell.kind == "decode":
         cache_sds = sds((cfg.n_layers, B, S, cfg.n_kv_heads, hd), torch.bfloat16)
@@ -321,7 +332,7 @@ def lm_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBundle:
             in_specs=(pspec, (cache_spec, cache_spec), P(dp), P()),
             out_specs=(P(dp, None), (cache_spec, cache_spec)),
             donate=(1,),
-            meta=meta)
+            meta=meta, model=model)
 
     if cell.kind == "decode_long":
         # sliding-window rolling buffer: live cache = window, not seq_len
@@ -338,9 +349,74 @@ def lm_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBundle:
             in_specs=(pspec, (cache_spec, cache_spec), P(), P()),
             out_specs=(P(None, None), (cache_spec, cache_spec)),
             donate=(1,),
-            meta=meta)
+            meta=meta, model=model)
 
     raise ValueError(f"unknown LM cell kind {cell.kind}")
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+
+def gnn_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBundle:
+    cfg: G.GNNConfig = spec_.cfg
+    d = cell.dims
+    all_axes = tuple(mesh.axis_names)
+
+    if cell.kind == "train_sampled":
+        # static padded subgraph from the CSR fanout sampler
+        bn, f0, f1 = d["batch_nodes"], d["fanout0"], d["fanout1"]
+        N = bn + bn * f0 + bn * f0 * f1
+        E = bn * f0 + bn * f0 * f1
+    elif cell.name == "molecule":
+        N = d["batch"] * d["n_nodes"]
+        E = d["batch"] * d["n_edges"]
+    else:
+        N, E = d["n_nodes"], d["n_edges"]
+    d_feat = d["d_feat"]
+
+    big = E >= 1_000_000
+    E_pad = round_up(E, 512) if big else E
+    cfg_r = dataclasses.replace(cfg, d_in=d_feat)
+
+    model = G.init_gnn(cfg_r, generator=None, device="meta")
+    pspec = SH.param_specs(reference_shapes(dict(model.named_parameters())), mesh,
+                           SH.gnn_rules())
+
+    batch_sds = {
+        "nodes": sds((N, d_feat)),
+        "edges": sds((E_pad, cfg.d_edge_in)),
+        "edge_index": sds((2, E_pad), torch.int32),
+        "edge_mask": sds((E_pad,)),
+        "targets": sds((N, cfg.d_out)),
+        "node_mask": sds((N,)),
+    }
+    # big graphs: edges shard over every axis (pure data); node tables
+    # replicate. Small graphs (< 1M edges, not shard-even) replicate fully.
+    if big:
+        bspec = {"nodes": P(), "edges": P(all_axes, None),
+                 "edge_index": P(None, all_axes), "edge_mask": P(all_axes),
+                 "targets": P(), "node_mask": P()}
+    else:
+        bspec = {k: P() if v.ndim == 1 else P(*([None] * v.ndim))
+                 for k, v in batch_sds.items()}
+
+    h = cfg.d_hidden
+    fwd_flops = 2 * (E * (4 * h * h) + N * (3 * h * h)) * cfg.n_layers \
+        + 2 * N * (d_feat * h + h * h) + 2 * E_pad * (cfg.d_edge_in * h + h * h) \
+        + 2 * N * (h * h + h * cfg.d_out)
+    # traffic: per layer, gather 2 endpoint features + write messages +
+    # scatter-add, fwd+bwd+remat (~3x); params negligible
+    mem = 3 * cfg.n_layers * (3 * E * h * 4 + 4 * N * h * 4) \
+        + 3 * N * (d_feat + cfg.d_out) * 4
+    meta = dict(family="gnn", arch=spec_.arch_id, shape=cell.name,
+                params=cfg_r.param_count(), active_params=cfg_r.param_count(),
+                model_flops=3 * fwd_flops,  # fwd + bwd(2x)
+                n_nodes=N, n_edges=E_pad, d_hidden=h,
+                dims=dict(cell.dims), analytic_bytes=int(mem))
+    return _train_bundle(f"{spec_.arch_id}:{cell.name}", mesh, model, pspec, batch_sds,
+                         bspec, G.mse_loss, spec_.optimizer, meta)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +496,8 @@ def recsys_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBun
     rules = SH.recsys_rules()
     dp = _dp(mesh)
     all_axes = tuple(mesh.axis_names)
-    named = dict(R.init_recsys(cfg, generator=None, device="meta").named_parameters())
+    model = R.init_recsys(cfg, generator=None, device="meta")
+    named = dict(model.named_parameters())
     params_sds = reference_shapes(named)
     pspec = SH.param_specs(params_sds, mesh, rules)
     B = cell.dims["batch"]
@@ -432,7 +509,7 @@ def recsys_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBun
     name = f"{spec_.arch_id}:{cell.name}"
 
     if cfg.kind == "two_tower":
-        return _two_tower_bundle(spec_, cell, mesh, cfg, named, pspec, meta)
+        return _two_tower_bundle(spec_, cell, mesh, cfg, model, pspec, meta)
 
     F = cfg.n_sparse
     batch_sds = {"sparse": sds((B, F), torch.int32), "label": sds((B,), torch.float32)}
@@ -452,8 +529,8 @@ def recsys_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBun
                 6 * B * cfg.n_sparse * e * 4      # gather + grad + scatter
                 + 7 * (meta["params"] - sum(cfg.vocab_sizes) * e) * 4
                 + 3 * B * 4096)
-            return _recsys_rowwise_bundle(name, mesh, named, pspec, batch_sds, bspec, meta)
-        return _train_bundle(name, mesh, named, pspec, batch_sds, bspec, R.bce_loss,
+            return _recsys_rowwise_bundle(name, mesh, model, pspec, batch_sds, bspec, meta)
+        return _train_bundle(name, mesh, model, pspec, batch_sds, bspec, R.bce_loss,
                              spec_.optimizer, meta)
 
     if cell.kind == "serve":
@@ -462,7 +539,7 @@ def recsys_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBun
             name=name, fn=R.forward_ctr, mesh=mesh,
             args=(params_sds, batch_sds),
             in_specs=(pspec, bspec), out_specs=P(dp),
-            meta=meta)
+            meta=meta, model=model)
 
     # retrieval: 1 user context vs C candidate items
     C = round_up(cell.dims["n_candidates"], 512)
@@ -484,10 +561,10 @@ def recsys_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> StepBun
         args=(params_sds, user_sds, sds((C, f_item), torch.int32)),
         in_specs=(pspec, uspec, P(all_axes, None)),
         out_specs=(P(), P()),
-        meta=meta)
+        meta=meta, model=model)
 
 
-def _recsys_rowwise_bundle(name, mesh, named, pspec, batch_sds, bspec, meta) -> StepBundle:
+def _recsys_rowwise_bundle(name, mesh, model, pspec, batch_sds, bspec, meta) -> StepBundle:
     """CTR train step with rows gathered OUTSIDE autograd + rowwise AdaGrad.
 
     ``step(model, opt_state, batch, t=0)``: each table's rows at the
@@ -518,6 +595,7 @@ def _recsys_rowwise_bundle(name, mesh, named, pspec, batch_sds, bspec, meta) -> 
             rowwise_adagrad_update(tab, acc, idx[:, f], g, lr)
         return {"loss": loss.detach()}
 
+    named = dict(model.named_parameters())
     rest_named = {n: t for n, t in named.items() if not _is_table(n)}
     rest_sds = reference_shapes(rest_named)
     params_sds = reference_shapes(named)
@@ -533,16 +611,16 @@ def _recsys_rowwise_bundle(name, mesh, named, pspec, batch_sds, bspec, meta) -> 
         in_specs=(pspec, opt_spec, bspec),
         out_specs=(pspec, opt_spec, {"loss": P()}),
         donate=(0, 1),
-        meta=meta)
+        meta=meta, model=model, opt_init=rowwise_opt_init)
 
 
-def _two_tower_bundle(spec_, cell, mesh, cfg, named, pspec, meta) -> StepBundle:
+def _two_tower_bundle(spec_, cell, mesh, cfg, model, pspec, meta) -> StepBundle:
     dp = _dp(mesh)
     all_axes = tuple(mesh.axis_names)
     B = cell.dims["batch"]
     per_sample = _ctr_flops_per_sample(cfg)
     name = f"{spec_.arch_id}:{cell.name}"
-    params_sds = reference_shapes(named)
+    params_sds = reference_shapes(dict(model.named_parameters()))
 
     if cell.kind == "train":
         batch_sds = {"user_ids": sds((B,), torch.int32),
@@ -550,7 +628,7 @@ def _two_tower_bundle(spec_, cell, mesh, cfg, named, pspec, meta) -> StepBundle:
                      "item_logq": sds((B,), torch.float32)}
         bspec = {"user_ids": P(dp), "item_ids": P(dp), "item_logq": P(dp)}
         meta["model_flops"] = 3 * (per_sample * B + 2 * B * B * cfg.tower_mlp[-1])
-        return _train_bundle(name, mesh, named, pspec, batch_sds, bspec, R.two_tower_loss,
+        return _train_bundle(name, mesh, model, pspec, batch_sds, bspec, R.two_tower_loss,
                              spec_.optimizer, meta)
 
     if cell.kind == "serve":
@@ -567,7 +645,7 @@ def _two_tower_bundle(spec_, cell, mesh, cfg, named, pspec, meta) -> StepBundle:
         return StepBundle(
             name=name, fn=serve, mesh=mesh,
             args=(params_sds, batch_sds),
-            in_specs=(pspec, bspec), out_specs=P(dp), meta=meta)
+            in_specs=(pspec, bspec), out_specs=P(dp), meta=meta, model=model)
 
     # retrieval_cand: THE paper cell — user query vs precomputed item index.
     # dims overrides (variants): index_dim = m after PCA pruning, int8 =
@@ -632,7 +710,7 @@ def _two_tower_bundle(spec_, cell, mesh, cfg, named, pspec, meta) -> StepBundle:
         name=name, fn=fn, mesh=mesh,
         args=args, in_specs=in_specs,
         out_specs=(P(), P()),
-        meta=meta)
+        meta=meta, model=model)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +723,8 @@ def biencoder_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> Step
     rules = SH.biencoder_rules()
     dp = _dp(mesh)
     S, B = cell.dims["seq_len"], cell.dims["global_batch"]
-    named = dict(BE.init_biencoder(cfg, generator=None, device="meta").named_parameters())
+    model = BE.init_biencoder(cfg, generator=None, device="meta")
+    named = dict(model.named_parameters())
     pspec = SH.param_specs(reference_shapes(named), mesh, rules)
     n_params = cfg.param_count()
     tok = 2 * B * S
@@ -662,7 +741,7 @@ def biencoder_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> Step
                      for k in ("q_tokens", "q_mask", "d_tokens", "d_mask")}
         bspec = {k: P(dp, None) for k in batch_sds}
         meta["model_flops"] = 6 * n_params * 2 * B * S
-        return _train_bundle(name, mesh, named, pspec, batch_sds, bspec,
+        return _train_bundle(name, mesh, model, pspec, batch_sds, bspec,
                              BE.contrastive_loss, spec_.optimizer, meta)
 
     meta["model_flops"] = 2 * n_params * B * S
@@ -670,7 +749,7 @@ def biencoder_bundle(spec_: ArchSpec, cell: ShapeCell, mesh: DeviceMesh) -> Step
         name=name, fn=BE.encode, mesh=mesh,
         args=(reference_shapes(named), sds((B, S), torch.int32), sds((B, S), torch.int32)),
         in_specs=(pspec, P(dp, None), P(dp, None)),
-        out_specs=P(dp, None), meta=meta)
+        out_specs=P(dp, None), meta=meta, model=model)
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +792,7 @@ def _sharded_topk_1d(scores: torch.Tensor, k: int, mesh: DeviceMesh
 
 BUNDLE_BUILDERS = {
     "lm": lm_bundle,
+    "gnn": gnn_bundle,
     "recsys": recsys_bundle,
     "biencoder": biencoder_bundle,
 }

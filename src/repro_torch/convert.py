@@ -1,11 +1,11 @@
 """Carry fitted state across from numpy arrays (for example ``repro``'s
 ``PCAState``, ``DenseIndex``, ``ShardedDenseIndex``, ``CascadeIndex`` or
 ``PagedIndexStorage`` fields, or a bi-encoder's, decoder LM's or recsys
-model's parameter tree and its AdamW, Adafactor or rowwise state, converted
-with ``np.asarray``) into the port's objects, and models and optimizer
+model's or GNN's parameter tree and its AdamW, Adafactor or rowwise state,
+converted with ``np.asarray``) into the port's objects, and models and optimizer
 states back into the reference's trees, whose layers are stacked on a
 leading axis and whose lists (a recsys model's ``tables``, MLP stacks and
-``attn_layers``) stay lists. A KV cache keeps the reference's (L, B, S,
+``attn_layers``, a GNN's MLP stacks) stay lists. A KV cache keeps the reference's (L, B, S,
 Hkv, Dh) layout and needs no conversion."""
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.core.index import DenseIndex, ShardedDenseIndex
 from repro_torch.core.paged import PageExtent, PagedIndex, PagedIndexStorage
 from repro_torch.core.pca import PCAState
 from repro_torch.models.biencoder import BiEncoder, BiEncoderConfig
+from repro_torch.models.gnn import GNN, GNNConfig
 from repro_torch.models.recsys import RecsysConfig, RecsysModel
 from repro_torch.models.transformer import LM, TransformerConfig
 from repro_torch.util import as_tensor
@@ -122,12 +123,17 @@ def _tensor_tree(tree, device):
 def _unstacked_tree(params: dict, n_layers: int, device) -> dict:
     """A reference parameter tree as tensors on ``device``, its ``layers``
     subtree (every leaf stacked on a leading ``n_layers`` axis: the
-    reference inits its layers under ``vmap``) split into one tree per
-    layer (views); dtypes are kept."""
+    reference inits its layers under ``vmap``; a list in it, such as a GNN
+    layer's MLP stack, stays a list of stacked leaves) split into one tree
+    per layer (views); dtypes are kept."""
     tree = _tensor_tree(params, device)
 
     def layer(t, i):
-        return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+        if isinstance(t, dict):
+            return {k: layer(v, i) for k, v in t.items()}
+        if isinstance(t, list):
+            return [layer(v, i) for v in t]
+        return t[i]
 
     stacked = tree.pop("layers")
     tree["layers"] = [layer(stacked, i) for i in range(n_layers)]
@@ -139,6 +145,15 @@ def biencoder_from_numpy(params: dict, cfg: BiEncoderConfig, device=None) -> BiE
     reference parameter tree: ``embed``, ``pos_embed``, ``final_norm``,
     ``proj`` and the stacked ``layers``."""
     return BiEncoder(cfg, _unstacked_tree(params, cfg.n_layers, device))
+
+
+def gnn_from_numpy(params: dict, cfg: GNNConfig, device=None) -> GNN:
+    """A port ``GNN`` on ``device`` (default: the card) holding a reference
+    ``init_gnn`` tree: the ``node_encoder``, ``edge_encoder`` and
+    ``decoder`` MLP stacks (lists of dense dicts) and the stacked
+    ``layers`` (``edge_mlp/0/w`` of shape (L, 3h, h), ...); dtypes are
+    kept."""
+    return GNN(cfg, _unstacked_tree(params, cfg.n_layers, device))
 
 
 def recsys_from_numpy(params: dict, cfg: RecsysConfig, device=None) -> RecsysModel:
@@ -263,6 +278,12 @@ def biencoder_to_numpy(model: BiEncoder) -> dict:
 def lm_to_numpy(model: LM) -> dict:
     """The inverse of ``lm_from_numpy``, as ``biencoder_to_numpy`` is of
     ``biencoder_from_numpy``."""
+    return _numpy_tree(stack_layers(dict(model.named_parameters())))
+
+
+def gnn_to_numpy(model: GNN) -> dict:
+    """The inverse of ``gnn_from_numpy``: the reference's tree, layers
+    stacked, MLP stacks as lists."""
     return _numpy_tree(stack_layers(dict(model.named_parameters())))
 
 

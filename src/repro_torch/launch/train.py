@@ -1,13 +1,14 @@
-"""Training entry point for the decoder-LM, recsys and bi-encoder
-families, with checkpoint and restart (port of ``repro/launch/train.py``;
-the GNN family, graphcast, is not yet ported and is refused).
+"""Training entry point for every family (decoder LMs, the GNN, recsys and
+the bi-encoder), with checkpoint and restart (port of
+``repro/launch/train.py``).
 
   * the step is the cell's bundle's (``configs.steps``): for an LM,
     ``forward_train``'s loss in ``microbatch`` sequential micro-batches
     (gradients summed in ``grad_accum_dtype``) and the arch's optimizer
     (Adafactor for arctic-480b, AdamW otherwise); for the bi-encoder
     ``contrastive_loss`` and AdamW; for the two-tower model its in-batch
-    softmax and AdamW; for DLRM, DeepFM and AutoInt the rowwise step
+    softmax and AdamW; for graphcast ``mse_loss`` and AdamW; for DLRM,
+    DeepFM and AutoInt the rowwise step
     (rows gathered outside autograd, rowwise AdaGrad on the tables in
     place, AdamW on the rest); the reference bundle's constant lr of 1e-4,
     gradients by autograd (per-layer recompute when the config's ``remat``
@@ -20,19 +21,27 @@ the GNN family, graphcast, is not yet ported and is refused).
     --steps``;
   * deterministic data: batch t is ``token_batch(seed, t, …)`` (LM),
     ``pair_batch(seed, t, …)`` (bi-encoder), ``two_tower_batch`` or
-    ``ctr_batch(seed, t, …)`` (recsys), prefetched on a background thread
+    ``ctr_batch(seed, t, …)`` (recsys), ``batched_molecules(…, seed + t)``
+    (GNN: zero targets, all-ones masks), prefetched on a background thread
     (depth 2), so a resumed job replays the same batches;
   * a non-finite loss raises.
 
 ``--smoke`` swaps in the arch's ``smoke_cfg`` and the reference's smoke
-cell (LM: seq 32 × batch 8; bi-encoder: seq 16 × 8; recsys: batch 32) on
+cell (LM: seq 32 × batch 8; bi-encoder: seq 16 × 8; recsys: batch 32;
+GNN: 4 graphs of 30 nodes and 120 edges) on
 a 1 × 1 host mesh of the run's device, so the whole path (init → steps →
 checkpoint → resume) runs on the CPU in seconds. Without it the run is the
 arch's full config on its first train cell, with specs resolved on the
 production mesh (16 × 16, or 2 × 16 × 16 under ``--multi-pod``), as the
 reference writes them; the steps run on the one card, so ``--batch`` sets
 the one-card cut of the cell's global batch (sequences, pairs, or recsys
-samples of ``train_batch``'s 65,536).
+samples of ``train_batch``'s 65,536), or for a GNN the number of graphs
+the cell's nodes and edges are split into (default 4).
+
+GNN batches are the reference launcher's: ``batched_molecules`` at the
+config's ``d_in`` and ``d_edge_in``, whatever the cell's ``d_feat`` (the
+full config trains its 227-input model on 227-wide features; the bundle's
+meta and specs describe the cell's ``d_feat``), as ``repro``'s does.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -40,6 +49,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b --batch 8 \\
       --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepfm --batch 65536 \\
+      --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch graphcast \\
       --steps 20 --ckpt-every 10 --ckpt-dir build/ckpt
 """
 from __future__ import annotations
@@ -56,30 +67,56 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ArchSpec, ShapeCell
 from repro_torch.configs.steps import BUNDLE_BUILDERS, _opt_pack
 from repro_torch.convert import checkpoint_tree, restore_into
+from repro_torch.data.graph import batched_molecules
 from repro_torch.data.recsys import ctr_batch, two_tower_batch
 from repro_torch.data.tokens import Prefetcher, pair_batch, token_batch
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.biencoder import init_biencoder
+from repro_torch.models.gnn import init_gnn
 from repro_torch.models.recsys import init_recsys
 from repro_torch.models.transformer import init_lm
 from repro_torch.util import as_tensor, default_device
 
 _SMOKE_CELLS = {"lm": ShapeCell("smoke", "train", dict(seq_len=32, global_batch=8)),
                 "biencoder": ShapeCell("smoke", "train", dict(seq_len=16, global_batch=8)),
-                "recsys": ShapeCell("smoke", "train", dict(batch=32))}
-_INITS = {"lm": init_lm, "biencoder": init_biencoder, "recsys": init_recsys}
+                "recsys": ShapeCell("smoke", "train", dict(batch=32)),
+                "gnn": ShapeCell("smoke", "train", dict(n_nodes=120, n_edges=480, batch=4))}
+_INITS = {"lm": init_lm, "biencoder": init_biencoder, "recsys": init_recsys,
+          "gnn": init_gnn}
 
 
 def _smoke_spec(arch_id: str) -> ArchSpec:
     spec = registry.get_arch(arch_id)
-    return dataclasses.replace(spec, cfg=registry.get_smoke_cfg(arch_id),
-                               shapes=(_SMOKE_CELLS[spec.family],))
+    cfg = registry.get_smoke_cfg(arch_id)
+    cell = _SMOKE_CELLS[spec.family]
+    if spec.family == "gnn":
+        cell = dataclasses.replace(cell, dims={**cell.dims, "d_feat": cfg.d_in})
+    return dataclasses.replace(spec, cfg=cfg, shapes=(cell,))
+
+
+def _gnn_batch_fn(cfg, d: dict, seed: int):
+    """The reference launcher's GNN batches: ``batch`` graphs of the cell's
+    nodes and edges split evenly, at the config's input widths."""
+    b = d.get("batch", 4)
+
+    def gnn_batch(t):
+        out = batched_molecules(b, d["n_nodes"] // b, d["n_edges"] // b, cfg.d_in,
+                                cfg.d_edge_in, seed=seed + t)
+        N, E = out["nodes"].shape[0], out["edge_index"].shape[1]
+        out["targets"] = np.zeros((N, cfg.d_out), np.float32)
+        out["edge_mask"] = np.ones((E,), np.float32)
+        out["node_mask"] = np.ones((N,), np.float32)
+        out["edges"] = out["edges"][:, :cfg.d_edge_in]
+        return out
+    return gnn_batch
 
 
 def make_batch_fn(spec: ArchSpec, cell: ShapeCell, seed: int):
     """t -> batch t as host arrays: a pure function of (seed, t)."""
     d = cell.dims
     cfg = spec.cfg
+    if spec.family == "gnn":
+        return _gnn_batch_fn(cfg, d, seed)
     if spec.family == "recsys":
         if cfg.kind == "two_tower":
             return lambda t: two_tower_batch(seed, t, batch=d["batch"],
@@ -148,10 +185,10 @@ def train(arch: str, *, steps: int, smoke: bool, ckpt_dir: str | None,
     dev = default_device(device)
     spec = _smoke_spec(arch) if smoke else registry.get_arch(arch)
     cell = spec.shapes[0] if shape is None else spec.cell(shape)
-    if cell.kind != "train":
+    if cell.kind not in ("train", "train_sampled"):
         raise ValueError(f"shape {cell.name!r} is a {cell.kind} cell, not a train cell")
     if batch:
-        key = "batch" if spec.family == "recsys" else "global_batch"
+        key = "batch" if spec.family in ("recsys", "gnn") else "global_batch"
         cell = dataclasses.replace(cell, dims={**cell.dims, key: batch})
     mesh = make_host_mesh(device=dev) if smoke else make_production_mesh(multi_pod=multi_pod)
     bundle = BUNDLE_BUILDERS[spec.family](spec, cell, mesh)
@@ -179,7 +216,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=None,
                     help="sequences (LM), pairs (bi-encoder) or samples (recsys) a step: "
-                         "the one-card cut of the cell's global batch (default: all of it)")
+                         "the one-card cut of the cell's global batch (default: all of it); "
+                         "for a GNN, the graphs the cell is split into (default 4)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="resolve the specs on the two-pod production mesh")
     ap.add_argument("--ckpt-dir", default=None)

@@ -324,12 +324,30 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(sqrt_2_over_pi * (x + a * x ** 3))))
 
 
+class _SiLU(torch.autograd.Function):
+    """x · s with s = 1 / (1 + exp(-x)); the backward is JAX's, s + x·s·(1 - s)
+    from the saved s. Differentiating the formula itself would multiply a
+    zero by exp(-x) = inf below x = -88 and give NaN (a GNN node that sums
+    hundreds of messages reaches such pre-activations)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x · sigmoid(x), with XLA's logistic 1 / (1 + exp(-x))
     and a rounding after each operation (``torch.sigmoid`` and ``F.silu``
     round once: in bf16 they differ from the reference on ~30 % of
-    entries)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    entries), and JAX's gradient (finite for every x)."""
+    return _SiLU.apply(x)
 
 
 _ACTS = {"gelu": gelu, "silu": silu, "relu": torch.relu}

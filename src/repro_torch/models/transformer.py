@@ -351,17 +351,19 @@ def prefill(model: LM, tokens, cache_len: int | None = None):
     return _unembed(model, x[:, -1:, :])[:, 0], (ck, cv)
 
 
-def _decode(model: LM, kv_cache, next_token, pos: int, slot: int,
-            cache_positions: torch.Tensor, mode: str):
+def _decode(model: LM, kv_cache, next_token, pos, slot, cache_positions: torch.Tensor,
+            mode: str):
     """One token at absolute position ``pos`` whose keys and values go to
     cache slot ``slot`` (in place); attention sees each slot at its
-    ``cache_positions`` entry (``L._KPAD``: masked)."""
+    ``cache_positions`` entry (``L._KPAD``: masked). ``pos`` and ``slot``
+    are 0-d tensors on the cache's device (``_pos_tensor``)."""
     cfg = model.cfg
     ck_all, cv_all = kv_cache
     next_token = as_tensor(next_token, model.device)
     B = next_token.shape[0]
     x = _embed(model, next_token[:, None])
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    positions = pos.reshape(1).to(torch.int32)
+    slot_idx = slot.reshape(1)
     cos, sin = L.rope_tables(positions, cfg.hd, cfg.rope_theta)
     normf = _norm(cfg)
     for i, lp in enumerate(model.layers):
@@ -373,8 +375,8 @@ def _decode(model: LM, kv_cache, next_token, pos: int, slot: int,
         v = L.apply_dense(att["wv"], h, cfg.cdt).reshape(B, 1, cfg.n_kv_heads, cfg.hd)
         q = L.apply_rope(q, cos[None], sin[None])
         k = L.apply_rope(k, cos[None], sin[None])
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        ck.index_copy_(1, slot_idx, k.to(ck.dtype))
+        cv.index_copy_(1, slot_idx, v.to(cv.dtype))
         o = L.dense_attention(q, ck, cv, positions, cache_positions, mode, cfg.sliding_window)
         o = o.reshape(B, 1, cfg.n_heads * cfg.hd)
         x = x + L.apply_dense(att["wo"], o, cfg.cdt)
@@ -382,6 +384,17 @@ def _decode(model: LM, kv_cache, next_token, pos: int, slot: int,
         x = x + mo
     x = _norm(cfg)(model.final_norm, x)
     return _unembed(model, x)[:, 0], kv_cache
+
+
+def _pos_tensor(pos, cache: torch.Tensor) -> torch.Tensor:
+    """``pos`` (an int or a tensor) as a 0-d int64 tensor on the cache's
+    device: no shape depends on its value and nothing is read on the host,
+    so the step also runs on meta tensors (the dry run counts it). An int
+    is written by a fill, not copied from the host: a blocking copy would
+    wait for the previous step's kernels."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=cache.device, dtype=torch.int64).reshape(())
+    return torch.full((), int(pos), dtype=torch.int64, device=cache.device)
 
 
 @torch.no_grad()
@@ -393,7 +406,7 @@ def decode_step(model: LM, kv_cache, next_token, pos):
     absolute position; its keys and values are written in place at slot
     ``pos`` and attention sees slots <= pos. Returns (logits (B, V), the
     same cache tensors)."""
-    pos = int(pos)
+    pos = _pos_tensor(pos, kv_cache[0])
     S_max = kv_cache[0].shape[2]
     idx = torch.arange(S_max, dtype=torch.int32, device=kv_cache[0].device)
     # slots strictly after `pos` are masked via a sentinel position
@@ -409,7 +422,7 @@ def decode_step_sliding(model: LM, kv_cache, next_token, pos):
     The cache stays (L, B, W, Hkv, Dh): the new token overwrites the oldest
     slot (pos % W), in place. Each slot's absolute position is derived from
     ``pos``; slots not yet written (a derived position < 0) are masked."""
-    pos = int(pos)
+    pos = _pos_tensor(pos, kv_cache[0])
     W = kv_cache[0].shape[2]
     slot = pos % W
     idx = torch.arange(W, dtype=torch.int32, device=kv_cache[0].device)

@@ -27,6 +27,12 @@ padding entries, which add zeros to row 0, are left out: on the card a
 sorted scatter would sum tens of thousands of them into that one row one
 after another.
 
+``static=True`` (the default on meta tensors, where the count cannot be
+read) is the reference's shape-static form instead: every entry is
+written, padding entries with exact zeros, so the shapes do not depend on
+the data; ``launch.flops`` counts the step that way, as the reference's
+jaxpr does.
+
 See ``configs/steps.py::_recsys_rowwise_bundle`` for the step wiring.
 """
 from __future__ import annotations
@@ -75,7 +81,8 @@ def combine_duplicate_rows(idx: torch.Tensor, g_rows: torch.Tensor
 @torch.no_grad()
 def rowwise_adagrad_update(table: torch.Tensor, acc: torch.Tensor, idx: torch.Tensor,
                            g_rows: torch.Tensor, lr,
-                           cfg: RowwiseConfig = RowwiseConfig()
+                           cfg: RowwiseConfig = RowwiseConfig(), *,
+                           static: bool | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sparse rowwise-AdaGrad, in place: touch only the rows in ``idx``.
 
@@ -83,16 +90,26 @@ def rowwise_adagrad_update(table: torch.Tensor, acc: torch.Tensor, idx: torch.Te
     (n, E) grads w.r.t. the gathered rows; lr: a float or a 0-d f32 tensor.
     ``table`` and ``acc`` are updated where they lie and returned, in the
     reference's arithmetic on its valid entries (its padding entries add
-    exact zeros).
+    exact zeros). ``static`` (default: on meta tensors) keeps the padding
+    entries, masked, as the reference does: no host sync, static shapes.
     """
     ids, g, valid = combine_duplicate_rows(idx, g_rows.float())
-    n_rows = int(valid.sum())
-    ids, g = ids[:n_rows].long(), g[:n_rows]
+    if static is None:
+        static = table.device.type == "meta"
+    if static:
+        ids, keep = ids.long(), valid.float()
+    else:
+        n_rows = int(valid.sum())
+        ids, g, keep = ids[:n_rows].long(), g[:n_rows], None
     row_g2 = (g ** 2).mean(dim=-1)
+    if keep is not None:
+        row_g2 = row_g2 * keep
     acc_new_rows = acc[ids] + row_g2
     acc.index_add_(0, ids, row_g2)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=table.device)
     scale = (lr * cfg.lr_scale) * torch.rsqrt(acc_new_rows + cfg.eps)
     delta = scale[:, None] * g
+    if keep is not None:
+        delta = delta * keep[:, None]
     table.index_add_(0, ids, -delta.to(table.dtype))
     return table, acc

@@ -1260,6 +1260,36 @@ def test_cuda_lm_matches_cpu_f32(arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b"])
+def test_lm_decode_steps_enqueue_without_a_host_sync(arch):
+    """An int position reaches the card by a fill, not a blocking copy, so
+    a decode step (full cache and rolling window) never waits for the
+    previous step's kernels: no synchronizing call under CUDA's sync
+    debug mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import transformer as T
+
+    cfg, _, card = _lm_pair(arch)
+    b = token_batch(0, 0, batch=2, seq_len=32, vocab=cfg.vocab)
+    toks = torch.from_numpy(b["tokens"]).cuda()
+    with torch.no_grad():
+        _, cache = T.prefill(card, toks[:, :24], cache_len=32)
+        if cfg.sliding_window:
+            _, rc = T.prefill(card, toks, cache_len=cfg.sliding_window)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T.decode_step(card, cache, toks[:, 24], 24)
+        if cfg.sliding_window:
+            T.decode_step_sliding(card, rc, toks[:, 0], 3 * cfg.sliding_window + 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x7b", "arctic-480b"])
 def test_cuda_lm_matches_cpu_bf16(arch):
     """bf16 compute: the loss within 1e-2 relative and the flattened
@@ -1371,3 +1401,91 @@ def test_cuda_rowwise_update_in_place_and_deterministic():
     torch.testing.assert_close(out[0][1], out[2][1], rtol=1e-6, atol=1e-6)
     untouched = np.setdiff1d(np.arange(V), idx)
     assert torch.equal(out[0][0][untouched], torch.tensor(table)[untouched])
+
+
+def _gnn_batch(cfg, n=60, e=240, live=50, dup=24, seed=0):
+    """A graph with tied messages (repeated edges) and isolated nodes."""
+    rng = np.random.default_rng(seed)
+    src, dst = rng.integers(0, n, e), rng.integers(0, live, e)
+    edges = rng.standard_normal((e, cfg.d_edge_in)).astype(np.float32)
+    return {"nodes": rng.standard_normal((n, cfg.d_in)).astype(np.float32),
+            "edges": np.concatenate([edges, edges[:dup]]),
+            "edge_index": np.stack([np.concatenate([src, src[:dup]]),
+                                    np.concatenate([dst, dst[:dup]])]).astype(np.int32),
+            "edge_mask": (rng.random(e + dup) < 0.8).astype(np.float32),
+            "targets": rng.standard_normal((n, cfg.d_out)).astype(np.float32),
+            "node_mask": (rng.random(n) < 0.7).astype(np.float32)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agg", ["sum", "mean", "max"])
+def test_cuda_gnn_step_matches_cpu(agg):
+    """The smoke config, remat on: loss, every gradient leaf (within 1e-4 of
+    its largest entry) and the parameters after one AdamW step (1e-4) on
+    the card against the CPU from the same seeded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs import registry, steps
+    from repro_torch.models import gnn as G
+
+    cfg = dataclasses.replace(registry.get_smoke_cfg("graphcast"), aggregator=agg, remat=True)
+    host = _gnn_batch(cfg)
+    out = {}
+    for d in ("cpu", "cuda"):
+        m = G.init_gnn(cfg, generator=torch.Generator().manual_seed(0), device=d)
+        m.requires_grad_(True)
+        b = {k: torch.as_tensor(v, device=d) for k, v in host.items()}
+        loss, grads = steps.value_and_grad(G.mse_loss, m, b)
+        step, init = steps.make_train_step(G.mse_loss, "adamw")
+        step(m, init(m), b)
+        out[d] = (float(loss), grads, {k: p.detach().cpu() for k, p in m.named_parameters()})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["cuda"]
+    assert abs(lc - lg) <= 1e-4 * max(abs(lc), 1.0)
+    for k in gc:
+        scale = max(float(gc[k].abs().max()), 1e-30)
+        assert float((gc[k] - gg[k].cpu()).abs().max()) <= 1e-4 * scale, k
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_gnn_step_is_deterministic():
+    """A graphcast-width step (h 512, bf16 compute, remat) on a power-law
+    graph whose hubs take thousands of messages, twice from the same state:
+    the same loss and parameters, bit for bit (the segment sums run in a
+    fixed order; no float atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs import registry, steps
+    from repro_torch.models import gnn as G
+
+    cfg = dataclasses.replace(registry.get_arch("graphcast").cfg, n_layers=4, d_in=64)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    n, e = 20_000, 200_000
+    w = 1.0 / torch.arange(1, n + 1, device=dev, dtype=torch.float64) ** 0.8
+    ei = torch.stack([torch.multinomial(w, e, replacement=True, generator=g)
+                      for _ in range(2)]).int()
+    batch = {"nodes": torch.randn(n, 64, generator=g, device=dev),
+             "edges": torch.randn(e, 4, generator=g, device=dev), "edge_index": ei,
+             "edge_mask": torch.ones(e, device=dev),
+             "targets": torch.randn(n, cfg.d_out, generator=g, device=dev),
+             "node_mask": torch.ones(n, device=dev)}
+    model = G.init_gnn(cfg, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    model.requires_grad_(True)
+    step, init = steps.make_train_step(G.mse_loss, "adamw")
+    opt = init(model)
+    state = [t.detach().clone() for t in (*model.parameters(), *opt["mu"].values(),
+                                          *opt["nu"].values())]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, v in zip((*model.parameters(), *opt["mu"].values(), *opt["nu"].values()),
+                            state):
+                t.copy_(v)
+        opt["step"] = torch.zeros_like(opt["step"])
+        loss = step(model, opt, batch)["loss"]
+        runs.append((loss.clone(), [p.detach().clone() for p in model.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -123,18 +123,15 @@ def test_registry_matches_the_reference():
     assert registry.ARCHS == jreg.ARCHS
     assert registry.list_archs() == jreg.list_archs()
     assert registry.list_archs(include_extra=True) == jreg.list_archs(include_extra=True)
-    ported = ("lm", "recsys")
     got = [(s.arch_id, c.name, c.skip_reason) for s, c in registry.cells()]
-    want = [(s.arch_id, c.name, c.skip_reason) for s, c in jreg.cells() if s.family in ported]
-    assert got == want and len(got) == 36
+    want = [(s.arch_id, c.name, c.skip_reason) for s, c in jreg.cells()]
+    assert got == want and len(got) == 40
     assert [c.name for _, c in registry.cells(include_skipped=False)] == [
-        c.name for s, c in jreg.cells(include_skipped=False) if s.family in ported]
+        c.name for s, c in jreg.cells(include_skipped=False)]
     assert registry.get_arch("biencoder-msmarco").family == "biencoder"
     for arch in ("graphcast",):
-        with pytest.raises(ValueError, match=f"{arch}.*not yet ported"):
-            registry.get_arch(arch)
-        with pytest.raises(ValueError, match="not yet ported"):
-            registry.get_smoke_cfg(arch)
+        assert registry.get_arch(arch).family == jreg.get_arch(arch).family == "gnn"
+        assert registry.get_smoke_cfg(arch).name == jreg.get_smoke_cfg(arch).name
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_arch("gpt-5")
     with pytest.raises(ValueError, match="skipped"):

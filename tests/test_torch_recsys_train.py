@@ -116,8 +116,7 @@ def test_registry_lists_the_recsys_family():
     got = [(s.arch_id, c.name) for s, c in registry.cells() if s.family == "recsys"]
     want = [(s.arch_id, c.name) for s, c in jreg.cells() if s.family == "recsys"]
     assert got == want and len(got) == 16
-    with pytest.raises(ValueError, match="the gnn family is not yet ported"):
-        registry.get_arch("graphcast")
+    assert registry.get_arch("graphcast").family == jreg.get_arch("graphcast").family == "gnn"
 
 
 BUNDLE_CELLS = [(a, c) for a in RECSYS
@@ -474,6 +473,6 @@ def test_launch_train_recsys_cli(capsys):
     with pytest.raises(ValueError, match="not a train cell"):
         train_cli.train("autoint", steps=1, smoke=False, ckpt_dir=None, ckpt_every=0,
                         resume="none", seed=0, shape="serve_p99", device="cpu")
-    with pytest.raises(ValueError, match="gnn family is not yet ported"):
-        train_cli.train("graphcast", steps=1, smoke=True, ckpt_dir=None, ckpt_every=0,
-                        resume="none", seed=0, device="cpu")
+    gnn = train_cli.train("graphcast", steps=1, smoke=True, ckpt_dir=None, ckpt_every=0,
+                          resume="none", seed=0, device="cpu")
+    assert gnn["steps_run"] == 1 and gnn["bundle"].meta["family"] == "gnn"
