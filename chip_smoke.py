@@ -194,15 +194,29 @@ Phases, each printing one JSON line:
      build/gnn_smoke/) and a bitwise resume; (e) launch.dryrun --all --mesh
      both on meta tensors, in DRYRUN_JOBS processes started after (c), so
      that no timed phase shares the host with it: every cell of every
-     family accounted for, and the roofline tables.
+     family accounted for, and the roofline tables;
+ 18. the analysis gate (``repro_torch.analysis``), run right after phase 12
+     over phase 4's indexes: (a) the top-k's live count as a 0-d device
+     tensor bitwise the host int's (a 4,096-row delta, f32 and int8, at
+     counts 0, 1, 1,808, 4,095 and 4,096, k 10 and 100; the full index at
+     n - 1), and a delta search captured once in a CUDA graph replayed at
+     three counts bitwise eager, both timed; (b) the dispatch lints on the
+     full-size dense, sharded (4 slots), segmented, paged and cascade entry
+     points (top-k calls a search as the CPU counts them, no upcast of the
+     int8 index, nothing synchronizing under set_sync_debug_mode("error"));
+     (c) the kernel budget, one line a kernel (registers, shared bytes,
+     spills), no error; (d) each entry point's batch timed (median of CUDA
+     events) into build/analysis/measured.json, and the cost model's
+     cross-check against it; (e) ``python -m repro_torch.analysis
+     --fail-on-findings`` exits 0.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
-sharded index), 13 (the encoder), 14 (the training half), 15 (the LM
-family, which runs none of the kernels), 16 (the recsys family) and 17
-(the GNN family, which runs none either) are counted the same way, each
-on its own. Launches made only to compare or
+sharded index), 18 (the analysis gate), 13 (the encoder), 14 (the
+training half), 15 (the LM family, which runs none of the kernels), 16
+(the recsys family) and 17 (the GNN family, which runs none either) are
+counted the same way, each on its own, in that order. Launches made only to compare or
 time a kernel are not counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -339,6 +353,11 @@ GNN_RUN_STEPS = 20          # phase 17(d): launch.train --arch graphcast steps .
 GNN_RUN_CKPT_EVERY = 10     # ... and its checkpoint interval
 DRYRUN_JOBS = 8             # phase 17(e): processes of the dry run (the host's cores)
 DRYRUN_TIMEOUT = 300        # ... seconds it may take, from its start after 17(c)
+ANALYSIS_DELTA = 4096       # phase 18(a): rows of the delta searched with a device count
+ANALYSIS_COUNTS = (0, 1, 1808, 4095, 4096)   # ... at these live counts
+ANALYSIS_REPLAY = (1, 1808, 4096)            # ... and replayed in a CUDA graph at these
+ANALYSIS_TIMED = 7          # phase 18(d): CUDA-event runs an entry point (median)
+ANALYSIS_TIMEOUT = 300      # phase 18(e): seconds python -m repro_torch.analysis may take
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -3097,6 +3116,177 @@ def phase_sharded(counters, index_f32, index_int8, pruner, Q, fresh, rows, proto
          **served)
 
 
+def phase_analysis(counters, index_f32, index_int8, pruner, Q, fresh, rows, smi):
+    """Phase 18: the analysis gate on the card, over phase 4's indexes.
+    (a) the top-k's live count as a 0-d device tensor against the host int,
+    bitwise: a 4,096-row delta (f32 and int8) at five counts and the full
+    index at n - 1, then a delta search captured once in a CUDA graph and
+    replayed at three counts against eager; (b) the dispatch lints on the
+    full-size dense, sharded (4 slots), segmented, paged and cascade entry
+    points: top-k calls a search as the CPU counts them, no upcast of an
+    int8 index, no synchronizing call; (c) the kernel budget, one line a
+    kernel; (d) each entry point's batch timed into
+    build/analysis/measured.json and the cost cross-check; (e) the whole
+    gate, ``python -m repro_torch.analysis --fail-on-findings``, exit 0."""
+    import torch
+    from repro_torch.analysis import cost_model, dispatch_lints, kernel_budget
+    from repro_torch.core.cascade import CascadeIndex
+    from repro_torch.core.index import SegmentedIndex, ShardedDenseIndex, _delta_topk
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+    from repro_torch.par.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    W, mean = pruner.projection()
+    m = pruner.kept_dims
+    n = index_int8.n
+    qraw = torch.as_tensor(Q[:BATCH], device=dev)
+    q = (qraw.float() - (0 if mean is None else mean[None, :])) @ W
+    tk = topk_score.topk_score_cuda
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    # (a) a device count against the host int, bitwise
+    delta_f32 = index_f32.vectors[:ANALYSIS_DELTA].contiguous()
+    delta_i8, dscale = quantize_int8_per_dim(delta_f32)
+    deltas = {"f32": (delta_f32, q.contiguous()),
+              "int8": (delta_i8, (q * dscale[None, :]).contiguous())}
+    checks = 0
+    for st, (D, qd) in deltas.items():
+        for k in (K, SHORTLIST_K):
+            for nv in ANALYSIS_COUNTS:
+                count = torch.tensor(nv, dtype=torch.int32, device=dev)
+                if not same(tk(D, qd, k=k, n_valid=count), tk(D, qd, k=k, n_valid=nv)):
+                    raise AssertionError(f"analysis (a): {st} delta k={k} count {nv}: the "
+                                         f"device count differs from the host int")
+                checks += 1
+    for st, index in (("f32", index_f32), ("int8", index_int8)):
+        qd = (q if index.scale is None else q * index.scale[None, :]).contiguous()
+        count = torch.tensor(n - 1, dtype=torch.int32, device=dev)
+        if not same(tk(index.vectors, qd, k=K, n_valid=count),
+                    tk(index.vectors, qd, k=K, n_valid=n - 1)):
+            raise AssertionError(f"analysis (a): full {st} index at n - 1: the device count "
+                                 f"differs from the host int")
+        checks += 1
+    count = torch.tensor(ANALYSIS_COUNTS[1], dtype=torch.int32, device=dev)
+    for _ in range(2):
+        _delta_topk(delta_i8, dscale, q, count, n, K)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gs, gi = _delta_topk(delta_i8, dscale, q, count, n, K)
+    for live in ANALYSIS_REPLAY:
+        count.fill_(live)
+        graph.replay()
+        if not same((gs, gi), _delta_topk(delta_i8, dscale, q, live, n, K)):
+            raise AssertionError(f"analysis (a): the graph replayed at {live} differs from "
+                                 f"eager")
+    with counters.uncounted():
+        for st, (D, qd) in deltas.items():
+            for how, nv in (("host", 1808), ("device", torch.tensor(1808, dtype=torch.int32,
+                                                                   device=dev))):
+                rows[f"topk_score_delta_{st}_{how}_count"] = topk_row(D, qd, K, n_valid=nv)
+        replay_ms = median_ms(graph.replay, reps=ANALYSIS_TIMED)
+        eager_ms = median_ms(lambda: _delta_topk(delta_i8, dscale, q, count, n, K),
+                             reps=ANALYSIS_TIMED)
+    del graph
+    emit("analysis", step="a_device_count", checks=checks, replays=len(ANALYSIS_REPLAY),
+         graph_replay_ms=replay_ms, eager_ms=eager_ms,
+         **{f"delta_{st}_{how}_ms": rows[f"topk_score_delta_{st}_{how}_count"]["ms"]
+            for st in deltas for how in ("host", "device")})
+
+    # (b) the dispatch lints at full size
+    mesh4 = make_mesh((4,), ("data",), dev)
+    grow = pruner.prune_index(fresh[:ANALYSIS_DELTA + ANALYSIS_COUNTS[2]]).cpu().numpy()
+    seg = SegmentedIndex.from_index(index_int8, delta_capacity=ANALYSIS_DELTA).append(grow)
+    pg = PagedIndex.from_index(index_int8, page_rows=PAGE_ROWS)
+    cas = CascadeIndex.from_index(index_int8, m_coarse=CASCADE_M, n_factor=CASCADE_N)
+    targets = {
+        "DenseIndex.search_projected[f32]": (index_f32, 1, None),
+        "DenseIndex.search_projected[int8]": (index_int8, 1, "int8"),
+        "ShardedDenseIndex.search_projected[flat,f32]": (
+            ShardedDenseIndex.from_rows(index_f32.vectors, mesh4), 4, None),
+        "ShardedDenseIndex.search_projected[flat,int8]": (
+            ShardedDenseIndex.from_rows(index_int8.vectors, mesh4, scale=index_int8.scale), 4,
+            "int8"),
+        f"SegmentedIndex.search_projected[int8,{len(seg.deltas)}d]": (
+            seg, 1 + len(seg.deltas), None),
+        "PagedIndex.search_projected[int8]": (pg, 1, "int8"),
+        "CascadeIndex.search_projected[int8]": (cas, 2, "int8"),
+    }
+    entries = [dispatch_lints.EntryPoint(
+        label=label, fn=(lambda ix: lambda x: ix.search_projected(x, W, k=K, mean=mean))(ix),
+        args=(qraw,), expected_calls=calls, corpus_shape=(n, m), family=label.split(".")[0],
+        storage_dtype=store, batch=BATCH, index=ix) for label, (ix, calls, store)
+        in targets.items()]
+    lint = {}
+    for ep in entries:
+        probe = dispatch_lints.run_probed(ep.fn, ep.args, device="cuda",
+                                          strip_elems=dispatch_lints.strip_elems(ep.corpus_shape))
+        found = dispatch_lints.lint_entry(ep)
+        lint[ep.label] = dict(calls=probe.kernel_calls, expected=ep.expected_calls,
+                              upcasts=len(probe.upcasts), host_reads=len(probe.host_reads),
+                              findings=[f.key for f in found])
+        emit("analysis", step="b_dispatch", entry=ep.label, **lint[ep.label])
+        if found:
+            raise AssertionError(f"analysis (b): {ep.label}: {[f.message for f in found]}")
+
+    # (c) the kernel budget
+    compiled = {(r["source"], r["kernel"]) for r in kernel_budget.ptxas_rows()}
+    table = kernel_budget.kernel_table()
+    for r in table:
+        emit("analysis", step="c_budget", **r)
+    with counters.uncounted():          # its alignment probes are checks, not the path
+        budget = kernel_budget.run(
+            "cuda", extra=[(lambda ep=ep: ep.fn(*ep.args)) for ep in entries])
+    for f in budget:
+        emit("analysis", step="c_budget_finding", key=f.key, severity=f.severity,
+             message=f.message)
+    gating = [f.key for f in budget if f.severity == "error"]
+    if gating:
+        raise AssertionError(f"analysis (c): kernel budget findings {gating}")
+    if len(table) != len(compiled):
+        raise AssertionError(f"analysis (c): {len(table)} kernels with attributes, "
+                             f"{len(compiled)} in the ptxas reports")
+
+    # (d) each entry point timed, then the cost cross-check
+    measured = {}
+    with counters.uncounted():
+        for ep in entries:
+            measured[ep.label] = dict(ms=median_ms(lambda: ep.fn(*ep.args), reps=ANALYSIS_TIMED),
+                                      B=BATCH, n=n, m=m, reps=ANALYSIS_TIMED)
+    name_, limit = [s.strip() for s in smi.split(",")]
+    out = os.path.join(HERE, "build", "analysis", "measured.json")
+    cost_model.write_measured(out, measured, device=name_, power_limit=limit)
+    cross = cost_model.bench_crosscheck(
+        json.load(open(cost_model.COSTS_PATH))["entries"], json.load(open(out)))
+    emit("analysis", step="d_measured", path=os.path.relpath(out, HERE),
+         **{label: row["ms"] for label, row in measured.items()},
+         crosscheck=[f.key for f in cross], crosscheck_messages=[f.message for f in cross])
+    del seg, pg, cas, entries
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the whole gate in a process of its own
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--fail-on-findings",
+                          "--json", os.path.join("build", "analysis", "report.json")],
+                         cwd=HERE, env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")},
+                         capture_output=True, text=True, timeout=ANALYSIS_TIMEOUT)
+    report = json.load(open(os.path.join(HERE, "build", "analysis", "report.json")))
+    emit("analysis", step="e_gate", rc=res.returncode, seconds=time.perf_counter() - t0,
+         counts=report["counts"], findings=[f["check"] + ":" + f["where"]
+                                           for f in report["findings"]],
+         suppressed=[f["check"] + ":" + f["where"] for f in report["suppressed"]])
+    if res.returncode != 0:
+        raise AssertionError(f"analysis (e): python -m repro_torch.analysis exited "
+                             f"{res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    emit("analysis", step="done", seconds=time.perf_counter() - t_phase)
+
+
 def median_ms(fn, reps=3):
     """Median device time of ``fn`` over ``reps`` runs after one warm-up,
     each run between its own pair of CUDA events."""
@@ -4170,7 +4360,7 @@ def topk_row(D, q, k, *, n_valid=None, reps=10):
     want = topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid)
     got = topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid)
     n, m = D.shape
-    nv = n if n_valid is None else n_valid
+    nv = n if n_valid is None else max(0, min(int(n_valid), n))
     err, eq, near = compare_topk(*want, *got, f"recsys top-k {tuple(D.shape)} {D.dtype}")
     item, B = D.element_size(), q.shape[0]
     return dict(
@@ -5069,7 +5259,7 @@ def main():
 
 
 def run_phases(args, smi):
-    """Phases 3-17 and the closing lines."""
+    """Phases 3-18 and the closing lines."""
     import torch
     ids_row = phase_edge_cases()
     counters = Counters()
@@ -5163,6 +5353,19 @@ def run_phases(args, smi):
     missing = [k for k in on_sharded if sharded_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the sharded path: {missing}")
+    # the analysis gate over phase 4's indexes, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_analysis(counters, index_f32, index_int8, pruner, Q, fresh, rows, smi)
+    torch.cuda.synchronize()
+    analysis_launches = counters.read()
+    emit("analysis_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in analysis_launches.items() if v})
+    on_analysis = ("pca_project", "topk_score_f32", "topk_score_int8", "topk_score_f32_n_valid",
+                   "topk_score_int8_n_valid", "topk_score_row_ids", "topk_score_paged_int8")
+    missing = [k for k in on_analysis if analysis_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the analysis path: {missing}")
     # the indexes of phases 4-12 are not needed past them: the encoder and
     # the trainer get the card
     del index_f32, index_int8, pruner, Q, fresh
@@ -5336,6 +5539,14 @@ def run_phases(args, smi):
                 launches_of=f"every counted {st} plain-mode call of phase 12: the per-shard "
                             f"searches" + (", and the full deltas' of (e)" if st == "int8" else ""))
           for st in ("f32", "int8")],
+        # the analysis path (phase 18): a delta's search (4,096 rows, 1,808
+        # live) with the count as a host int and as a 0-d device tensor, in
+        # one call (launches: every masked dense call of phase 18, both forms)
+        *[entry(f"topk_score_delta_{st}_{how}_count", rows[f"topk_score_delta_{st}_{how}_count"],
+                topk[1], topk[0], f"topk_score_{st}_n_valid", analysis_launches,
+                launches_of=f"every {st} n_valid-mode call of phase 18: the device-count "
+                            f"checks and the segmented entry point's deltas")
+          for st in ("f32", "int8") for how in ("host", "device")],
         entry("gram_strip", rows["gram_strip"], csrc + "gram.cu", "src/repro/kernels/gram.py:41",
               "gram", sharded_launches,
               launches_of="every gram call of phase 12: one a strip of gram_distributed "

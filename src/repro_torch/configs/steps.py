@@ -689,7 +689,7 @@ def _two_tower_bundle(spec_, cell, mesh, cfg, model, pspec, meta) -> StepBundle:
             q = project_queries(u, W_m)                         # unfolded
             fold = q if scale is None else q * scale[None, :]
             base = _sharded_index_topk(item_index, fold, TOPK_SERVE, mesh, hierarchical=hier)
-            delta = _delta_topk(delta_seg, delta_scale, q, int(delta_n), C, TOPK_SERVE)
+            delta = _delta_topk(delta_seg, delta_scale, q, delta_n, C, TOPK_SERVE)
             return merge_segment_topk([base, delta], TOPK_SERVE)
 
         args = (params_sds, index_sds, sds((d_full, m)), sds((m,)),

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.quantization import quantize_int8_per_dim, quantize_with_scale, scale_for
 from repro_torch.core.store import IndexStore, IndexStoreError
 from repro_torch.kernels import ops
+from repro_torch.kernels.topk_score import topk_score_plain
 from repro_torch.par.mesh import DeviceMesh, on_mesh
 from repro_torch.util import as_tensor, default_device
 
@@ -515,18 +516,27 @@ class ShardedDenseIndex:
 
 
 def _delta_topk(D: torch.Tensor, scale: torch.Tensor | None, Q: torch.Tensor,
-                n_valid: int, offset: int, k: int
+                n_valid: int | torch.Tensor, offset: int, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k over one fixed-capacity delta segment: one ``topk_score`` call
     over all ``capacity`` rows of ``D`` (storage dtype; rows at and beyond
     ``n_valid`` are zero padding, masked to (-inf, -1) by the kernel), the
     segment's own scale folded into the query, then local ids offset to
-    global ones. The call's operand shapes do not depend on ``n_valid``."""
+    global ones. The call's operand shapes do not depend on ``n_valid``.
+
+    ``n_valid`` is a host int or, as the reference traces it, a 0-d int32
+    tensor on D's device, which no host code reads: the kernel takes it by
+    pointer on the card, and the plain version compares it as a tensor. On
+    meta tensors (the dry run's counting, which ``ops`` refuses) the plain
+    version runs directly, as the sharded slots take ``_scan_topk`` there."""
     q = torch.atleast_2d(Q).float()
     if scale is not None:
         q = q * scale[None, :]
-    s, ids = ops.topk_score(D, q.contiguous(), k=min(k, D.shape[0]),
-                            n_valid=n_valid)
+    kk = min(k, D.shape[0])
+    if D.device.type == "meta":
+        s, ids = topk_score_plain(D, q.contiguous(), k=kk, n_valid=n_valid)
+    else:
+        s, ids = ops.topk_score(D, q.contiguous(), k=kk, n_valid=n_valid)
     return s, torch.where(ids >= 0, ids + offset, ids)
 
 

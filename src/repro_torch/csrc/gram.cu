@@ -311,3 +311,31 @@ extern "C" int gram_f32(const void* D, int64_t n, int d, int dtype, int splits, 
   if (dtype == 1) return launch<__nv_bfloat16>(D, n, d, splits, p, o, s, launched);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+namespace {
+
+template <typename T>
+int partial_smem(int) { return STAGES * 2 * GK * GB * static_cast<int>(sizeof(T)); }
+
+const KernelEntry KERNELS[] = {
+    {"gram_partial_kernel<f32,vec>",
+     reinterpret_cast<const void*>(gram_partial_kernel<float, true>), GT, partial_smem<float>},
+    {"gram_partial_kernel<f32,scalar>",
+     reinterpret_cast<const void*>(gram_partial_kernel<float, false>), GT, partial_smem<float>},
+    {"gram_partial_kernel<bf16,vec>",
+     reinterpret_cast<const void*>(gram_partial_kernel<__nv_bfloat16, true>), GT,
+     partial_smem<__nv_bfloat16>},
+    {"gram_partial_kernel<bf16,scalar>",
+     reinterpret_cast<const void*>(gram_partial_kernel<__nv_bfloat16, false>), GT,
+     partial_smem<__nv_bfloat16>},
+    {"gram_reduce_kernel", reinterpret_cast<const void*>(gram_reduce_kernel), 256, nullptr},
+};
+
+}  // namespace
+
+// The resource check's view of every kernel in this file (common.cuh's
+// kernel_attrs); m is unused (the tiles do not depend on the width).
+extern "C" int gram_kernel_attrs(int i, int m, const char** name, int* attrs) {
+  return kernel_attrs(KERNELS, static_cast<int>(sizeof(KERNELS) / sizeof(KERNELS[0])), i, m,
+                      name, attrs);
+}

@@ -273,3 +273,30 @@ extern "C" int pca_project_f32(const void* D, const void* W, const void* scale,
   if (dtype == 1) return launch<__nv_bfloat16>(D, w, sc, out, n, d, m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+namespace {
+
+template <typename T>
+int project_smem(int) {
+  return STAGES * (PB * ASlab<T>::LD * static_cast<int>(sizeof(T)) + PK * PN * 4);
+}
+
+#define PROJECT(T, TN, Q, QN, V, VN)                                                     \
+  {"pca_project_kernel<" TN "," QN "," VN ">",                                           \
+   reinterpret_cast<const void*>(pca_project_kernel<T, Q, V>), PT, project_smem<T>}
+#define PROJECTS(T, TN)                                                                   \
+  PROJECT(T, TN, false, "plain", true, "vec"), PROJECT(T, TN, false, "plain", false, "scalar"), \
+      PROJECT(T, TN, true, "quant", true, "vec"), PROJECT(T, TN, true, "quant", false, "scalar")
+
+const KernelEntry KERNELS[] = {PROJECTS(float, "f32"), PROJECTS(__nv_bfloat16, "bf16")};
+#undef PROJECTS
+#undef PROJECT
+
+}  // namespace
+
+// The resource check's view of every kernel in this file (common.cuh's
+// kernel_attrs); m is unused (the tiles do not depend on the width).
+extern "C" int pca_project_kernel_attrs(int i, int m, const char** name, int* attrs) {
+  return kernel_attrs(KERNELS, static_cast<int>(sizeof(KERNELS) / sizeof(KERNELS[0])), i, m,
+                      name, attrs);
+}

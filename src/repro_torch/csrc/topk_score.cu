@@ -147,6 +147,9 @@ __device__ __forceinline__ void load_slab(const __nv_bfloat16* p, float (&v)[CK]
 
 // A dense index: chunk c is rows [512 c, 512 c + 512) of D (n, m). Row ids
 // are positions masked at n_valid, or row_ids[row] masked when negative.
+// n_valid_dev, when set, holds the live count on the device: bound() reads
+// it once per block and clamps it to [0, n], so a live delta's search keeps
+// one launch whatever its count (a CUDA graph replays it as the count grows).
 template <typename T>
 struct DenseSrc {
   static constexpr bool SCALED = false;
@@ -154,6 +157,15 @@ struct DenseSrc {
   const int* row_ids;
   int64_t n, n_valid;
   int m;
+  const int* n_valid_dev;
+  __device__ __forceinline__ DenseSrc bound() const {
+    DenseSrc s = *this;
+    if (n_valid_dev != nullptr) {
+      const int64_t v = *n_valid_dev;
+      s.n_valid = v < 0 ? 0 : (v > n ? n : v);
+    }
+    return s;
+  }
   __device__ __forceinline__ const T* row(int chunk, int r, bool& ok) const {
     const int64_t row = static_cast<int64_t>(chunk) * CR + r;
     ok = row < n;
@@ -204,6 +216,7 @@ struct PagedSrc {
   const float* scale;
   const int2* fold;
   int R, m;
+  __device__ __forceinline__ PagedSrc bound() const { return *this; }
   __device__ __forceinline__ const T* row(int chunk, int r, bool& ok) const {
     const Unit* u = units + chunk * UPC + r / UNIT;
     const int rr = r % UNIT;
@@ -525,9 +538,10 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
 // are bitwise equal on the same contents because of it.
 template <typename T, bool VEC, bool LIST, typename Src>
 __global__ void __launch_bounds__(CT, 1)
-topk_chunk_kernel(Src src, const float* __restrict__ Q, int m, int B, int k, int nchunks,
+topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
                   int64_t ldq, uint64_t* __restrict__ cand) {
   using C = Chunk<T>;
+  const Src src = src_arg.bound();
   extern __shared__ __align__(16) unsigned char smem[];
   const int kp = panel_width(m), qld = kp + 4;
   float* Qs = reinterpret_cast<float*>(smem);                       // [CQ][qld]
@@ -1164,10 +1178,10 @@ int64_t key_words(int64_t nchunks, int carry, int k, int B) {
 
 template <typename T>
 int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, int B,
-               int64_t n_valid, int k, bool vec, uint64_t* scratch, float* os, int* oi,
-               cudaStream_t s, int* launched) {
+               int64_t n_valid, const int* n_valid_dev, int k, bool vec, uint64_t* scratch,
+               float* os, int* oi, cudaStream_t s, int* launched) {
   const int nchunks = static_cast<int>((n + CR - 1) / CR);
-  const DenseSrc<T> src{static_cast<const T*>(D), ids, n, n_valid, m};
+  const DenseSrc<T> src{static_cast<const T*>(D), ids, n, n_valid, m, n_valid_dev};
   const bool list = k > SMALL_K;
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR : static_cast<int64_t>(nchunks) * k;
   cudaError_t err = dispatch_chunks<T>(vec, list, src, q, m, B, k, nchunks, ldq, scratch, s);
@@ -1254,26 +1268,31 @@ extern "C" int topk_plan(int64_t n, int k, int B, int64_t* out) {
 }
 
 // D (n, m) in dtype 0 = f32, 1 = bf16, 2 = int8; Q (B, m) f32; row_ids
-// (n,) int32 or null. scratch holds topk_plan's words. Writes out_s (B, k)
-// f32 and out_i (B, k) int32. `vec` asserts m % 16 == 0 and a 16-byte
-// aligned D. *launched counts the kernel launches made. Returns the first
-// cudaError_t.
+// (n,) int32 or null. The live count is n_valid_dev[0] (one int32 on the
+// device, clamped to [0, n] by the kernel) when that pointer is set, else
+// the host value n_valid. scratch holds topk_plan's words. Writes out_s
+// (B, k) f32 and out_i (B, k) int32. `vec` asserts m % 16 == 0 and a
+// 16-byte aligned D. *launched counts the kernel launches made. Returns the
+// first cudaError_t.
 extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids, int64_t n,
-                              int m, int B, int64_t n_valid, int k, int dtype, int vec,
-                              void* scratch, void* out_s, void* out_i, void* stream,
-                              int* launched) {
+                              int m, int B, int64_t n_valid, const void* n_valid_dev, int k,
+                              int dtype, int vec, void* scratch, void* out_s, void* out_i,
+                              void* stream, int* launched) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(Q);
   auto ids = static_cast<const int*>(row_ids);
+  auto nvd = static_cast<const int*>(n_valid_dev);
   auto* sc = static_cast<uint64_t*>(scratch);
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   *launched = 0;
   if (n < 1 || (n + CR - 1) / CR > 0x7FFFFFFF || k < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return dense_call<float>(D, q, ids, n, m, B, n_valid, k, vec, sc, os, oi, s, launched);
-  if (dtype == 1) return dense_call<__nv_bfloat16>(D, q, ids, n, m, B, n_valid, k, vec, sc, os, oi, s, launched);
-  if (dtype == 2) return dense_call<int8_t>(D, q, ids, n, m, B, n_valid, k, vec, sc, os, oi, s, launched);
+#define DENSE(T) dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, sc, os, oi, s, launched)
+  if (dtype == 0) return DENSE(float);
+  if (dtype == 1) return DENSE(__nv_bfloat16);
+  if (dtype == 2) return DENSE(int8_t);
+#undef DENSE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1351,4 +1370,62 @@ extern "C" int topk_select_keys(const void* keys, int B, int64_t L, int k, int f
   return run_select(static_cast<const uint64_t*>(keys), B, L, k, finalize ? 0 : 1,
                     static_cast<uint64_t*>(scratch), static_cast<float*>(out_s),
                     static_cast<int*>(out_i), static_cast<cudaStream_t>(stream), launched);
+}
+
+namespace {
+
+template <typename T>
+int chunk_dyn_smem(int m) { return static_cast<int>(chunk_smem<T>(m)); }
+int sort_tile_smem(int) { return SORT_TILE * static_cast<int>(sizeof(uint64_t)); }
+
+#define CHUNK4(T, TN, S, SN)                                                               \
+  {"topk_chunk_kernel<" TN ",vec,keep," SN ">",                                            \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, false, S>), CT, chunk_dyn_smem<T>}, \
+  {"topk_chunk_kernel<" TN ",vec,list," SN ">",                                            \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, true, S>), CT, chunk_dyn_smem<T>}, \
+  {"topk_chunk_kernel<" TN ",scalar,keep," SN ">",                                         \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, false, S>), CT, chunk_dyn_smem<T>}, \
+  {"topk_chunk_kernel<" TN ",scalar,list," SN ">",                                         \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, true, S>), CT, chunk_dyn_smem<T>}
+template <typename T>
+using PagedPlain = PagedSrc<T, false>;
+template <typename T>
+using PagedScaled = PagedSrc<T, true>;
+#define CHUNKS(T, TN)                                                                      \
+  CHUNK4(T, TN, DenseSrc<T>, "dense"), CHUNK4(T, TN, PagedPlain<T>, "paged"),             \
+      CHUNK4(T, TN, PagedScaled<T>, "paged_scaled")
+#define UNITS(T, TN)                                                                       \
+  {"paged_units_kernel<" TN ">", reinterpret_cast<const void*>(paged_units_kernel<T>), 256, \
+   nullptr}
+
+const KernelEntry KERNELS[] = {
+    CHUNKS(float, "f32"),
+    CHUNKS(__nv_bfloat16, "bf16"),
+    CHUNKS(int8_t, "int8"),
+    {"topk_merge_kernel", reinterpret_cast<const void*>(topk_merge_kernel), MT, nullptr},
+    {"carry_keys_kernel", reinterpret_cast<const void*>(carry_keys_kernel), 256, nullptr},
+    UNITS(float, "f32"),
+    UNITS(__nv_bfloat16, "bf16"),
+    UNITS(int8_t, "int8"),
+    {"paged_fold_kernel", reinterpret_cast<const void*>(paged_fold_kernel), 256, nullptr},
+    {"radix_hist_kernel", reinterpret_cast<const void*>(radix_hist_kernel), RT, nullptr},
+    {"radix_pick_kernel", reinterpret_cast<const void*>(radix_pick_kernel), 32, nullptr},
+    {"radix_gather_kernel", reinterpret_cast<const void*>(radix_gather_kernel), RT, nullptr},
+    {"bitonic_tile_kernel", reinterpret_cast<const void*>(bitonic_tile_kernel), ST,
+     sort_tile_smem},
+    {"bitonic_global_kernel", reinterpret_cast<const void*>(bitonic_global_kernel), 256,
+     nullptr},
+    {"select_write_kernel", reinterpret_cast<const void*>(select_write_kernel), RT, nullptr},
+};
+#undef UNITS
+#undef CHUNKS
+#undef CHUNK4
+
+}  // namespace
+
+// The resource check's view of every kernel in this file (common.cuh's
+// kernel_attrs); m is the index width the chunk kernel's tile is sized for.
+extern "C" int topk_score_kernel_attrs(int i, int m, const char** name, int* attrs) {
+  return kernel_attrs(KERNELS, static_cast<int>(sizeof(KERNELS) / sizeof(KERNELS[0])), i, m,
+                      name, attrs);
 }

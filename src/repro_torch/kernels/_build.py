@@ -41,6 +41,11 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.so"
 
 
+def report_path(name: str) -> Path:
+    """The ``ptxas -v`` report of the last build of ``name``."""
+    return BUILD_DIR / f"{name}.ptxas.txt"
+
+
 def _stale(name: str) -> bool:
     so = lib_path(name)
     if not so.exists():
@@ -53,9 +58,11 @@ def _stale(name: str) -> bool:
 def build(names=SOURCES) -> dict[str, str]:
     """Compile ``names``, one ``nvcc`` each, all started together.
 
-    Returns each source's compiler output (the ``ptxas -v`` report). Raises
-    if any build fails. Each library is written under a temporary name and
-    renamed into place, so concurrent processes never load a partial file.
+    Returns each source's compiler output (the ``ptxas -v`` report), also
+    kept beside the library (``report_path``) for the resource check.
+    Raises if any build fails. Each library is written under a temporary
+    name and renamed into place, so concurrent processes never load a
+    partial file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -73,6 +80,7 @@ def build(names=SOURCES) -> dict[str, str]:
             failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):"
                           f"\n{out}")
         else:
+            report_path(name).write_text(out)
             os.replace(tmp, lib_path(name))
     if failed:
         raise RuntimeError("\n".join(failed))

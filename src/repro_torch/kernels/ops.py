@@ -41,17 +41,18 @@ def gram(D: torch.Tensor) -> torch.Tensor:
 
 
 def topk_score(D: torch.Tensor, Q: torch.Tensor, *, k: int,
-               n_valid: int | None = None,
+               n_valid: int | torch.Tensor | None = None,
                row_ids: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused score + top-k over a document index.
 
     The index is read in its storage dtype (an int8 dequant scale must be
-    folded into ``Q``); ``n_valid`` masks trailing rows; ``row_ids``
+    folded into ``Q``); ``n_valid`` (a host int, or a 0-d int32 tensor on
+    D's device that the host never reads) masks trailing rows; ``row_ids``
     switches to shortlist-rescore mode, where each row reports its gathered
     doc id and negative ids are masked out.
     """
-    operands = (D, Q) if row_ids is None else (D, Q, row_ids)
+    operands = [D, Q] + [t for t in (row_ids, n_valid) if isinstance(t, torch.Tensor)]
     if _on_card(*operands):
         return topk_score_cuda(D, Q, k=k, n_valid=n_valid, row_ids=row_ids)
     return topk_score_plain(D, Q, k=k, n_valid=n_valid, row_ids=row_ids)

@@ -21,13 +21,16 @@ def gram_ref(D: torch.Tensor) -> torch.Tensor:
 
 
 def topk_score_ref(D: torch.Tensor, Q: torch.Tensor, *, k: int,
-                   n_valid: int | None = None,
+                   n_valid: int | torch.Tensor | None = None,
                    row_ids: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score every row, then one stable sort under (score desc, id asc).
 
     k pad candidates (-inf, -1) go first, so they win every -inf tie as the
     TPU kernel's initial running list does; a slot left at -inf reports -1.
+    ``n_valid`` may be a host int or a 0-d tensor on D's device: it is
+    compared with the row ids as a tensor, never read by the host, so the
+    search also runs on meta tensors. Outside [0, n] it acts clamped.
     """
     n = D.shape[0]
     B = Q.shape[0]

@@ -48,7 +48,7 @@ _SIGNATURES = {
     "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_f32": (ctypes.c_int, [
-        _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_int)]),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
@@ -105,22 +105,28 @@ def _call_groups(B: int, words_of, call, device: torch.device) -> int:
 
 
 def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
-                    n_valid: int | None = None,
+                    n_valid: int | torch.Tensor | None = None,
                     row_ids: torch.Tensor | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused score + top-k on the card; arguments as ``topk_score_plain``.
 
     D: (n, m) f32, bf16 or int8 (an int8 scale must already be folded into
-    Q); Q: (B, m) f32; row_ids: (n,) int32. A group of queries launches
-    the chunk kernel once, then for k <= 32 the merge kernel once per
-    level, else the select's kernels. ``launches`` counts calls and
-    ``cuda_launches`` the CUDA launches the C side reports, both keyed by
-    mode: the storage dtype in plain mode (``<dtype>_n_valid`` when
-    ``n_valid`` masks rows, as a live delta segment's search does), else
+    Q); Q: (B, m) f32; row_ids: (n,) int32; n_valid: a host int, or a 0-d
+    int32 tensor on D's device that the chunk kernel reads and clamps to
+    [0, n] itself, so the host never reads it and a CUDA graph captured
+    once replays at any live count. A group of queries launches the chunk
+    kernel once, then for k <= 32 the merge kernel once per level, else
+    the select's kernels. ``launches`` counts calls and ``cuda_launches``
+    the CUDA launches the C side reports, both keyed by mode: the storage
+    dtype in plain mode (``<dtype>_n_valid`` when ``n_valid`` masks rows,
+    as a live delta segment's search does: always for a tensor count, since
+    the host cannot tell whether it is below n without reading it), else
     ``"row_ids"``; a call with k > 32 also counts in
     ``topk_select_cuda.launches`` under its mode.
     """
+    nv_dev = n_valid if isinstance(n_valid, torch.Tensor) else None
     tensors = [D, Q] + ([] if row_ids is None else [row_ids])
+    tensors += [] if nv_dev is None else [nv_dev]
     if D.device.type != "cuda" or any(t.device != D.device for t in tensors):
         raise ValueError(f"topk_score_cuda needs all operands on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
@@ -138,6 +144,9 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
         raise ValueError(f"topk_score: row_ids must be a contiguous ({n},) "
                          f"int32 tensor, got {tuple(row_ids.shape)} "
                          f"{row_ids.dtype}")
+    if nv_dev is not None and (nv_dev.dtype != torch.int32 or nv_dev.dim() != 0):
+        raise ValueError(f"topk_score: a tensor n_valid must be a 0-d int32 tensor, "
+                         f"got {tuple(nv_dev.shape)} {nv_dev.dtype}")
     B = Q.shape[0]
     if k < 1 or n < 1 or m < 1 or B < 1:
         raise ValueError(f"topk_score: needs k, n, m, B >= 1, "
@@ -146,7 +155,7 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     select = topk_plan(n, k, B)[1]
     out_s = torch.empty((B, k), dtype=torch.float32, device=D.device)
     out_i = torch.empty((B, k), dtype=torch.int32, device=D.device)
-    nv = n if n_valid is None else max(0, min(int(n_valid), n))
+    nv = n if n_valid is None or nv_dev is not None else max(0, min(int(n_valid), n))
     vec = m % 16 == 0 and D.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(D.device).cuda_stream
 
@@ -154,7 +163,8 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
         launched = ctypes.c_int(0)
         err = lib.topk_score_f32(
             D.data_ptr(), Q[g0:g1].data_ptr(),
-            None if row_ids is None else row_ids.data_ptr(), n, m, g1 - g0, nv, k,
+            None if row_ids is None else row_ids.data_ptr(), n, m, g1 - g0, nv,
+            None if nv_dev is None else nv_dev.data_ptr(), k,
             _DTYPES[D.dtype], int(vec), scratch.data_ptr(), out_s[g0:g1].data_ptr(),
             out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
         _build.check(err, "topk_score")
@@ -163,7 +173,7 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     with torch.cuda.device(D.device):
         launched = _call_groups(B, lambda b: topk_plan(n, k, b)[0], call, D.device)
     mode = ("row_ids" if row_ids is not None
-            else _STORE[D.dtype] + ("_n_valid" if nv < n else ""))
+            else _STORE[D.dtype] + ("_n_valid" if nv < n or nv_dev is not None else ""))
     topk_score_cuda.launches[mode] += 1
     topk_score_cuda.cuda_launches[mode] += launched
     if select:

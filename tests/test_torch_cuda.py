@@ -1489,3 +1489,99 @@ def test_cuda_gnn_step_is_deterministic():
         runs.append((loss.clone(), [p.detach().clone() for p in model.parameters()]))
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "int8"])
+def test_cuda_topk_device_count_equals_host_count(store):
+    """A 0-d int32 live count on the card gives the host int's result
+    bitwise (k 10 and 100, counts 0 .. n and past it, clamped by the
+    kernel), in the ``<dtype>_n_valid`` mode, with no host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.topk_score import topk_score_cuda
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(26)
+    D = (torch.randn((4096, 384), device=dev, generator=g) * 40)
+    D = D.to(torch.int8) if store == "int8" else D
+    q = torch.randn((32, 384), device=dev, generator=g)
+    for k in (10, 100):
+        for nv in (0, 1, 1808, 4095, 4096, 5000, -3):
+            want = topk_score_cuda(D, q, k=k, n_valid=nv)
+            count = torch.tensor(nv, dtype=torch.int32, device=dev)
+            before = topk_score_cuda.launches[f"{store}_n_valid"]
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = topk_score_cuda(D, q, k=k, n_valid=count)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert topk_score_cuda.launches[f"{store}_n_valid"] == before + 1
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (k, nv)
+
+
+@pytest.mark.gpu
+def test_cuda_delta_search_replays_in_a_cuda_graph():
+    """A delta search captured once in a CUDA graph, its live count a
+    device tensor, replays at other counts bitwise equal to eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.index import _delta_topk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(27)
+    D = (torch.randn((4096, 384), device=dev, generator=g) * 40).to(torch.int8)
+    scale = torch.rand(384, device=dev, generator=g) * 0.01
+    q = torch.randn((32, 384), device=dev, generator=g)
+    count = torch.tensor(7, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        _delta_topk(D, scale, q, count, 1000, 10)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gs, gi = _delta_topk(D, scale, q, count, 1000, 10)
+    for live in (1, 1808, 4096, 0):
+        count.fill_(live)
+        graph.replay()
+        es, ei = _delta_topk(D, scale, q, live, 1000, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(gs, es) and torch.equal(gi, ei), live
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_budget_has_no_gating_finding():
+    """Every built kernel within the card's shared memory and registers, the
+    query groups within gridDim.y, the vector path only where aligned; the
+    ptxas spills are reported as warns and listed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.analysis import kernel_budget
+
+    table = kernel_budget.kernel_table()
+    assert len(table) == 36 + 12 + 5 + 8
+    findings = kernel_budget.run("cuda")
+    assert [f.key for f in findings if f.severity == "error"] == []
+    assert {f.check for f in findings} <= {"budget.spill"}
+
+
+@pytest.mark.gpu
+def test_cuda_dispatch_counts_equal_the_cpu_counts():
+    """Each entry point makes the same top-k calls on the card as on the
+    CPU (where the dense search and the sharded slots call ``_scan_topk``),
+    and on the card the gate's dispatch lints and invariants are clean
+    modulo the baseline."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.analysis import BASELINE_PATH, dispatch_lints, invariants
+    from repro_torch.analysis.report import apply_baseline, load_baseline
+
+    cpu = {ep.label: dispatch_lints.run_probed(ep.fn, ep.args).kernel_calls
+           for ep in dispatch_lints.serving_entry_points("cpu")}
+    card = {ep.label: dispatch_lints.run_probed(ep.fn, ep.args, device="cuda").kernel_calls
+            for ep in dispatch_lints.serving_entry_points("cuda")}
+    assert card == cpu
+    findings = dispatch_lints.run("cuda") + invariants.run("cuda")
+    report = apply_baseline(findings, load_baseline(BASELINE_PATH),
+                            active_analyzers=["dispatch", "inv"])
+    assert report.gating == () and report.stale == ()

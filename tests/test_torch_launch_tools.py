@@ -155,6 +155,12 @@ with contextlib.redirect_stdout(buf):
 out["list"] = buf.getvalue()
 out["hillclimb"] = {c: [v[0] for v in fn()] for c, fn in hillclimb.CELLS.items()}
 mesh = make_production_mesh()
+from repro.configs.steps import BUNDLE_BUILDERS
+for name, _, spec, cell in hillclimb.CELLS["tt_retrieval"]():
+    if name == "pca50_int8_live_delta":
+        meta = BUNDLE_BUILDERS[spec.family](spec, cell, mesh).meta
+        out["live_delta_meta"] = {k: meta[k] for k in ("model_flops", "analytic_bytes",
+                                                        "delta_rows")}
 for arch, shape in (("graphcast", "molecule"), ("two-tower-retrieval", "serve_p99")):
     b = make_step_bundle(arch, shape, mesh)
     with mesh:
@@ -319,6 +325,21 @@ def test_hillclimb_variants_equal_the_reference_and_one_is_measured(ref_tools, t
     assert m["t_memory_s"] == pytest.approx((1_000_448 * 128 + 2 * registry.get_arch(
         "two-tower-retrieval").cfg.param_count() // 1000) / (256 * 3.35e12))
     assert json.load(open(tmp_path / "tt_retrieval_pod.json"))[0]["variant"] == "pca50_int8_128"
+
+
+def test_hillclimb_live_delta_variant_is_ok_with_the_reference_meta(ref_tools, tmp_path):
+    """The live-delta variant counts on meta: its live count reaches the
+    delta's top-k as a 0-d tensor, with no host read, as the reference
+    traces it. Its meta equals the reference bundle's."""
+    log = hillclimb.main(["--cell", "tt_retrieval", "--only", "pca50_int8_live_delta",
+                          "--out", str(tmp_path)])
+    (m,) = log
+    assert m["status"] == "ok", m.get("error")
+    assert m["model_flops"] == ref_tools["live_delta_meta"]["model_flops"]
+    for name, _, spec, cell in hillclimb.tt_retrieval_variants():
+        if name == "pca50_int8_live_delta":
+            meta = steps.BUNDLE_BUILDERS[spec.family](spec, cell, make_production_mesh()).meta
+    assert {k: meta[k] for k in ref_tools["live_delta_meta"]} == ref_tools["live_delta_meta"]
 
 
 # ---------------------------------------------------------------------------
