@@ -161,7 +161,7 @@ Phases, each printing one JSON line:
      global batch that fits; (d) mixtral-8x7b cut to 4 layers: the window's
      prefill, then decode_step_sliding past position 524,000 (wrapped),
      with the MoE layers' share; (e) launch.train --arch smollm-135m (full
-     config) for 20 steps with checkpoints under build/lm_smoke/: specs in
+     config) for 10 steps with checkpoints under build/lm_smoke/: specs in
      the manifest equal param_specs, a bitwise resume, and an elastic
      restore onto a (2, 2) mesh of the card's slots;
  16. the recsys family: (a) the smoke configs of the two-tower, DLRM,
@@ -208,15 +208,30 @@ Phases, each printing one JSON line:
      spills), no error; (d) each entry point's batch timed (median of CUDA
      events) into build/analysis/measured.json, and the cost model's
      cross-check against it; (e) ``python -m repro_torch.analysis
-     --fail-on-findings`` exits 0.
+     --fail-on-findings`` exits 0;
+ 19. (a) run right after phase 18, over phase 4's indexes paged as phase 7
+     pages them (34,539 pages of 256 rows, f32 and int8): the paged top-k
+     with its slot range [lo, hi) as 0-d device tensors, bitwise the host
+     ints at k 10 and 100 over a full, an inner, an empty and an
+     at-capacity range, with no host sync (set_sync_debug_mode("error"));
+     one search captured in a CUDA graph and replayed bitwise against
+     eager as pages are written into the tail in place, at three grown
+     ranges; both forms and the replay timed with CUDA events; (b) last,
+     the four examples (``python -m repro_torch.examples.<name>``:
+     quickstart, ood_transfer, serve_retrieval, train_biencoder at its
+     default 200 steps) as processes on the card, each exiting 0 with its
+     launches counted in the process, and their printed metric lines
+     within 1e-3 of the same examples run with ``--device cpu`` beside
+     them; serve_retrieval's qps and latency percentiles.
 
 Phases 4-6 are the main path: every launch counter is zeroed just before
 phase 4 and read just after phase 6; phases 7 (the paged path), 8 (the
 live path), 9 (the store), 10 (the cascade), 11 (the fleet), 12 (the
-sharded index), 18 (the analysis gate), 13 (the encoder), 14 (the
-training half), 15 (the LM family, which runs none of the kernels), 16
-(the recsys family) and 17 (the GNN family, which runs none either) are
-counted the same way, each on its own, in that order. Launches made only to compare or
+sharded index), 18 (the analysis gate), 19(a) (the paged device range),
+13 (the encoder), 14 (the training half), 15 (the LM family, which runs
+none of the kernels), 16 (the recsys family), 17 (the GNN family, which
+runs none either) and 19(b) (the examples, counted inside each example's
+process) are counted the same way, each on its own, in that order. Launches made only to compare or
 time a kernel are not counted. Then one line {"kernels": [...]}, the nvidia-smi
 line, and last {"ok": true, "device": {...}}. Any failure raises and exits
 non-zero without the last line; so does a machine without a CUDA device.
@@ -227,6 +242,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -317,8 +333,8 @@ LM_TRAIN_BATCHES = (128, 64, 32, 16, 8)     # ... then tried largest first (trai
 MIXTRAL_LAYERS = 4          # phase 15(d): of mixtral's 32 (2.90 GB of bf16 weights each)
 LONG_POS = 524_288 + 2 * 4096 + 17      # phase 15(d): first position decoded, past 524,000
 LM_RUN_BATCH = 4            # phase 15(e): sequences a step (4 micro-batches of 1) ...
-LM_RUN_STEPS = 20           # ... steps of launch.train --arch smollm-135m
-LM_RUN_CKPT_EVERY = 10
+LM_RUN_STEPS = 10           # ... steps of launch.train --arch smollm-135m
+LM_RUN_CKPT_EVERY = 5
 RECSYS_ARCHS = ("two-tower-retrieval", "dlrm-mlperf", "deepfm", "autoint")   # phase 16(a)
 RECSYS_PARITY_BATCH = 32    # phase 16(a): the reference launcher's smoke cell
 # phase 16(a) bars (PERF.md §2): f32 loss and each gradient leaf within 1e-4
@@ -358,6 +374,13 @@ ANALYSIS_COUNTS = (0, 1, 1808, 4095, 4096)   # ... at these live counts
 ANALYSIS_REPLAY = (1, 1808, 4096)            # ... and replayed in a CUDA graph at these
 ANALYSIS_TIMED = 7          # phase 18(d): CUDA-event runs an entry point (median)
 ANALYSIS_TIMEOUT = 300      # phase 18(e): seconds python -m repro_torch.analysis may take
+PAGED_RANGE_KS = (K, SHORTLIST_K)    # phase 19(a): k of the device-range checks (merge, radix)
+PAGED_RANGE_GROW = (4, 8, 16)       # ... tail pages written before each graph replay
+PAGED_RANGE_TIMED = 10              # ... CUDA-event runs a form
+EXAMPLES = ("quickstart", "ood_transfer", "serve_retrieval", "train_biencoder")  # phase 19(b)
+EXAMPLE_TOL = 1e-3                  # ... every printed metric, card against CPU
+EXAMPLE_TIMEOUT = 600               # ... seconds an example's process may take
+LAUNCHES_TAG = "chip_smoke launches "   # ... the line an example's process ends with
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks (700 W)
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12    # dense, tensor cores
@@ -1041,7 +1064,7 @@ def phase_main_path(counters, rows, n_docs):
                         index.vectors, q, k=kk), reps=1),
                     library_ms=None,
                     matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ index.vectors.T, kk),
-                                            reps=2) if item == 4 and kk > 1000 else None),
+                                            reps=2) if item == 4 else None),
                     bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * kk,
                                 2 * BATCH * n * m))
         # the large-k select alone (radix passes, gather, sort, write) on one
@@ -1375,6 +1398,8 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                     dense_ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, qd, k=kk),
                                      reps=3),
                     library_ms=None,
+                    matmul_topk_ms=(cuda_ms(lambda: torch.topk(qd @ index.vectors.T, kk), reps=2)
+                                    if item == 4 else None),
                     bound=bound(item * npages * R * m + 12 * npages + scale_bytes
                                 + 4 * BATCH * m + 8 * BATCH * kk, 2 * BATCH * npages * R * m))
         emit("paged_search", index=name, batches=len(batches), bitwise_vs_dense=bitwise,
@@ -3287,6 +3312,246 @@ def phase_analysis(counters, index_f32, index_int8, pruner, Q, fresh, rows, smi)
     emit("analysis", step="done", seconds=time.perf_counter() - t_phase)
 
 
+def phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows):
+    """Phase 19(a): the paged top-k's slot range [lo, hi) as 0-d device
+    tensors, over phase 4's indexes paged as phase 7 pages them. The tensor
+    form is bitwise the host ints at k 10 and 100 over a full, an inner, an
+    empty and an at-capacity range, and does not synchronize; one search
+    captured in a CUDA graph replays bitwise against eager as pages are
+    written into the tail and the table in place and ``hi`` grows, at three
+    ranges; both forms and the replay are timed with CUDA events. Counted:
+    the tensor-form calls (the host-int calls they are checked against, and
+    the timings, are not)."""
+    import torch
+    from repro_torch.core.index import _project_nofold
+    from repro_torch.core.paged import PagedIndex
+    from repro_torch.kernels import topk_score
+
+    dev = torch.device("cuda")
+    paged = topk_score.topk_score_paged_cuda
+    W, mean = pruner.projection()
+    q = _project_nofold(torch.as_tensor(Q[:BATCH], device=dev), W, mean).contiguous()
+
+    def dev_int(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    for name, index in (("f32", index_f32), ("int8", index_int8)):
+        t_store = time.perf_counter()
+        pg = PagedIndex.from_index(index, page_rows=PAGE_ROWS)
+        st = pg.storage
+        npages, cap, R, m = st.n_slots, st.page_table.shape[0], st.page_rows, st.dim
+        args = (st.pool, st.page_table, st.page_nvalid, st.page_offset)
+        kw = dict(tail=st.tail, page_scale=st.page_scale)
+        ranges = {"full": (0, npages), "inner": (npages // 4, 3 * npages // 4),
+                  "empty": (npages // 2, npages // 2), "at_capacity": (npages // 3, cap)}
+        checks = []
+        for k in PAGED_RANGE_KS:
+            for rname, (lo, hi) in ranges.items():
+                with counters.uncounted():
+                    want = paged(*args, lo, hi, q, k=k, **kw)
+                lo_t, hi_t = dev_int(lo), dev_int(hi)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = paged(*args, lo_t, hi_t, q, k=k, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                if not same(got, want):
+                    raise AssertionError(f"paged range (a): {name} k={k} {rname} [{lo}, {hi}): "
+                                         f"the device range differs from the host ints")
+                checks.append(f"k{k}_{rname}")
+        del got, want
+
+        lo_t, hi_t = dev_int(0), dev_int(npages)
+        with counters.uncounted():
+            before = sum(paged.cuda_launches.values())
+            g1 = paged(*args, lo_t, hi_t, q, k=K, **kw)
+            per_call = sum(paged.cuda_launches.values()) - before
+            w1 = topk_score.topk_score_paged_plain(*args, lo_t, hi_t, q, k=K, **kw)
+            err, eq, near = compare_topk(*w1, *g1, f"paged range {name} kernel vs plain")
+            del g1, w1
+            ms = {f"{how}_k{k}": cuda_ms(lambda how=how, k=k: paged(
+                      *args, *((lo_t, hi_t) if how == "device" else (0, npages)), q, k=k, **kw),
+                      reps=PAGED_RANGE_TIMED)
+                  for k in PAGED_RANGE_KS for how in ("host", "device")}
+            plain_ms = cuda_ms(lambda: topk_score.topk_score_paged_plain(
+                *args, lo_t, hi_t, q, k=K, **kw), reps=2)
+            matmul_topk = (cuda_ms(lambda: torch.topk(q @ index.vectors.T, K), reps=3)
+                           if name == "f32" else None)
+
+        # a graph captured at [0, npages), replayed as the index grows in place
+        with counters.uncounted():
+            for _ in range(2):
+                paged(*args, lo_t, hi_t, q, k=K, **kw)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gs, gi = paged(*args, lo_t, hi_t, q, k=K, **kw)
+        graph.replay()
+        with counters.uncounted():
+            if not same((gs, gi), paged(*args, 0, npages, q, k=K, **kw)):
+                raise AssertionError(f"paged range (a): {name}: the graph differs from eager "
+                                     f"before growing")
+        grown, used, reached = npages, 0, []
+        pool_pages = st.pool.shape[0]
+        # the pages holding the queries' best rows (a base page's slot is its
+        # first id / R), copied with their scores scaled by 1.5 and new ids,
+        # so the grown pages take the top of the lists
+        top = torch.unique(gi[:, 0].long() // R)
+        for add in PAGED_RANGE_GROW:
+            src = top[torch.arange(add, device=dev) % top.numel()]
+            phys = st.page_table[src].long()
+            slots = torch.arange(grown, grown + add, device=dev)
+            if st.page_scale is None:
+                st.tail[used:used + add] = st.pool[phys] * 1.5
+            else:
+                st.tail[used:used + add] = st.pool[phys]
+                st.page_scale[slots] = st.page_scale[src] * 1.5
+            st.page_table[slots] = (pool_pages + used
+                                    + torch.arange(add, device=dev)).to(torch.int32)
+            st.page_nvalid[slots] = st.page_nvalid[src]
+            st.page_offset[slots] = (index.n + (slots - npages) * R).to(torch.int32)
+            used, grown = used + add, grown + add
+            hi_t.fill_(grown)
+            graph.replay()
+            with counters.uncounted():
+                want = paged(*args, 0, grown, q, k=K, **kw)
+            torch.cuda.synchronize()
+            if not same((gs, gi), want):
+                raise AssertionError(f"paged range (a): {name}: the graph replayed at [0, "
+                                     f"{grown}) differs from eager")
+            reached.append(int((gi >= index.n).sum()))
+        with counters.uncounted():
+            replay_ms = cuda_ms(graph.replay, reps=PAGED_RANGE_TIMED)
+            eager_ms = cuda_ms(lambda: paged(*args, lo_t, hi_t, q, k=K, **kw),
+                               reps=PAGED_RANGE_TIMED)
+        del graph, gs, gi, want
+        item = st.pool.element_size()
+        scale_bytes = 0 if st.page_scale is None else 4 * npages * m
+        rows[f"topk_score_paged_{name}_dev_range"] = dict(
+            shape=[index.n, m, BATCH, K], page_rows=R, pages=npages, capacity=cap, store=name,
+            max_abs_err=err, ids_equal=eq, near_ties=near, cuda_launches_per_call=per_call,
+            ms=ms[f"device_k{K}"], host_ms=ms[f"host_k{K}"], replay_ms=replay_ms,
+            plain_ms=plain_ms, library_ms=None, matmul_topk_ms=matmul_topk,
+            bound=bound(item * npages * R * m + 12 * npages + scale_bytes
+                        + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * npages * R * m))
+        emit("paged_range", index=name, pages=npages, capacity=cap, bitwise_checks=checks,
+             sync_free=True, graph_replays=[npages + sum(PAGED_RANGE_GROW[:i + 1])
+                                            for i in range(len(PAGED_RANGE_GROW))],
+             grown_ids_in_top_k=reached, replay_ms=replay_ms, eager_device_ms=eager_ms,
+             **{f"{key}_ms": v for key, v in ms.items()},
+             seconds=time.perf_counter() - t_store)
+        del pg, st, args, kw
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+_EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "import chip_smoke\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name, *sys.argv[2:]]\n"
+    "counters = chip_smoke.Counters()\n"
+    "runpy.run_module('repro_torch.examples.' + name, run_name='__main__')\n"
+    "print(chip_smoke.LAUNCHES_TAG + json.dumps(counters.read()), flush=True)\n")
+_NUM = re.compile(r"[-+]?\d+\.\d+")
+# what an example prints that is a time, not a metric
+_TIMES = (re.compile(r" \(\d+ ms/step\)$"), re.compile(r"^\d+ queries from .* qps\)$"),
+          re.compile(r"^latency p50="))
+
+
+def _metric_lines(out):
+    """An example's printed lines without its times: [(template, numbers)]."""
+    lines = []
+    for line in out.strip().splitlines():
+        if line.startswith(LAUNCHES_TAG) or _TIMES[1].match(line) or _TIMES[2].match(line):
+            continue
+        line = _TIMES[0].sub("", line)
+        lines.append((_NUM.sub("#", line), [float(x) for x in _NUM.findall(line)]))
+    return lines
+
+
+def phase_examples():
+    """Phase 19(b): the four examples as processes on the card (each one's
+    launches counted in its own process and read at its end), each exiting
+    0, beside the same examples run with ``--device cpu`` (started first, at
+    nice 19); every printed metric of the card's run within EXAMPLE_TOL of
+    the CPU's, its text, integers and † marks equal. Returns the launches
+    of the card's runs, summed."""
+    root = os.path.join(HERE, "build", "examples_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"), "PYTHONIOENCODING": "utf-8"}
+
+    def argv(name, device):
+        extra = (["--ckpt-dir", os.path.join(root, f"ckpt_{device}")]
+                 if name == "train_biencoder" else [])
+        return ["--device", device, *extra]
+
+    cpu_env = {**env, "OMP_NUM_THREADS": "2"}
+    cpu = {name: subprocess.Popen(["nice", "-n", "19", sys.executable, "-m",
+                                   f"repro_torch.examples.{name}", *argv(name, "cpu")],
+                                  cwd=HERE, env=cpu_env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, encoding="utf-8")
+           for name in EXAMPLES}
+    total, results = None, {}
+    try:
+        for name in EXAMPLES:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-c", _EXAMPLE_RUNNER, name,
+                                  *argv(name, "cuda")], cwd=HERE, env=env, capture_output=True,
+                                 text=True, encoding="utf-8", timeout=EXAMPLE_TIMEOUT)
+            secs = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"examples (b): {name} on the card exited "
+                                     f"{res.returncode}:\n{res.stdout[-2000:]}\n"
+                                     f"{res.stderr[-3000:]}")
+            tagged = [ln for ln in res.stdout.splitlines() if ln.startswith(LAUNCHES_TAG)]
+            launched = json.loads(tagged[-1][len(LAUNCHES_TAG):])
+            total = launched if total is None else {k: total[k] + v for k, v in launched.items()}
+            results[name] = dict(card=res.stdout, card_s=secs,
+                                 launches={k: v for k, v in launched.items()
+                                           if v and not k.endswith("_cuda")})
+        for name in EXAMPLES:
+            out, err = cpu[name].communicate(timeout=EXAMPLE_TIMEOUT)
+            if cpu[name].returncode != 0:
+                raise AssertionError(f"examples (b): {name} with --device cpu exited "
+                                     f"{cpu[name].returncode}:\n{err[-3000:]}")
+            results[name]["cpu"] = out
+    finally:
+        for p in cpu.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, r in results.items():
+        card, host = _metric_lines(r["card"]), _metric_lines(r["cpu"])
+        worst = 0.0
+        if len(card) != len(host) or any(a[0] != b[0] or len(a[1]) != len(b[1])
+                                          for a, b in zip(card, host)):
+            raise AssertionError(f"examples (b): {name}'s lines on the card and the CPU "
+                                 f"differ:\n{r['card']}\n{r['cpu']}")
+        for (_, a), (_, b) in zip(card, host):
+            worst = max([worst, *(abs(x - y) for x, y in zip(a, b))])
+        timing = {}
+        if name == "serve_retrieval":
+            line = next(ln for ln in r["card"].splitlines() if _TIMES[1].match(ln))
+            lat = next(ln for ln in r["card"].splitlines() if _TIMES[2].match(ln))
+            qps, = re.findall(r"\((\d+) qps\)", line)
+            p50, p95, p99 = (float(x) for x in re.findall(r"=(\d+\.\d+)ms", lat))
+            timing = dict(qps=float(qps), p50_ms=p50, p95_ms=p95, p99_ms=p99)
+        emit("examples", example=name, card_seconds=r["card_s"], max_abs_diff_vs_cpu=worst,
+             launches=r["launches"], lines=r["card"].strip().splitlines()[:-1],
+             cpu_lines=r["cpu"].strip().splitlines(), **timing)
+        if worst > EXAMPLE_TOL:
+            raise AssertionError(f"examples (b): {name}: a metric on the card is {worst} from "
+                                 f"the CPU's (limit {EXAMPLE_TOL})")
+    shutil.rmtree(root)
+    return total
+
+
 def median_ms(fn, reps=3):
     """Median device time of ``fn`` over ``reps`` runs after one warm-up,
     each run between its own pair of CUDA events."""
@@ -3960,10 +4225,10 @@ def phase_lm(counters):
     (d) mixtral-8x7b at full width with its depth cut to MIXTRAL_LAYERS:
     prefill of the 4,096-token window, then decode_step_sliding at B 1 past
     position 524,000 (the rolling buffer wrapped), ms a step and the MoE
-    layers' share. (e) launch.train --arch smollm-135m (full config, 20
-    steps at a cut batch, checkpoints every 10 under build/lm_smoke/): the
+    layers' share. (e) launch.train --arch smollm-135m (full config, 10
+    steps at a cut batch, checkpoints every 5 under build/lm_smoke/): the
     manifest's specs equal param_specs on the run's mesh, a resume from
-    step 10 replays step 11 bitwise, and an elastic restore onto a (2, 2)
+    step 5 replays step 6 bitwise, and an elastic restore onto a (2, 2)
     mesh of the card's slots gives the saved values."""
     import dataclasses
     import json as _json
@@ -4315,7 +4580,7 @@ def phase_lm(counters):
     want = {f"0/{p}": s.to_json() for p, s in flatten_with_paths(pspec)}
     specs_ok = all(manifest[p] == s for p, s in want.items()) and all(
         manifest[p] == s.to_json() for p, s in flatten_with_paths(bundle.in_specs[:2]))
-    # elastic restore of step 20 onto a (2, 2) mesh of the card's slots
+    # elastic restore of the last step onto a (2, 2) mesh of the card's slots
     tree = convert.checkpoint_tree(res["model"], res["opt_state"])
     mesh22 = make_mesh((2, 2), ("data", "model"), dev)
     placed, _ = CheckpointManager(ckpt).restore(tree, at, mesh=mesh22)
@@ -4328,7 +4593,7 @@ def phase_lm(counters):
                 s, saved[p][SH.shard_index(st.shape, st.spec, mesh22, slot)]))
         sharded_leaves += any(part is not None for part in st.spec)
     del placed, tree
-    # resume from step 10: step 11's loss bitwise
+    # resume from the checkpoint before the last: the next step's loss bitwise
     shutil.rmtree(os.path.join(ckpt, f"step_{at:010d}"))
     res2 = train_cli.train("smollm-135m", resume="auto", **{**run, "steps": 1, "log_every": 0})
     resumed = res2["losses"][0]
@@ -5366,6 +5631,20 @@ def run_phases(args, smi):
     missing = [k for k in on_analysis if analysis_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the analysis path: {missing}")
+    # the paged range as device tensors (phase 19(a)), over phase 4's indexes
+    # paged, counted on its own
+    counters.zero()
+    t0 = time.perf_counter()
+    phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows)
+    torch.cuda.synchronize()
+    range_launches = counters.read()
+    emit("paged_range_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in range_launches.items() if v})
+    on_range = ("topk_score_paged_f32_dev", "topk_score_paged_int8_dev",
+                "topk_select_paged_f32_dev", "topk_select_paged_int8_dev")
+    missing = [k for k in on_range if range_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the paged range path: {missing}")
     # the indexes of phases 4-12 are not needed past them: the encoder and
     # the trainer get the card
     del index_f32, index_int8, pruner, Q, fresh
@@ -5431,6 +5710,16 @@ def run_phases(args, smi):
     if any(gnn_launches.values()):
         raise AssertionError(f"a kernel launched on the GNN path: "
                              f"{ {k: v for k, v in gnn_launches.items() if v} }")
+    # the examples (phase 19(b)), each counted inside its own process
+    counters.zero()
+    t0 = time.perf_counter()
+    example_launches = phase_examples()
+    emit("examples_path_launches", seconds=time.perf_counter() - t0,
+         **{k: v for k, v in example_launches.items() if v})
+    on_examples = ("gram", "pca_project", "topk_score_f32")
+    missing = [k for k in on_examples if example_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the examples' path: {missing}")
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
         """counter None: a row timed at a shape of its own, whose launches
@@ -5459,7 +5748,8 @@ def run_phases(args, smi):
                                 "frac_differ", "matmul_topk_ms", "dense_ms",
                                 "cuda_launches_per_call", "page_rows", "pages",
                                 "ranges", "range_sum_bitwise", "n_valid",
-                                "enqueue_ms", "library_call", "U_live", "path_bitwise")})
+                                "enqueue_ms", "library_call", "U_live", "path_bitwise",
+                                "capacity", "host_ms", "replay_ms")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -5547,6 +5837,16 @@ def run_phases(args, smi):
                 launches_of=f"every {st} n_valid-mode call of phase 18: the device-count "
                             f"checks and the segmented entry point's deltas")
           for st in ("f32", "int8") for how in ("host", "device")],
+        # the paged range as 0-d device tensors (phase 19(a)): the full
+        # range of phase 7's index with the tables at capacity, k 10 (ms the
+        # tensor form, host_ms the host ints in the same call, replay_ms a
+        # CUDA-graph replay; launches: every tensor-bounds call of phase
+        # 19(a) in that dtype)
+        *[entry(f"topk_score_paged_{st}_dev_range", rows[f"topk_score_paged_{st}_dev_range"],
+                topk[1], paged, f"topk_score_paged_{st}_dev", range_launches,
+                launches_of=f"every {st} call of phase 19(a) with tensor bounds: the bitwise "
+                            f"checks at k 10 and 100 and the graph's capture")
+          for st in ("f32", "int8")],
         entry("gram_strip", rows["gram_strip"], csrc + "gram.cu", "src/repro/kernels/gram.py:41",
               "gram", sharded_launches,
               launches_of="every gram call of phase 12: one a strip of gram_distributed "

@@ -200,7 +200,7 @@ def _recording_vec(calls: list):
         return real_dense(*a)
 
     def paged(*a):
-        calls.append(("paged", tuple(p for p in (a[0], a[1], a[5]) if p), a[13], a[19]))
+        calls.append(("paged", tuple(p for p in (a[0], a[1], a[5]) if p), a[13], a[21]))
         return real_paged(*a)
 
     lib.topk_score_f32, lib.topk_score_paged_f32 = dense, paged

@@ -185,6 +185,7 @@ struct DenseSrc {
       }
     }
   }
+  __device__ __forceinline__ int live_chunks(int nchunks) const { return nchunks; }
   __device__ __forceinline__ const float* scale_row(int, int) const { return nullptr; }
   __device__ __forceinline__ int2 fold_state(int) const { return make_int2(-1, 1); }
   __device__ __forceinline__ const float* slot_scale(int) const { return nullptr; }
@@ -207,7 +208,9 @@ struct Unit {
 // chunk c shares, or -1 when they differ, and whether the CTA's query tile
 // already holds that fold; a chunk of mixed rows multiplies each query
 // value by its warp's scale row as it is read (the warp's rows share a
-// page).
+// page). live, when set (a walk whose [lo, hi) is read on the device),
+// holds the chunks that cover the range, which paged_units_kernel wrote:
+// the chunk kernel walks those and lists the rest as pads.
 template <typename T, bool SCALED_>
 struct PagedSrc {
   static constexpr bool SCALED = SCALED_;
@@ -216,7 +219,11 @@ struct PagedSrc {
   const float* scale;
   const int2* fold;
   int R, m;
+  const int* live;
   __device__ __forceinline__ PagedSrc bound() const { return *this; }
+  __device__ __forceinline__ int live_chunks(int nchunks) const {
+    return live != nullptr ? *live : nchunks;
+  }
   __device__ __forceinline__ const T* row(int chunk, int r, bool& ok) const {
     const Unit* u = units + chunk * UPC + r / UNIT;
     const int rr = r % UNIT;
@@ -500,7 +507,11 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
 }
 
 // Persistent: CTA (x, y) walks chunks x, x + gridDim.x, ... of the
-// 32-query tile y, reading rows through the row source.
+// 32-query tile y, reading rows through the row source, up to the
+// source's live chunks; its chunks past those (a paged range read on the
+// device that ends before the capacity the call was planned for) get pads
+// in place of their keys, so the merge and the select read what a walk
+// planned for that range would have left.
 //
 // What bounds it on an H100: an f32 index is about even between bytes (n m
 // 4 over 3.35 TB/s) and fp32 FMAs (2 B n m over 67 TFLOP/s); int8 moves a
@@ -553,14 +564,14 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
   const int qg = lane / 8, rg = lane % 8;     // queries 4i + qg, rows 64 warp + 8j + rg
   const int nslab = (m + CK - 1) / CK;
   const int ppanel = kp / CK;                 // slabs per query panel
-  const int mine = (nchunks - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
+  const int bx = static_cast<int>(blockIdx.x), gx = static_cast<int>(gridDim.x);
+  const int live = src.live_chunks(nchunks);
+  const int mine = bx < live ? (live - 1 - bx) / gx + 1 : 0;   // chunks this CTA walks
   const int total = mine * nslab;             // slabs this CTA walks
   auto stage = [&](int t) {
     return reinterpret_cast<T*>(ring + (t % C::STAGES) * C::STAGE_BYTES);
   };
-  auto chunk_of = [&](int t) {
-    return static_cast<int>(blockIdx.x) + (t / nslab) * static_cast<int>(gridDim.x);
-  };
+  auto chunk_of = [&](int t) { return bx + (t / nslab) * gx; };
   auto load = [&](int t) {
     load_chunk_slab<T, VEC>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
   };
@@ -620,6 +631,14 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
       chunk_keys<LIST>(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
   }
   cp_async_wait<0>();
+  const int per = LIST ? CR : k;               // keys a chunk lists per query
+  for (int c = bx + mine * gx; c < nchunks; c += gx)
+    for (int e = tid; e < CQ * per; e += CT) {
+      const int q = e / per;
+      if (q0 + q < B)
+        cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * per + e % per] =
+            PAD_KEY;
+    }
 }
 
 // One warp per (group of G lists of k keys, query) keeps the group's top k
@@ -682,15 +701,27 @@ __global__ void carry_keys_kernel(const float* __restrict__ cs,
 // past ppc U are masked); else a page spans cpp = ceil(U / 8) chunks. A
 // table entry below pool_pages addresses the pool, one at or above it the
 // tail, one in neither masks the page. Rows that may be live: up to
-// page_nvalid[slot], or up to R with ids_pool.
+// page_nvalid[slot], or up to R with ids_pool. With lo_dev / hi_dev the
+// walk is over [*lo_dev, *hi_dev) clamped to the planned [lo, hi), and
+// thread 0 writes the chunks that cover it to *live_out.
 template <typename T>
 __global__ void paged_units_kernel(const T* __restrict__ pool, const T* __restrict__ tail,
                                    const int* __restrict__ table, const int* __restrict__ nvalid,
                                    const int* __restrict__ offset, int pool_pages,
-                                   int tail_pages, int R, int m, int lo, int hi, int U, int ppc,
-                                   int cpp, int with_ids, int nunits, Unit* __restrict__ units) {
+                                   int tail_pages, int R, int m, int lo, int hi,
+                                   const int* __restrict__ lo_dev, const int* __restrict__ hi_dev,
+                                   int U, int ppc, int cpp, int with_ids, int nunits,
+                                   Unit* __restrict__ units, int* __restrict__ live_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= nunits) return;
+  const int cap = hi;                          // the planned range's end
+  if (lo_dev != nullptr) {
+    const int a = *lo_dev, b = *hi_dev;
+    const int l = a < lo ? lo : (a > cap ? cap : a);
+    hi = b < lo ? lo : (b > cap ? cap : b);
+    lo = l;
+    if (e == 0) *live_out = hi <= lo ? 0 : (cpp == 1 ? (hi - lo + ppc - 1) / ppc : (hi - lo) * cpp);
+  }
   const int c = e / UPC, u = e % UPC;
   int64_t slot;
   int row0;
@@ -706,7 +737,9 @@ __global__ void paged_units_kernel(const T* __restrict__ pool, const T* __restri
     live = true;
   }
   live = live && slot < hi && row0 < R;
-  Unit out{reinterpret_cast<long long>(pool), 0, 0, live ? static_cast<int>(slot) : lo, row0};
+  // a masked unit's slot stays in the table, for the scale row it names
+  Unit out{reinterpret_cast<long long>(pool), 0, 0,
+           live ? static_cast<int>(slot) : (lo < cap ? lo : cap - 1), row0};
   if (live) {
     const int phys = table[slot];
     const T* page = nullptr;
@@ -749,11 +782,13 @@ __device__ __forceinline__ int chunk_fold(const Unit* units, const float* scale,
 }
 
 // One warp per chunk: fold[c] = (chunk_fold(c), whether the tile the CTA
-// left after chunk c - gx, its last, already holds that fold).
+// left after chunk c - gx, its last, already holds that fold); only for
+// the chunks the chunk kernel walks (*live of them, when live is set).
 __global__ void paged_fold_kernel(const Unit* __restrict__ units, const float* __restrict__ scale,
-                                  int m, int nchunks, int gx, int2* __restrict__ fold) {
+                                  int m, int nchunks, const int* __restrict__ live, int gx,
+                                  int2* __restrict__ fold) {
   const int c = static_cast<int>((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32);
-  if (c >= nchunks) return;                    // whole warp
+  if (c >= nchunks || (live != nullptr && c >= *live)) return;   // whole warp
   const int r = chunk_fold(units, scale, m, c);
   int same = 0;
   if (c >= gx) {
@@ -1163,9 +1198,11 @@ PagedGeom paged_geom(int64_t slots, int R) {
   return g;
 }
 
-// Words of the unit table (a Unit is three 8-byte words) and the fold
-// states (one int2 a chunk).
-int64_t unit_words(int64_t nchunks) { return nchunks * UPC * (sizeof(Unit) / 8) + nchunks; }
+// Words of the unit table (a Unit is three 8-byte words), the fold states
+// (one int2 a chunk) and, for a range read on the device, its live chunks.
+int64_t unit_words(int64_t nchunks, int dev) {
+  return nchunks * UPC * (sizeof(Unit) / 8) + nchunks + (dev ? 1 : 0);
+}
 
 // Words of scratch after the unit table for B queries, `lists` chunk
 // lists and `extra` carry keys: per-chunk candidate lists and merges for
@@ -1198,15 +1235,18 @@ template <typename T>
 int paged_call(const void* pool, const void* tail, const int* table, const int* nvalid,
                const int* offset, const float* scale, const int* ids_pool, const float* q,
                const float* cs, const int* ci, int pool_pages, int tail_pages, int R, int m,
-               int B, int lo, int hi, int k, bool vec, int unfinal, uint64_t* scratch,
-               float* os, int* oi, cudaStream_t s, int* launched) {
+               int B, int lo, int hi, const int* lo_dev, const int* hi_dev, int k, bool vec,
+               int unfinal, uint64_t* scratch, float* os, int* oi, cudaStream_t s,
+               int* launched) {
   const int64_t slots = hi > lo ? hi - lo : 0;
   const PagedGeom g = paged_geom(slots, R);
   const int nchunks = static_cast<int>(g.nchunks);
   const bool carry = cs != nullptr;
+  const bool dev = lo_dev != nullptr;
   auto* units = reinterpret_cast<Unit*>(scratch);
   auto* fold = reinterpret_cast<int2*>(units + static_cast<int64_t>(nchunks) * UPC);
-  uint64_t* cand = scratch + unit_words(nchunks);
+  int* live = dev ? reinterpret_cast<int*>(fold + nchunks) : nullptr;
+  uint64_t* cand = scratch + unit_words(nchunks, dev);
   const bool list = k > SMALL_K;
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR + (carry ? k : 0)
                            : static_cast<int64_t>(nchunks + (carry ? 1 : 0)) * k;
@@ -1215,8 +1255,8 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     const int nunits = nchunks * UPC;
     paged_units_kernel<T><<<(nunits + 255) / 256, 256, 0, s>>>(
         static_cast<const T*>(pool), static_cast<const T*>(tail), table, nvalid, offset,
-        pool_pages, tail_pages, R, m, lo, hi, g.U, g.ppc, g.cpp, ids_pool != nullptr, nunits,
-        units);
+        pool_pages, tail_pages, R, m, lo, hi, lo_dev, hi_dev, g.U, g.ppc, g.cpp,
+        ids_pool != nullptr, nunits, units, live);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
@@ -1226,16 +1266,17 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
       if (err != cudaSuccess) return static_cast<int>(err);
       const int64_t threads = static_cast<int64_t>(nchunks) * 32;
       paged_fold_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-          units, scale, m, nchunks, chunk_grid_x(nchunks, B, sms), fold);
+          units, scale, m, nchunks, live, chunk_grid_x(nchunks, B, sms), fold);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       ++*launched;
-      err = dispatch_chunks<T>(vec, list, PagedSrc<T, true>{units, ids_pool, scale, fold, R, m},
-                               q, m, B, k, nchunks, ldq, cand, s);
+      err = dispatch_chunks<T>(vec, list,
+                               PagedSrc<T, true>{units, ids_pool, scale, fold, R, m, live}, q, m,
+                               B, k, nchunks, ldq, cand, s);
     } else {
       err = dispatch_chunks<T>(vec, list,
-                               PagedSrc<T, false>{units, ids_pool, nullptr, nullptr, R, m}, q, m,
-                               B, k, nchunks, ldq, cand, s);
+                               PagedSrc<T, false>{units, ids_pool, nullptr, nullptr, R, m, live},
+                               q, m, B, k, nchunks, ldq, cand, s);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
@@ -1297,38 +1338,48 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
 }
 
 // Scratch of a paged call over `slots` page slots of R rows (plus a carry
-// when `carry` is set) at k for B queries: out[0] = 8-byte words, out[1] =
-// 1 when the call takes the radix select.
-extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int B, int64_t* out) {
+// when `carry` is set; with `dev`, a range read on the device within those
+// slots) at k for B queries: out[0] = 8-byte words, out[1] = 1 when the
+// call takes the radix select.
+extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int dev, int B,
+                               int64_t* out) {
   if (slots < 0 || R < 1 || k < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const PagedGeom g = paged_geom(slots, R);
   if (g.nchunks * UPC > 0x7FFFFFFF || (g.nchunks == 0 && !carry))
     return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = unit_words(g.nchunks) + key_words(g.nchunks, carry, k, B);
+  out[0] = unit_words(g.nchunks, dev) + key_words(g.nchunks, carry, k, B);
   out[1] = k > SMALL_K;
   return 0;
 }
 
-// Exact top-k over logical page slots [lo, hi) of a page table.
+// Exact top-k over logical page slots [lo, hi) of a page table; with
+// lo_dev and hi_dev (one int32 each on the device, or both null) over
+// [*lo_dev, *hi_dev) clamped to [lo, hi), which then plans the call (lo 0
+// and hi the table's capacity): the host never reads the range, so a CUDA
+// graph captured once replays as the index grows. An empty range gives
+// the pads.
 // pool (pool_pages, R, m) and tail (tail_pages, R, m, or null) in dtype
 // 0 = f32, 1 = bf16, 2 = int8; table, nvalid, offset (>= hi,) int32;
 // scale (>= hi, m) f32 or null; ids_pool (>= hi, R) int32 or null; Q (B, m)
 // f32; carry_s / carry_i (B, k) or null. scratch holds topk_paged_plan's
-// words. Writes out_s (B, k) f32 and out_i (B, k) int32; -inf slots get id
-// -1 with `finalize`, else their rank among pads as -(j - c + 2). `vec`
-// asserts m % 16 == 0 and 16-byte aligned pool, tail and scale.
-// *launched counts the kernel launches made. Returns the first cudaError_t.
+// words (dev = 1 with the device range). Writes out_s (B, k) f32 and
+// out_i (B, k) int32; -inf slots get id -1 with `finalize`, else their
+// rank among pads as -(j - c + 2). `vec` asserts m % 16 == 0 and 16-byte
+// aligned pool, tail and scale. *launched counts the kernel launches
+// made. Returns the first cudaError_t.
 extern "C" int topk_score_paged_f32(
     const void* pool, const void* tail, const void* table, const void* nvalid,
     const void* offset, const void* scale, const void* ids_pool, const void* Q,
     const void* carry_s, const void* carry_i, int pool_pages, int tail_pages,
-    int R, int m, int B, int lo, int hi, int k, int dtype, int vec, int finalize,
-    void* scratch, void* out_s, void* out_i, void* stream, int* launched) {
+    int R, int m, int B, int lo, int hi, const void* lo_dev, const void* hi_dev, int k,
+    int dtype, int vec, int finalize, void* scratch, void* out_s, void* out_i, void* stream,
+    int* launched) {
   auto s = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const bool carry = carry_s != nullptr;
   if (k < 1 || B < 1 || B > 65535 || R < 1 || m < 1 || lo < 0 ||
-      (hi <= lo && !carry) || (carry && carry_i == nullptr))
+      (hi <= lo && !carry) || (carry && carry_i == nullptr) ||
+      ((lo_dev == nullptr) != (hi_dev == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto tb = static_cast<const int*>(table);
   auto nv = static_cast<const int*>(nvalid);
@@ -1338,12 +1389,15 @@ extern "C" int topk_score_paged_f32(
   auto q = static_cast<const float*>(Q);
   auto cs = static_cast<const float*>(carry_s);
   auto ci = static_cast<const int*>(carry_i);
+  auto lod = static_cast<const int*>(lo_dev);
+  auto hid = static_cast<const int*>(hi_dev);
   auto* w = static_cast<uint64_t*>(scratch);
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   const int unfinal = finalize ? 0 : 1;
 #define PAGED(T) paged_call<T>(pool, tail, tb, nv, off, sc, ip, q, cs, ci, pool_pages, tail_pages, \
-                               R, m, B, lo, hi, k, vec, unfinal, w, os, oi, s, launched)
+                               R, m, B, lo, hi, lod, hid, k, vec, unfinal, w, os, oi, s,   \
+                               launched)
   if (dtype == 0) return PAGED(float);
   if (dtype == 1) return PAGED(__nv_bfloat16);
   if (dtype == 2) return PAGED(int8_t);

@@ -60,7 +60,8 @@ def topk_score(D: torch.Tensor, Q: torch.Tensor, *, k: int,
 
 def topk_score_paged(pool: torch.Tensor, page_table: torch.Tensor,
                      page_nvalid: torch.Tensor, page_offset: torch.Tensor,
-                     lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                     lo: int | torch.Tensor, hi: int | torch.Tensor, Q: torch.Tensor, *,
+                     k: int,
                      tail: torch.Tensor | None = None,
                      page_scale: torch.Tensor | None = None,
                      ids_pool: torch.Tensor | None = None,
@@ -73,10 +74,15 @@ def topk_score_paged(pool: torch.Tensor, page_table: torch.Tensor,
     storage dtype; ``page_scale`` folds per-page int8 scales into the
     query; ``ids_pool`` switches to the rescore mode; ``carry`` /
     ``finalize=False`` chain runs and host-tier waves (pass the un-clamped
-    ids of a ``finalize=False`` call back in).
+    ids of a ``finalize=False`` call back in). ``lo`` and ``hi`` are host
+    ints, or both 0-d int32 tensors on the operands' device that the host
+    never reads (the call is planned for the table's capacity, so a CUDA
+    graph captured once follows the index as it grows); the kernels clamp
+    them to [0, ``page_table.shape[0]``].
     """
     operands = [pool, page_table, page_nvalid, page_offset, Q]
-    operands += [t for t in (tail, page_scale, ids_pool) if t is not None]
+    operands += [t for t in (tail, page_scale, ids_pool, lo, hi)
+                 if isinstance(t, torch.Tensor)]
     if carry is not None:
         operands += list(carry)
     fn = topk_score_paged_cuda if _on_card(*operands) else topk_score_paged_plain

@@ -12,6 +12,8 @@ sorts with ``stable=True`` instead.
 """
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 
@@ -89,9 +91,34 @@ def _unkeys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s, ids
 
 
+def paged_bounds(lo, hi, device: torch.device) -> bool:
+    """Which form a paged search's slot range [lo, hi) takes: True for two
+    0-d int32 tensors on ``device``, False for two host ints. Anything else
+    (a tensor of another dtype, shape or device, a float, a tensor for one
+    bound and an int for the other) raises ``ValueError``."""
+    tensors = [isinstance(b, torch.Tensor) for b in (lo, hi)]
+    if any(tensors):
+        if not all(tensors):
+            raise ValueError("topk_score_paged: lo and hi must both be host ints or both "
+                             f"0-d int32 tensors, got {type(lo).__name__} and "
+                             f"{type(hi).__name__}")
+        for name, b in (("lo", lo), ("hi", hi)):
+            if b.dtype != torch.int32 or b.dim() != 0 or b.device != device:
+                raise ValueError(f"topk_score_paged: a tensor {name} must be a 0-d int32 "
+                                 f"tensor on {device}, got {tuple(b.shape)} {b.dtype} on "
+                                 f"{b.device}")
+        return True
+    for name, b in (("lo", lo), ("hi", hi)):
+        if isinstance(b, bool) or not isinstance(b, numbers.Integral):
+            raise ValueError(f"topk_score_paged: {name} must be an int or a 0-d int32 "
+                             f"tensor, got {type(b).__name__}")
+    return False
+
+
 def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
                          page_nvalid: torch.Tensor, page_offset: torch.Tensor,
-                         lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                         lo: int | torch.Tensor, hi: int | torch.Tensor, Q: torch.Tensor, *,
+                         k: int,
                          tail: torch.Tensor | None = None,
                          page_scale: torch.Tensor | None = None,
                          ids_pool: torch.Tensor | None = None,
@@ -112,7 +139,13 @@ def topk_score_paged_ref(pool: torch.Tensor, page_table: torch.Tensor,
     reference's un-clamped pad ids: slot j after c finite slots gets
     -(j - c + 2), so a carry chain reproduces them. Pages are walked in
     blocks of about ``_PAGED_BLOCK_ROWS`` rows with a running merge.
+    ``lo`` and ``hi`` are host ints or both 0-d int32 tensors on the pool's
+    device (``paged_bounds``); tensors are read here and clamped to [0,
+    ``page_table.shape[0]``], as the CUDA kernels clamp them.
     """
+    if paged_bounds(lo, hi, pool.device):
+        cap = page_table.shape[0]
+        lo, hi = (min(max(int(b), 0), cap) for b in (lo, hi))
     lo, hi = int(lo), int(hi)
     pool_pages, R, m = pool.shape
     dev = pool.device

@@ -25,7 +25,9 @@ top-k over logical slots [lo, hi) of a page table (pool and tail tiers,
 per-page scale, ``page_nvalid`` masks and ``page_offset`` ids, the
 ``ids_pool`` rescore mode, ``carry`` / ``finalize`` chaining), through the
 same chunk kernel with a paged row source and the same select; the carry
-is one more list (k <= 32) or k more keys.
+is one more list (k <= 32) or k more keys. [lo, hi) may be host ints or
+0-d device tensors, as the reference's traced scalars; with tensors the
+host never reads the range.
 
 ``topk_select_cuda`` is the large-k select alone, over rows of keys as the
 chunk kernel lists them; ``topk_select_plain`` is its plain version.
@@ -52,10 +54,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
         ctypes.POINTER(ctypes.c_int)]),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int64)]),
-    "topk_score_paged_f32": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 11
-                             + [_P] * 4 + [ctypes.POINTER(ctypes.c_int)]),
+    "topk_score_paged_f32": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 7 + [_P] * 2
+                             + [ctypes.c_int] * 4 + [_P] * 4
+                             + [ctypes.POINTER(ctypes.c_int)]),
     "topk_select_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int64)]),
     "topk_select_keys": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
@@ -187,10 +190,12 @@ topk_score_cuda.launches = dict.fromkeys(_DENSE_MODES, 0)
 topk_score_cuda.cuda_launches = dict.fromkeys(_DENSE_MODES, 0)
 
 
-def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int
-                    ) -> tuple[int, bool]:
-    """(8-byte words of scratch, takes the radix select) of a paged call."""
-    return _plan("topk_paged_plan", slots, page_rows, k, int(carry), B)
+def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int,
+                    device_range: bool = False) -> tuple[int, bool]:
+    """(8-byte words of scratch, takes the radix select) of a paged call
+    over ``slots`` slots (``device_range``: a range within them that the
+    kernels read on the device)."""
+    return _plan("topk_paged_plan", slots, page_rows, k, int(carry), int(device_range), B)
 
 
 def _int32_vector(name: str, t: torch.Tensor, n: int) -> None:
@@ -201,7 +206,8 @@ def _int32_vector(name: str, t: torch.Tensor, n: int) -> None:
 
 def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
                           page_nvalid: torch.Tensor, page_offset: torch.Tensor,
-                          lo: int, hi: int, Q: torch.Tensor, *, k: int,
+                          lo: int | torch.Tensor, hi: int | torch.Tensor, Q: torch.Tensor, *,
+                          k: int,
                           tail: torch.Tensor | None = None,
                           page_scale: torch.Tensor | None = None,
                           ids_pool: torch.Tensor | None = None,
@@ -214,11 +220,25 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     pool (P, R, m) and tail (T, R, m) f32, bf16 or int8 of one dtype;
     page_table, page_nvalid, page_offset (>= hi,) int32; page_scale
     (>= hi, m) f32; ids_pool (>= hi, R) int32; Q (B, m) f32; carry (B, k)
-    f32 and int32. ``lo`` and ``hi`` are host ints. ``launches`` counts
+    f32 and int32. ``lo`` and ``hi`` are host ints with 0 <= lo and hi <=
+    the table's length, or both 0-d int32 tensors on the pool's device
+    (anything else raises ``ValueError``). Host ints plan the walk by hi -
+    lo. Tensors are never read by the host: the call is planned for the
+    table's capacity, ``page_table.shape[0]`` (the scratch of the k > 32
+    path grows with it), the kernels read the bounds once a block and
+    clamp them to [0, capacity], and the chunk kernel walks the chunks
+    that cover the range and lists the rest as pads. So the call does not
+    synchronize, and a CUDA graph captured once replays bitwise as pages
+    are written into preallocated tables and ``hi`` grows in place; the
+    metadata tensors then need the capacity's entries. ``launches`` counts
     calls and ``cuda_launches`` the CUDA launches the C side reports, keyed
-    by mode: ``paged_<storage dtype>``, or ``paged_ids`` with ``ids_pool``.
+    by mode: ``paged_<storage dtype>``, or ``paged_ids`` with ``ids_pool``;
+    ``_dev`` ends the mode of a call with tensor bounds.
     """
-    lo, hi = int(lo), int(hi)
+    dev_range = ref.paged_bounds(lo, hi, pool.device)
+    cap = page_table.shape[0]
+    if not dev_range:
+        lo, hi = int(lo), int(hi)
     tensors = [pool, page_table, page_nvalid, page_offset, Q]
     tensors += [t for t in (tail, page_scale, ids_pool) if t is not None]
     if carry is not None:
@@ -242,26 +262,29 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     B = Q.shape[0]
     if k < 1:
         raise ValueError(f"topk_score_paged: needs k >= 1, got k={k}")
-    if B < 1 or lo < 0 or hi > page_table.shape[0]:
+    if B < 1 or (not dev_range and (lo < 0 or hi > cap)):
         raise ValueError(f"topk_score_paged: needs B >= 1 and "
-                         f"0 <= lo, hi <= {page_table.shape[0]}, got B={B} "
+                         f"0 <= lo, hi <= {cap}, got B={B} "
                          f"lo={lo} hi={hi}")
+    # the planned [plo, phi) and the table rows the kernels may read
+    plo, phi = (0, cap) if dev_range else (lo, max(hi, lo))
+    need = cap if dev_range else max(hi, 0)
     for name, t in (("page_table", page_table), ("page_nvalid", page_nvalid),
                     ("page_offset", page_offset)):
-        _int32_vector(name, t, max(hi, 0))
+        _int32_vector(name, t, need)
     if page_scale is not None and (page_scale.dtype != torch.float32
                                    or page_scale.dim() != 2
-                                   or page_scale.shape[0] < hi
+                                   or page_scale.shape[0] < need
                                    or page_scale.shape[1] != m
                                    or not page_scale.is_contiguous()):
         raise ValueError(f"topk_score_paged: page_scale must be a contiguous "
-                         f"(>= {hi}, {m}) f32 tensor, got "
+                         f"(>= {need}, {m}) f32 tensor, got "
                          f"{tuple(page_scale.shape)} {page_scale.dtype}")
     if ids_pool is not None and (ids_pool.dtype != torch.int32 or ids_pool.dim() != 2
-                                 or ids_pool.shape[0] < hi or ids_pool.shape[1] != R
+                                 or ids_pool.shape[0] < need or ids_pool.shape[1] != R
                                  or not ids_pool.is_contiguous()):
         raise ValueError(f"topk_score_paged: ids_pool must be a contiguous "
-                         f"(>= {hi}, {R}) int32 tensor, got "
+                         f"(>= {need}, {R}) int32 tensor, got "
                          f"{tuple(ids_pool.shape)} {ids_pool.dtype}")
     if carry is not None:
         cs, ci = carry
@@ -271,15 +294,15 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
             raise ValueError(f"topk_score_paged: carry must be contiguous ({B}, {k}) "
                              f"f32 scores and int32 ids")
     dev = pool.device
-    if hi <= lo and carry is None:
-        # an empty walk: every slot is a pad
+    if phi <= plo and carry is None:
+        # an empty walk (with tensor bounds: an empty table): every slot is a pad
         j = torch.arange(k, dtype=torch.int32, device=dev).expand(B, k)
         return (torch.full((B, k), float("-inf"), device=dev),
                 torch.full((B, k), -1, dtype=torch.int32, device=dev)
                 if finalize else (-(j + 2)).contiguous())
     lib = _build.load("topk_score", _SIGNATURES)
-    slots = max(hi - lo, 0)
-    select = topk_paged_plan(slots, R, k, carry is not None, B)[1]
+    slots = phi - plo
+    select = topk_paged_plan(slots, R, k, carry is not None, B, dev_range)[1]
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     vec = (m % 16 == 0 and pool.data_ptr() % 16 == 0
@@ -298,7 +321,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
             ptr(ids_pool), Q[g0:g1].data_ptr(),
             None if carry is None else carry[0][g0:g1].data_ptr(),
             None if carry is None else carry[1][g0:g1].data_ptr(), P,
-            0 if tail is None else tail.shape[0], R, m, g1 - g0, lo, max(hi, lo), k,
+            0 if tail is None else tail.shape[0], R, m, g1 - g0, plo, phi,
+            lo.data_ptr() if dev_range else None, hi.data_ptr() if dev_range else None, k,
             _DTYPES[pool.dtype], int(vec), int(finalize), scratch.data_ptr(),
             out_s[g0:g1].data_ptr(), out_i[g0:g1].data_ptr(), stream,
             ctypes.byref(launched))
@@ -307,8 +331,10 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
 
     with torch.cuda.device(dev):
         launched = _call_groups(
-            B, lambda b: topk_paged_plan(slots, R, k, carry is not None, b)[0], call, dev)
+            B, lambda b: topk_paged_plan(slots, R, k, carry is not None, b, dev_range)[0],
+            call, dev)
     mode = "paged_ids" if ids_pool is not None else f"paged_{_STORE[pool.dtype]}"
+    mode += "_dev" if dev_range else ""
     topk_score_paged_cuda.launches[mode] += 1
     topk_score_paged_cuda.cuda_launches[mode] += launched
     if select:
@@ -316,7 +342,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     return out_s, out_i
 
 
-_PAGED_MODES = ("paged_f32", "paged_bf16", "paged_int8", "paged_ids")
+_PAGED_MODES = tuple(f"paged_{st}{how}" for how in ("", "_dev")
+                     for st in ("f32", "bf16", "int8", "ids"))
 topk_score_paged_cuda.launches = dict.fromkeys(_PAGED_MODES, 0)
 topk_score_paged_cuda.cuda_launches = dict.fromkeys(_PAGED_MODES, 0)
 

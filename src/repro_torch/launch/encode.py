@@ -69,11 +69,12 @@ CKPT_KEEP = 2
 
 
 def train_encoder(model: BiEncoder, steps: int, batch: int, seq_len: int,
-                  ckpt_dir: str | None = None) -> list[float]:
+                  ckpt_dir: str | None = None, resume: bool = True) -> list[float]:
     """The example's training loop, in place on ``model``: ``steps`` AdamW
     steps of contrastive loss on ``pair_batch(0, t, …)``, lr
     ``warmup_cosine(3e-4, steps // 10, steps)(t)``; under ``ckpt_dir`` a
-    checkpoint every 100 steps (2 kept), and a resume from its latest one.
+    checkpoint every 100 steps (2 kept) and, with ``resume``, a resume from
+    its latest one (without, step 0 onwards, as the example trains).
     Returns the losses of the steps run; leaves the parameters' gradients
     off."""
     if steps <= 0:
@@ -83,7 +84,7 @@ def train_encoder(model: BiEncoder, steps: int, batch: int, seq_len: int,
                                         lr=warmup_cosine(BASE_LR, steps // 10, steps))
     opt = opt_init(model)
     mgr = CheckpointManager(ckpt_dir, keep_n=CKPT_KEEP) if ckpt_dir else None
-    start = resume_latest(mgr, model, opt)
+    start = resume_latest(mgr, model, opt) if resume else 0
     losses = train_loop(model, opt, step_fn,
                         lambda t: pair_batch(TRAIN_SEED, t, batch=batch, seq_len=seq_len,
                                              vocab=model.cfg.vocab),
@@ -187,10 +188,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(args: argparse.Namespace, model: BiEncoder | None = None) -> EncodeRun:
+def run(args: argparse.Namespace, model: BiEncoder | None = None,
+        resume: bool = True) -> EncodeRun:
     """Train, encode, fit, prune, build and search as ``args`` say, printing
     the example's lines. ``model`` replaces the seeded init (its config is
-    used; ``--steps`` trains it in place)."""
+    used; ``--steps`` trains it in place); ``resume=False`` trains from step
+    0 whatever ``--ckpt-dir`` holds."""
     dev = default_device(args.device)
 
     def sync():
@@ -205,7 +208,8 @@ def run(args: argparse.Namespace, model: BiEncoder | None = None) -> EncodeRun:
     print(f"[biencoder] {cfg.param_count()/1e6:.1f}M params")
     secs = {}
     t0 = time.perf_counter()
-    losses = train_encoder(model, args.steps, args.batch, args.seq_len, args.ckpt_dir)
+    losses = train_encoder(model, args.steps, args.batch, args.seq_len, args.ckpt_dir,
+                           resume)
     sync()
     secs["train_s"] = time.perf_counter() - t0
     d_tok, q_tok = pair_tokens(args.n_docs, args.n_queries, args.seq_len, cfg.vocab)

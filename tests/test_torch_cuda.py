@@ -1585,3 +1585,121 @@ def test_cuda_dispatch_counts_equal_the_cpu_counts():
     report = apply_baseline(findings, load_baseline(BASELINE_PATH),
                             active_analyzers=["dispatch", "inv"])
     assert report.gating == () and report.stale == ()
+
+
+def _paged_to_capacity(args, kw, ids, cap):
+    """``_scrambled_pages``' tables grown to ``cap`` slots: the slots past
+    its pages name no page."""
+    def grown(t, fill):
+        out = t.new_full((cap, *t.shape[1:]), fill)
+        out[:t.shape[0]] = t
+        return out
+
+    store, pt, nv, off = args
+    ps = kw["page_scale"]
+    return ((store, grown(pt, -1), grown(nv, 0), grown(off, 0)),
+            dict(kw, page_scale=None if ps is None else grown(ps, 0.0)), grown(ids, -1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_cuda_paged_device_range_equals_host_ints(store):
+    """[lo, hi) as 0-d int32 tensors on the card gives the host ints'
+    result bitwise: f32, bf16 and int8 pages (per-page scales) over a pool
+    and a tail, k 10 and 100, a full, an inner, an empty and an
+    at-capacity range, the ids_pool mode, a carry chain un-finalized then
+    finalized; in the ``paged_<dtype>_dev`` mode, with no host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.topk_score import topk_score_paged_cuda as paged
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = 2 * sms * 512 + 77
+    D = torch.randn(n, 384, generator=g, device=dev) / 384 ** 0.5
+    D = D.to(torch.bfloat16) if store == "bf16" else D
+    Q = torch.randn(32, 384, generator=g, device=dev)
+    args, kw, ids, npages = _scrambled_pages(D, 256, g, quantize=store == "int8", masked=4,
+                                             scale_block=3)
+    cap = 2 * npages + 8
+    args, kw, ids = _paged_to_capacity(args, kw, ids, cap)
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    mode = f"paged_{store}_dev"
+    for k in (10, 100):
+        for lo, hi in ((0, npages), (5, npages - 9), (7, 7), (3, cap), (npages, cap)):
+            for extra in ({}, {"ids_pool": ids}):
+                want = paged(*args, lo, hi, Q, k=k, **kw, **extra)
+                lo_t, hi_t = t(lo), t(hi)
+                calls = dict(paged.launches)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = paged(*args, lo_t, hi_t, Q, k=k, **kw, **extra)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                which = "paged_ids_dev" if extra else mode
+                assert paged.launches[which] == calls[which] + 1
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+                    (k, lo, hi, bool(extra))
+        mid = npages // 2
+        first = paged(*args, 2, mid, Q, k=k, **kw, finalize=False)
+        first_t = paged(*args, t(2), t(mid), Q, k=k, **kw, finalize=False)
+        assert torch.equal(first[0], first_t[0]) and torch.equal(first[1], first_t[1])
+        last = paged(*args, mid, npages, Q, k=k, **kw, carry=first)
+        last_t = paged(*args, t(mid), t(npages), Q, k=k, **kw, carry=first_t)
+        assert torch.equal(last[0], last_t[0]) and torch.equal(last[1], last_t[1])
+
+
+@pytest.mark.gpu
+def test_cuda_paged_search_replays_in_a_cuda_graph_as_the_index_grows():
+    """One paged search over tables preallocated to capacity, captured in a
+    CUDA graph with ``hi`` a device tensor; pages are then written into the
+    tail, their table entries and ``hi`` set in place, twice: each replay is
+    bitwise the eager search at the grown range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.topk_score import topk_score_paged_cuda as paged
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    R, m, base, grow, cap = 256, 384, 300, 40, 400
+    pool = torch.randn(base, R, m, generator=g, device=dev)
+    tail = torch.zeros(2 * grow, R, m, device=dev)
+    pt = torch.full((cap,), -1, dtype=torch.int32, device=dev)
+    pt[:base] = torch.randperm(base, generator=g, device=dev).to(torch.int32)
+    nv = torch.zeros(cap, dtype=torch.int32, device=dev)
+    nv[:base] = R
+    off = torch.arange(cap, dtype=torch.int32, device=dev) * R
+    Q = torch.randn(32, m, generator=g, device=dev)
+    lo, hi = torch.tensor(0, dtype=torch.int32, device=dev), torch.tensor(
+        base, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        paged(pool, pt, nv, off, lo, hi, Q, k=10, tail=tail)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gs, gi = paged(pool, pt, nv, off, lo, hi, Q, k=10, tail=tail)
+    graph.replay()
+    want = paged(pool, pt, nv, off, 0, base, Q, k=10, tail=tail)
+    assert torch.equal(gs, want[0]) and torch.equal(gi, want[1])
+    n_pages = base
+    for step in range(2):
+        # a grown block: new pages into the tail, their table entries, then hi
+        rows = torch.randn(grow, R, m, generator=g, device=dev) * (1.5 + step)
+        tail[step * grow:(step + 1) * grow] = rows
+        slots = slice(n_pages, n_pages + grow)
+        pt[slots] = base + torch.arange(step * grow, (step + 1) * grow, dtype=torch.int32,
+                                        device=dev)
+        nv[slots] = R
+        nv[n_pages + grow - 1] = 17                        # a partial last page
+        n_pages += grow
+        hi.fill_(n_pages)
+        graph.replay()
+        want = paged(pool, pt, nv, off, 0, n_pages, Q, k=10, tail=tail)
+        torch.cuda.synchronize()
+        assert torch.equal(gs, want[0]) and torch.equal(gi, want[1]), step
+        assert (gi >= base * R).any(), "the grown pages never reached the top k"
