@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
      of 100 rows, a walk of more chunks than CTAs, k up to 2048); B =
      65,537 queries, past one launch's 65,535 query rows, dense, paged,
      the select alone and DenseIndex.search, the last row bitwise equal
-     to a one-query call;
+     to a one-query call; the list mode's thresholds and the select over
+     the listed keys at k in LARGE_KS on rising, falling, all-equal and
+     repeated-id scores, masks, n < k with -inf rows, paged tensor
+     bounds at capacity and carries, each k > 32 result's first 32 slots
+     bitwise the k = 32 result, and the select alone with live counts;
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -519,6 +523,24 @@ def compare_topk(s_ref, i_ref, s_got, i_got, what):
     return err, near == 0, near
 
 
+def n_ctas(n, B):
+    """CTAs of the chunk kernel a query tile at n rows and B queries (one
+    per SM shared among the tiles, at most one a 512-row chunk): the
+    segments a query's list-mode keys come in."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return min(-(-n // 512), -(-sms // -(-B // 32)))
+
+
+def listed_stats(counts, rows_, segments):
+    """Keys a query the list mode listed (mean, max, share of the rows) and
+    the bytes it wrote for the batch: 8 a key and 4 a segment count."""
+    c = counts.double()
+    return dict(listed_mean=float(c.mean()), listed_max=int(counts.max()),
+                listed_share=float(c.mean()) / rows_,
+                written_bytes=int(8 * counts.sum()) + 4 * segments * counts.numel())
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -658,6 +680,7 @@ def phase_edge_cases():
                                max_abs_err=int(diff.max()), frac_differ=frac))
     ids_row = paged_edge_cases(dev, randn, checks)
     any_batch_cases(dev, randn, checks)
+    large_k_cases(dev, checks)
     torch.cuda.synchronize()
     emit("edge_cases", checks=len(checks),
          near_ties=sum(c.get("near_ties", 0) for c in checks), results=checks)
@@ -718,6 +741,146 @@ def any_batch_cases(dev, randn, checks):
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"B={B} topk_select: differs from its plain version")
     held("topk_select k=100", got, want, topk_score.topk_select_cuda(keys[last:], 100))
+
+
+LARGE_KS = (33, 80, 100, 160, 511, 512, 513, 1000)   # either side of the lane lists (160),
+                                                     # the chunk (512) and the fused room
+
+
+def large_k_cases(dev, checks):
+    """The list mode's running thresholds and the select over the listed
+    keys, against the plain versions at every k of LARGE_KS, on inputs that
+    stress them: scores rising with the id (the threshold rises every
+    chunk), falling (each CTA's chunks after its first list nothing), all
+    equal (ties at the threshold: ids 0..k-1), rows repeated with their ids
+    across chunks (equal copies on both sides of a threshold), an n_valid
+    mask as a host int and as a 0-d tensor, bf16 and int8 rows, n < k with
+    -inf rows, the paged walk with [lo, hi) as tensors at capacity
+    (bitwise the host ints, no sync) and a carry un-finalized then
+    finalized. Every k > 32 result's first 32 slots are bitwise the k = 32
+    result of the same call (the untouched merge path). Then the select
+    alone with live counts: rows over the fused kernel's cap beside rows
+    under it, counts 0 and past L, and k past its room."""
+    import torch
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import ref, topk_score
+    cuda, plain = topk_score.topk_score_cuda, topk_score.topk_score_plain
+    g = torch.Generator(device=dev).manual_seed(28)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def held(name, got, want, head, k):
+        err, eq, near = compare_topk(*want, *got, f"large k {name} k={k}")
+        if not (torch.equal(got[0][:, :32], head[0]) and torch.equal(got[1][:, :32], head[1])):
+            raise AssertionError(f"large k {name} k={k}: the first 32 slots differ from k=32")
+        checks.append(dict(kernel="topk_score", case=f"large_k_{name}", k=k, max_abs_err=err,
+                           ids_equal=eq, near_ties=near, head32_bitwise=True))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, m, B = 3 * sms * 512 + 77, 16, 33
+    line = torch.arange(n, device=dev, dtype=torch.float32) / n
+
+    def one_dim(v):
+        D = torch.zeros(n, m, device=dev)
+        D[:, 0] = v
+        return D
+
+    Q1 = torch.zeros(B, m, device=dev)
+    Q1[:, 0] = 1 + 0.01 * torch.arange(B, device=dev)
+    rnd, Qr = randn(n, m) / m ** 0.5, randn(B, m)
+    half = n // 2
+    dup = rnd.clone()
+    dup[half:2 * half] = rnd[:half]
+    dup_ids = torch.arange(n, device=dev, dtype=torch.int32)
+    dup_ids[half:2 * half] = dup_ids[:half]
+    dup_ids[::17] = -1
+    q8, scale = quantize_int8_per_dim(rnd)
+    small = randn(700, m) / m ** 0.5
+    small[::7, 0] = float("-inf")
+    Qp = Qr.clone()
+    Qp[:, 0] = Qp[:, 0].abs() + 0.1             # -inf rows score -inf, not NaN
+    nv = half + 37
+    cases = [("rising", one_dim(line), Q1, {}, {}), ("falling", one_dim(1 - line), Q1, {}, {}),
+             ("equal", one_dim(torch.ones(n, device=dev)), Q1, {}, {}),
+             ("dup_ids", dup, Qr, {"row_ids": dup_ids}, {"row_ids": dup_ids}),
+             ("n_valid", rnd, Qr, {"n_valid": nv}, {"n_valid": nv}),
+             ("n_valid_tensor", rnd, Qr,
+              {"n_valid": torch.tensor(nv, dtype=torch.int32, device=dev)}, {"n_valid": nv}),
+             ("bf16", rnd.to(torch.bfloat16), Qr, {}, {}),
+             ("int8", q8, (Qr * scale[None, :]).contiguous(), {}, {}),
+             ("n_below_k_inf_rows", small, Qp, {}, {})]
+    for name, D, Q, kw, kw_plain in cases:
+        head = cuda(D, Q, k=32, **kw)
+        for k in LARGE_KS:
+            got = cuda(D, Q, k=k, **kw)
+            held(name, got, plain(D, Q, k=k, **kw_plain), head, k)
+            if name == "equal" and not bool((got[1] == torch.arange(k, device=dev)).all()):
+                raise AssertionError(f"large k equal k={k}: ids are not 0..{k - 1}")
+    del cases, dup, rnd, q8
+
+    # paged: [lo, hi) tensors at the tables' capacity, bitwise the host
+    # ints and no sync; a carry un-finalized then finalized
+    paged, pplain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    for store in ("f32", "int8"):
+        pg, _ = make_paged(dev, randn, 2 * sms * 512 + 77, m, 256, store)
+        npages = pg.pop("npages")
+        args = (pg.pop("pool"), pg.pop("page_table"), pg.pop("page_nvalid"),
+                pg.pop("page_offset"))
+        cap, split = args[1].shape[0], npages // 2
+        lo_t, hi_t = (torch.tensor(v, dtype=torch.int32, device=dev) for v in (0, cap))
+        head = paged(*args, lo_t, hi_t, Qr, k=32, **pg)
+        for k in LARGE_KS:
+            want = paged(*args, 0, npages, Qr, k=k, **pg)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = paged(*args, lo_t, hi_t, Qr, k=k, **pg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not same(got, want):
+                raise AssertionError(f"large k paged {store} k={k}: [0, capacity) as tensors "
+                                     f"differs from the host ints")
+            held(f"paged_{store}_dev_range", got, pplain(*args, 0, cap, Qr, k=k, **pg), head, k)
+            h1 = paged(*args, 0, split, Qr, k=k, **pg, finalize=False)
+            h2 = pplain(*args, 0, split, Qr, k=k, **pg, finalize=False)
+            compare_topk(*h2, *h1, f"large k paged {store} carry head k={k}")
+            if not torch.equal(h1[1][torch.isneginf(h2[0])], h2[1][torch.isneginf(h2[0])]):
+                raise AssertionError(f"large k paged {store} k={k}: un-finalized pad ids")
+            for fin in (False, True):
+                got = paged(*args, split, npages, Qr, k=k, **pg, carry=h1, finalize=fin)
+                want = pplain(*args, split, npages, Qr, k=k, **pg, carry=h2, finalize=fin)
+                err, eq, near = compare_topk(*want, *got, f"large k paged {store} carry k={k}")
+                pad = torch.isneginf(want[0])
+                if not torch.equal(got[1][pad], want[1][pad]):
+                    raise AssertionError(f"large k paged {store} carry k={k}: pad ids differ")
+                checks.append(dict(kernel="topk_score_paged", case=f"large_k_carry_{store}",
+                                   k=k, finalize=fin, max_abs_err=err, ids_equal=eq,
+                                   near_ties=near))
+        del pg, args
+
+    # the select alone: one row past the fused kernel's cap (the multi-CTA
+    # path) beside rows it takes, counts 0 and past L, k past its room
+    L = (1 << 20) + 4099
+    s = randn(4, L)
+    s[:, ::5] = float("-inf")
+    keys = (ref._keys(s, torch.arange(L, device=dev, dtype=torch.int32).expand(4, -1))
+            ^ topk_score._SIGN).contiguous()
+    del s
+    counts = torch.tensor([L, 5000, 0, L + 9], dtype=torch.int32, device=dev)
+    for k in (100, 1000, 9000):
+        for fin in (True, False):
+            got = topk_score.topk_select_cuda(keys, k, fin, counts=counts)
+            want = topk_score.topk_select_plain(keys, k, fin, counts=counts)
+            if not same(got, want):
+                raise AssertionError(f"topk_select counts k={k} finalize={fin}: differs "
+                                     f"from its plain version")
+            checks.append(dict(kernel="topk_select", case="counts_across_the_cap", k=k,
+                               finalize=fin, L=L, bitwise=True))
+    del keys
 
 
 def make_paged(dev, randn, n, m, R, store):
@@ -1047,17 +1210,24 @@ def phase_main_path(counters, rows, n_docs):
                 bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * K,
                             2 * BATCH * n * m))
             # the same batch at the protocol's depths and past the old 1024
-            # cap: k > 32 lists every key and takes the radix select
+            # cap: k > 32 lists the keys at or above a running threshold and
+            # selects over the listed keys
             for kk in (100, 1000, 2000, 10000):
                 before = topk_score.topk_score_cuda.cuda_launches[name]
-                got = topk_score.topk_score_cuda(index.vectors, q, k=kk)
+                listed = {}
+                got = topk_score.topk_score_cuda(index.vectors, q, k=kk,
+                                                 on_lists=lambda g0, c, pack: listed.update(
+                                                     counts=c, pack=pack))
                 per_call = topk_score.topk_score_cuda.cuda_launches[name] - before
                 want = topk_score.topk_score_plain(index.vectors, q, k=kk)
                 err, eq, near = compare_topk(*want, *got, f"topk {name} main path k={kk}")
                 del got, want
+                if name == "f32" and kk == SHORTLIST_K:
+                    listed_keys = (listed["pack"](), listed["counts"])
                 rows[f"topk_score_{name}_k{kk}"] = dict(
                     shape=[n, m, BATCH, kk], store=name, max_abs_err=err, ids_equal=eq,
                     near_ties=near, launches_per_call=per_call,
+                    **listed_stats(listed["counts"], n, n_ctas(n, BATCH)),
                     ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, q, k=kk),
                                reps=5),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
@@ -1067,8 +1237,8 @@ def phase_main_path(counters, rows, n_docs):
                                             reps=2) if item == 4 else None),
                     bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * kk,
                                 2 * BATCH * n * m))
-        # the large-k select alone (radix passes, gather, sort, write) on one
-        # batch's keys over every row, at the int8 shortlist's k = 100
+        # the multi-CTA select alone (radix passes, gather, sort, write) on
+        # one batch's keys over every row, at the int8 shortlist's k = 100
         q = project_queries(qb, Wc).contiguous()
         keys = ref._keys(q @ index_f32.vectors.T,
                          torch.arange(n, device=dev, dtype=torch.int32).expand(BATCH, -1))
@@ -1088,6 +1258,31 @@ def phase_main_path(counters, rows, n_docs):
             library_ms=cuda_ms(lambda: torch.topk(plain_keys, SHORTLIST_K), reps=2),
             bound=bound(8 * BATCH * n + 8 * BATCH * SHORTLIST_K, 0))
         del keys, plain_keys, got, want
+        # the select over what the f32 k = 100 search listed (each query's
+        # keys packed at the front of its row, its count beside it): the
+        # work the fused select does on the main path
+        keys, counts = listed_keys
+        counts = counts.to(device=dev, dtype=torch.int32)
+        plain_keys = keys ^ topk_score._SIGN
+        before = topk_score.topk_select_cuda.cuda_launches["keys"]
+        got = topk_score.topk_select_cuda(keys, SHORTLIST_K, counts=counts)
+        per_call = topk_score.topk_select_cuda.cuda_launches["keys"] - before
+        want = topk_score.topk_select_plain(keys, SHORTLIST_K, counts=counts)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError("topk_select over the listed keys: differs from its plain "
+                                 "version")
+        live = int(counts.sum())
+        rows["topk_select_listed"] = dict(
+            shape=[BATCH, keys.shape[1], SHORTLIST_K], max_abs_err=0.0, ids_equal=True,
+            launches_per_call=per_call, listed_keys=live,
+            ms=cuda_ms(lambda: topk_score.topk_select_cuda(keys, SHORTLIST_K, counts=counts),
+                       reps=10),
+            plain_ms=cuda_ms(lambda: topk_score.topk_select_plain(keys, SHORTLIST_K,
+                                                                  counts=counts), reps=3),
+            library_ms=cuda_ms(lambda: torch.topk(plain_keys, SHORTLIST_K), reps=5),
+            library_call="topk over the packed keys (its zero-filled tails included)",
+            bound=bound(8 * live + 4 * BATCH + 8 * BATCH * SHORTLIST_K, 0))
+        del keys, plain_keys, got, want, listed_keys
         want = topk_score.topk_score_plain(D_short, qhat, k=K, row_ids=short_ids)
         err, eq, near = compare_topk(*want, *rescored, "topk row_ids")
         U = D_short.shape[0]
@@ -1342,7 +1537,7 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
             if not bitwise:
                 raise AssertionError(f"paged {name}: not bitwise equal to the dense "
                                      f"index (max abs err {worst})")
-            # deeper k: the radix select path, paged and dense alike
+            # deeper k: the list mode and the select, paged and dense alike
             for kk in (100, 1000, 2000):
                 gp = pg.search_projected(batches[0], W, k=kk, mean=mean)
                 gd = index.search_projected(batches[0], W, k=kk, mean=mean)
@@ -1383,7 +1578,10 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                             + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * npages * R * m))
             for kk in (2000, 10000):
                 before = sum(topk_score.topk_score_paged_cuda.cuda_launches.values())
-                g1 = topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk})
+                listed = {}
+                g1 = topk_score.topk_score_paged_cuda(
+                    *args, **{**kw, "k": kk},
+                    on_lists=lambda g0, c, pack: listed.update(counts=c))
                 per = sum(topk_score.topk_score_paged_cuda.cuda_launches.values()) - before
                 w1 = topk_score.topk_score_paged_plain(*args, **{**kw, "k": kk})
                 e2, eq2, near2 = compare_topk(*w1, *g1, f"paged {name} kernel vs plain k={kk}")
@@ -1391,6 +1589,8 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                 rows[f"topk_score_paged_{name}_k{kk}"] = dict(
                     shape=[index.n, m, BATCH, kk], page_rows=R, pages=npages, store=name,
                     max_abs_err=e2, ids_equal=eq2, near_ties=near2, launches_per_call=per,
+                    **listed_stats(listed["counts"], index.n,
+                                   n_ctas(npages * R, BATCH)),
                     ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk}),
                                reps=3),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(
@@ -2298,12 +2498,13 @@ def phase_store(counters, index_f32, index_int8, pruner, Q, fresh, n_docs, proto
          **summary)
 
 
-def cascade_split(cas, qb, W, mean, k, keys=None):
+def cascade_split(cas, qb, W, mean, k, lists=None):
     """One batch of ``cas`` timed whole and in its parts: projection,
     coarse scan (the list-mode chunk kernel and the select together for
     N·k > 32), shortlist, gather of the full rows, the ``row_ids`` rescore
-    kernel; ``keys`` (the coarse scan's listed keys) times the select
-    alone, so the list-mode scan is the coarse scan less it."""
+    kernel; ``lists`` (the keys the coarse scan listed, packed a query a
+    row, and their counts) times the select alone on them, so the list-mode
+    scan is the coarse scan less it."""
     import torch
     from repro_torch.core.cascade import _shortlist
     from repro_torch.core.index import _project_nofold
@@ -2323,21 +2524,26 @@ def cascade_split(cas, qb, W, mean, k, keys=None):
         gather_ms=cuda_ms(lambda: full.vectors[uids.long().clamp_min(0)], reps=20),
         rescore_ms=cuda_ms(lambda: ops.topk_score(rows_, q, k=k, row_ids=uids), reps=20),
         U=int((uids >= 0).sum()), nk=nk)
-    if keys is not None:
-        out["select_ms"] = cuda_ms(lambda: topk_score.topk_select_cuda(keys, nk), reps=5)
+    if lists is not None and nk > 32:
+        keys, counts = lists
+        out["select_ms"] = cuda_ms(lambda: topk_score.topk_select_cuda(keys, nk, counts=counts),
+                                   reps=10)
         out["list_scan_ms"] = out["coarse_ms"] - out["select_ms"]
     return out
 
 
-def coarse_keys(coarse, qf):
-    """The keys the list-mode chunk kernel writes for a coarse scan (each
-    row's score and id, top bit flipped), for timing the select alone."""
+def coarse_lists(coarse, qf, nk):
+    """What the coarse scan's list mode lists at nk: the keys packed a query
+    a row and the (B,) int32 counts on the card, and listed_stats."""
     import torch
-    from repro_torch.kernels import ref, topk_score
-    qc = (qf[:, :coarse.dim] * coarse.scale[None, :]).contiguous()
-    s = qc @ coarse.vectors.float().T
-    ids = torch.arange(coarse.n, device=s.device, dtype=torch.int32).expand(s.shape[0], -1)
-    return (ref._keys(s, ids) ^ topk_score._SIGN).contiguous()
+    from repro_torch.kernels import topk_score
+    qc = coarse._dequeries(qf[:, :coarse.dim].contiguous()).contiguous()
+    got = {}
+    topk_score.topk_score_cuda(coarse.vectors, qc, k=nk,
+                               on_lists=lambda g0, c, pack: got.update(counts=c, pack=pack))
+    counts = got["counts"]
+    return ((got["pack"](), counts.to(device=qc.device, dtype=torch.int32)),
+            listed_stats(counts, coarse.n, n_ctas(coarse.n, qc.shape[0])))
 
 
 def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
@@ -2426,9 +2632,14 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
             want = topk_score.topk_score_plain(coarse.vectors, qc, k=kk)
             err, eq, near = compare_topk(*want, *got, name)
             mc = coarse.dim
+            (keys, counts), stats = coarse_lists(coarse, qf, kk)
+            select_ms = cuda_ms(lambda: topk_score.topk_select_cuda(keys, kk, counts=counts),
+                                reps=10)
+            del keys
             rows[name] = dict(
                 shape=[n, mc, BATCH, kk], store="int8", max_abs_err=err, ids_equal=eq,
-                near_ties=near, launches_per_call=per_call,
+                near_ties=near, launches_per_call=per_call, **stats, select_ms=select_ms,
+                select_bound_ms=bound(8 * int(counts.sum()) + 8 * BATCH * kk, 0)[0],
                 ms=cuda_ms(lambda: topk_score.topk_score_cuda(coarse.vectors, qc, k=kk),
                            reps=10),
                 plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(coarse.vectors, qc,
@@ -2472,12 +2683,16 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
         got = pc._search_qf(qc, CASCADE_N * K)
         want = topk_score.topk_score_paged_plain(*pargs, **pkw)
         err, eq, near = compare_topk(*want, *got, "cascade paged coarse")
+        listed = {}
+        topk_score.topk_score_paged_cuda(*pargs, **pkw,
+                                         on_lists=lambda g0, c, pack: listed.update(counts=c))
         dense_s = coarse64.search(qc, k=CASCADE_N * K)
         if not same(got, dense_s):
             raise AssertionError("cascade: paged coarse scan not bitwise the dense one")
         rows["cascade_paged_coarse"] = dict(
             shape=[npg, PAGE_ROWS, CASCADE_M, BATCH, CASCADE_N * K], store="int8",
             max_abs_err=err, ids_equal=eq, near_ties=near, pages=npg,
+            **listed_stats(listed["counts"], coarse64.n, n_ctas(npg * PAGE_ROWS, BATCH)),
             ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*pargs, **pkw), reps=10),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(*pargs, **pkw),
                              reps=1),
@@ -2538,14 +2753,15 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
         coarse_of = {CASCADE_M: coarse64, wide_m: cas_wide.coarse}
         for mc, nf in CASCADE_CONFIGS:
             coarse = coarse_of[mc]
-            keys = coarse_keys(coarse, _project_nofold(qb, W, mean))
+            lists, stats = coarse_lists(coarse, _project_nofold(qb, W, mean), nf * K)
             for full_name, full in (("f32", index_f32), ("int8", index_int8)):
                 cas = CascadeIndex(coarse=coarse, full=full, n_factor=nf)
                 rec = recall10(cas)
-                split = cascade_split(cas, qb, W, mean, K, keys)
+                split = cascade_split(cas, qb, W, mean, K, lists)
                 emit("cascade_point", config=f"{mc}:{nf}", full=full_name, recall10=rec,
-                     **split, single_f32_ms=single["f32_ms"], single_int8_ms=single["int8_ms"])
-            del keys
+                     **split, **stats, single_f32_ms=single["f32_ms"],
+                     single_int8_ms=single["int8_ms"])
+            del lists
         summary["single"] = single
     del cas_wide
     gc.collect()
@@ -3379,22 +3595,31 @@ def phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows):
                   for k in PAGED_RANGE_KS for how in ("host", "device")}
             plain_ms = cuda_ms(lambda: topk_score.topk_score_paged_plain(
                 *args, lo_t, hi_t, q, k=K, **kw), reps=2)
+            listed = {}
+            paged(*args, lo_t, hi_t, q, k=SHORTLIST_K, **kw,
+                  on_lists=lambda g0, c, pack: listed.update(counts=c))
+            stats = listed_stats(listed["counts"], index.n, n_ctas(cap * R, BATCH))
             matmul_topk = (cuda_ms(lambda: torch.topk(q @ index.vectors.T, K), reps=3)
                            if name == "f32" else None)
 
-        # a graph captured at [0, npages), replayed as the index grows in place
+        # a graph a k captured at [0, npages), replayed as the index grows
+        # in place (k 100: the list mode's counts and the select on the card)
         with counters.uncounted():
-            for _ in range(2):
-                paged(*args, lo_t, hi_t, q, k=K, **kw)
+            for kk in PAGED_RANGE_KS:
+                for _ in range(2):
+                    paged(*args, lo_t, hi_t, q, k=kk, **kw)
         torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            gs, gi = paged(*args, lo_t, hi_t, q, k=K, **kw)
-        graph.replay()
-        with counters.uncounted():
-            if not same((gs, gi), paged(*args, 0, npages, q, k=K, **kw)):
-                raise AssertionError(f"paged range (a): {name}: the graph differs from eager "
-                                     f"before growing")
+        graphs = {}
+        for kk in PAGED_RANGE_KS:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                graphs[kk] = (graph, paged(*args, lo_t, hi_t, q, k=kk, **kw))
+            graph.replay()
+            with counters.uncounted():
+                if not same(graphs[kk][1], paged(*args, 0, npages, q, k=kk, **kw)):
+                    raise AssertionError(f"paged range (a): {name} k={kk}: the graph differs "
+                                         f"from eager before growing")
+        graph, (gs, gi) = graphs[K]
         grown, used, reached = npages, 0, []
         pool_pages = st.pool.shape[0]
         # the pages holding the queries' best rows (a base page's slot is its
@@ -3416,32 +3641,37 @@ def phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows):
             st.page_offset[slots] = (index.n + (slots - npages) * R).to(torch.int32)
             used, grown = used + add, grown + add
             hi_t.fill_(grown)
-            graph.replay()
-            with counters.uncounted():
-                want = paged(*args, 0, grown, q, k=K, **kw)
-            torch.cuda.synchronize()
-            if not same((gs, gi), want):
-                raise AssertionError(f"paged range (a): {name}: the graph replayed at [0, "
-                                     f"{grown}) differs from eager")
+            for kk, (gk, out) in graphs.items():
+                gk.replay()
+                with counters.uncounted():
+                    want = paged(*args, 0, grown, q, k=kk, **kw)
+                torch.cuda.synchronize()
+                if not same(out, want):
+                    raise AssertionError(f"paged range (a): {name} k={kk}: the graph replayed "
+                                         f"at [0, {grown}) differs from eager")
             reached.append(int((gi >= index.n).sum()))
         with counters.uncounted():
             replay_ms = cuda_ms(graph.replay, reps=PAGED_RANGE_TIMED)
+            replay_k100_ms = cuda_ms(graphs[SHORTLIST_K][0].replay, reps=PAGED_RANGE_TIMED)
             eager_ms = cuda_ms(lambda: paged(*args, lo_t, hi_t, q, k=K, **kw),
                                reps=PAGED_RANGE_TIMED)
-        del graph, gs, gi, want
+        del graph, graphs, gs, gi, want
         item = st.pool.element_size()
         scale_bytes = 0 if st.page_scale is None else 4 * npages * m
         rows[f"topk_score_paged_{name}_dev_range"] = dict(
             shape=[index.n, m, BATCH, K], page_rows=R, pages=npages, capacity=cap, store=name,
             max_abs_err=err, ids_equal=eq, near_ties=near, cuda_launches_per_call=per_call,
             ms=ms[f"device_k{K}"], host_ms=ms[f"host_k{K}"], replay_ms=replay_ms,
+            device_k100_ms=ms[f"device_k{SHORTLIST_K}"], host_k100_ms=ms[f"host_k{SHORTLIST_K}"],
+            **stats,
             plain_ms=plain_ms, library_ms=None, matmul_topk_ms=matmul_topk,
             bound=bound(item * npages * R * m + 12 * npages + scale_bytes
                         + 4 * BATCH * m + 8 * BATCH * K, 2 * BATCH * npages * R * m))
         emit("paged_range", index=name, pages=npages, capacity=cap, bitwise_checks=checks,
              sync_free=True, graph_replays=[npages + sum(PAGED_RANGE_GROW[:i + 1])
                                             for i in range(len(PAGED_RANGE_GROW))],
-             grown_ids_in_top_k=reached, replay_ms=replay_ms, eager_device_ms=eager_ms,
+             grown_ids_in_top_k=reached, replay_ms=replay_ms, replay_k100_ms=replay_k100_ms,
+             eager_device_ms=eager_ms, **{f"k100_{key}": v for key, v in stats.items()},
              **{f"{key}_ms": v for key, v in ms.items()},
              seconds=time.perf_counter() - t_store)
         del pg, st, args, kw
@@ -4623,7 +4853,9 @@ def topk_row(D, q, k, *, n_valid=None, reps=10):
     import torch
     from repro_torch.kernels import topk_score
     want = topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid)
-    got = topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid)
+    listed = {}
+    got = topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid,
+                                     on_lists=lambda g0, c, pack: listed.update(counts=c))
     n, m = D.shape
     nv = n if n_valid is None else max(0, min(int(n_valid), n))
     err, eq, near = compare_topk(*want, *got, f"recsys top-k {tuple(D.shape)} {D.dtype}")
@@ -4631,6 +4863,7 @@ def topk_row(D, q, k, *, n_valid=None, reps=10):
     return dict(
         shape=[n, m, B, k], store={1: "int8", 4: "f32"}[item], n_valid=nv,
         max_abs_err=err, ids_equal=eq, near_ties=near,
+        **({} if not listed else listed_stats(listed["counts"], nv, n_ctas(n, B))),
         ms=cuda_ms(lambda: topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid), reps=reps),
         plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid),
                          reps=3),
@@ -5749,7 +5982,10 @@ def run_phases(args, smi):
                                 "cuda_launches_per_call", "page_rows", "pages",
                                 "ranges", "range_sum_bitwise", "n_valid",
                                 "enqueue_ms", "library_call", "U_live", "path_bitwise",
-                                "capacity", "host_ms", "replay_ms")})
+                                "capacity", "host_ms", "replay_ms", "listed_mean",
+                                "listed_max", "listed_share", "written_bytes", "listed_keys",
+                                "select_ms", "select_bound_ms", "host_k100_ms",
+                                "device_k100_ms")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -5778,6 +6014,11 @@ def run_phases(args, smi):
         # launches are its runs on the main path (protocol k = 1000, the int8
         # shortlist at k = 100)
         entry("topk_select", rows["topk_select"], topk[1], topk[0], "topk_select"),
+        # the select over what the f32 k = 100 search listed, each query's
+        # keys with its count: select_fused_kernel alone (one launch a
+        # batch); launches as the row above
+        entry("topk_select_listed", rows["topk_select_listed"], topk[1], topk[0],
+              "topk_select"),
         entry("topk_score_row_ids", rows["topk_score_row_ids"], topk[1], topk[0],
               "topk_score_row_ids"),
         # launches of the paged kernel are counted over phase 7; the ids_pool

@@ -25,19 +25,27 @@
 //      the chunks through a cp.async ring and scores each with a
 //      register-blocked fp32 product. Then, for k <= SMALL_K, each warp
 //      selects per query the chunk's top k into that chunk's candidate
-//      list, against a running threshold; for larger k it lists every key.
+//      list, against a running threshold; for larger k (list mode) it
+//      lists the chunk's keys at or above a running per-query threshold,
+//      compacted, into the CTA's own segment of the query's row of keys,
+//      and at the end writes how many it listed there.
 //   2. k <= SMALL_K: topk_merge_kernel, one warp per (group of lists,
 //      query) keeps the top k of the group; launched again until one list
 //      remains, and the last launch writes scores and ids.
-//   3. k > SMALL_K: a radix select over each query's keys (radix_hist /
-//      radix_pick, 11-bit digits, most significant first), a gather of the
-//      keys at or above the threshold, a bitonic sort of those, and a
-//      write of scores and ids. Scratch is one key per row, so any k runs.
+//   3. k > SMALL_K: a select over each query's listed keys, walking only
+//      the counted keys of each segment. select_fused_kernel, one CTA per
+//      query, does the whole select (radix digits on a shared-memory
+//      histogram, gather, bitonic sort, write) where a query's keys fit its
+//      budget; else the multi-CTA radix select (radix_hist / radix_pick,
+//      11-bit digits, most significant first), a gather of the keys at or
+//      above the threshold, a bitonic sort of those and a write. Scratch
+//      keeps room for every row's key, so any k runs whatever is listed.
 // Every candidate is a 64-bit key that orders (score desc, id asc), so the
 // result does not depend on the order chunks are visited, merged or
-// selected: the lowest-id tie-break, the masks and the (-inf, -1) pads all
-// follow from that one order. The TPU kernel's block-skip guard and
-// lane-fold select are not carried.
+// selected, nor on which keys below the final k-th a threshold skipped: the
+// lowest-id tie-break, the masks and the (-inf, -1) pads all follow from
+// that one order. The TPU kernel's block-skip guard and lane-fold select
+// are not carried; the thresholds play the part of its running k-th best.
 #include <type_traits>
 
 #include "common.cuh"
@@ -59,17 +67,28 @@ constexpr unsigned FULL = 0xffffffffu;
 // (-inf, id -1): beats every real row at -inf, loses to every finite score.
 constexpr uint64_t PAD_KEY = (static_cast<uint64_t>(0x007FFFFFu) << 32) | 0x80000000u;
 
-__device__ __forceinline__ uint64_t encode_key(float s, int id) {
+// A key's high word: the score's bits made monotone as unsigned.
+__device__ __forceinline__ unsigned key_hi(float s) {
   if (s == 0.0f) s = 0.0f;      // -0 and +0 tie, as they do in the reference
   const unsigned bits = __float_as_uint(s);
-  const unsigned hi = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+// A key from its high word and its id: the lower id ranks higher.
+__device__ __forceinline__ uint64_t make_key(unsigned hi, int id) {
   const unsigned lo = static_cast<unsigned>(0x7FFFFFFFLL - static_cast<long long>(id));
   return (static_cast<uint64_t>(hi) << 32) | lo;
 }
 
-__device__ __forceinline__ float key_score(uint64_t key) {
-  const unsigned hi = static_cast<unsigned>(key >> 32);
+__device__ __forceinline__ uint64_t encode_key(float s, int id) { return make_key(key_hi(s), id); }
+
+// The score of a key's high word (key_hi's inverse).
+__device__ __forceinline__ float hi_score(unsigned hi) {
   return __uint_as_float((hi & 0x80000000u) ? (hi & 0x7FFFFFFFu) : ~hi);
+}
+
+__device__ __forceinline__ float key_score(uint64_t key) {
+  return hi_score(static_cast<unsigned>(key >> 32));
 }
 
 __device__ __forceinline__ int key_id(uint64_t key) {
@@ -80,6 +99,12 @@ __device__ __forceinline__ int key_id(uint64_t key) {
 // key (0, below every key): written as (-inf, -1).
 __device__ __forceinline__ bool key_is_pad(uint64_t key) {
   return static_cast<unsigned>(key >> 32) <= 0x007FFFFFu;
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
 }
 
 __device__ __forceinline__ uint64_t warp_max(uint64_t v) {
@@ -279,13 +304,19 @@ __host__ __device__ __forceinline__ int panel_width(int m) {
   return mp < KP_MAX ? mp : KP_MAX;
 }
 
+// List mode's lane lists: LANE_J high words' top halves per lane and query
+// slot (4 a warp), in shared memory (registers would spill in the paged
+// f32 kernels).
+constexpr int LANE_J = 5;              // lane lists: k <= 32 LANE_J
+constexpr int LANE_BYTES = (CT / 32) * 4 * LANE_J * 32 * 2;
+
 // Dynamic shared memory of the chunk kernel: the query tile, half the
 // tile's scores and the ring, side by side, so the ring keeps streaming
-// while a chunk's keys are selected or listed.
-template <typename T>
+// while a chunk's keys are selected or listed; then list mode's lane lists.
+template <typename T, bool LIST>
 size_t chunk_smem(int m) {
   return static_cast<size_t>(CQ) * (panel_width(m) + 4) * 4 + HQ * SLD * 4 +
-         Chunk<T>::RING_BYTES;
+         Chunk<T>::RING_BYTES + (LIST ? LANE_BYTES : 0);
 }
 
 // Float offset of 16-byte piece c of row r in an f32 slab.
@@ -438,17 +469,16 @@ __device__ __forceinline__ void stage_scores(const float (&acc)[8][8], float* Ss
       Ss[(4 * i + qg - HQ * h) * SLD + warp * 64 + 8 * j + rg] = acc[i][j];
 }
 
-// The chunk's keys per query, from the scores in acc; then acc is zeroed.
-// Scores go through shared memory half a tile at a time; warp w takes
-// queries 16h + 2w + {0, 1} of half h, so it keeps the same four queries
-// across chunks. LIST: every row's key (masked rows as PAD_KEY) goes to
-// the query's row of keys at chunk * CR. Else (k <= SMALL_K) the chunk's
-// top k goes to its candidate list, against a running threshold: run[s]
-// holds, lane j, the j-th best key this CTA listed for query slot s, and a
-// key below lane k - 1's cannot reach the final top k (k keys above it are
-// already listed), so it is listed as a pad. The final result does not
-// change; a chunk's select shrinks to the keys that still matter.
-template <bool LIST, typename Src>
+// The chunk's top k per query (k <= SMALL_K), from the scores in acc; then
+// acc is zeroed. Scores go through shared memory half a tile at a time;
+// warp w takes queries 16h + 2w + {0, 1} of half h, so it keeps the same
+// four queries across chunks. The chunk's top k goes to its candidate list,
+// against a running threshold: run[s] holds, lane j, the j-th best key this
+// CTA listed for query slot s, and a key below lane k - 1's cannot reach the
+// final top k (k keys above it are already listed), so it is listed as a
+// pad. The final result does not change; a chunk's select shrinks to the
+// keys that still matter.
+template <typename Src>
 __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64_t (&run)[4],
                                            const Src& src, int B, int q0, int k, int chunk,
                                            int64_t ldq, uint64_t* __restrict__ cand, int tid) {
@@ -468,36 +498,29 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
       const int q = HQ * h + 2 * warp + u;
       if (q0 + q >= B) break;
       const float* srow = Ss + (2 * warp + u) * SLD;
-      if constexpr (LIST) {
-        uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * CR;
+      uint64_t& rs = run[2 * h + u];
+      uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k;
+      const uint64_t th = __shfl_sync(FULL, rs, k - 1);
+      // a score below the threshold's cannot make a key at or above it
+      const float ths = th > PAD_KEY ? key_score(th) : __int_as_float(0xff800000);
+      uint64_t keys[CR / 32];
 #pragma unroll
-        for (int t = 0; t < CR / 32; ++t)
-          dst[lane + 32 * t] = ok[t] ? encode_key(srow[lane + 32 * t], ids[t]) : PAD_KEY;
-      } else {
-        uint64_t& rs = run[2 * h + u];
-        uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k;
-        const uint64_t th = __shfl_sync(FULL, rs, k - 1);
-        // a score below the threshold's cannot make a key at or above it
-        const float ths = th > PAD_KEY ? key_score(th) : __int_as_float(0xff800000);
-        uint64_t keys[CR / 32];
-#pragma unroll
-        for (int t = 0; t < CR / 32; ++t) {
-          const float sc = srow[lane + 32 * t];
-          uint64_t key = PAD_KEY;
-          if (ok[t] && !(sc < ths)) {
-            key = encode_key(sc, ids[t]);
-            if (key < th) key = PAD_KEY;
-          }
-          keys[t] = key;
+      for (int t = 0; t < CR / 32; ++t) {
+        const float sc = srow[lane + 32 * t];
+        uint64_t key = PAD_KEY;
+        if (ok[t] && !(sc < ths)) {
+          key = encode_key(sc, ids[t]);
+          if (key < th) key = PAD_KEY;
         }
-        // each listed key enters the running list at its rank
-        warp_extract<CR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; },
-                              [&](uint64_t best) {
-                                const int pos = __popc(__ballot_sync(FULL, rs > best));
-                                const uint64_t prev = __shfl_up_sync(FULL, rs, 1);
-                                rs = lane < pos ? rs : (lane == pos ? best : prev);
-                              });
+        keys[t] = key;
       }
+      // each listed key enters the running list at its rank
+      warp_extract<CR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; },
+                            [&](uint64_t best) {
+                              const int pos = __popc(__ballot_sync(FULL, rs > best));
+                              const uint64_t prev = __shfl_up_sync(FULL, rs, 1);
+                              rs = lane < pos ? rs : (lane == pos ? best : prev);
+                            });
     }
   }
 #pragma unroll
@@ -506,12 +529,186 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
 
+// List mode (k > SMALL_K). tau starts at the least high word of a real key
+// (-FLT_MAX's): keys at or below PAD_KEY (masked rows, -inf scores) are
+// written as pads whatever their rank, so they need not be listed, and the
+// select's empty slots are pads alike.
+constexpr unsigned REAL_HI = 0x00800000u;
+
+// Per query slot s of the warp (queries 16 (s / 2) + 2 w + s % 2), kept in
+// registers across the CTA's chunks: tau[s], the high word at or above
+// which a key is listed, and cnt[s], the keys listed in the CTA's segment.
+// In shared memory, lanes[(s LANE_J + i) 32 + lane] of the warp's block:
+// each lane's LANE_J largest top halves (high word >> 16) among rows it
+// listed (rows lane + 32 t of each chunk), descending; a lane's j-th of
+// them, shifted back, has j of its listed keys at or above it.
+struct ListRun {
+  unsigned tau[4];
+  int cnt[4];
+  unsigned short* lanes;
+};
+
+// The largest t with at least k of the warp's hi words >= t: the k-th
+// largest of them, one bit at a time from the top.
+__device__ __forceinline__ unsigned kth_hi(const unsigned (&hi)[CR / 32], int k) {
+  unsigned t = 0;
+#pragma unroll 1
+  for (int b = 31; b >= 0; --b) {
+    const unsigned c = t | (1u << b);
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < CR / 32; ++i) n += hi[i] >= c;
+    if (static_cast<int>(__reduce_add_sync(FULL, static_cast<unsigned>(n))) >= k) t = c;
+  }
+  return t;
+}
+
+// Insert x into the lane's descending list b (stride 32), dropping its least.
+__device__ __forceinline__ void lane_insert(unsigned short* b, unsigned x) {
+  unsigned v[LANE_J];
+#pragma unroll
+  for (int i = 0; i < LANE_J; ++i) v[i] = b[32 * i];
+#pragma unroll
+  for (int i = LANE_J - 1; i > 0; --i) v[i] = max(v[i], min(x, v[i - 1]));
+  v[0] = max(v[0], x);
+#pragma unroll
+  for (int i = 0; i < LANE_J; ++i) b[32 * i] = static_cast<unsigned short>(v[i]);
+}
+
+// Without lane lists (k > 32 LANE_J), lists above this many keys a warp
+// take the chunk's rows in (t, lane) order, one ballot a row group, so the
+// warp's stores coalesce; else each lane walks its own listed rows (after
+// the lists of k <= 32 LANE_J, about k a chunk and fewer later) and fills
+// its lane list.
+constexpr int DENSE_LIST = 4 * 32;
+
+// The chunk's keys per query at or above the slot's threshold tau, listed
+// in the CTA's segment of the query's row (seg0 keys in, lr.cnt[s]
+// filled), compacted; then acc is zeroed. A score is tested against tau as
+// a float (!(score < hi_score(tau)) is key_hi(score) >= tau; a NaN lists),
+// and only the listed rows build keys. tau rises
+//   - before listing, to the chunk's k-th largest high word (k <= CR),
+//     searched only when more than k of its keys pass tau (the first
+//     chunks);
+//   - after listing, for the next chunks, to min over lanes of the j-th
+//     best in the lane's list, shifted back (j = ceil(k / 32), k <= 32
+//     LANE_J): every lane listed j real keys at or above it, so 32 j >= k
+//     in all. A list may hold any subset of its lane's listed keys (a key
+//     below tau cannot raise a lane's j-th above tau, so only listed keys
+//     enter), and a top half keeps the bound a lower one.
+// For k > CR neither applies and every real key is listed: no threshold
+// as cheap as these was found for it.
+// Invariant: this CTA scored at least k real keys (equal copies counted,
+// pads and masked rows not) whose high word is at or above tau, and listed
+// every one of them (tau only rises, and a key is listed against a tau no
+// higher than any later one). A key below tau has k listed keys above it,
+// so it cannot reach the final top k; keys equal to tau in the high word
+// are listed. Listing more than that is harmless: the select keeps the
+// top k of whatever is listed.
+template <typename Src>
+__device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRun& lr,
+                                           const Src& src, int B, int q0, int k, int chunk,
+                                           int64_t ldq, int64_t seg0,
+                                           uint64_t* __restrict__ cand, int tid) {
+  const int warp = tid / 32, lane = tid % 32, qg = lane / 8, rg = lane % 8;
+  const unsigned below = lanemask_lt();
+  const int j = (k + 31) / 32;
+  int ids[CR / 32];                    // the lane's rows lane + 32 t
+  unsigned okm = 0;                    // those that may list
+#pragma unroll
+  for (int t = 0; t < CR / 32; ++t) {
+    bool o;
+    src.id(chunk, lane + 32 * t, ids[t], o);
+    okm |= static_cast<unsigned>(o) << t;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (h) __syncthreads();            // half 0's scores are read
+    stage_scores(acc, Ss, h, warp, qg, rg);
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int s = 2 * h + u;
+      const int q = HQ * h + 2 * warp + u;
+      if (q0 + q >= B) break;
+      const float* srow = Ss + (2 * warp + u) * SLD;
+      unsigned tau = lr.tau[s];
+      const float tf = hi_score(tau);
+      unsigned tm = 0;                 // the lane's rows to list
+#pragma unroll
+      for (int t = 0; t < CR / 32; ++t)
+        tm |= static_cast<unsigned>(((okm >> t) & 1u) && !(srow[lane + 32 * t] < tf)) << t;
+      int total = __reduce_add_sync(FULL, __popc(tm));
+      if (total == 0) continue;
+      if (k <= CR && total > k) {
+        // k of the chunk's keys at or above tau: its k-th is, and the
+        // rows below it need not list
+        unsigned hi[CR / 32];
+#pragma unroll
+        for (int t = 0; t < CR / 32; ++t)
+          hi[t] = (tm >> t) & 1u ? key_hi(srow[lane + 32 * t]) : 0u;
+        tau = max(tau, kth_hi(hi, k));
+#pragma unroll
+        for (int t = 0; t < CR / 32; ++t)
+          if (hi[t] < tau) tm &= ~(1u << t);
+        total = __reduce_add_sync(FULL, __popc(tm));
+      }
+      unsigned short* b = lr.lanes + s * LANE_J * 32 + lane;
+      const bool lanes = j <= LANE_J;
+      uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + seg0 + lr.cnt[s];
+      if (!lanes && total > DENSE_LIST) {
+        int c = 0;
+#pragma unroll
+        for (int t = 0; t < CR / 32; ++t) {
+          const bool take = (tm >> t) & 1u;
+          const unsigned mask = __ballot_sync(FULL, take);
+          if (take)
+            dst[c + __popc(mask & below)] = make_key(key_hi(srow[lane + 32 * t]), ids[t]);
+          c += __popc(mask);
+        }
+      } else {
+        // each lane its own rows, after the rows of the lanes below it
+        const int nt = __popc(tm);
+        int pos = nt;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int v = __shfl_up_sync(FULL, pos, off);
+          if (lane >= off) pos += v;
+        }
+        pos -= nt;
+        for (unsigned m = tm; m; m &= m - 1) {
+          const int r = lane + 32 * (__ffs(m) - 1);
+          int id;
+          bool o;
+          src.id(chunk, r, id, o);
+          const unsigned x = key_hi(srow[r]);
+          dst[pos++] = make_key(x, id);
+          if (lanes && (x >> 16) > b[32 * (LANE_J - 1)]) lane_insert(b, x >> 16);
+        }
+      }
+      lr.cnt[s] += total;
+      if (lanes)                       // for the next chunks
+        tau = max(tau, __reduce_min_sync(FULL, static_cast<unsigned>(b[32 * (j - 1)])) << 16);
+      lr.tau[s] = tau;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
+}
+
 // Persistent: CTA (x, y) walks chunks x, x + gridDim.x, ... of the
 // 32-query tile y, reading rows through the row source, up to the
-// source's live chunks; its chunks past those (a paged range read on the
-// device that ends before the capacity the call was planned for) get pads
-// in place of their keys, so the merge and the select read what a walk
-// planned for that range would have left.
+// source's live chunks. For k <= SMALL_K its chunks past those (a paged
+// range read on the device that ends before the capacity the call was
+// planned for) get pads in place of their lists, so the merge reads what a
+// walk planned for that range would have left. In list mode the CTA owns
+// one segment of each query's row of keys, room for every row of the
+// chunks it was planned for: segment x holds (x qn + min(x, rn)) CR keys
+// before it, qn and rn the quotient and remainder of nchunks / gridDim.x;
+// it lists there and writes counts[query][x], so chunks past the live ones
+// write nothing.
 //
 // What bounds it on an H100: an f32 index is about even between bytes (n m
 // 4 over 3.35 TB/s) and fp32 FMAs (2 B n m over 67 TFLOP/s); int8 moves a
@@ -525,7 +722,8 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
 // once per element into one of two f32 slabs (int8 by a byte permute and
 // an exact add, not the conversion pipe), with one barrier per slab and
 // later slabs in flight, also across a chunk's select. The select keeps a
-// running top k per query, so after the first chunks it lists few keys.
+// running top k per query (list mode: a running threshold), so after the
+// first chunks it lists few keys.
 // Rows land as they lie in memory. A warp owns 32 queries x 64 rows, a
 // thread 8 queries x 8 rows with lanes 4 x 8, reading both operands along
 // m in 16-byte pieces: a quarter-warp reads one query piece (2 wavefronts
@@ -550,7 +748,7 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
 template <typename T, bool VEC, bool LIST, typename Src>
 __global__ void __launch_bounds__(CT, 1)
 topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
-                  int64_t ldq, uint64_t* __restrict__ cand) {
+                  int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
   using C = Chunk<T>;
   const Src src = src_arg.bound();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -582,6 +780,19 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   uint64_t run[4] = {0, 0, 0, 0};     // chunk_keys' thresholds
+  ListRun lr;                         // chunk_list's
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    lr.tau[s] = REAL_HI;
+    lr.cnt[s] = 0;
+  }
+  if constexpr (LIST) {               // each lane's own entries: no barrier
+    lr.lanes = reinterpret_cast<unsigned short*>(ring + C::RING_BYTES) + warp * 4 * LANE_J * 32;
+#pragma unroll
+    for (int i = 0; i < 4 * LANE_J; ++i) lr.lanes[32 * i + lane] = 0;
+  }
+  const int qn = nchunks / gx, rn = nchunks % gx;
+  const int64_t seg0 = (static_cast<int64_t>(bx) * qn + (bx < rn ? bx : rn)) * CR;
   const float* srow = nullptr;        // the warp's scale row (paged, SCALED)
   int2 fs = make_int2(-1, Src::SCALED ? 0 : 1);   // the chunk's fold row, and whether Qs
                                                 // holds it (dense: nothing to fold)
@@ -627,18 +838,30 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
     }
     slab_fma<Src::SCALED, VEC>(Qs + (slab % ppanel) * CK, qld, Ds, acc, warp, qg, rg,
                                fs.x < 0, srow, slab * CK, m);
-    if (slab == nslab - 1)
-      chunk_keys<LIST>(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
+    if (slab == nslab - 1) {
+      if constexpr (LIST)
+        chunk_list(acc, Ss, lr, src, B, q0, k, chunk_of(t), ldq, seg0, cand, tid);
+      else
+        chunk_keys(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
+    }
   }
   cp_async_wait<0>();
-  const int per = LIST ? CR : k;               // keys a chunk lists per query
-  for (int c = bx + mine * gx; c < nchunks; c += gx)
-    for (int e = tid; e < CQ * per; e += CT) {
-      const int q = e / per;
-      if (q0 + q < B)
-        cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * per + e % per] =
-            PAD_KEY;
-    }
+  if constexpr (LIST) {
+    if (lane == 0)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int q = HQ * (s / 2) + 2 * warp + s % 2;
+        if (q0 + q < B) counts[static_cast<int64_t>(q0 + q) * gx + bx] = lr.cnt[s];
+      }
+  } else {
+    for (int c = bx + mine * gx; c < nchunks; c += gx)
+      for (int e = tid; e < CQ * k; e += CT) {
+        const int q = e / k;
+        if (q0 + q < B)
+          cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * k + e % k] =
+              PAD_KEY;
+      }
+  }
 }
 
 // One warp per (group of G lists of k keys, query) keeps the group's top k
@@ -799,94 +1022,94 @@ __global__ void paged_fold_kernel(const Unit* __restrict__ units, const float* _
 }
 
 // ---------------------------------------------------------------------------
-// k > SMALL_K: radix select over every key of a query, gather, sort, write
+// k > SMALL_K: select over each query's listed keys, gather, sort, write
 // ---------------------------------------------------------------------------
 //
 // Replaces the running top-k of topk_score_pallas / topk_score_paged_pallas
-// for large k. A query's L keys (one per row, the carry's k after them) sit
-// in one row of `keys`. Passes take 11-bit digits from the top (shifts 53,
-// 42, 31, 20, 9, then 9 bits at 0): radix_hist counts, per query, the
-// digit of every key whose higher bits equal the prefix found so far;
-// radix_pick finds the digit holding the k-th largest key and what is left
-// to take. A query is done when that digit's bin holds at most SLACK keys
-// (then every key at or above the bin is taken: at most k + SLACK) or at
-// the last digit (then the k-th key T itself: all keys above T, and as
-// many copies of T as are still needed). Keys are unique except equal
-// copies (PAD_KEY for masked rows, or an id repeated in row_ids /
-// ids_pool), so the taken keys are exactly the top k (plus at most SLACK
-// below it), whatever duplicates there are; duplicate copies are
-// interchangeable. Passes after a query is done return at once. Bound:
-// each pass reads the keys once (8 bytes a row), the gather once more; at
-// serving scores two or three passes decide (the top 22-33 bits).
+// for large k. A query's keys sit in one row of `keys` as segments (Segs):
+// one per CTA of the chunk kernel, each with the count of keys it listed,
+// then the carry's k keys; topk_select_keys passes one segment of a row's
+// live count. The select walks only the counted keys: T of them for a
+// query, and k_eff = min(k, T) is taken on the device, so the host reads
+// nothing and a captured CUDA graph replays at any count.
+//
+// Passes take 11-bit digits from the top (shifts 53, 42, 31, 20, 9, then 9
+// bits at 0): a histogram counts, per query, the digit of every key whose
+// higher bits equal the prefix found so far; a pick finds the digit holding
+// the k-th largest key and what is left to take. A query is done when the
+// keys at or above that digit's bin fit the gather's room (then every key at
+// or above the bin is taken) or at the last digit (then the k-th key T
+// itself: all keys above T, and as many copies of T as are still needed).
+// Keys are unique except equal copies (an id repeated in row_ids /
+// ids_pool, or pads), so the taken keys are exactly the top k (plus keys of
+// the last bin below it), whatever duplicates there are; duplicate copies
+// are interchangeable. A sort of the taken keys and a write of the first k
+// follow; slots past T are pads.
+//
+// select_fused_kernel runs first, one CTA per query: where T <= FCAP and
+// k_eff <= FN it does all of that in shared memory (a 2,048-bin histogram,
+// the gather into FN keys, a bitonic sort of the next power of two above
+// the taken keys) and writes the query's result, one launch a batch. Other
+// queries it leaves to the multi-CTA path (radix_hist / radix_pick,
+// radix_gather into N = 2^ceil(log2(k_eff + SLACK)) keys a query, the
+// bitonic kernels and select_write), which the host launches only when
+// the planned keys a query (every row listed) could pass FCAP or k could
+// pass FN; those kernels skip the queries the fused kernel finished. Bound:
+// each digit pass reads the listed keys once (8 bytes each), the gather
+// once more; at serving scores two or three passes decide.
 constexpr int RBITS = 11;
 constexpr int RBINS = 1 << RBITS;
 constexpr int RT = 256;          // threads of the histogram and gather kernels
-constexpr int SLACK = 2048;      // keys of the last bin taken whole
+constexpr int SLACK = 2048;      // keys of the last bin taken whole (multi-CTA path)
 constexpr int NPASS = 6;
-constexpr int PASS_SHIFT[NPASS] = {53, 42, 31, 20, 9, 0};
-constexpr int PASS_WIDTH[NPASS] = {11, 11, 11, 11, 11, 9};
 constexpr int SORT_TILE = 8192;  // keys a CTA sorts in shared memory (64 KB)
 constexpr int ST = 1024;         // threads of the sort kernels
+constexpr int FT = 1024;         // threads of the fused select
+constexpr int FN = 8192;         // keys it gathers and sorts in shared memory (64 KB)
+constexpr long long FCAP = 1LL << 20;   // listed keys a query above which it leaves the query
+constexpr int MAX_SEG = 1024;    // segments of a query's row (the chunk kernel's CTAs, + 1)
+
+__device__ __forceinline__ int pass_shift(int p) { return p < NPASS - 1 ? 53 - 11 * p : 0; }
+__device__ __forceinline__ int pass_width(int p) { return p < NPASS - 1 ? 11 : 9; }
+
+// A query's keys in row q of `keys` (ld keys a row): segment s < S starts
+// at (s qn + min(s, rn)) unit and holds up to (qn + (s < rn)) unit keys, of
+// which cnt[q S + s] (clamped; every slot when cnt is null) are live; then,
+// with `extra`, one segment of `extra` keys, all live.
+struct Segs {
+  const int* cnt;
+  int64_t ld, unit;
+  int S, qn, rn, extra;
+  __host__ __device__ __forceinline__ int nseg() const { return S + (extra > 0 ? 1 : 0); }
+  __device__ __forceinline__ int64_t start(int s) const {
+    const int x = s < S ? s : S;
+    return (static_cast<int64_t>(x) * qn + (x < rn ? x : rn)) * unit;
+  }
+  __device__ __forceinline__ long long count(int q, int s) const {
+    if (s >= S) return extra;
+    const long long cap = static_cast<long long>(qn + (s < rn ? 1 : 0)) * unit;
+    if (cnt == nullptr) return cap;
+    const long long c = cnt[static_cast<int64_t>(q) * S + s];
+    return c < 0 ? 0 : (c > cap ? cap : c);
+  }
+};
 
 // Per query: `prefix` (once done, the threshold T: keys above it are all
 // taken), `need` (keys still to take at or below the prefix; once done,
 // the copies of T to take), `above` (keys known to be above; once done,
-// the keys above T), `done`.
+// the keys above T), `done` (1: selected, the gather is next; 2: the
+// fused kernel wrote the result).
 struct Sel {
   unsigned long long prefix;
   long long need, above;
   int done, pad;
 };
 
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-__global__ void __launch_bounds__(RT)
-radix_hist_kernel(const uint64_t* __restrict__ keys, int64_t L, int shift, int width,
-                  const Sel* __restrict__ st, unsigned* __restrict__ hist) {
-  __shared__ unsigned h[RBINS];
-  const int q = blockIdx.y;
-  const bool first = shift + width == 64;
-  uint64_t prefix = 0, hmask = 0;
-  if (!first) {
-    if (st[q].done) return;                    // the whole CTA
-    prefix = st[q].prefix;
-    hmask = ~0ull << (shift + width);
-  }
-  const unsigned dmask = (1u << width) - 1;
-  for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT) h[i] = 0;
-  __syncthreads();
-  const uint64_t* row = keys + static_cast<int64_t>(q) * L;
+// One warp: the digit holding the need-th largest key of the histogram hq
+// (RBINS bins), the keys in higher bins and the digit's own count.
+__device__ __forceinline__ void pick_digit(const unsigned* hq, long long need, int& digit,
+                                           long long& above, long long& count) {
   const int lane = threadIdx.x & 31;
-  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * RT; i0 < L;
-       i0 += static_cast<int64_t>(gridDim.x) * RT) {
-    const int64_t i = i0 + threadIdx.x;
-    unsigned d = RBINS;                        // no bin
-    if (i < L) {
-      const uint64_t key = row[i];
-      if ((key & hmask) == prefix) d = static_cast<unsigned>(key >> shift) & dmask;
-    }
-    // lanes of one digit add once: the leading digits of real scores are few
-    const unsigned peers = __match_any_sync(FULL, d);
-    if (d < RBINS && lane == __ffs(peers) - 1) atomicAdd(&h[d], __popc(peers));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT)
-    if (h[i]) atomicAdd(&hist[static_cast<int64_t>(q) * RBINS + i], h[i]);
-}
-
-// One warp per query: the digit holding the need-th largest key at this
-// pass, from the histogram (which it zeroes for the next pass).
-__global__ void __launch_bounds__(32)
-radix_pick_kernel(Sel* __restrict__ st, unsigned* __restrict__ hist, int shift, int first,
-                  long long k_eff) {
-  const int q = blockIdx.x, lane = threadIdx.x;
-  Sel s = first ? Sel{0ull, k_eff, 0, 0, 0} : st[q];
-  if (s.done) return;
-  unsigned* hq = hist + static_cast<int64_t>(q) * RBINS;
   // lane l sums bins [RBINS - 64 (l + 1), RBINS - 64 l): lane 0 the top
   constexpr int SEG = RBINS / 32;
   const int top = RBINS - SEG * lane;
@@ -899,69 +1122,113 @@ radix_pick_kernel(Sel* __restrict__ st, unsigned* __restrict__ hist, int shift, 
     if (lane >= off) incl += o;
   }
   const long long excl = incl - seg;
-  const unsigned owner = __ballot_sync(FULL, excl < s.need && s.need <= incl);
+  const unsigned owner = __ballot_sync(FULL, excl < need && need <= incl);
   const int src = owner ? __ffs(owner) - 1 : 0;   // a lane always holds it
-  int digit = 0;
-  long long above = 0, count = 0;
+  int d = 0;
+  long long ab = 0, c = 0;
   if (lane == src) {
-    above = excl;
+    ab = excl;
     for (int b = top - 1; b >= top - SEG; --b) {
-      const long long c = hq[b];
-      if (above + c >= s.need) { digit = b; count = c; break; }
-      above += c;
+      const long long x = hq[b];
+      if (ab + x >= need) { d = b; c = x; break; }
+      ab += x;
     }
   }
-  digit = __shfl_sync(FULL, digit, src);
-  above = __shfl_sync(FULL, above, src);
-  count = __shfl_sync(FULL, count, src);
-  __syncwarp();
-  for (int b = lane; b < RBINS; b += 32) hq[b] = 0;
-  if (lane == 0) {
-    s.prefix |= static_cast<unsigned long long>(digit) << shift;
-    s.need -= above;
-    s.above += above;
-    if (shift == 0) {
-      s.done = 1;                              // prefix is the k-th key
-    } else if (count <= SLACK && s.prefix != 0) {
-      s.done = 1;                              // take the whole bin
-      s.above += count;
-      s.need = 0;
-      s.prefix -= 1;
+  digit = __shfl_sync(FULL, d, src);
+  above = __shfl_sync(FULL, ab, src);
+  count = __shfl_sync(FULL, c, src);
+}
+
+// The state after a digit of pass `shift`: the prefix gains the digit; done
+// at the last digit, or when the keys at or above the bin (room: those the
+// gather may take) all fit, then taken whole (T is one below the bin).
+__device__ __forceinline__ Sel sel_step(Sel s, int digit, long long above, long long count,
+                                        int shift, long long room) {
+  s.prefix |= static_cast<unsigned long long>(digit) << shift;
+  s.need -= above;
+  s.above += above;
+  if (shift == 0) {
+    s.done = 1;                                // prefix is the k-th key
+  } else if (s.above + count <= room && s.prefix != 0) {
+    s.done = 1;                                // take the whole bin
+    s.above += count;
+    s.need = 0;
+    s.prefix -= 1;
+  }
+  return s;
+}
+
+// The live keys of query q as work items for a team of NT threads (a
+// warp or a block): item (s, x) is slice x of nslices of segment s; team
+// `team` of nteams takes items team, team + nteams, ... and calls
+// f(key, live) for U keys at a time, all U loads issued before any use.
+// Loop bounds are uniform across a team, so a warp's lanes stay together.
+constexpr int U_KEYS = 4;
+template <int NT, typename F>
+__device__ __forceinline__ void team_keys(const uint64_t* row, const Segs& sg, int q,
+                                          const long long* segc, int team, int nteams,
+                                          int nslices, int t, F f) {
+  const long long items = static_cast<long long>(sg.nseg()) * nslices;
+  for (long long it = team; it < items; it += nteams) {
+    const int s = static_cast<int>(it / nslices), x = static_cast<int>(it % nslices);
+    const long long c = segc != nullptr ? segc[s] : sg.count(q, s);
+    const uint64_t* seg = row + sg.start(s);
+    const long long step = static_cast<long long>(nslices) * NT;
+    for (long long i0 = static_cast<long long>(x) * NT; i0 < c; i0 += step * U_KEYS) {
+      uint64_t key[U_KEYS];
+#pragma unroll
+      for (int u = 0; u < U_KEYS; ++u) {
+        const long long i = i0 + u * step + t;
+        key[u] = i < c ? seg[i] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < U_KEYS; ++u) f(key[u], i0 + u * step + t < c);
     }
-    st[q] = s;
   }
 }
 
-// Keys above T to the front of the query's row of `out` (N slots), and
-// `need` copies of T after them; warp-aggregated slot counters cnt[q][2].
-__global__ void __launch_bounds__(RT)
-radix_gather_kernel(const uint64_t* __restrict__ keys, int64_t L, const Sel* __restrict__ st,
-                    int64_t N, uint64_t* __restrict__ out,
-                    unsigned long long* __restrict__ cnt) {
-  const int q = blockIdx.y, lane = threadIdx.x & 31;
-  const uint64_t T = st[q].prefix;
-  const long long eq = st[q].need, above = st[q].above;
-  const uint64_t* row = keys + static_cast<int64_t>(q) * L;
-  uint64_t* dst = out + static_cast<int64_t>(q) * N;
-  for (int64_t i0 = static_cast<int64_t>(blockIdx.x) * RT; i0 < L;
-       i0 += static_cast<int64_t>(gridDim.x) * RT) {
-    const int64_t i = i0 + threadIdx.x;
-    const uint64_t key = i < L ? row[i] : 0;
-    const bool up = i < L && key > T;
-    const bool tie = i < L && eq > 0 && key == T;
+// Histogram of the digit at `shift` of the keys whose higher bits equal
+// `prefix` (hmask: those bits), into h. Lanes of one digit add once: the
+// leading digits of real scores are few.
+struct HistKey {
+  unsigned* h;
+  uint64_t prefix, hmask;
+  int shift;
+  unsigned dmask;
+  __device__ __forceinline__ void operator()(uint64_t key, bool live) const {
+    unsigned d = RBINS;                        // no bin
+    if (live && (key & hmask) == prefix) d = static_cast<unsigned>(key >> shift) & dmask;
+    const unsigned peers = __match_any_sync(FULL, d);
+    if (d < RBINS && static_cast<int>(threadIdx.x & 31) == __ffs(peers) - 1)
+      atomicAdd(&h[d], __popc(peers));
+  }
+};
+
+// Keys above T to dst[0, ...), and up to `eq` copies of T to dst[above,
+// ...), through the slot counters c[0] and c[1] (warp-aggregated).
+template <typename Counter>
+struct GatherKey {
+  uint64_t T;
+  long long eq, above;
+  uint64_t* dst;
+  Counter* c;
+  __device__ __forceinline__ void operator()(uint64_t key, bool live) const {
+    const bool up = live && key > T;
+    const bool tie = live && eq > 0 && key == T;
     const unsigned mu = __ballot_sync(FULL, up), mt = __ballot_sync(FULL, tie);
-    unsigned long long bu = 0, bt = 0;
-    if (lane == 0 && mu) bu = atomicAdd(&cnt[2 * q], static_cast<unsigned long long>(__popc(mu)));
-    if (lane == 0 && mt) bt = atomicAdd(&cnt[2 * q + 1], static_cast<unsigned long long>(__popc(mt)));
+    const unsigned lt = lanemask_lt();
+    Counter bu = 0, bt = 0;
+    if ((threadIdx.x & 31) == 0 && mu) bu = atomicAdd(&c[0], static_cast<Counter>(__popc(mu)));
+    if ((threadIdx.x & 31) == 0 && mt) bt = atomicAdd(&c[1], static_cast<Counter>(__popc(mt)));
     bu = __shfl_sync(FULL, bu, 0);
     bt = __shfl_sync(FULL, bt, 0);
-    if (up) dst[bu + __popc(mu & lanemask_lt())] = key;
+    if (up) dst[bu + __popc(mu & lt)] = key;
     if (tie) {
-      const long long pos = static_cast<long long>(bt) + __popc(mt & lanemask_lt());
+      const long long pos = static_cast<long long>(bt) + __popc(mt & lt);
       if (pos < eq) dst[above + pos] = key;
     }
   }
-}
+};
 
 // Bitonic compare-exchange of the pair (lo, lo + stride) for a network
 // stage of `size`, descending where the global index has bit `size` clear.
@@ -970,6 +1237,168 @@ __device__ __forceinline__ void bitonic_pair(uint64_t* buf, int64_t gbase, int l
   const uint64_t a = buf[lo], b = buf[lo + stride];
   const bool desc = ((gbase + lo) & size) == 0;
   if (desc ? (a < b) : (a > b)) { buf[lo] = b; buf[lo + stride] = a; }
+}
+
+// The first k of a query's `n` sorted keys (row, descending) as scores and
+// ids, by the CTA: slots past n or holding a pad are (-inf, -1), or with
+// `unfinal` slot j after c finite slots gets id -(j - c + 2), as the merge
+// writes them.
+__device__ __forceinline__ void write_sorted(const uint64_t* row, int64_t n, int k, int unfinal,
+                                             float* out_s, int* out_i) {
+  const int q = blockIdx.x;
+  int c = 0;
+  if (unfinal)
+    for (int j0 = 0; j0 < k; j0 += blockDim.x) {
+      const int j = j0 + threadIdx.x;
+      c += __syncthreads_count(j < k && j < n && !key_is_pad(row[j]));
+    }
+  for (int j = threadIdx.x; j < k; j += blockDim.x) {
+    const uint64_t key = j < n ? row[j] : 0;
+    const bool pad = key_is_pad(key);
+    out_s[static_cast<int64_t>(q) * k + j] = pad ? __int_as_float(0xff800000) : key_score(key);
+    out_i[static_cast<int64_t>(q) * k + j] = pad ? (unfinal ? -(j - c + 2) : -1) : key_id(key);
+  }
+}
+
+// The warp sums of v, then the block's, to every thread (red: 32 slots).
+__device__ __forceinline__ long long block_sum(long long v, long long* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < static_cast<int>(blockDim.x / 32) ? red[lane] : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  v = red[0];
+  __syncthreads();
+  return v;
+}
+
+// One CTA per query: the whole select of a query whose T live keys are at
+// most FCAP and k_eff = min(k, T) at most FN, in shared memory, then its
+// result; else the query's starting state for the multi-CTA path.
+__global__ void __launch_bounds__(FT)
+select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfinal,
+                    Sel* __restrict__ st, float* __restrict__ out_s, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* buf = reinterpret_cast<uint64_t*>(smem);      // FN keys
+  __shared__ unsigned h[RBINS];
+  __shared__ long long segc[MAX_SEG];
+  __shared__ long long red[32];
+  __shared__ Sel sh;
+  __shared__ unsigned cnt2[2];
+  const int q = blockIdx.x, tid = threadIdx.x;
+  const int nseg = sg.nseg();
+  long long part = 0;
+  for (int s = tid; s < nseg; s += FT) {
+    const long long c = sg.count(q, s);
+    segc[s] = c;
+    part += c;
+  }
+  const long long T = block_sum(part, red);   // its barriers publish segc
+  const long long k_eff = k < T ? k : T;
+  if (T > FCAP || k_eff > FN) {
+    if (tid == 0) st[q] = Sel{0ull, k_eff, 0, 0, 0};
+    return;                                   // the whole CTA
+  }
+  const uint64_t* row = keys + static_cast<int64_t>(q) * sg.ld;
+  // a warp a slice of a segment, sliced so that the warps have work when
+  // the segments are fewer than they are
+  const int nslices = nseg > 0 ? (FT / 32 + nseg - 1) / nseg : 1;
+  long long G = 0;                            // keys taken
+  if (k_eff > 0) {
+    if (tid == 0) sh = Sel{0ull, k_eff, 0, 0, 0};
+    for (int p = 0; p < NPASS; ++p) {
+      for (int i = tid; i < RBINS; i += FT) h[i] = 0;
+      __syncthreads();                        // also publishes sh
+      const int shift = pass_shift(p), width = pass_width(p);
+      const uint64_t hmask = p == 0 ? 0 : ~0ull << (shift + width);
+      team_keys<32>(row, sg, q, segc, tid / 32, FT / 32, nslices, tid & 31,
+                    HistKey{h, sh.prefix, hmask, shift, (1u << width) - 1});
+      __syncthreads();
+      if (tid < 32) {
+        int digit;
+        long long above, count;
+        pick_digit(h, sh.need, digit, above, count);
+        if (tid == 0) sh = sel_step(sh, digit, above, count, shift, FN);
+      }
+      __syncthreads();
+      if (sh.done) break;
+    }
+    if (tid < 2) cnt2[tid] = 0;
+    __syncthreads();
+    team_keys<32>(row, sg, q, segc, tid / 32, FT / 32, nslices, tid & 31,
+                  GatherKey<unsigned>{sh.prefix, sh.need, sh.above, buf, cnt2});
+    G = sh.above + sh.need;
+  }
+  int Ns = 1;
+  while (Ns < G) Ns <<= 1;
+  for (int i = static_cast<int>(G) + tid; i < Ns; i += FT) buf[i] = 0;
+  __syncthreads();
+  for (int size = 2; size <= Ns; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < Ns / 2; i += FT)
+        bitonic_pair(buf, 0, (i / stride) * 2 * stride + (i % stride), stride, size);
+      __syncthreads();
+    }
+  write_sorted(buf, G, k, unfinal, out_s, out_i);
+  if (tid == 0) st[q] = Sel{0ull, 0, 0, 2, 0};
+}
+
+__global__ void __launch_bounds__(RT)
+radix_hist_kernel(const uint64_t* __restrict__ keys, Segs sg, int pass,
+                  const Sel* __restrict__ st, unsigned* __restrict__ hist) {
+  __shared__ unsigned h[RBINS];
+  const int q = blockIdx.y;
+  if (st[q].done) return;                      // the whole CTA
+  const int shift = pass_shift(pass), width = pass_width(pass);
+  const uint64_t prefix = pass == 0 ? 0 : st[q].prefix;
+  const uint64_t hmask = pass == 0 ? 0 : ~0ull << (shift + width);
+  const unsigned dmask = (1u << width) - 1;
+  for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT) h[i] = 0;
+  __syncthreads();
+  // a block a slice of every segment: the segments may be long
+  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, nullptr, blockIdx.x, gridDim.x,
+                gridDim.x, threadIdx.x, HistKey{h, prefix, hmask, shift, dmask});
+  __syncthreads();
+  for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT)
+    if (h[i]) atomicAdd(&hist[static_cast<int64_t>(q) * RBINS + i], h[i]);
+}
+
+// One warp per query: the digit holding the need-th largest key at this
+// pass, from the histogram (which it zeroes for the next pass).
+__global__ void __launch_bounds__(32)
+radix_pick_kernel(Sel* __restrict__ st, unsigned* __restrict__ hist, int pass, long long room) {
+  const int q = blockIdx.x, lane = threadIdx.x;
+  const Sel s = st[q];
+  if (s.done) return;
+  unsigned* hq = hist + static_cast<int64_t>(q) * RBINS;
+  int digit;
+  long long above, count;
+  pick_digit(hq, s.need, digit, above, count);
+  __syncwarp();
+  for (int b = lane; b < RBINS; b += 32) hq[b] = 0;
+  if (lane == 0) st[q] = sel_step(s, digit, above, count, pass_shift(pass), room);
+}
+
+// Keys above T to the front of the query's row of `out` (N slots), and
+// `need` copies of T after them; warp-aggregated slot counters cnt[q][2].
+__global__ void __launch_bounds__(RT)
+radix_gather_kernel(const uint64_t* __restrict__ keys, Segs sg, const Sel* __restrict__ st,
+                    int64_t N, uint64_t* __restrict__ out,
+                    unsigned long long* __restrict__ cnt) {
+  const int q = blockIdx.y;
+  const Sel s = st[q];
+  if (s.done == 2) return;
+  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, nullptr, blockIdx.x, gridDim.x,
+                gridDim.x, threadIdx.x,
+                GatherKey<unsigned long long>{s.prefix, s.need, s.above,
+                                              out + static_cast<int64_t>(q) * N, cnt + 2 * q});
 }
 
 // Each CTA loads one `tile` of a query's N keys into shared memory and runs
@@ -1010,26 +1439,15 @@ __global__ void bitonic_global_kernel(uint64_t* __restrict__ buf, int B, int64_t
   if (desc ? (a < b) : (a > b)) { row[lo] = b; row[lo + stride] = a; }
 }
 
-// The first k of a query's sorted keys as scores and ids; slots past N or
-// holding a pad are (-inf, -1), or with `unfinal` slot j after c finite
-// slots gets id -(j - c + 2), as the merge writes them.
+// The first k of a query's sorted keys as scores and ids (write_sorted),
+// for the queries the fused kernel left.
 __global__ void __launch_bounds__(RT)
 select_write_kernel(const uint64_t* __restrict__ sorted, int64_t N, int k, int unfinal,
-                    float* __restrict__ out_s, int* __restrict__ out_i) {
+                    const Sel* __restrict__ st, float* __restrict__ out_s,
+                    int* __restrict__ out_i) {
   const int q = blockIdx.x;
-  const uint64_t* row = sorted + static_cast<int64_t>(q) * N;
-  int c = 0;
-  if (unfinal)
-    for (int j0 = 0; j0 < k; j0 += RT) {
-      const int j = j0 + threadIdx.x;
-      c += __syncthreads_count(j < k && j < N && !key_is_pad(row[j]));
-    }
-  for (int j = threadIdx.x; j < k; j += RT) {
-    const uint64_t key = j < N ? row[j] : 0;
-    const bool pad = key_is_pad(key);
-    out_s[static_cast<int64_t>(q) * k + j] = pad ? __int_as_float(0xff800000) : key_score(key);
-    out_i[static_cast<int64_t>(q) * k + j] = pad ? (unfinal ? -(j - c + 2) : -1) : key_id(key);
-  }
+  if (st[q].done == 2) return;                 // the whole CTA
+  write_sorted(sorted + static_cast<int64_t>(q) * N, N, k, unfinal, out_s, out_i);
 }
 
 // ---------------------------------------------------------------------------
@@ -1051,28 +1469,35 @@ int chunk_grid_x(int nchunks, int B, int sms) {
   return nchunks < per_tile ? nchunks : per_tile;
 }
 
+// The chunk kernel's launch: gx CTAs per query tile (chunk_grid_x); in
+// list mode `counts` takes B x gx listed counts.
+struct ChunkLaunch {
+  int gx;
+  int64_t ldq;
+  uint64_t* cand;
+  int* counts;
+};
+
 template <typename T, bool VEC, bool LIST, typename Src>
 cudaError_t launch_chunks(const Src& src, const float* Q, int m, int B, int k, int nchunks,
-                          int64_t ldq, uint64_t* cand, cudaStream_t stream) {
+                          const ChunkLaunch& cl, cudaStream_t stream) {
   auto kern = topk_chunk_kernel<T, VEC, LIST, Src>;
-  const size_t smem = chunk_smem<T>(m);
+  const size_t smem = chunk_smem<T, LIST>(m);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  int sms = 0;
-  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  const dim3 grid(chunk_grid_x(nchunks, B, sms), (B + CQ - 1) / CQ);
-  kern<<<grid, CT, smem, stream>>>(src, Q, m, B, k, nchunks, ldq, cand);
+  const dim3 grid(cl.gx, (B + CQ - 1) / CQ);
+  kern<<<grid, CT, smem, stream>>>(src, Q, m, B, k, nchunks, cl.ldq, cl.cand, cl.counts);
   return cudaGetLastError();
 }
 
 template <typename T, typename Src>
 cudaError_t dispatch_chunks(bool vec, bool list, const Src& src, const float* Q, int m, int B,
-                            int k, int nchunks, int64_t ldq, uint64_t* cand, cudaStream_t s) {
-  if (vec) return list ? launch_chunks<T, true, true>(src, Q, m, B, k, nchunks, ldq, cand, s)
-                       : launch_chunks<T, true, false>(src, Q, m, B, k, nchunks, ldq, cand, s);
-  return list ? launch_chunks<T, false, true>(src, Q, m, B, k, nchunks, ldq, cand, s)
-              : launch_chunks<T, false, false>(src, Q, m, B, k, nchunks, ldq, cand, s);
+                            int k, int nchunks, const ChunkLaunch& cl, cudaStream_t s) {
+  if (vec) return list ? launch_chunks<T, true, true>(src, Q, m, B, k, nchunks, cl, s)
+                       : launch_chunks<T, true, false>(src, Q, m, B, k, nchunks, cl, s);
+  return list ? launch_chunks<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
+              : launch_chunks<T, false, false>(src, Q, m, B, k, nchunks, cl, s);
 }
 
 int merge_group(int k) { return MERGE_SMALL / k; }
@@ -1108,9 +1533,10 @@ int run_merges(int L, int B, int k, uint64_t* a, uint64_t* b, float* os, int* oi
   }
 }
 
-// The select's scratch for B queries of L keys at k: the sorted rows (N
-// keys each, N the power of two at or above min(k, L) + SLACK), the
-// histograms, the per-query state and the gather's counters.
+// The select's scratch for B queries of at most L keys at k: the sorted
+// rows of the multi-CTA path (N keys each, N the power of two at or above
+// min(k, L) + SLACK), the histograms, the per-query state and the gather's
+// counters.
 struct SelLayout {
   int64_t N, words;
 };
@@ -1123,38 +1549,47 @@ SelLayout sel_layout(int64_t L, int k, int B) {
   return {N, words};
 }
 
-// Top k of each query's row of L keys (keys: B x L, descending (score, id)
-// order as encode_key makes them) into out_s / out_i; `work` holds
-// sel_layout(L, k, B).words keys.
-int run_select(const uint64_t* keys, int B, int64_t L, int k, int unfinal, uint64_t* work,
-               float* os, int* oi, cudaStream_t s, int* launched) {
+// Top k of each query's live keys (keys: B rows of sg.ld keys in segments,
+// at most L live a query; descending (score, id) order as encode_key makes
+// them) into out_s / out_i; `work` holds sel_layout(L, k, B).words keys.
+// The fused kernel takes every query it can; the multi-CTA kernels are
+// launched only when some query could be left to them.
+int run_select(const uint64_t* keys, const Segs& sg, int B, int64_t L, int k, int unfinal,
+               uint64_t* work, float* os, int* oi, cudaStream_t s, int* launched) {
+  if (sg.nseg() > MAX_SEG) return static_cast<int>(cudaErrorInvalidValue);
   const SelLayout lay = sel_layout(L, k, B);
   const int64_t N = lay.N;
   uint64_t* sorted = work;
   auto* hist = reinterpret_cast<unsigned*>(sorted + static_cast<int64_t>(B) * N);
   auto* sel = reinterpret_cast<Sel*>(hist + static_cast<int64_t>(B) * RBINS);
   auto* cnt = reinterpret_cast<unsigned long long*>(sel + B);
-  cudaError_t err = cudaMemsetAsync(work, 0, lay.words * 8, s);
-  int sms = 0;
-  if (err == cudaSuccess) err = sm_count(&sms);
+  const bool multi = L > FCAP || (k < L ? k : L) > FN;
+  cudaError_t err = multi ? cudaMemsetAsync(work, 0, lay.words * 8, s) : cudaSuccess;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(select_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               FN * static_cast<int>(sizeof(uint64_t)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t want = (L + RT * 4 - 1) / (RT * 4);
-  const int64_t fill = (8LL * sms + B - 1) / B;
-  const int bpq = static_cast<int>(want < fill ? (want < 1 ? 1 : want) : fill);
-  const long long k_eff = k < L ? k : L;
   auto check = [&]() {
     err = cudaGetLastError();
     if (err == cudaSuccess) ++*launched;
     return err == cudaSuccess;
   };
+  select_fused_kernel<<<B, FT, FN * sizeof(uint64_t), s>>>(keys, sg, k, unfinal, sel, os, oi);
+  if (!check()) return static_cast<int>(err);
+  if (!multi) return 0;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t want = (L + RT * 4 - 1) / (RT * 4);
+  const int64_t fill = (8LL * sms + B - 1) / B;
+  const int bpq = static_cast<int>(want < fill ? (want < 1 ? 1 : want) : fill);
   for (int p = 0; p < NPASS; ++p) {
-    radix_hist_kernel<<<dim3(bpq, B), RT, 0, s>>>(keys, L, PASS_SHIFT[p], PASS_WIDTH[p], sel,
-                                                  hist);
+    radix_hist_kernel<<<dim3(bpq, B), RT, 0, s>>>(keys, sg, p, sel, hist);
     if (!check()) return static_cast<int>(err);
-    radix_pick_kernel<<<B, 32, 0, s>>>(sel, hist, PASS_SHIFT[p], p == 0, k_eff);
+    radix_pick_kernel<<<B, 32, 0, s>>>(sel, hist, p, N);
     if (!check()) return static_cast<int>(err);
   }
-  radix_gather_kernel<<<dim3(bpq, B), RT, 0, s>>>(keys, L, sel, N, sorted, cnt);
+  radix_gather_kernel<<<dim3(bpq, B), RT, 0, s>>>(keys, sg, sel, N, sorted, cnt);
   if (!check()) return static_cast<int>(err);
   const int tile = static_cast<int>(N < SORT_TILE ? N : SORT_TILE);
   const int tsmem = tile * static_cast<int>(sizeof(uint64_t));
@@ -1173,7 +1608,7 @@ int run_select(const uint64_t* keys, int B, int64_t L, int k, int unfinal, uint6
     bitonic_tile_kernel<<<dim3(static_cast<unsigned>(N / tile), B), ST, tsmem, s>>>(sorted, N, tile, size);
     if (!check()) return static_cast<int>(err);
   }
-  select_write_kernel<<<B, RT, 0, s>>>(sorted, N, k, unfinal, os, oi);
+  select_write_kernel<<<B, RT, 0, s>>>(sorted, N, k, unfinal, sel, os, oi);
   if (!check()) return static_cast<int>(err);
   return 0;
 }
@@ -1204,13 +1639,23 @@ int64_t unit_words(int64_t nchunks, int dev) {
   return nchunks * UPC * (sizeof(Unit) / 8) + nchunks + (dev ? 1 : 0);
 }
 
-// Words of scratch after the unit table for B queries, `lists` chunk
-// lists and `extra` carry keys: per-chunk candidate lists and merges for
-// k <= SMALL_K, else one key per row and the select.
+// Words of the list-mode counts: B x nchunks ints (gx <= nchunks).
+int64_t count_words(int64_t nchunks, int B) { return (static_cast<int64_t>(B) * nchunks + 1) / 2; }
+
+// Words of scratch after the unit table for B queries of nchunks chunks
+// (and a carry): per-chunk candidate lists and merges for k <= SMALL_K;
+// else room for every row's key and the carry's, the listed counts (one
+// int a chunk kernel CTA, at most one CTA a chunk) and the select.
 int64_t key_words(int64_t nchunks, int carry, int k, int B) {
   if (k <= SMALL_K) return merge_words(nchunks + carry, k, B);
   const int64_t L = nchunks * CR + (carry ? k : 0);
-  return static_cast<int64_t>(B) * L + sel_layout(L, k, B).words;
+  return static_cast<int64_t>(B) * L + count_words(nchunks, B) + sel_layout(L, k, B).words;
+}
+
+// The list-mode chunk kernel's segments (gx CTAs over nchunks chunks, a
+// carry of `extra` keys after them) for the select.
+Segs list_segs(const int* counts, int64_t ldq, int nchunks, int gx, int extra) {
+  return Segs{counts, ldq, CR, gx, gx > 0 ? nchunks / gx : 0, gx > 0 ? nchunks % gx : 0, extra};
 }
 
 template <typename T>
@@ -1221,11 +1666,18 @@ int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, 
   const DenseSrc<T> src{static_cast<const T*>(D), ids, n, n_valid, m, n_valid_dev};
   const bool list = k > SMALL_K;
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR : static_cast<int64_t>(nchunks) * k;
-  cudaError_t err = dispatch_chunks<T>(vec, list, src, q, m, B, k, nchunks, ldq, scratch, s);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gx = chunk_grid_x(nchunks, B, sms);
+  int* counts = reinterpret_cast<int*>(scratch + static_cast<int64_t>(B) * ldq);
+  err = dispatch_chunks<T>(vec, list, src, q, m, B, k, nchunks,
+                           ChunkLaunch{gx, ldq, scratch, counts}, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launched;
   if (list)
-    return run_select(scratch, B, ldq, k, 0, scratch + static_cast<int64_t>(B) * ldq, os, oi,
+    return run_select(scratch, list_segs(counts, ldq, nchunks, gx, 0), B, ldq, k, 0,
+                      scratch + static_cast<int64_t>(B) * ldq + count_words(nchunks, B), os, oi,
                       s, launched);
   return run_merges(nchunks, B, k, scratch, scratch + static_cast<int64_t>(B) * ldq, os, oi, 0,
                     s, launched);
@@ -1250,7 +1702,12 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
   const bool list = k > SMALL_K;
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR + (carry ? k : 0)
                            : static_cast<int64_t>(nchunks + (carry ? 1 : 0)) * k;
-  cudaError_t err;
+  int* counts = reinterpret_cast<int*>(cand + static_cast<int64_t>(B) * ldq);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int gx = chunk_grid_x(nchunks, B, sms);
+  const ChunkLaunch cl{gx, ldq, cand, counts};
   if (nchunks > 0) {
     const int nunits = nchunks * UPC;
     paged_units_kernel<T><<<(nunits + 255) / 256, 256, 0, s>>>(
@@ -1261,22 +1718,19 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
     if (scale != nullptr) {
-      int sms = 0;
-      err = sm_count(&sms);
-      if (err != cudaSuccess) return static_cast<int>(err);
       const int64_t threads = static_cast<int64_t>(nchunks) * 32;
       paged_fold_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-          units, scale, m, nchunks, live, chunk_grid_x(nchunks, B, sms), fold);
+          units, scale, m, nchunks, live, gx, fold);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       ++*launched;
       err = dispatch_chunks<T>(vec, list,
                                PagedSrc<T, true>{units, ids_pool, scale, fold, R, m, live}, q, m,
-                               B, k, nchunks, ldq, cand, s);
+                               B, k, nchunks, cl, s);
     } else {
       err = dispatch_chunks<T>(vec, list,
                                PagedSrc<T, false>{units, ids_pool, nullptr, nullptr, R, m, live},
-                               q, m, B, k, nchunks, ldq, cand, s);
+                               q, m, B, k, nchunks, cl, s);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     ++*launched;
@@ -1291,8 +1745,9 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     ++*launched;
   }
   if (list)
-    return run_select(cand, B, ldq, k, unfinal, cand + static_cast<int64_t>(B) * ldq, os, oi, s,
-                      launched);
+    return run_select(cand, list_segs(counts, ldq, nchunks, gx, carry ? k : 0), B, ldq, k,
+                      unfinal, cand + static_cast<int64_t>(B) * ldq + count_words(nchunks, B),
+                      os, oi, s, launched);
   return run_merges(nchunks + (carry ? 1 : 0), B, k, cand, cand + static_cast<int64_t>(B) * ldq,
                     os, oi, unfinal, s, launched);
 }
@@ -1414,33 +1869,37 @@ extern "C" int topk_select_plan(int64_t L, int k, int B, int64_t* out) {
 
 // The top k of each of B rows of L 64-bit keys (encode_key's order: score
 // desc, id asc), as the large-k path selects them: scores and ids into
-// out_s / out_i (B, k), pads as the merge writes them. scratch holds
+// out_s / out_i (B, k), pads as the merge writes them. With `counts` (B
+// int32 on the device, or null) only the first counts[b] keys of row b are
+// live (clamped to [0, L]): the rest are not read. scratch holds
 // topk_select_plan's words. *launched counts the launches.
-extern "C" int topk_select_keys(const void* keys, int B, int64_t L, int k, int finalize,
-                                void* scratch, void* out_s, void* out_i, void* stream,
-                                int* launched) {
+extern "C" int topk_select_keys(const void* keys, const void* counts, int B, int64_t L, int k,
+                                int finalize, void* scratch, void* out_s, void* out_i,
+                                void* stream, int* launched) {
   *launched = 0;
   if (L < 1 || k < 1 || B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  return run_select(static_cast<const uint64_t*>(keys), B, L, k, finalize ? 0 : 1,
+  const Segs sg{static_cast<const int*>(counts), L, L, 1, 1, 0, 0};
+  return run_select(static_cast<const uint64_t*>(keys), sg, B, L, k, finalize ? 0 : 1,
                     static_cast<uint64_t*>(scratch), static_cast<float*>(out_s),
                     static_cast<int*>(out_i), static_cast<cudaStream_t>(stream), launched);
 }
 
 namespace {
 
-template <typename T>
-int chunk_dyn_smem(int m) { return static_cast<int>(chunk_smem<T>(m)); }
+template <typename T, bool LIST>
+int chunk_dyn_smem(int m) { return static_cast<int>(chunk_smem<T, LIST>(m)); }
 int sort_tile_smem(int) { return SORT_TILE * static_cast<int>(sizeof(uint64_t)); }
+int fused_smem(int) { return FN * static_cast<int>(sizeof(uint64_t)); }
 
 #define CHUNK4(T, TN, S, SN)                                                               \
   {"topk_chunk_kernel<" TN ",vec,keep," SN ">",                                            \
-   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, false, S>), CT, chunk_dyn_smem<T>}, \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, false, S>), CT, chunk_dyn_smem<T, false>}, \
   {"topk_chunk_kernel<" TN ",vec,list," SN ">",                                            \
-   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, true, S>), CT, chunk_dyn_smem<T>}, \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, true, S>), CT, chunk_dyn_smem<T, true>}, \
   {"topk_chunk_kernel<" TN ",scalar,keep," SN ">",                                         \
-   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, false, S>), CT, chunk_dyn_smem<T>}, \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, false, S>), CT, chunk_dyn_smem<T, false>}, \
   {"topk_chunk_kernel<" TN ",scalar,list," SN ">",                                         \
-   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, true, S>), CT, chunk_dyn_smem<T>}
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, true, S>), CT, chunk_dyn_smem<T, true>}
 template <typename T>
 using PagedPlain = PagedSrc<T, false>;
 template <typename T>
@@ -1470,6 +1929,8 @@ const KernelEntry KERNELS[] = {
     {"bitonic_global_kernel", reinterpret_cast<const void*>(bitonic_global_kernel), 256,
      nullptr},
     {"select_write_kernel", reinterpret_cast<const void*>(select_write_kernel), RT, nullptr},
+    {"select_fused_kernel", reinterpret_cast<const void*>(select_fused_kernel), FT,
+     fused_smem},
 };
 #undef UNITS
 #undef CHUNKS

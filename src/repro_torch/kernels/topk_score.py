@@ -11,14 +11,18 @@ The kernels (``csrc/topk_score.cu``) split n over CTAs, since at serving
 batch sizes one CTA per query tile would leave most of the card idle: one
 persistent CTA per SM walks 512-row chunks for 32 queries. For k <= 32 it
 keeps each chunk's top k against a running threshold and a merge kernel
-reduces the per-chunk lists; for larger k it lists every row's key and a
-radix select, a gather and a bitonic sort take the top k. Candidates are
-compared as (score desc, id asc) keys, so the result does not depend on
-visit order. Above k = 32 the scratch is one 8-byte key per row and query,
-so a call walks its queries in groups whose scratch fits
-``SCRATCH_BYTES`` (at least one 32-query tile a group). A group also holds
-at most ``MAX_GROUP`` queries, since one launch of the merge and select
-kernels takes at most 65,535: so every wrapper takes any B.
+reduces the per-chunk lists; for larger k it lists, compacted into its own
+segment of each query's row, only the keys at or above a running
+per-query threshold, with a count a segment, and a select that walks the
+listed keys takes the top k (one CTA a query where they fit its budget,
+else a multi-CTA radix select). Candidates are compared as (score desc,
+id asc) keys, so the result does not depend on visit order nor on which
+keys below the k-th a threshold skipped. Above k = 32 the scratch keeps
+room for one 8-byte key per row and query, so a call walks its queries in
+groups whose scratch fits ``SCRATCH_BYTES`` (at least one 32-query tile a
+group). A group also holds at most ``MAX_GROUP`` queries, since one launch
+of the merge and select kernels takes at most 65,535: so every wrapper
+takes any B.
 
 ``topk_score_paged_cuda`` replaces ``topk_score_paged_pallas``: the same
 top-k over logical slots [lo, hi) of a page table (pool and tail tiers,
@@ -30,7 +34,8 @@ is one more list (k <= 32) or k more keys. [lo, hi) may be host ints or
 host never reads the range.
 
 ``topk_select_cuda`` is the large-k select alone, over rows of keys as the
-chunk kernel lists them; ``topk_select_plain`` is its plain version.
+chunk kernel lists them, each row optionally cut to a live count;
+``topk_select_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -61,13 +66,17 @@ _SIGNATURES = {
                              + [ctypes.POINTER(ctypes.c_int)]),
     "topk_select_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int64)]),
-    "topk_select_keys": (ctypes.c_int, [_P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+    "topk_select_keys": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
                                         ctypes.c_int, _P, _P, _P, _P,
                                         ctypes.POINTER(ctypes.c_int)]),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 _SIGN = -(1 << 63)         # the CUDA keys are the plain keys with the top bit flipped
+# csrc/topk_score.cu's scratch geometry, for reading a list-mode call's
+# lists back: rows a chunk (CR), rows a paged unit (UNIT), units a chunk
+# (UPC) and 8-byte words a unit (sizeof(Unit) / 8)
+_CR, _UNIT, _UPC, _UNIT_WORDS = 512, 64, 8, 3
 
 
 # the plain versions are the oracles themselves
@@ -96,6 +105,34 @@ def _group(B: int, words_of) -> int:
     return min(B, g, MAX_GROUP)
 
 
+def _listed(scratch: torch.Tensor, base: int, B: int, nchunks: int, ldq: int, extra: int):
+    """What a list-mode call of B queries listed, read from its scratch
+    (from word ``base``): the (B,) int64 counts a query, and a function that
+    packs the listed keys into (B, max count) CUDA-order keys, each query's
+    at the front and 0 past its count. The segments are the chunk kernel's:
+    one per CTA of a query tile, as ``chunk_grid_x`` sizes the grid, then
+    the carry's ``extra`` keys. ``pack`` reads the scratch when called, so
+    before the call's next group of queries overwrites it."""
+    sms = torch.cuda.get_device_properties(scratch.device).multi_processor_count
+    gx = min(nchunks, -(-sms // -(-B // 32)))
+    keys = scratch[base:base + B * ldq].view(B, ldq)
+    per = scratch[base + B * ldq:].view(torch.int32)[:B * gx].view(B, gx).clamp_min(0).tolist()
+    qn, rn = divmod(nchunks, gx) if gx else (0, 0)
+    starts = [(s * qn + min(s, rn)) * _CR for s in range(gx)]
+    counts = torch.tensor([sum(c) + extra for c in per], dtype=torch.int64)
+
+    def pack() -> torch.Tensor:
+        out = torch.zeros((B, max(1, int(counts.max()))), dtype=torch.int64,
+                          device=scratch.device)
+        for b in range(B):
+            row = torch.cat([keys[b, st:st + c] for st, c in zip(starts, per[b])]
+                            + [keys[b, nchunks * _CR:nchunks * _CR + extra]])
+            out[b, :row.numel()] = row
+        return out
+
+    return counts, pack
+
+
 def _call_groups(B: int, words_of, call, device: torch.device) -> int:
     """Run ``call(g0, g1, scratch)`` over groups of queries sharing one
     scratch tensor; returns the CUDA launches the C side reported."""
@@ -109,7 +146,7 @@ def _call_groups(B: int, words_of, call, device: torch.device) -> int:
 
 def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
                     n_valid: int | torch.Tensor | None = None,
-                    row_ids: torch.Tensor | None = None
+                    row_ids: torch.Tensor | None = None, on_lists=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused score + top-k on the card; arguments as ``topk_score_plain``.
 
@@ -125,7 +162,10 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     as a live delta segment's search does: always for a tensor count, since
     the host cannot tell whether it is below n without reading it), else
     ``"row_ids"``; a call with k > 32 also counts in
-    ``topk_select_cuda.launches`` under its mode.
+    ``topk_select_cuda.launches`` under its mode. ``on_lists(g0, counts,
+    pack)``, a measurement aid, is called for k > 32 after each group of
+    queries from g0 with what the list mode listed (``_listed``); it reads
+    the scratch back on the host.
     """
     nv_dev = n_valid if isinstance(n_valid, torch.Tensor) else None
     tensors = [D, Q] + ([] if row_ids is None else [row_ids])
@@ -171,6 +211,9 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
             _DTYPES[D.dtype], int(vec), scratch.data_ptr(), out_s[g0:g1].data_ptr(),
             out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
         _build.check(err, "topk_score")
+        if on_lists is not None and select:
+            nchunks = -(-n // _CR)
+            on_lists(g0, *_listed(scratch, 0, g1 - g0, nchunks, nchunks * _CR, 0))
         return launched.value
 
     with torch.cuda.device(D.device):
@@ -212,7 +255,7 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
                           page_scale: torch.Tensor | None = None,
                           ids_pool: torch.Tensor | None = None,
                           carry: tuple[torch.Tensor, torch.Tensor] | None = None,
-                          finalize: bool = True
+                          finalize: bool = True, on_lists=None
                           ) -> tuple[torch.Tensor, torch.Tensor]:
     """Paged score + top-k on the card; arguments as
     ``topk_score_paged_plain``.
@@ -233,7 +276,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     metadata tensors then need the capacity's entries. ``launches`` counts
     calls and ``cuda_launches`` the CUDA launches the C side reports, keyed
     by mode: ``paged_<storage dtype>``, or ``paged_ids`` with ``ids_pool``;
-    ``_dev`` ends the mode of a call with tensor bounds.
+    ``_dev`` ends the mode of a call with tensor bounds. ``on_lists`` as
+    for ``topk_score_cuda``.
     """
     dev_range = ref.paged_bounds(lo, hi, pool.device)
     cap = page_table.shape[0]
@@ -327,6 +371,13 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
             out_s[g0:g1].data_ptr(), out_i[g0:g1].data_ptr(), stream,
             ctypes.byref(launched))
         _build.check(err, "topk_score_paged")
+        if on_lists is not None and select:
+            U = -(-R // _UNIT)                 # paged_geom's chunks, unit_words' base
+            nchunks = -(-slots // (_UPC // U)) if U <= _UPC else slots * -(-U // _UPC)
+            extra = 0 if carry is None else k
+            base = nchunks * _UPC * _UNIT_WORDS + nchunks + int(dev_range)
+            on_lists(g0, *_listed(scratch, base, g1 - g0, nchunks, nchunks * _CR + extra,
+                                  extra))
         return launched.value
 
     with torch.cuda.device(dev):
@@ -348,13 +399,18 @@ topk_score_paged_cuda.launches = dict.fromkeys(_PAGED_MODES, 0)
 topk_score_paged_cuda.cuda_launches = dict.fromkeys(_PAGED_MODES, 0)
 
 
-def topk_select_plain(keys: torch.Tensor, k: int, finalize: bool = True
+def topk_select_plain(keys: torch.Tensor, k: int, finalize: bool = True,
+                      counts: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top k of each row of CUDA-order keys (B, L) int64, as scores and
-    ids: the plain version of ``topk_select_cuda``. Slots past L, and keys
-    whose score is -inf, are (-inf, -1); un-finalized, slot j after c
-    finite slots gets id -(j - c + 2)."""
+    ids: the plain version of ``topk_select_cuda``. With ``counts`` (B,)
+    only the first ``counts[b]`` keys of row b take part (clamped to [0,
+    L]). Slots past the live keys, and keys whose score is -inf, are (-inf,
+    -1); un-finalized, slot j after c finite slots gets id -(j - c + 2)."""
     B, L = keys.shape
+    if counts is not None:
+        live = torch.arange(L, device=keys.device)[None, :] < counts.to(keys.device)[:, None]
+        keys = torch.where(live, keys, 0)          # key 0: below every key, a pad
     plain = keys ^ _SIGN                       # signed order = the CUDA unsigned order
     top = torch.topk(plain, min(k, L), dim=1).values
     if k > L:
@@ -373,14 +429,18 @@ def topk_select_plain(keys: torch.Tensor, k: int, finalize: bool = True
     return scores, ids.to(torch.int32)
 
 
-def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
+def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True,
+                     counts: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The large-k select alone on the card: the top k of each row of
     ``keys`` (B, L) int64 in the CUDA order (the plain ``ref._keys`` with
-    the top bit flipped), by the radix select, gather, sort and write that
-    ``topk_score_cuda`` runs for k > 32. ``launches`` counts select runs
-    keyed by the caller's mode (``keys`` for direct calls);
-    ``cuda_launches["keys"]`` the CUDA launches of direct calls."""
+    the top bit flipped), by the fused or the multi-CTA select and write
+    that ``topk_score_cuda`` runs for k > 32. ``counts``, a (B,) int32
+    tensor on the card, keeps the first ``counts[b]`` keys of row b live
+    (clamped by the kernels to [0, L]; the rest are not read), as the chunk
+    kernel's segment counts do; the host never reads it. ``launches``
+    counts select runs keyed by the caller's mode (``keys`` for direct
+    calls); ``cuda_launches["keys"]`` the CUDA launches of direct calls."""
     if keys.device.type != "cuda":
         raise ValueError(f"topk_select_cuda needs a CUDA tensor, got {keys.device}")
     if keys.dim() != 2 or keys.dtype != torch.int64 or not keys.is_contiguous():
@@ -389,6 +449,12 @@ def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
     B, L = keys.shape
     if k < 1 or L < 1 or B < 1:
         raise ValueError(f"topk_select: needs k, L, B >= 1, got k={k} L={L} B={B}")
+    if counts is not None and (counts.dtype != torch.int32 or tuple(counts.shape) != (B,)
+                               or counts.device != keys.device
+                               or not counts.is_contiguous()):
+        raise ValueError(f"topk_select: counts must be a contiguous ({B},) int32 tensor "
+                         f"on {keys.device}, got {tuple(counts.shape)} {counts.dtype} "
+                         f"on {counts.device}")
     lib = _build.load("topk_score", _SIGNATURES)
     dev = keys.device
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
@@ -397,7 +463,9 @@ def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True
 
     def call(g0, g1, scratch):
         launched = ctypes.c_int(0)
-        err = lib.topk_select_keys(keys[g0:g1].data_ptr(), g1 - g0, L, k, int(finalize),
+        err = lib.topk_select_keys(keys[g0:g1].data_ptr(),
+                                   None if counts is None else counts[g0:g1].data_ptr(),
+                                   g1 - g0, L, k, int(finalize),
                                    scratch.data_ptr(), out_s[g0:g1].data_ptr(),
                                    out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
         _build.check(err, "topk_select")

@@ -1559,7 +1559,7 @@ def test_cuda_kernel_budget_has_no_gating_finding():
     from repro_torch.analysis import kernel_budget
 
     table = kernel_budget.kernel_table()
-    assert len(table) == 36 + 12 + 5 + 8
+    assert len(table) == 36 + 13 + 5 + 8
     findings = kernel_budget.run("cuda")
     assert [f.key for f in findings if f.severity == "error"] == []
     assert {f.check for f in findings} <= {"budget.spill"}
@@ -1662,6 +1662,43 @@ def test_cuda_paged_search_replays_in_a_cuda_graph_as_the_index_grows():
     bitwise the eager search at the grown range."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    _paged_graph_replays(10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [100, 1000])
+def test_cuda_paged_large_k_replays_in_a_cuda_graph_as_the_index_grows(k):
+    """The same at k > 32: the list mode's segment counts and the select
+    read on the device, so the captured graph replays bitwise as hi grows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _paged_graph_replays(k)
+
+
+@pytest.mark.gpu
+def test_cuda_large_k_thresholds_and_counts():
+    """chip_smoke.py's large-k edge cases: the list mode's thresholds and
+    the select over listed keys against the plain versions at k in {33,
+    80, 100, 160, 511, 512, 513, 1000} on rising, falling and all-equal
+    scores, repeated ids, n_valid as an int and a tensor, bf16, int8, n < k
+    with -inf rows, paged tensor bounds at capacity (no sync) and a carry;
+    the first 32 slots bitwise the k = 32 result; the select alone with
+    live counts across the fused kernel's cap."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    checks = []
+    smoke.large_k_cases(torch.device("cuda"), checks)
+    assert len(checks) == (9 + 2 * 3) * len(smoke.LARGE_KS) + 6
+    torch.cuda.synchronize()
+
+
+def _paged_graph_replays(k):
     from repro_torch.kernels.topk_score import topk_score_paged_cuda as paged
 
     dev = torch.device("cuda")
@@ -1678,13 +1715,13 @@ def test_cuda_paged_search_replays_in_a_cuda_graph_as_the_index_grows():
     lo, hi = torch.tensor(0, dtype=torch.int32, device=dev), torch.tensor(
         base, dtype=torch.int32, device=dev)
     for _ in range(2):
-        paged(pool, pt, nv, off, lo, hi, Q, k=10, tail=tail)
+        paged(pool, pt, nv, off, lo, hi, Q, k=k, tail=tail)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        gs, gi = paged(pool, pt, nv, off, lo, hi, Q, k=10, tail=tail)
+        gs, gi = paged(pool, pt, nv, off, lo, hi, Q, k=k, tail=tail)
     graph.replay()
-    want = paged(pool, pt, nv, off, 0, base, Q, k=10, tail=tail)
+    want = paged(pool, pt, nv, off, 0, base, Q, k=k, tail=tail)
     assert torch.equal(gs, want[0]) and torch.equal(gi, want[1])
     n_pages = base
     for step in range(2):
@@ -1699,7 +1736,7 @@ def test_cuda_paged_search_replays_in_a_cuda_graph_as_the_index_grows():
         n_pages += grow
         hi.fill_(n_pages)
         graph.replay()
-        want = paged(pool, pt, nv, off, 0, n_pages, Q, k=10, tail=tail)
+        want = paged(pool, pt, nv, off, 0, n_pages, Q, k=k, tail=tail)
         torch.cuda.synchronize()
         assert torch.equal(gs, want[0]) and torch.equal(gi, want[1]), step
         assert (gi >= base * R).any(), "the grown pages never reached the top k"
