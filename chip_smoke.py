@@ -22,7 +22,11 @@ Phases, each printing one JSON line:
      the listed keys at k in LARGE_KS on rising, falling, all-equal and
      repeated-id scores, masks, n < k with -inf rows, paged tensor
      bounds at capacity and carries, each k > 32 result's first 32 slots
-     bitwise the k = 32 result, and the select alone with live counts;
+     bitwise the k = 32 result, and the select alone with live counts; the
+     few-row calls' kernels bitwise the other path on the same rows
+     (pca_project's small kernel the tiled one, n 1 to 129, m 64 to 384;
+     the top-k's unit kernel the chunk kernel over a padded buffer, plain,
+     row_ids, a device n_valid, paged and ids_pool, k 1 to 100);
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -33,8 +37,12 @@ Phases, each printing one JSON line:
      plain version and timed at the shapes this path gives it, gram also at
      the protocol's 100,000 x 768 (there held bitwise equal to the in-order
      sum of one-range launches over its row ranges), pca_project
-     also on 32 query rows, topk_score also at k = 100, 1000, 2000 and
-     10,000, and the large-k select alone on one batch's keys at k = 100;
+     also on 32 query rows (its small kernel, bitwise and timed beside the
+     tiled one), topk_score also at k = 100, 1000, 2000 and 10,000, and the
+     large-k select alone on one batch's keys at k = 100; the few-row calls
+     (the rescore, phase 8's delta and 64-row append, phase 10's rescore,
+     the ids_pool pages) also timed as one call in a CUDA graph
+     (``device_ms``, beside the library call's);
   5. the Table-1 protocol on make_dataset("tasb", n_docs=100_000, d=768) at
      cutoffs {0.25, 0.5, 0.75}, and Table 2's (W_m fit on an out-of-domain
      corpus of the same encoder, drawn on the card), each checked against
@@ -196,7 +204,7 @@ Phases, each printing one JSON line:
      bound, with peak memory and the gathers' and segment sums' share; (d)
      launch.train --arch graphcast (20 steps, checkpoints under
      build/gnn_smoke/) and a bitwise resume; (e) launch.dryrun --all --mesh
-     both on meta tensors, in DRYRUN_JOBS processes started after (c), so
+     pod on meta tensors, in DRYRUN_JOBS processes started after (c), so
      that no timed phase shares the host with it: every cell of every
      family accounted for, and the roofline tables;
  18. the analysis gate (``repro_torch.analysis``), run right after phase 12
@@ -372,6 +380,8 @@ GNN_OGB_FACTORS = (16, 32, 64, 128)     # phase 17(c): ogb_products' nodes and e
 GNN_RUN_STEPS = 20          # phase 17(d): launch.train --arch graphcast steps ...
 GNN_RUN_CKPT_EVERY = 10     # ... and its checkpoint interval
 DRYRUN_JOBS = 8             # phase 17(e): processes of the dry run (the host's cores)
+DRYRUN_MESH = "pod"         # ... its mesh (multipod's records are pod's halved; a depth cut
+                            # that keeps the script's run well inside its limit)
 DRYRUN_TIMEOUT = 300        # ... seconds it may take, from its start after 17(c)
 ANALYSIS_DELTA = 4096       # phase 18(a): rows of the delta searched with a device count
 ANALYSIS_COUNTS = (0, 1, 1808, 4095, 4096)   # ... at these live counts
@@ -422,6 +432,14 @@ def cuda_ms(fn, reps=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps=20):
+    """Device time of one call of ``fn`` from ``reps`` calls in one CUDA
+    graph (``repro_torch.benchmarks.turns.graph_ms``): where ``cuda_ms`` of
+    the same call is longer, the difference is the host's."""
+    from repro_torch.benchmarks import turns
+    return turns.graph_ms(fn, reps)
+
+
 def enqueue_ms(fn, reps=50):
     """Mean host time for ``fn`` to return, with no synchronise inside the
     loop: where it comes close to ``cuda_ms`` the call is bound by its host
@@ -440,11 +458,13 @@ def enqueue_ms(fn, reps=50):
 class Counters:
     """The kernels' launch counters: zeroed before the main path, read
     after it; ``uncounted`` restores them around compare/timing launches.
-    ``gram`` counts its calls and the CUDA launches its C entry reports.
-    ``topk_score`` and its paged wrapper count per mode (storage dtype,
-    row_ids, paged_<dtype>, paged_ids), both their calls and the CUDA
-    launches their C entries report; the large-k select counts its runs
-    per calling mode."""
+    ``gram`` counts its calls and the CUDA launches its C entry reports;
+    ``pca_project`` and its quant form their calls and, as ``*_small``,
+    those that ran the small kernel. ``topk_score`` and its paged wrapper
+    count per mode (storage dtype, row_ids, paged_<dtype>, paged_ids), their
+    calls, the CUDA launches their C entries report and, as
+    ``topk_unit_<mode>``, the C calls that ran the unit kernel (few rows);
+    the large-k select counts its runs per calling mode."""
 
     def __init__(self):
         from repro_torch.kernels.gram import gram_cuda
@@ -459,10 +479,13 @@ class Counters:
     def read(self):
         out = {name: fn.launches for name, fn in self.fns.items()}
         out["gram_cuda"] = self.fns["gram"].cuda_launches
+        for name in ("pca_project", "pca_project_quant"):
+            out[f"{name}_small"] = self.fns[name].small_launches
         for fn in self.topk:
             for mode, v in fn.launches.items():
                 out[f"topk_score_{mode}"] = v
                 out[f"topk_score_{mode}_cuda"] = fn.cuda_launches[mode]
+                out[f"topk_unit_{mode}"] = fn.unit_launches[mode]
         for mode, v in self.select.launches.items():
             out[f"topk_select_{mode}"] = v
         out["topk_select_keys_cuda"] = self.select.cuda_launches["keys"]
@@ -474,10 +497,13 @@ class Counters:
         for name, fn in self.fns.items():
             fn.launches = values[name]
         self.fns["gram"].cuda_launches = values["gram_cuda"]
+        for name in ("pca_project", "pca_project_quant"):
+            self.fns[name].small_launches = values[f"{name}_small"]
         for fn in self.topk:
             for mode in fn.launches:
                 fn.launches[mode] = values[f"topk_score_{mode}"]
                 fn.cuda_launches[mode] = values[f"topk_score_{mode}_cuda"]
+                fn.unit_launches[mode] = values[f"topk_unit_{mode}"]
         for mode in self.select.launches:
             self.select.launches[mode] = values[f"topk_select_{mode}"]
         self.select.cuda_launches["keys"] = values["topk_select_keys_cuda"]
@@ -523,13 +549,17 @@ def compare_topk(s_ref, i_ref, s_got, i_got, what):
     return err, near == 0, near
 
 
-def n_ctas(n, B):
-    """CTAs of the chunk kernel a query tile at n rows and B queries (one
-    per SM shared among the tiles, at most one a 512-row chunk): the
-    segments a query's list-mode keys come in."""
+def n_ctas(n, B, page_rows=None):
+    """CTAs a query tile of a top-k call over n rows (``page_rows``: n / R
+    pages of R rows) and B queries, as the wrapper plans it
+    (``topk_score.dense_plan`` / ``paged_plan``): the segments a query's
+    list-mode keys come in."""
     import torch
+    from repro_torch.kernels import topk_score
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return min(-(-n // 512), -(-sms // -(-B // 32)))
+    if page_rows is None:
+        return topk_score.dense_plan(n, B, sms).ctas
+    return topk_score.paged_plan(n // page_rows, page_rows, B, sms).ctas
 
 
 def listed_stats(counts, rows_, segments):
@@ -681,6 +711,8 @@ def phase_edge_cases():
     ids_row = paged_edge_cases(dev, randn, checks)
     any_batch_cases(dev, randn, checks)
     large_k_cases(dev, checks)
+    small_projection_cases(dev, checks)
+    few_row_topk_cases(dev, checks)
     torch.cuda.synchronize()
     emit("edge_cases", checks=len(checks),
          near_ties=sum(c.get("near_ties", 0) for c in checks), results=checks)
@@ -883,6 +915,181 @@ def large_k_cases(dev, checks):
     del keys
 
 
+PCA_SMALL_NS = (1, 7, 32, 64, 100, 128, 129)   # rows of few-row projections
+PCA_SMALL_MS = (64, 128, 130, 384)
+PCA_SMALL_DS = (768, 48, 200)   # full width, a last slab 16 deep, the scalar loader
+FEW_ROW_KS = (1, 10, 32, 33, 100)                # the merge, either side of it, the list mode
+
+
+def in_tiled_call(project, D, *rest):
+    """``project`` (``pca_project_cuda`` or ``pca_project_quant_cuda``) of
+    D's rows at the head of a call of 128 rows an SM, which ``project_path``
+    sends to the tiled kernel: the rows of D's own call, bitwise, wherever
+    that call went (each output is one fmaf chain over d whatever the
+    kernel)."""
+    import torch
+    from repro_torch.kernels import pca_project
+    sms = torch.cuda.get_device_properties(D.device).multi_processor_count
+    rows = pca_project.TILE * sms
+    m = rest[0].shape[1]
+    if pca_project.project_path(rows, m, sms) != "tiled":
+        raise AssertionError(f"pca_project of {rows} rows, m={m}: not the tiled path")
+    big = torch.cat([D, D.new_zeros(rows - D.shape[0], D.shape[1])])
+    return project(big, *rest)[:D.shape[0]]
+
+
+def small_projection_cases(dev, checks):
+    """pca_project's small kernel against its tiled kernel on the same
+    rows (``in_tiled_call``), bitwise, and against the plain version (f32
+    1e-5, bf16 1e-2 relative; the int8 epilogue within one step on at most
+    0.1 %, or one entry): n in PCA_SMALL_NS, m in PCA_SMALL_MS, d in
+    PCA_SMALL_DS, f32, bf16 and int8."""
+    import torch
+    from repro_torch.kernels import pca_project
+    g = torch.Generator(device=dev).manual_seed(29)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    for d in PCA_SMALL_DS:
+        for n in PCA_SMALL_NS:
+            D = randn(n, d)
+            for m in PCA_SMALL_MS:
+                W = randn(d, m) / d ** 0.5
+                if pca_project.project_path(n, m, sms) != "small":
+                    raise AssertionError(f"pca_project n={n} m={m}: not the small path")
+                want = pca_project.pca_project_plain(D, W)
+                for dtype in (torch.float32, torch.bfloat16):
+                    Dx = D.to(dtype)
+                    got = pca_project.pca_project_cuda(Dx, W)
+                    if not torch.equal(got, in_tiled_call(pca_project.pca_project_cuda, Dx, W)):
+                        raise AssertionError(f"pca_project {dtype} n={n} d={d} m={m}: the "
+                                             f"small kernel differs from the tiled")
+                    ref = want if dtype == torch.float32 else pca_project.pca_project_plain(Dx, W)
+                    rel = float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+                    if rel > (1e-2 if dtype == torch.bfloat16 else 1e-5):
+                        raise AssertionError(f"pca_project {dtype} n={n} d={d} m={m}: "
+                                             f"relative error {rel}")
+                    checks.append(dict(kernel="pca_project_small", n=n, d=d, m=m,
+                                       dtype=str(dtype), rel_err=rel, tiled_bitwise=True))
+                scale = (want.abs().amax(0) / 127.0).clamp_min(1e-6).contiguous()
+                q1 = pca_project.pca_project_quant_cuda(D, W, scale)
+                if not torch.equal(q1, in_tiled_call(pca_project.pca_project_quant_cuda, D, W,
+                                                     scale)):
+                    raise AssertionError(f"pca_project_quant n={n} d={d} m={m}: the small "
+                                         f"kernel differs from the tiled")
+                diff = (q1.int() - pca_project.pca_project_quant_plain(D, W, scale).int()).abs()
+                if int(diff.max()) > 1 or int((diff != 0).sum()) > max(1, diff.numel() // 1000):
+                    raise AssertionError(f"pca_project_quant n={n} d={d} m={m}: "
+                                         f"{int((diff != 0).sum())} differ")
+                checks.append(dict(kernel="pca_project_quant_small", n=n, d=d, m=m,
+                                   max_abs_err=int(diff.max()), tiled_bitwise=True))
+
+
+def few_row_topk_cases(dev, checks):
+    """The top-k's unit kernel against the chunk kernel, bitwise, and
+    against the plain versions (compare_topk): the rows at the head of a
+    buffer of more 512-row chunks than a query tile's SMs (plain with
+    n_valid = n, row_ids with the rest masked, a 0-d device n_valid), and a
+    paged pool (plain, scaled int8, ids_pool) against the same pages at the
+    head of a table of masked slots; each k of FEW_ROW_KS, f32, bf16 and
+    int8."""
+    import torch
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+    g = torch.Generator(device=dev).manual_seed(31)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    cuda, plain = topk_score.topk_score_cuda, topk_score.topk_score_plain
+    n_big = sms * 512 + 1000
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    for n, m, B in ((2560, 384, 32), (3183, 384, 32), (4096, 384, 1), (700, 130, 5)):
+        if (topk_score.dense_plan(n, B, sms).upc, topk_score.dense_plan(n_big, B, sms).upc) != (
+                1, 8):
+            raise AssertionError(f"few-row plans: n={n} B={B} does not take the unit kernel")
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        ids = torch.randperm(n, generator=g, device=dev).to(torch.int32) + 1000
+        ids[torch.randperm(n, generator=g, device=dev)[:n // 10]] = -1
+        ids_big = torch.full((n_big,), -1, dtype=torch.int32, device=dev)
+        ids_big[:n] = ids
+        nv = torch.tensor(n // 2 + 37, dtype=torch.int32, device=dev)
+        for store in ("f32", "bf16", "int8"):
+            Dx, Qx = D, Q
+            if store == "bf16":
+                Dx = D.to(torch.bfloat16)
+            elif store == "int8":
+                Dx, scale = quantize_int8_per_dim(D)
+                Qx = (Q * scale[None, :]).contiguous()
+            big = torch.zeros((n_big, m), dtype=Dx.dtype, device=dev)
+            big[:n] = Dx
+            for k in FEW_ROW_KS:
+                for mode, kw, kw_big, kw_plain in (
+                        ("plain", {}, {"n_valid": n}, {}),
+                        ("row_ids", {"row_ids": ids}, {"row_ids": ids_big}, {"row_ids": ids}),
+                        ("n_valid_tensor", {"n_valid": nv}, {"n_valid": nv},
+                         {"n_valid": int(nv)})):
+                    got = cuda(Dx, Qx, k=k, **kw)
+                    if not same(got, cuda(big, Qx, k=k, **kw_big)):
+                        raise AssertionError(f"few rows {store} {mode} n={n} k={k}: the unit "
+                                             f"kernel differs from the chunk kernel")
+                    err, eq, near = compare_topk(*plain(Dx, Qx, k=k, **kw_plain), *got,
+                                                 f"few rows {store} {mode} n={n} k={k}")
+                    checks.append(dict(kernel="topk_unit", n=n, m=m, B=B, k=k, store=store,
+                                       mode=mode, max_abs_err=err, ids_equal=eq,
+                                       near_ties=near, chunk_bitwise=True))
+        del big, ids_big
+
+    # paged: 20 pages of 256 rows (the unit kernel) against the same pages
+    # at the head of a table of masked slots (the chunk kernel)
+    paged, pplain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    R, m, B = 256, 384, 32
+    cap = 2 * sms + 10
+    for store in ("f32", "int8"):
+        pg, ids = make_paged(dev, randn, 20 * R - 77, m, R, store)
+        npages = pg.pop("npages")
+        pt, nvl, off = pg.pop("page_table"), pg.pop("page_nvalid"), pg.pop("page_offset")
+        pool = pg.pop("pool")
+        padded = []
+        for t, fill in ((pt, -1), (nvl, 0), (off, 0)):
+            x = torch.full((cap,), fill, dtype=torch.int32, device=dev)
+            x[:t.shape[0]] = t
+            padded.append(x)
+        ids_cap = torch.full((cap, R), -1, dtype=torch.int32, device=dev)
+        ids_cap[:ids.shape[0]] = ids
+        ps = pg.pop("page_scale")
+        ps_cap = None
+        if ps is not None:
+            ps_cap = torch.zeros((cap, m), device=dev)
+            ps_cap[:ps.shape[0]] = ps
+        Q = randn(B, m)
+        if (topk_score.paged_plan(npages, R, B, sms).upc,
+                topk_score.paged_plan(cap, R, B, sms).upc) != (1, 8):
+            raise AssertionError("few-row plans: the paged pool does not take the unit kernel")
+        for k in FEW_ROW_KS:
+            for mode, extra, extra_cap in (("paged", {}, {}),
+                                           ("ids_pool", {"ids_pool": ids},
+                                            {"ids_pool": ids_cap})):
+                got = paged(pool, pt, nvl, off, 0, npages, Q, k=k, tail=pg["tail"],
+                            page_scale=ps, **extra)
+                if not same(got, paged(pool, *padded, 0, cap, Q, k=k, tail=pg["tail"],
+                                       page_scale=ps_cap, **extra_cap)):
+                    raise AssertionError(f"few rows paged {store} {mode} k={k}: the unit "
+                                         f"kernel differs from the chunk kernel")
+                err, eq, near = compare_topk(
+                    *pplain(pool, pt, nvl, off, 0, npages, Q, k=k, tail=pg["tail"],
+                            page_scale=ps, **extra), *got, f"few rows paged {store} {mode} k={k}")
+                checks.append(dict(kernel="topk_unit_paged", pages=npages, R=R, B=B, k=k,
+                                   store=store, mode=mode, max_abs_err=err, ids_equal=eq,
+                                   near_ties=near, chunk_bitwise=True))
+
+
 def make_paged(dev, randn, n, m, R, store):
     """A corpus of n unit-norm rows in pages of R rows over a scrambled
     pool + tail layout (a ragged last page, spare physical pages), with
@@ -985,6 +1192,9 @@ def paged_edge_cases(dev, randn, checks):
                     ids_equal=ids_check["ids_equal"], near_ties=ids_check["near_ties"],
                     ms=cuda_ms(lambda: cuda(*args, 0, npages, Q, k=k, ids_pool=ids, **kw),
                                reps=20),
+                    device_ms=graph_ms(lambda: cuda(*args, 0, npages, Q, k=k, ids_pool=ids,
+                                                    **kw)),
+                    library_device_ms=graph_ms(lambda: torch.topk(Q @ gathered.T, k)),
                     plain_ms=cuda_ms(lambda: plain(*args, 0, npages, Q, k=k, ids_pool=ids,
                                                    **kw), reps=5),
                     library_ms=cuda_ms(lambda: torch.topk(Q @ gathered.T, k), reps=20),
@@ -1164,10 +1374,16 @@ def phase_main_path(counters, rows, n_docs):
         p_err = float((p1 - p2).abs().max())
         if p_err > 1e-4:
             raise AssertionError(f"pca_project n=32: error {p_err}")
+        if not torch.equal(p1, in_tiled_call(pca_project.pca_project_cuda, q32, Wc)):
+            raise AssertionError("pca_project n=32: the small kernel differs from the tiled")
         rows["pca_project_n32"] = dict(
             shape=[BATCH, d, m], max_abs_err=p_err, launches_per_call=per_call,
+            path=pca_project.project_path(BATCH, m, torch.cuda.get_device_properties(
+                0).multi_processor_count), tiled_bitwise=True,
             ms=cuda_ms(lambda: pca_project.pca_project_cuda(q32, Wc), reps=50),
             enqueue_ms=enqueue_ms(lambda: pca_project.pca_project_cuda(q32, Wc)),
+            device_ms=graph_ms(lambda: pca_project.pca_project_cuda(q32, Wc)),
+            library_device_ms=graph_ms(lambda: torch.matmul(q32, Wc)),
             plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(q32, Wc), reps=50),
             library_ms=cuda_ms(lambda: torch.matmul(q32, Wc), reps=50),
             bound=bound(4 * BATCH * d + 4 * d * m + 4 * BATCH * m, 2 * BATCH * d * m))
@@ -1292,6 +1508,9 @@ def phase_main_path(counters, rows, n_docs):
                                                           row_ids=short_ids), reps=20),
             enqueue_ms=enqueue_ms(lambda: topk_score.topk_score_cuda(D_short, qhat, k=K,
                                                                      row_ids=short_ids)),
+            device_ms=graph_ms(lambda: topk_score.topk_score_cuda(D_short, qhat, k=K,
+                                                                  row_ids=short_ids)),
+            library_device_ms=graph_ms(lambda: torch.topk(qhat @ D_short.T, K)),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D_short, qhat, k=K,
                                                                  row_ids=short_ids), reps=20),
             library_ms=cuda_ms(lambda: torch.topk(qhat @ D_short.T, K), reps=20),
@@ -1590,7 +1809,7 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                     shape=[index.n, m, BATCH, kk], page_rows=R, pages=npages, store=name,
                     max_abs_err=e2, ids_equal=eq2, near_ties=near2, launches_per_call=per,
                     **listed_stats(listed["counts"], index.n,
-                                   n_ctas(npages * R, BATCH)),
+                                   n_ctas(npages * R, BATCH, R)),
                     ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk}),
                                reps=3),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(
@@ -1931,9 +2150,12 @@ def phase_live(counters, index_f32, index_int8, pruner, Q, fresh, rows):
                                                               n_valid=d.n_real), reps=50),
                 enqueue_ms=enqueue_ms(lambda: topk_score.topk_score_cuda(
                     d.vectors, qf, k=K, n_valid=d.n_real)),
+                device_ms=graph_ms(lambda: topk_score.topk_score_cuda(
+                    d.vectors, qf, k=K, n_valid=d.n_real)),
                 plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
                     d.vectors, qf, k=K, n_valid=d.n_real), reps=50),
                 library_ms=cuda_ms(lambda: torch.topk(qf @ live_rows.float().T, K), reps=50),
+                library_device_ms=graph_ms(lambda: torch.topk(qf @ live_rows.float().T, K)),
                 bound=bound(item * d.n_real * d.dim + 4 * BATCH * d.dim + 8 * BATCH * K,
                             2 * BATCH * d.n_real * d.dim))
         out[name] = dict(deltas=[d.n_real for d in seg.deltas],
@@ -1954,10 +2176,14 @@ def phase_live(counters, index_f32, index_int8, pruner, Q, fresh, rows):
         if p_err > 1e-4:
             raise AssertionError(f"pca_project n=64: error {p_err}")
         d_, m_ = Wc.shape
+        if not torch.equal(p1, in_tiled_call(pca_project.pca_project_cuda, blk, Wc)):
+            raise AssertionError("pca_project n=64: the small kernel differs from the tiled")
         rows["pca_project_n64"] = dict(
-            shape=[APPEND_BLOCK, d_, m_], max_abs_err=p_err,
+            shape=[APPEND_BLOCK, d_, m_], max_abs_err=p_err, tiled_bitwise=True,
             ms=cuda_ms(lambda: pca_project.pca_project_cuda(blk, Wc), reps=50),
             enqueue_ms=enqueue_ms(lambda: pca_project.pca_project_cuda(blk, Wc)),
+            device_ms=graph_ms(lambda: pca_project.pca_project_cuda(blk, Wc)),
+            library_device_ms=graph_ms(lambda: torch.matmul(blk, Wc)),
             plain_ms=cuda_ms(lambda: pca_project.pca_project_plain(blk, Wc), reps=50),
             library_ms=cuda_ms(lambda: torch.matmul(blk, Wc), reps=50),
             bound=bound(4 * APPEND_BLOCK * d_ + 4 * d_ * m_ + 4 * APPEND_BLOCK * m_,
@@ -2667,6 +2893,9 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
                 near_ties=near,
                 ms=cuda_ms(lambda: topk_score.topk_score_cuda(rws, q, k=K, row_ids=uids),
                            reps=20),
+                device_ms=graph_ms(lambda: topk_score.topk_score_cuda(rws, q, k=K,
+                                                                      row_ids=uids)),
+                library_device_ms=graph_ms(lambda: torch.topk(q @ live.T, K)),
                 plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(rws, q, k=K,
                                                                      row_ids=uids), reps=20),
                 library_ms=cuda_ms(lambda: torch.topk(q @ live.T, K), reps=20),
@@ -2692,7 +2921,8 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
         rows["cascade_paged_coarse"] = dict(
             shape=[npg, PAGE_ROWS, CASCADE_M, BATCH, CASCADE_N * K], store="int8",
             max_abs_err=err, ids_equal=eq, near_ties=near, pages=npg,
-            **listed_stats(listed["counts"], coarse64.n, n_ctas(npg * PAGE_ROWS, BATCH)),
+            **listed_stats(listed["counts"], coarse64.n,
+                           n_ctas(npg * PAGE_ROWS, BATCH, PAGE_ROWS)),
             ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*pargs, **pkw), reps=10),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(*pargs, **pkw),
                              reps=1),
@@ -3598,7 +3828,7 @@ def phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows):
             listed = {}
             paged(*args, lo_t, hi_t, q, k=SHORTLIST_K, **kw,
                   on_lists=lambda g0, c, pack: listed.update(counts=c))
-            stats = listed_stats(listed["counts"], index.n, n_ctas(cap * R, BATCH))
+            stats = listed_stats(listed["counts"], index.n, n_ctas(cap * R, BATCH, R))
             matmul_topk = (cuda_ms(lambda: torch.topk(q @ index.vectors.T, K), reps=3)
                            if name == "f32" else None)
 
@@ -5310,9 +5540,9 @@ def phase_recsys(counters, rows):
 
 
 def start_dryrun():
-    """Phase 17(e): ``launch.dryrun --all --mesh both`` over every cell of
-    every family on meta tensors, in DRYRUN_JOBS processes at the lowest CPU
-    priority, its records under build/experiments/dryrun and its lines in
+    """Phase 17(e): ``launch.dryrun --all --mesh DRYRUN_MESH`` over every
+    cell of every family on meta tensors, in DRYRUN_JOBS processes at the
+    lowest CPU priority, its records under build/experiments/dryrun and its lines in
     build/experiments/dryrun.log. It needs no card; phase_gnn starts it
     after its timed cells and collects it after (d)."""
     out = os.path.join(HERE, "build", "experiments")
@@ -5321,7 +5551,7 @@ def start_dryrun():
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     proc = subprocess.Popen(
         ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--mesh", "both", "--force", "--jobs", str(DRYRUN_JOBS),
+         "--mesh", DRYRUN_MESH, "--force", "--jobs", str(DRYRUN_JOBS),
          "--out", os.path.join(out, "dryrun")],
         stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE, start_new_session=True)
     return proc, log, time.perf_counter()
@@ -5702,7 +5932,7 @@ def _gnn_launcher_and_dryrun(dev, dryrun):
     waited = time.perf_counter() - t0
     art = os.path.join(HERE, "build", "experiments", "dryrun")
     recs = roofline.load_records(art)
-    want = [(s.arch_id, c.name, m) for s, c in registry.cells() for m in ("pod", "multipod")]
+    want = [(s.arch_id, c.name, DRYRUN_MESH) for s, c in registry.cells()]
     got = {(r["arch"], r["shape"], r["mesh"]): r for r in recs}
     missing = [k for k in want if k not in got]
     status = {}
@@ -5718,9 +5948,7 @@ def _gnn_launcher_and_dryrun(dev, dryrun):
          waited_s=waited, jobs=DRYRUN_JOBS, count_s=sum(r.get("count_s", 0) for r in recs),
          slowest=[(r["arch"], r["shape"], r["mesh"], r["count_s"]) for r in sorted(
              (r for r in recs if "count_s" in r), key=lambda r: -r["count_s"])[:8]])
-    for mesh in ("pod", "multipod"):
-        print(roofline.fmt_table(sorted((r for r in rows if r["mesh"] == mesh),
-                                        key=lambda r: (r["arch"], r["shape"]))), flush=True)
+    print(roofline.fmt_table(sorted(rows, key=lambda r: (r["arch"], r["shape"]))), flush=True)
     if rc != 0 or missing or unaccounted or len(recs) != len(want):
         raise AssertionError(f"gnn (e): dry run rc {rc}, missing {missing}, "
                              f"unaccounted {unaccounted}")
@@ -5771,7 +5999,8 @@ def run_phases(args, smi):
     launches = counters.read()
     emit("main_path_launches", seconds=time.perf_counter() - t0, **launches)
     on_path = ("gram", "pca_project", "pca_project_quant", "topk_score_f32",
-               "topk_score_int8", "topk_score_row_ids", "topk_select")
+               "topk_score_int8", "topk_score_row_ids", "topk_select", "pca_project_small",
+               "topk_unit_row_ids")
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -5796,7 +6025,8 @@ def run_phases(args, smi):
     emit("live_path_launches", seconds=time.perf_counter() - t0,
          **{k: v for k, v in live_launches.items() if v})
     on_live = ("pca_project", "topk_score_f32", "topk_score_int8", "topk_score_f32_n_valid",
-               "topk_score_int8_n_valid", "topk_score_paged_f32", "topk_score_paged_int8")
+               "topk_score_int8_n_valid", "topk_score_paged_f32", "topk_score_paged_int8",
+               "pca_project_small", "topk_unit_f32_n_valid", "topk_unit_int8_n_valid")
     missing = [k for k in on_live if live_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the live path: {missing}")
@@ -5824,7 +6054,7 @@ def run_phases(args, smi):
     emit("cascade_path_launches", seconds=time.perf_counter() - t0,
          **{k: v for k, v in cascade_launches.items() if v})
     on_cascade = ("pca_project", "topk_score_int8", "topk_select_int8", "topk_score_row_ids",
-                  "topk_score_int8_n_valid", "topk_score_paged_int8")
+                  "topk_score_int8_n_valid", "topk_score_paged_int8", "topk_unit_row_ids")
     missing = [k for k in on_cascade if cascade_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the cascade path: {missing}")
@@ -5954,11 +6184,13 @@ def run_phases(args, smi):
     if missing:
         raise AssertionError(f"kernels never launched on the examples' path: {missing}")
 
-    def entry(name, row, source, replaces, counter, counts=launches, launches_of=None):
+    def entry(name, row, source, replaces, counter, counts=launches, launches_of=None,
+              kernel=None):
         """counter None: a row timed at a shape of its own, whose launches
         are the CUDA launches of one call at that shape. ``launches_of``
         says what a path's counter counts where it is more than this row's
-        shape."""
+        shape; ``kernel`` names the kernel where the source has two for the
+        function (the small and unit kernels of few-row calls)."""
         b_ms, b_by = row["bound"]
         if counter is None:
             n_launch = row["launches_per_call"]
@@ -5969,6 +6201,8 @@ def run_phases(args, smi):
                      if counter + "_cuda" in counts else {})
             if launches_of:
                 extra["launches_of"] = launches_of
+        if kernel:
+            extra["kernel"] = kernel
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=n_launch, **extra,
                     max_abs_err=row["max_abs_err"],
@@ -5985,7 +6219,8 @@ def run_phases(args, smi):
                                 "capacity", "host_ms", "replay_ms", "listed_mean",
                                 "listed_max", "listed_share", "written_bytes", "listed_keys",
                                 "select_ms", "select_bound_ms", "host_k100_ms",
-                                "device_k100_ms")})
+                                "device_k100_ms", "kernel", "path", "device_ms",
+                                "library_device_ms", "tiled_bitwise")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -5997,8 +6232,12 @@ def run_phases(args, smi):
               "src/repro/kernels/gram.py:41", None),
         entry("pca_project", rows["pca_project"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:56", "pca_project"),
+        # the small kernel (few rows): a query batch (launches: every
+        # small-kernel call of phases 4-6, the protocol's transform_queries)
         entry("pca_project_n32", rows["pca_project_n32"], csrc + "pca_project.cu",
-              "src/repro/kernels/pca_project.py:56", None),
+              "src/repro/kernels/pca_project.py:56", "pca_project_small",
+              launches_of="every pca_project call of phases 4-6 that took the small kernel: "
+                          "the protocol's transform_queries", kernel="pca_project_small_kernel"),
         entry("pca_project_quant", rows["pca_project_quant"], csrc + "pca_project.cu",
               "src/repro/kernels/pca_project.py:79", "pca_project_quant"),
         entry("topk_score", rows["topk_score_f32"], topk[1], topk[0], "topk_score_f32"),
@@ -6019,16 +6258,18 @@ def run_phases(args, smi):
         # batch); launches as the row above
         entry("topk_select_listed", rows["topk_select_listed"], topk[1], topk[0],
               "topk_select"),
+        # the int8 shortlist's rescore: few rows, the unit kernel (launches:
+        # the unit kernel's calls over phases 4-6)
         entry("topk_score_row_ids", rows["topk_score_row_ids"], topk[1], topk[0],
-              "topk_score_row_ids"),
+              "topk_unit_row_ids", kernel="topk_unit_kernel"),
         # launches of the paged kernel are counted over phase 7; the ids_pool
         # mode is not on that path, so its times come from the edge cases
         entry("topk_score_paged_f32", rows["topk_score_paged_f32"], topk[1], paged,
               "topk_score_paged_f32", paged_launches),
         entry("topk_score_paged_int8", rows["topk_score_paged_int8"], topk[1], paged,
               "topk_score_paged_int8", paged_launches),
-        entry("topk_score_paged_ids", ids_row, topk[1], paged, "topk_score_paged_ids",
-              paged_launches),
+        entry("topk_score_paged_ids", ids_row, topk[1], paged, "topk_unit_paged_ids",
+              paged_launches, kernel="topk_unit_kernel"),
         *[entry(f"topk_score_paged_{st}_k{kk}", rows[f"topk_score_paged_{st}_k{kk}"],
                 topk[1], paged, None) for st in ("f32", "int8") for kk in (2000, 10000)],
         # the live path (phase 8): a delta segment's search over its 4,096-row
@@ -6036,9 +6277,14 @@ def run_phases(args, smi):
         # phase 8, k = 10 and 1000), and the 64-row projection of
         # add_documents (launches: every pca_project call of phase 8)
         *[entry(f"topk_score_delta_{st}", rows[f"topk_score_delta_{st}"], topk[1], topk[0],
-                f"topk_score_{st}_n_valid", live_launches) for st in ("f32", "int8")],
+                f"topk_unit_{st}_n_valid", live_launches, kernel="topk_unit_kernel",
+                launches_of=f"every {st} n_valid-mode call of phase 8 (all take the unit "
+                            f"kernel), k = 10 and 1000")
+          for st in ("f32", "int8")],
         entry("pca_project_n64", rows["pca_project_n64"], csrc + "pca_project.cu",
-              "src/repro/kernels/pca_project.py:56", "pca_project", live_launches),
+              "src/repro/kernels/pca_project.py:56", "pca_project_small", live_launches,
+              launches_of="every small-kernel pca_project call of phase 8: the 64-row "
+                          "add_documents blocks", kernel="pca_project_small_kernel"),
         # the cascade (phase 10): the coarse int8 scan at its shapes (list
         # mode and the radix select; launches: every int8 plain-mode call
         # of phase 10, whatever its shape), the row_ids rescore of a real
@@ -6057,7 +6303,10 @@ def run_phases(args, smi):
               rows[f"cascade_coarse_m{CASCADE_CONFIGS[1][0]}_k{CASCADE_CONFIGS[1][1] * K}"],
               topk[1], topk[0], None),
         *[entry(f"topk_score_cascade_rescore_{st}", rows[f"cascade_rescore_{st}"], topk[1],
-                topk[0], "topk_score_row_ids", cascade_launches) for st in ("f32", "int8")],
+                topk[0], "topk_unit_row_ids", cascade_launches, kernel="topk_unit_kernel",
+                launches_of="every row_ids call of phase 10 that took the unit kernel: the "
+                            "rescore parts of both full dtypes")
+          for st in ("f32", "int8")],
         entry("topk_score_paged_cascade_coarse", rows["cascade_paged_coarse"], topk[1], paged,
               "topk_score_paged_int8", cascade_launches),
         # the sharded path (phase 12): one shard's search, 2,210,456 of the

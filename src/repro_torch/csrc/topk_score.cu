@@ -28,7 +28,11 @@
 //      list, against a running threshold; for larger k (list mode) it
 //      lists the chunk's keys at or above a running per-query threshold,
 //      compacted, into the CTA's own segment of the query's row of keys,
-//      and at the end writes how many it listed there.
+//      and at the end writes how many it listed there. A call whose
+//      512-row chunks are fewer than the CTAs a query tile may have takes
+//      topk_unit_kernel instead: chunks of one 64-row unit, a CTA of four
+//      warps of 8 queries each, the same lists and segments. The wrapper
+//      plans which (kernels/topk_score.py::chunk_plan) and passes the plan.
 //   2. k <= SMALL_K: topk_merge_kernel, one warp per (group of lists,
 //      query) keeps the top k of the group; launched again until one list
 //      remains, and the last launch writes scores and ids.
@@ -170,8 +174,9 @@ __device__ __forceinline__ void load_slab(const __nv_bfloat16* p, float (&v)[CK]
 // Row sources: row r of chunk c, its id, and the scale row of a warp's rows
 // ---------------------------------------------------------------------------
 
-// A dense index: chunk c is rows [512 c, 512 c + 512) of D (n, m). Row ids
-// are positions masked at n_valid, or row_ids[row] masked when negative.
+// A dense index: chunk c of ROWS-row chunks is rows [ROWS c, ROWS c + ROWS)
+// of D (n, m). Row ids are positions masked at n_valid, or row_ids[row]
+// masked when negative.
 // n_valid_dev, when set, holds the live count on the device: bound() reads
 // it once per block and clamps it to [0, n], so a live delta's search keeps
 // one launch whatever its count (a CUDA graph replays it as the count grows).
@@ -191,13 +196,15 @@ struct DenseSrc {
     }
     return s;
   }
+  template <int ROWS>
   __device__ __forceinline__ const T* row(int chunk, int r, bool& ok) const {
-    const int64_t row = static_cast<int64_t>(chunk) * CR + r;
+    const int64_t row = static_cast<int64_t>(chunk) * ROWS + r;
     ok = row < n;
     return D + (ok ? row : 0) * m;
   }
+  template <int ROWS>
   __device__ __forceinline__ void id(int chunk, int r, int& id, bool& ok) const {
-    const int64_t row = static_cast<int64_t>(chunk) * CR + r;
+    const int64_t row = static_cast<int64_t>(chunk) * ROWS + r;
     id = -1;
     ok = false;
     if (row < n) {
@@ -226,8 +233,8 @@ struct Unit {
   int rows, id0, slot, row0;
 };
 
-// A paged walk: unit u of chunk c is units[8 c + u], built per call by
-// paged_units_kernel. Row rr of a unit reports id0 + rr, or with ids_pool
+// A paged walk: unit u of chunk c of ROWS-row chunks is units[(ROWS / 64)
+// c + u], built per call by paged_units_kernel. Row rr of a unit reports id0 + rr, or with ids_pool
 // ids_pool[slot, row0 + rr] masked when negative. SCALED: fold[c] (from
 // paged_fold_kernel) names the slot whose scale row every live unit of
 // chunk c shares, or -1 when they differ, and whether the CTA's query tile
@@ -249,14 +256,16 @@ struct PagedSrc {
   __device__ __forceinline__ int live_chunks(int nchunks) const {
     return live != nullptr ? *live : nchunks;
   }
+  template <int ROWS>
   __device__ __forceinline__ const T* row(int chunk, int r, bool& ok) const {
-    const Unit* u = units + chunk * UPC + r / UNIT;
+    const Unit* u = units + chunk * (ROWS / UNIT) + r / UNIT;
     const int rr = r % UNIT;
     ok = rr < __ldg(&u->rows);
     return reinterpret_cast<const T*>(__ldg(&u->base)) + (ok ? rr : 0) * m;
   }
+  template <int ROWS>
   __device__ __forceinline__ void id(int chunk, int r, int& id, bool& ok) const {
-    const Unit* u = units + chunk * UPC + r / UNIT;
+    const Unit* u = units + chunk * (ROWS / UNIT) + r / UNIT;
     const int rr = r % UNIT;
     ok = rr < __ldg(&u->rows);
     if (ids_pool != nullptr) {
@@ -322,30 +331,35 @@ size_t chunk_smem(int m) {
 // Float offset of 16-byte piece c of row r in an f32 slab.
 __device__ __forceinline__ int slab_at(int r, int c) { return r * RS + ((c ^ ((r >> 1) & 3)) << 2); }
 
-// Fill ring stage `dst` with slab k0 of chunk `chunk`, in the storage
-// dtype, as the stage stores it (f32: pieces placed by slab_at; raw: CK
-// packed values a row). VEC: 16-byte cp.async pieces (m % 16 == 0, rows
-// 16-byte aligned); else scalar loads. Out-of-range values are zero.
-template <typename T, bool VEC, typename Src>
+// Fill ring stage `dst` with slab k0 of chunk `chunk` (ROWS rows, loaded by
+// THREADS threads), in the storage dtype, as the stage stores it (f32:
+// pieces placed by slab_at; raw: CK packed values a row). VEC: 16-byte
+// cp.async pieces (m % 16 == 0, rows 16-byte aligned); else scalar loads.
+// Out-of-range values are zero.
+template <typename T, bool VEC, int ROWS, int THREADS, typename Src>
 __device__ __forceinline__ void load_chunk_slab(const Src& src, T* dst, int chunk, int m,
                                                 int k0, int tid) {
   constexpr bool F32 = std::is_same<T, float>::value;
   if (VEC) {
     constexpr int PER_ROW = CK * sizeof(T) / 16;
-#pragma unroll
-    for (int i = 0; i < CR * PER_ROW / CT; ++i) {
-      const int e = tid + i * CT;
+    auto piece = [&](int e) {
       const int r = e / PER_ROW, c = e % PER_ROW;
       bool ok;
-      const T* p = src.row(chunk, r, ok);
+      const T* p = src.template row<ROWS>(chunk, r, ok);
       cp_async16(dst + (F32 ? slab_at(r, c) : r * CK + c * (16 / sizeof(T))),
                  p + k0 + c * (16 / sizeof(T)), ok);
+    };
+    if constexpr (ROWS * PER_ROW % THREADS == 0) {
+#pragma unroll
+      for (int i = 0; i < ROWS * PER_ROW / THREADS; ++i) piece(tid + i * THREADS);
+    } else {
+      for (int e = tid; e < ROWS * PER_ROW; e += THREADS) piece(e);
     }
   } else {
-    for (int e = tid; e < CR * CK; e += CT) {
+    for (int e = tid; e < ROWS * CK; e += THREADS) {
       const int r = e / CK, kk = e % CK;
       bool ok;
-      const T* p = src.row(chunk, r, ok);
+      const T* p = src.template row<ROWS>(chunk, r, ok);
       dst[F32 ? slab_at(r, kk >> 2) + (kk & 3) : r * CK + kk] =
           (ok && k0 + kk < m) ? p[k0 + kk] : T(0.f);
     }
@@ -382,19 +396,20 @@ __device__ __forceinline__ void upcast_slab(const T* raw, float* dst, int tid) {
   }
 }
 
-// Query tile panel [kb, kb + kp) of queries [q0, q0 + CQ), each value
+// Query tile panel [kb, kb + kp) of queries [q0, q0 + QN), each value
 // multiplied by srow[k] when a scale row is given (one rounding, as the
-// dense index folds its scale); zero past B and past m. Eight loads per
-// thread in flight.
+// dense index folds its scale); zero past B and past m. Loaded by THREADS
+// threads, eight loads per thread in flight.
+template <int THREADS, int QN = CQ>
 __device__ __forceinline__ void load_query_panel(const float* __restrict__ Q, float* Qs,
                                                  int B, int m, int q0, int kb, int kp,
                                                  int tid, const float* srow) {
-  const int qld = kp + 4, total = CQ * kp;
-  for (int e0 = tid; e0 < total; e0 += 8 * CT) {
+  const int qld = kp + 4, total = QN * kp;
+  for (int e0 = tid; e0 < total; e0 += 8 * THREADS) {
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * CT, q = e / kp, kk = e % kp;
+      const int e = e0 + u * THREADS, q = e / kp, kk = e % kp;
       v[u] = 0.f;
       if (e < total && q0 + q < B && kb + kk < m) {
         v[u] = Q[static_cast<int64_t>(q0 + q) * m + kb + kk];
@@ -403,7 +418,7 @@ __device__ __forceinline__ void load_query_panel(const float* __restrict__ Q, fl
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * CT;
+      const int e = e0 + u * THREADS;
       if (e < total) Qs[(e / kp) * qld + e % kp] = v[u];
     }
   }
@@ -487,7 +502,7 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
   int ids[CR / 32];
   bool ok[CR / 32];
 #pragma unroll
-  for (int t = 0; t < CR / 32; ++t) src.id(chunk, lane + 32 * t, ids[t], ok[t]);
+  for (int t = 0; t < CR / 32; ++t) src.template id<CR>(chunk, lane + 32 * t, ids[t], ok[t]);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (h) __syncthreads();            // half 0's scores are read
@@ -618,7 +633,7 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 #pragma unroll
   for (int t = 0; t < CR / 32; ++t) {
     bool o;
-    src.id(chunk, lane + 32 * t, ids[t], o);
+    src.template id<CR>(chunk, lane + 32 * t, ids[t], o);
     okm |= static_cast<unsigned>(o) << t;
   }
 #pragma unroll
@@ -680,7 +695,7 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
           const int r = lane + 32 * (__ffs(m) - 1);
           int id;
           bool o;
-          src.id(chunk, r, id, o);
+          src.template id<CR>(chunk, r, id, o);
           const unsigned x = key_hi(srow[r]);
           dst[pos++] = make_key(x, id);
           if (lanes && (x >> 16) > b[32 * (LANE_J - 1)]) lane_insert(b, x >> 16);
@@ -771,7 +786,7 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
   };
   auto chunk_of = [&](int t) { return bx + (t / nslab) * gx; };
   auto load = [&](int t) {
-    load_chunk_slab<T, VEC>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
+    load_chunk_slab<T, VEC, CR, CT>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
   };
 
   float acc[8][8];
@@ -823,8 +838,8 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
     // the tile is (re)loaded at the first slab, at each panel, and where a
     // chunk needs another fold than the CTA's last chunk
     if (slab % ppanel == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
-      load_query_panel(Q, Qs, B, m, q0, slab * CK, kp, tid,
-                       Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
+      load_query_panel<CT>(Q, Qs, B, m, q0, slab * CK, kp, tid,
+                           Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
       __syncthreads();
     }
     if (t + AHEAD < total) load(t + AHEAD);
@@ -856,6 +871,307 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
   } else {
     for (int c = bx + mine * gx; c < nchunks; c += gx)
       for (int e = tid; e < CQ * k; e += CT) {
+        const int q = e / k;
+        if (q0 + q < B)
+          cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * k + e % k] =
+              PAD_KEY;
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Few rows: topk_unit_kernel, one 64-row unit a chunk
+// ---------------------------------------------------------------------------
+//
+// Where the 512-row chunks are fewer than the CTAs a query tile may have (a
+// shortlist's rescore, a live delta, a small paged pool), the chunk kernel
+// leaves most SMs idle: 2,560 rows are five CTAs, each running 6.3M FMAs on
+// one SM. The unit kernel takes those calls with chunks of one 64-row unit
+// and a CTA of four warps over half the 32-query tile, each warp 4 queries
+// by the unit's 64 rows (a lane rows lane and lane + 32): 8 chains a thread,
+// a sixteenth of the chunk kernel's work a CTA, and three CTAs to an SM. The
+// query tile sits in shared memory as in the chunk kernel (a warp's queries are
+// read as broadcasts), copied by cp.async in the prologue beside the first
+// slabs where no scale row folds into it; the unit's slabs stream through an
+// 8-stage cp.async ring in the storage dtype (f32 as slab_at places them,
+// int8 and bf16 packed and upcast as they are read, exactly). A warp then holds,
+// for each of its queries, the unit's 64 scores in registers, two a lane:
+// for k <= SMALL_K it selects the top k into the unit's candidate list
+// (a bitonic sort of its 64 keys), and in list mode it lists every real
+// key, compacted, into the CTA's segment. The lists, segments,
+// merge and select are the chunk kernel's, with 64 rows a chunk.
+// Invariant: every score is the chunk kernel's fmaf chain over m (the same
+// query values, folded with the page's scale row when scaled, the same
+// order), so both kernels give the same bits.
+constexpr int UT = 128;                 // threads of the unit kernel: 4 warps
+constexpr int UQ = 4;                   // queries a warp
+constexpr int UCQ = UT / 32 * UQ;       // queries a CTA (a divisor of CQ)
+constexpr int USTAGES = 8;
+
+template <typename T>
+__host__ __device__ constexpr int unit_stage_bytes() {
+  return UNIT * CK * static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+size_t unit_smem(int m) {
+  return static_cast<size_t>(UCQ) * (panel_width(m) + 4) * 4 + USTAGES * unit_stage_bytes<T>();
+}
+
+// Four consecutive values [k4, k4 + 4) of row r of a unit slab, as f32.
+__device__ __forceinline__ float4 row4(const float* s, int r, int k4) {
+  return *reinterpret_cast<const float4*>(s + slab_at(r, k4 >> 2));
+}
+__device__ __forceinline__ float4 row4(const __nv_bfloat16* s, int r, int k4) {
+  const uint2 v = *reinterpret_cast<const uint2*>(s + r * CK + k4);
+  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 row4(const int8_t* s, int r, int k4) {
+  const char4 v = *reinterpret_cast<const char4*>(s + r * CK + k4);
+  return make_float4(v.x, v.y, v.z, v.w);
+}
+
+// acc[i][t] += Q[i] . D[lane + 32 t] over one CK-deep slab, k ascending;
+// qb: the warp's first query in the tile panel. Each half slab's operands
+// are loaded, then the warp synchronises, then the FMAs run: the chains
+// wait for one load latency a half, not one a step (left to itself the
+// compiler issues each load just before its FMAs).
+template <typename T>
+__device__ __forceinline__ void unit_fma(const float* qb, int qld, const T* Ds,
+                                         float (&acc)[UQ][2], int lane) {
+#pragma unroll
+  for (int h = 0; h < CK; h += 8) {
+    float4 d[2][2], q[UQ][2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      d[0][j] = row4(Ds, lane, h + 4 * j);
+      d[1][j] = row4(Ds, lane + 32, h + 4 * j);
+#pragma unroll
+      for (int i = 0; i < UQ; ++i)
+        q[i][j] = *reinterpret_cast<const float4*>(qb + i * qld + h + 4 * j);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < UQ; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          acc[i][t] = fmaf(q[i][j].x, d[t][j].x, acc[i][t]);
+          acc[i][t] = fmaf(q[i][j].y, d[t][j].y, acc[i][t]);
+          acc[i][t] = fmaf(q[i][j].z, d[t][j].z, acc[i][t]);
+          acc[i][t] = fmaf(q[i][j].w, d[t][j].w, acc[i][t]);
+        }
+  }
+}
+
+// One step of a bitonic network over a warp's 64 keys (element e = lane +
+// 32 t is keys[t] of lane `lane`): v, element e, against element e ^ stride
+// (stride < 32, another lane), kept in descending order where e & size is 0.
+__device__ __forceinline__ uint64_t bitonic_step(uint64_t v, int e, int stride, int size) {
+  const uint64_t o = __shfl_xor_sync(FULL, v, stride);
+  const bool keep_max = ((e & size) == 0) == ((e & stride) == 0);
+  return keep_max ? (o > v ? o : v) : (o < v ? o : v);
+}
+
+// The unit's top k per query of the warp (k <= SMALL_K) into the unit's
+// candidate list: the 64 keys of a query (masked rows as PAD_KEY) sorted
+// descending by a bitonic network across the warp, the queries' steps
+// interleaved, then lane j < k writes the j-th (keys at or below PAD_KEY
+// as PAD_KEY, as warp_extract writes them); then acc is zeroed. The list
+// holds the unit's top k whatever came before: no running threshold, which
+// a CTA that walks one or two units would not use.
+constexpr int SORT_Q = UQ;              // queries sorted together
+template <typename Src>
+__device__ __forceinline__ void unit_keys(float (&acc)[UQ][2], const Src& src, int B, int q0,
+                                          int k, int chunk, int64_t ldq,
+                                          uint64_t* __restrict__ cand, int warp, int lane) {
+  int ids[2];
+  bool ok[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) src.template id<UNIT>(chunk, lane + 32 * t, ids[t], ok[t]);
+#pragma unroll
+  for (int i0 = 0; i0 < UQ; i0 += SORT_Q) {
+    uint64_t keys[SORT_Q][2];
+#pragma unroll
+    for (int i = 0; i < SORT_Q; ++i)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        keys[i][t] = ok[t] ? encode_key(acc[i0 + i][t], ids[t]) : PAD_KEY;
+#pragma unroll
+    for (int size = 2; size <= 2 * 32; size <<= 1)
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1)
+#pragma unroll
+        for (int i = 0; i < SORT_Q; ++i) {
+          if (stride == 32) {            // size 64: lane-local pairs, descending
+            const uint64_t a = keys[i][0], b = keys[i][1];
+            keys[i][0] = a > b ? a : b;
+            keys[i][1] = a > b ? b : a;
+          } else {
+            keys[i][0] = bitonic_step(keys[i][0], lane, stride, size);
+            keys[i][1] = bitonic_step(keys[i][1], lane + 32, stride, size);
+          }
+        }
+#pragma unroll
+    for (int i = 0; i < SORT_Q; ++i) {
+      const int q = warp * UQ + i0 + i;
+      if (q0 + q < B && lane < k)
+        cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k + lane] =
+            keys[i][0] > PAD_KEY ? keys[i][0] : PAD_KEY;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < UQ; ++i) acc[i][0] = acc[i][1] = 0.f;
+}
+
+// List mode: every real key of the unit per query of the warp (what
+// chunk_list lists at its starting threshold), compacted into the CTA's
+// segment after cnt[i] keys; then acc is zeroed. A unit is 64 rows, so a
+// running threshold would skip little: none is kept.
+template <typename Src>
+__device__ __forceinline__ void unit_list(float (&acc)[UQ][2], int (&cnt)[UQ], const Src& src,
+                                          int B, int q0, int chunk, int64_t ldq, int64_t seg0,
+                                          uint64_t* __restrict__ cand, int warp, int lane) {
+  const unsigned below = lanemask_lt();
+  const float real = hi_score(REAL_HI);
+  int ids[2];
+  bool ok[2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t) src.template id<UNIT>(chunk, lane + 32 * t, ids[t], ok[t]);
+#pragma unroll
+  for (int i = 0; i < UQ; ++i) {
+    const int q = warp * UQ + i;
+    if (q0 + q >= B) break;
+    uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + seg0 + cnt[i];
+    int c = 0;
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const float sc = acc[i][t];
+      const bool take = ok[t] && !(sc < real);
+      const unsigned mask = __ballot_sync(FULL, take);
+      if (take) dst[c + __popc(mask & below)] = make_key(key_hi(sc), ids[t]);
+      c += __popc(mask);
+    }
+    cnt[i] += c;
+  }
+#pragma unroll
+  for (int i = 0; i < UQ; ++i) acc[i][0] = acc[i][1] = 0.f;
+}
+
+// The query tile panel [0, kp) of queries [q0, q0 + UCQ) by 16-byte cp.async
+// pieces (m % 16 == 0 and Q 16-byte aligned; no scale row), zero past B
+// and past m, as load_query_panel writes it: in flight with the ring's
+// first slabs, landed by their wait.
+__device__ __forceinline__ void copy_query_panel(const float* __restrict__ Q, float* Qs, int B,
+                                                 int m, int q0, int kp, int tid) {
+  const int qld = kp + 4, per = kp / 4;
+  for (int e = tid; e < UCQ * per; e += UT) {
+    const int q = e / per, c = e % per;
+    const bool ok = q0 + q < B && 4 * c < m;
+    cp_async16(Qs + q * qld + 4 * c, Q + (ok ? static_cast<int64_t>(q0 + q) * m + 4 * c : 0),
+               ok);
+  }
+}
+
+// Persistent as the chunk kernel: CTA (x, y) walks units x, x + gridDim.x,
+// ... of query tile y up to the source's live units; for k <= SMALL_K the
+// units past those get pads, in list mode segment x holds (x qn + min(x,
+// rn)) 64 keys before it and the CTA writes counts[query][x]. A warp whose
+// queries all lie past B runs no FMA. Scaled pages fold the query tile with
+// the unit's page scale row (a unit lies in one page), reloaded where the
+// row changes along the CTA's walk.
+template <typename T, bool VEC, bool LIST, typename Src>
+__global__ void __launch_bounds__(UT, 3)
+topk_unit_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
+                 int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
+  const Src src = src_arg.bound();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = panel_width(m), qld = kp + 4;
+  float* Qs = reinterpret_cast<float*>(smem);                       // [UCQ][qld]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Qs + UCQ * qld);
+  const int q0 = blockIdx.y * UCQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nslab = (m + CK - 1) / CK;
+  const int ppanel = kp / CK;
+  // the whole tile in one panel, no fold, 16-byte pieces: copied ahead
+  const bool early = !Src::SCALED && VEC && nslab <= ppanel &&
+                     reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  const int bx = static_cast<int>(blockIdx.x), gx = static_cast<int>(gridDim.x);
+  const int live = src.live_chunks(nchunks);
+  const int mine = bx < live ? (live - 1 - bx) / gx + 1 : 0;
+  const int total = mine * nslab;
+  const bool busy = q0 + warp * UQ < B;
+  auto stage = [&](int t) {
+    return reinterpret_cast<T*>(ring + (t % USTAGES) * unit_stage_bytes<T>());
+  };
+  // the walk's position, kept by counters (a division a slab would cost
+  // more than the slab's FMAs): the next slab to load, and slab t (its
+  // slab in the chunk, in the query panel, and its chunk)
+  int lslab = 0, lchunk = bx;
+  int slab = 0, pan = 0, chunk = bx;
+  auto load_next = [&](int t) {
+    load_chunk_slab<T, VEC, UNIT, UT>(src, stage(t), lchunk, m, lslab * CK, tid);
+    if (++lslab == nslab) {
+      lslab = 0;
+      lchunk += gx;
+    }
+  };
+
+  float acc[UQ][2];
+  int cnt[UQ];
+#pragma unroll
+  for (int i = 0; i < UQ; ++i) {
+    acc[i][0] = acc[i][1] = 0.f;
+    cnt[i] = 0;
+  }
+  const int qn = nchunks / gx, rn = nchunks % gx;
+  const int64_t seg0 = (static_cast<int64_t>(bx) * qn + (bx < rn ? bx : rn)) * UNIT;
+  int2 fs = make_int2(-1, Src::SCALED ? 0 : 1);
+
+  if (early && total > 0) copy_query_panel(Q, Qs, B, m, q0, kp, tid);   // in group 0
+#pragma unroll
+  for (int t = 0; t < USTAGES - 1; ++t) {
+    if (t < total) load_next(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < total; ++t) {
+    cp_async_wait<USTAGES - 2>();
+    __syncthreads();                   // slab t is in (and an early tile); t - 1 consumed
+    if (Src::SCALED && slab == 0) fs = src.fold_state(chunk);
+    if (!early && pan == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
+      load_query_panel<UT, UCQ>(Q, Qs, B, m, q0, slab * CK, kp, tid,
+                                Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
+      __syncthreads();
+    }
+    if (t + USTAGES - 1 < total) load_next(t + USTAGES - 1);
+    cp_async_commit();
+    if (busy) unit_fma(Qs + pan * CK + warp * UQ * qld, qld, stage(t), acc, lane);
+    if (slab == nslab - 1) {
+      if constexpr (LIST)
+        unit_list(acc, cnt, src, B, q0, chunk, ldq, seg0, cand, warp, lane);
+      else
+        unit_keys(acc, src, B, q0, k, chunk, ldq, cand, warp, lane);
+    }
+    if (++slab == nslab) {
+      slab = pan = 0;
+      chunk += gx;
+    } else if (++pan == ppanel) {
+      pan = 0;
+    }
+  }
+  cp_async_wait<0>();
+  if constexpr (LIST) {
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < UQ; ++i) {
+        const int q = warp * UQ + i;
+        if (q0 + q < B) counts[static_cast<int64_t>(q0 + q) * gx + bx] = cnt[i];
+      }
+  } else {
+    for (int c = bx + mine * gx; c < nchunks; c += gx)
+      for (int e = tid; e < UCQ * k; e += UT) {
         const int q = e / k;
         if (q0 + q < B)
           cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * k + e % k] =
@@ -919,9 +1235,10 @@ __global__ void carry_keys_kernel(const float* __restrict__ cs,
   cand[q * ld + off + j] = s == __int_as_float(0xff800000) ? PAD_KEY : encode_key(s, ci[e]);
 }
 
-// The unit table of a paged walk over slots [lo, hi): U = ceil(R / 64)
-// units a page. With U <= 8 a chunk holds ppc = 8 / U whole pages (units
-// past ppc U are masked); else a page spans cpp = ceil(U / 8) chunks. A
+// The unit table of a paged walk over slots [lo, hi) in chunks of upc units
+// (8, or 1 for the unit kernel): U = ceil(R / 64) units a page. With U <=
+// upc a chunk holds ppc = upc / U whole pages (units past ppc U are
+// masked); else a page spans cpp = ceil(U / upc) chunks. A
 // table entry below pool_pages addresses the pool, one at or above it the
 // tail, one in neither masks the page. Rows that may be live: up to
 // page_nvalid[slot], or up to R with ids_pool. With lo_dev / hi_dev the
@@ -933,7 +1250,7 @@ __global__ void paged_units_kernel(const T* __restrict__ pool, const T* __restri
                                    const int* __restrict__ offset, int pool_pages,
                                    int tail_pages, int R, int m, int lo, int hi,
                                    const int* __restrict__ lo_dev, const int* __restrict__ hi_dev,
-                                   int U, int ppc, int cpp, int with_ids, int nunits,
+                                   int U, int ppc, int cpp, int upc, int with_ids, int nunits,
                                    Unit* __restrict__ units, int* __restrict__ live_out) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= nunits) return;
@@ -945,7 +1262,7 @@ __global__ void paged_units_kernel(const T* __restrict__ pool, const T* __restri
     lo = l;
     if (e == 0) *live_out = hi <= lo ? 0 : (cpp == 1 ? (hi - lo + ppc - 1) / ppc : (hi - lo) * cpp);
   }
-  const int c = e / UPC, u = e % UPC;
+  const int c = e / upc, u = e % upc;
   int64_t slot;
   int row0;
   bool live;
@@ -956,7 +1273,7 @@ __global__ void paged_units_kernel(const T* __restrict__ pool, const T* __restri
     live = p < ppc;
   } else {
     slot = lo + c / cpp;
-    row0 = ((c % cpp) * UPC + u) * UNIT;
+    row0 = ((c % cpp) * upc + u) * UNIT;
     live = true;
   }
   live = live && slot < hi && row0 < R;
@@ -990,32 +1307,33 @@ __device__ __forceinline__ bool rows_equal(const float* scale, int m, int a, int
   return __all_sync(FULL, eq);
 }
 
-// The slot whose scale row every live unit of chunk c shares (the first
-// live one's), -1 when they differ, the chunk's first slot when none is
-// live (its rows are all masked, so any fold serves).
-__device__ __forceinline__ int chunk_fold(const Unit* units, const float* scale, int m, int c) {
+// The slot whose scale row every live unit of chunk c (upc units) shares
+// (the first live one's), -1 when they differ, the chunk's first slot when
+// none is live (its rows are all masked, so any fold serves).
+__device__ __forceinline__ int chunk_fold(const Unit* units, const float* scale, int m, int c,
+                                          int upc) {
   int rep = -1;
-  for (int u = 0; u < UPC; ++u) {
-    const Unit& x = units[c * UPC + u];
+  for (int u = 0; u < upc; ++u) {
+    const Unit& x = units[c * upc + u];
     if (x.rows == 0) continue;
     if (rep < 0) rep = x.slot;
     else if (!rows_equal(scale, m, rep, x.slot)) return -1;
   }
-  return rep < 0 ? units[c * UPC].slot : rep;
+  return rep < 0 ? units[c * upc].slot : rep;
 }
 
 // One warp per chunk: fold[c] = (chunk_fold(c), whether the tile the CTA
 // left after chunk c - gx, its last, already holds that fold); only for
 // the chunks the chunk kernel walks (*live of them, when live is set).
 __global__ void paged_fold_kernel(const Unit* __restrict__ units, const float* __restrict__ scale,
-                                  int m, int nchunks, const int* __restrict__ live, int gx,
-                                  int2* __restrict__ fold) {
+                                  int m, int nchunks, int upc, const int* __restrict__ live,
+                                  int gx, int2* __restrict__ fold) {
   const int c = static_cast<int>((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32);
   if (c >= nchunks || (live != nullptr && c >= *live)) return;   // whole warp
-  const int r = chunk_fold(units, scale, m, c);
+  const int r = chunk_fold(units, scale, m, c, upc);
   int same = 0;
   if (c >= gx) {
-    const int p = chunk_fold(units, scale, m, c - gx);
+    const int p = chunk_fold(units, scale, m, c - gx, upc);
     same = (r < 0 && p < 0) || (r >= 0 && p >= 0 && rows_equal(scale, m, r, p));
   }
   if ((threadIdx.x & 31) == 0) fold[c] = make_int2(r, same);
@@ -1461,16 +1779,16 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// CTAs per query tile of the chunk kernel: one per SM, the SMs shared
-// among the query tiles, at most one per chunk.
-int chunk_grid_x(int nchunks, int B, int sms) {
-  const int tiles = (B + CQ - 1) / CQ;
-  const int per_tile = (sms + tiles - 1) / tiles;
-  return nchunks < per_tile ? nchunks : per_tile;
-}
+// A call's plan, from the wrapper (kernels/topk_score.py::chunk_plan): upc
+// 64-row units a chunk, UPC for the chunk kernel or 1 for the unit kernel,
+// and gx CTAs a query tile (the list mode's segments a query).
+struct Plan {
+  int upc, gx;
+  int rows() const { return UNIT * upc; }
+};
 
-// The chunk kernel's launch: gx CTAs per query tile (chunk_grid_x); in
-// list mode `counts` takes B x gx listed counts.
+// The chunk or unit kernel's launch: gx CTAs per query tile; in list mode
+// `counts` takes B x gx listed counts.
 struct ChunkLaunch {
   int gx;
   int64_t ldq;
@@ -1491,9 +1809,29 @@ cudaError_t launch_chunks(const Src& src, const float* Q, int m, int B, int k, i
   return cudaGetLastError();
 }
 
+template <typename T, bool VEC, bool LIST, typename Src>
+cudaError_t launch_units(const Src& src, const float* Q, int m, int B, int k, int nchunks,
+                         const ChunkLaunch& cl, cudaStream_t stream) {
+  auto kern = topk_unit_kernel<T, VEC, LIST, Src>;
+  const size_t smem = unit_smem<T>(m);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cl.gx, (B + UCQ - 1) / UCQ);
+  kern<<<grid, UT, smem, stream>>>(src, Q, m, B, k, nchunks, cl.ldq, cl.cand, cl.counts);
+  return cudaGetLastError();
+}
+
+// The plan's kernel: the chunk kernel (upc == UPC) or the unit kernel.
 template <typename T, typename Src>
-cudaError_t dispatch_chunks(bool vec, bool list, const Src& src, const float* Q, int m, int B,
-                            int k, int nchunks, const ChunkLaunch& cl, cudaStream_t s) {
+cudaError_t dispatch_chunks(bool vec, bool list, int upc, const Src& src, const float* Q, int m,
+                            int B, int k, int nchunks, const ChunkLaunch& cl, cudaStream_t s) {
+  if (upc != UPC) {
+    if (vec) return list ? launch_units<T, true, true>(src, Q, m, B, k, nchunks, cl, s)
+                         : launch_units<T, true, false>(src, Q, m, B, k, nchunks, cl, s);
+    return list ? launch_units<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
+                : launch_units<T, false, false>(src, Q, m, B, k, nchunks, cl, s);
+  }
   if (vec) return list ? launch_chunks<T, true, true>(src, Q, m, B, k, nchunks, cl, s)
                        : launch_chunks<T, true, false>(src, Q, m, B, k, nchunks, cl, s);
   return list ? launch_chunks<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
@@ -1613,21 +1951,22 @@ int run_select(const uint64_t* keys, const Segs& sg, int B, int64_t L, int k, in
   return 0;
 }
 
-// Chunks of a paged walk over `slots` slots of R rows, and its geometry.
+// Chunks of upc units of a paged walk over `slots` slots of R rows, and its
+// geometry (kernels/topk_score.py::paged_chunks counts the same chunks).
 struct PagedGeom {
   int U, ppc, cpp;
   int64_t nchunks;
 };
-PagedGeom paged_geom(int64_t slots, int R) {
+PagedGeom paged_geom(int64_t slots, int R, int upc) {
   PagedGeom g;
   g.U = (R + UNIT - 1) / UNIT;
-  if (g.U <= UPC) {
-    g.ppc = UPC / g.U;
+  if (g.U <= upc) {
+    g.ppc = upc / g.U;
     g.cpp = 1;
     g.nchunks = (slots + g.ppc - 1) / g.ppc;
   } else {
     g.ppc = 1;
-    g.cpp = (g.U + UPC - 1) / UPC;
+    g.cpp = (g.U + upc - 1) / upc;
     g.nchunks = slots * g.cpp;
   }
   return g;
@@ -1635,48 +1974,55 @@ PagedGeom paged_geom(int64_t slots, int R) {
 
 // Words of the unit table (a Unit is three 8-byte words), the fold states
 // (one int2 a chunk) and, for a range read on the device, its live chunks.
-int64_t unit_words(int64_t nchunks, int dev) {
-  return nchunks * UPC * (sizeof(Unit) / 8) + nchunks + (dev ? 1 : 0);
+int64_t unit_words(int64_t nchunks, int upc, int dev) {
+  return nchunks * upc * (sizeof(Unit) / 8) + nchunks + (dev ? 1 : 0);
 }
 
 // Words of the list-mode counts: B x nchunks ints (gx <= nchunks).
 int64_t count_words(int64_t nchunks, int B) { return (static_cast<int64_t>(B) * nchunks + 1) / 2; }
 
-// Words of scratch after the unit table for B queries of nchunks chunks
-// (and a carry): per-chunk candidate lists and merges for k <= SMALL_K;
-// else room for every row's key and the carry's, the listed counts (one
-// int a chunk kernel CTA, at most one CTA a chunk) and the select.
-int64_t key_words(int64_t nchunks, int carry, int k, int B) {
+// Words of scratch after the unit table for B queries of nchunks chunks of
+// `rows` rows (and a carry): per-chunk candidate lists and merges for k <=
+// SMALL_K; else room for every row's key and the carry's, the listed counts
+// (one int a CTA, at most one CTA a chunk) and the select.
+int64_t key_words(int64_t nchunks, int rows, int carry, int k, int B) {
   if (k <= SMALL_K) return merge_words(nchunks + carry, k, B);
-  const int64_t L = nchunks * CR + (carry ? k : 0);
+  const int64_t L = nchunks * rows + (carry ? k : 0);
   return static_cast<int64_t>(B) * L + count_words(nchunks, B) + sel_layout(L, k, B).words;
 }
 
-// The list-mode chunk kernel's segments (gx CTAs over nchunks chunks, a
+// The list mode's segments (gx CTAs over nchunks chunks of `rows` rows, a
 // carry of `extra` keys after them) for the select.
-Segs list_segs(const int* counts, int64_t ldq, int nchunks, int gx, int extra) {
-  return Segs{counts, ldq, CR, gx, gx > 0 ? nchunks / gx : 0, gx > 0 ? nchunks % gx : 0, extra};
+Segs list_segs(const int* counts, int64_t ldq, int nchunks, int rows, int gx, int extra) {
+  return Segs{counts, ldq, rows, gx, gx > 0 ? nchunks / gx : 0, gx > 0 ? nchunks % gx : 0,
+              extra};
+}
+
+// A plan the kernels take: upc UPC or 1, and 1 <= gx <= nchunks (0 when
+// there is no chunk).
+bool plan_ok(const Plan& p, int64_t nchunks) {
+  return (p.upc == UPC || p.upc == 1) && p.gx >= (nchunks > 0 ? 1 : 0) && p.gx <= nchunks;
 }
 
 template <typename T>
 int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, int B,
-               int64_t n_valid, const int* n_valid_dev, int k, bool vec, uint64_t* scratch,
-               float* os, int* oi, cudaStream_t s, int* launched) {
-  const int nchunks = static_cast<int>((n + CR - 1) / CR);
+               int64_t n_valid, const int* n_valid_dev, int k, bool vec, const Plan& plan,
+               uint64_t* scratch, float* os, int* oi, cudaStream_t s, int* launched) {
+  const int rows = plan.rows();
+  const int nchunks = static_cast<int>((n + rows - 1) / rows);
+  if (!plan_ok(plan, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
   const DenseSrc<T> src{static_cast<const T*>(D), ids, n, n_valid, m, n_valid_dev};
   const bool list = k > SMALL_K;
-  const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR : static_cast<int64_t>(nchunks) * k;
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int gx = chunk_grid_x(nchunks, B, sms);
+  const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows
+                           : static_cast<int64_t>(nchunks) * k;
+  const int gx = plan.gx;
   int* counts = reinterpret_cast<int*>(scratch + static_cast<int64_t>(B) * ldq);
-  err = dispatch_chunks<T>(vec, list, src, q, m, B, k, nchunks,
-                           ChunkLaunch{gx, ldq, scratch, counts}, s);
+  cudaError_t err = dispatch_chunks<T>(vec, list, plan.upc, src, q, m, B, k, nchunks,
+                                       ChunkLaunch{gx, ldq, scratch, counts}, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launched;
   if (list)
-    return run_select(scratch, list_segs(counts, ldq, nchunks, gx, 0), B, ldq, k, 0,
+    return run_select(scratch, list_segs(counts, ldq, nchunks, rows, gx, 0), B, ldq, k, 0,
                       scratch + static_cast<int64_t>(B) * ldq + count_words(nchunks, B), os, oi,
                       s, launched);
   return run_merges(nchunks, B, k, scratch, scratch + static_cast<int64_t>(B) * ldq, os, oi, 0,
@@ -1688,31 +2034,30 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
                const int* offset, const float* scale, const int* ids_pool, const float* q,
                const float* cs, const int* ci, int pool_pages, int tail_pages, int R, int m,
                int B, int lo, int hi, const int* lo_dev, const int* hi_dev, int k, bool vec,
-               int unfinal, uint64_t* scratch, float* os, int* oi, cudaStream_t s,
-               int* launched) {
+               int unfinal, const Plan& plan, uint64_t* scratch, float* os, int* oi,
+               cudaStream_t s, int* launched) {
   const int64_t slots = hi > lo ? hi - lo : 0;
-  const PagedGeom g = paged_geom(slots, R);
+  const int upc = plan.upc, rows = plan.rows(), gx = plan.gx;
+  const PagedGeom g = paged_geom(slots, R, upc);
   const int nchunks = static_cast<int>(g.nchunks);
+  if (!plan_ok(plan, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
   const bool carry = cs != nullptr;
   const bool dev = lo_dev != nullptr;
   auto* units = reinterpret_cast<Unit*>(scratch);
-  auto* fold = reinterpret_cast<int2*>(units + static_cast<int64_t>(nchunks) * UPC);
+  auto* fold = reinterpret_cast<int2*>(units + static_cast<int64_t>(nchunks) * upc);
   int* live = dev ? reinterpret_cast<int*>(fold + nchunks) : nullptr;
-  uint64_t* cand = scratch + unit_words(nchunks, dev);
+  uint64_t* cand = scratch + unit_words(nchunks, upc, dev);
   const bool list = k > SMALL_K;
-  const int64_t ldq = list ? static_cast<int64_t>(nchunks) * CR + (carry ? k : 0)
+  const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows + (carry ? k : 0)
                            : static_cast<int64_t>(nchunks + (carry ? 1 : 0)) * k;
   int* counts = reinterpret_cast<int*>(cand + static_cast<int64_t>(B) * ldq);
-  int sms = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int gx = chunk_grid_x(nchunks, B, sms);
   const ChunkLaunch cl{gx, ldq, cand, counts};
+  cudaError_t err = cudaSuccess;
   if (nchunks > 0) {
-    const int nunits = nchunks * UPC;
+    const int nunits = nchunks * upc;
     paged_units_kernel<T><<<(nunits + 255) / 256, 256, 0, s>>>(
         static_cast<const T*>(pool), static_cast<const T*>(tail), table, nvalid, offset,
-        pool_pages, tail_pages, R, m, lo, hi, lo_dev, hi_dev, g.U, g.ppc, g.cpp,
+        pool_pages, tail_pages, R, m, lo, hi, lo_dev, hi_dev, g.U, g.ppc, g.cpp, upc,
         ids_pool != nullptr, nunits, units, live);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1720,15 +2065,15 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     if (scale != nullptr) {
       const int64_t threads = static_cast<int64_t>(nchunks) * 32;
       paged_fold_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-          units, scale, m, nchunks, live, gx, fold);
+          units, scale, m, nchunks, upc, live, gx, fold);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       ++*launched;
-      err = dispatch_chunks<T>(vec, list,
+      err = dispatch_chunks<T>(vec, list, upc,
                                PagedSrc<T, true>{units, ids_pool, scale, fold, R, m, live}, q, m,
                                B, k, nchunks, cl, s);
     } else {
-      err = dispatch_chunks<T>(vec, list,
+      err = dispatch_chunks<T>(vec, list, upc,
                                PagedSrc<T, false>{units, ids_pool, nullptr, nullptr, R, m, live},
                                q, m, B, k, nchunks, cl, s);
     }
@@ -1737,7 +2082,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
   }
   if (carry) {
     const int64_t total = static_cast<int64_t>(B) * k;
-    const int64_t off = list ? static_cast<int64_t>(nchunks) * CR : static_cast<int64_t>(nchunks) * k;
+    const int64_t off = list ? static_cast<int64_t>(nchunks) * rows : static_cast<int64_t>(nchunks) * k;
     carry_keys_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(cs, ci, B, k, ldq,
                                                                                off, cand);
     err = cudaGetLastError();
@@ -1745,7 +2090,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     ++*launched;
   }
   if (list)
-    return run_select(cand, list_segs(counts, ldq, nchunks, gx, carry ? k : 0), B, ldq, k,
+    return run_select(cand, list_segs(counts, ldq, nchunks, rows, gx, carry ? k : 0), B, ldq, k,
                       unfinal, cand + static_cast<int64_t>(B) * ldq + count_words(nchunks, B),
                       os, oi, s, launched);
   return run_merges(nchunks + (carry ? 1 : 0), B, k, cand, cand + static_cast<int64_t>(B) * ldq,
@@ -1754,11 +2099,14 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
 
 }  // namespace
 
-// Scratch of a dense call over n rows at k for B queries: out[0] = 8-byte
-// words, out[1] = 1 when the call takes the radix select (k > 32).
-extern "C" int topk_plan(int64_t n, int k, int B, int64_t* out) {
-  if (n < 1 || k < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = key_words((n + CR - 1) / CR, 0, k, B);
+// Scratch of a dense call over n rows at k for B queries in chunks of upc
+// 64-row units (the plan's): out[0] = 8-byte words, out[1] = 1 when the
+// call takes the radix select (k > 32).
+extern "C" int topk_plan(int64_t n, int k, int B, int upc, int64_t* out) {
+  if (n < 1 || k < 1 || B < 1 || (upc != UPC && upc != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = UNIT * upc;
+  out[0] = key_words((n + rows - 1) / rows, rows, 0, k, B);
   out[1] = k > SMALL_K;
   return 0;
 }
@@ -1768,12 +2116,14 @@ extern "C" int topk_plan(int64_t n, int k, int B, int64_t* out) {
 // device, clamped to [0, n] by the kernel) when that pointer is set, else
 // the host value n_valid. scratch holds topk_plan's words. Writes out_s
 // (B, k) f32 and out_i (B, k) int32. `vec` asserts m % 16 == 0 and a
-// 16-byte aligned D. *launched counts the kernel launches made. Returns the
-// first cudaError_t.
+// 16-byte aligned D. *launched counts the kernel launches made. upc and gx
+// are the call's plan (kernels/topk_score.py::chunk_plan): chunks of upc
+// 64-row units (8: the chunk kernel, 1: the unit kernel), gx CTAs a query
+// tile. Returns the first cudaError_t.
 extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids, int64_t n,
                               int m, int B, int64_t n_valid, const void* n_valid_dev, int k,
                               int dtype, int vec, void* scratch, void* out_s, void* out_i,
-                              void* stream, int* launched) {
+                              void* stream, int* launched, int upc, int gx) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(Q);
   auto ids = static_cast<const int*>(row_ids);
@@ -1782,9 +2132,11 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   *launched = 0;
-  if (n < 1 || (n + CR - 1) / CR > 0x7FFFFFFF || k < 1 || B < 1 || B > 65535)
+  if (n < 1 || (n + UNIT - 1) / UNIT > 0x7FFFFFFF || k < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-#define DENSE(T) dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, sc, os, oi, s, launched)
+  const Plan plan{upc, gx};
+#define DENSE(T) \
+  dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, plan, sc, os, oi, s, launched)
   if (dtype == 0) return DENSE(float);
   if (dtype == 1) return DENSE(__nv_bfloat16);
   if (dtype == 2) return DENSE(int8_t);
@@ -1794,15 +2146,16 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
 
 // Scratch of a paged call over `slots` page slots of R rows (plus a carry
 // when `carry` is set; with `dev`, a range read on the device within those
-// slots) at k for B queries: out[0] = 8-byte words, out[1] = 1 when the
-// call takes the radix select.
-extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int dev, int B,
+// slots) at k for B queries in chunks of upc units (the plan's): out[0] =
+// 8-byte words, out[1] = 1 when the call takes the radix select.
+extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int dev, int B, int upc,
                                int64_t* out) {
-  if (slots < 0 || R < 1 || k < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const PagedGeom g = paged_geom(slots, R);
-  if (g.nchunks * UPC > 0x7FFFFFFF || (g.nchunks == 0 && !carry))
+  if (slots < 0 || R < 1 || k < 1 || B < 1 || (upc != UPC && upc != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  out[0] = unit_words(g.nchunks, dev) + key_words(g.nchunks, carry, k, B);
+  const PagedGeom g = paged_geom(slots, R, upc);
+  if (g.nchunks * upc > 0x7FFFFFFF || (g.nchunks == 0 && !carry))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = unit_words(g.nchunks, upc, dev) + key_words(g.nchunks, UNIT * upc, carry, k, B);
   out[1] = k > SMALL_K;
   return 0;
 }
@@ -1821,14 +2174,15 @@ extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int dev, 
 // out_i (B, k) int32; -inf slots get id -1 with `finalize`, else their
 // rank among pads as -(j - c + 2). `vec` asserts m % 16 == 0 and 16-byte
 // aligned pool, tail and scale. *launched counts the kernel launches
-// made. Returns the first cudaError_t.
+// made. upc and gx are the call's plan, as topk_score_f32's. Returns the
+// first cudaError_t.
 extern "C" int topk_score_paged_f32(
     const void* pool, const void* tail, const void* table, const void* nvalid,
     const void* offset, const void* scale, const void* ids_pool, const void* Q,
     const void* carry_s, const void* carry_i, int pool_pages, int tail_pages,
     int R, int m, int B, int lo, int hi, const void* lo_dev, const void* hi_dev, int k,
     int dtype, int vec, int finalize, void* scratch, void* out_s, void* out_i, void* stream,
-    int* launched) {
+    int* launched, int upc, int gx) {
   auto s = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const bool carry = carry_s != nullptr;
@@ -1850,8 +2204,9 @@ extern "C" int topk_score_paged_f32(
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   const int unfinal = finalize ? 0 : 1;
+  const Plan plan{upc, gx};
 #define PAGED(T) paged_call<T>(pool, tail, tb, nv, off, sc, ip, q, cs, ci, pool_pages, tail_pages, \
-                               R, m, B, lo, hi, lod, hid, k, vec, unfinal, w, os, oi, s,   \
+                               R, m, B, lo, hi, lod, hid, k, vec, unfinal, plan, w, os, oi, s, \
                                launched)
   if (dtype == 0) return PAGED(float);
   if (dtype == 1) return PAGED(__nv_bfloat16);
@@ -1907,6 +2262,20 @@ using PagedScaled = PagedSrc<T, true>;
 #define CHUNKS(T, TN)                                                                      \
   CHUNK4(T, TN, DenseSrc<T>, "dense"), CHUNK4(T, TN, PagedPlain<T>, "paged"),             \
       CHUNK4(T, TN, PagedScaled<T>, "paged_scaled")
+template <typename T, bool LIST>
+int unit_dyn_smem(int m) { return static_cast<int>(unit_smem<T>(m)); }
+#define UNIT4(T, TN, S, SN)                                                                \
+  {"topk_unit_kernel<" TN ",vec,keep," SN ">",                                             \
+   reinterpret_cast<const void*>(topk_unit_kernel<T, true, false, S>), UT, unit_dyn_smem<T, false>}, \
+  {"topk_unit_kernel<" TN ",vec,list," SN ">",                                             \
+   reinterpret_cast<const void*>(topk_unit_kernel<T, true, true, S>), UT, unit_dyn_smem<T, true>}, \
+  {"topk_unit_kernel<" TN ",scalar,keep," SN ">",                                          \
+   reinterpret_cast<const void*>(topk_unit_kernel<T, false, false, S>), UT, unit_dyn_smem<T, false>}, \
+  {"topk_unit_kernel<" TN ",scalar,list," SN ">",                                          \
+   reinterpret_cast<const void*>(topk_unit_kernel<T, false, true, S>), UT, unit_dyn_smem<T, true>}
+#define UNITS4(T, TN)                                                                      \
+  UNIT4(T, TN, DenseSrc<T>, "dense"), UNIT4(T, TN, PagedPlain<T>, "paged"),               \
+      UNIT4(T, TN, PagedScaled<T>, "paged_scaled")
 #define UNITS(T, TN)                                                                       \
   {"paged_units_kernel<" TN ">", reinterpret_cast<const void*>(paged_units_kernel<T>), 256, \
    nullptr}
@@ -1915,6 +2284,9 @@ const KernelEntry KERNELS[] = {
     CHUNKS(float, "f32"),
     CHUNKS(__nv_bfloat16, "bf16"),
     CHUNKS(int8_t, "int8"),
+    UNITS4(float, "f32"),
+    UNITS4(__nv_bfloat16, "bf16"),
+    UNITS4(int8_t, "int8"),
     {"topk_merge_kernel", reinterpret_cast<const void*>(topk_merge_kernel), MT, nullptr},
     {"carry_keys_kernel", reinterpret_cast<const void*>(carry_keys_kernel), 256, nullptr},
     UNITS(float, "f32"),
@@ -1933,6 +2305,8 @@ const KernelEntry KERNELS[] = {
      fused_smem},
 };
 #undef UNITS
+#undef UNITS4
+#undef UNIT4
 #undef CHUNKS
 #undef CHUNK4
 

@@ -13,7 +13,9 @@ after each launch.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import os
 import re
 import subprocess
@@ -108,6 +110,40 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
                 getattr(lib, fn).argtypes = argtypes
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _index(device) -> int:
+    import torch
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def sm_count(device) -> int:
+    """SMs of a CUDA device (read once a device): what the wrappers' launch
+    plans are sized by."""
+    return _sm_count(_index(device))
+
+
+def raw_stream(device) -> int:
+    """The current CUDA stream of ``device`` as the pointer the C entries
+    take (what ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    without building a Stream object on every launch)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+def on_device(device):
+    """A context in which ``device`` is the current CUDA device, which the C
+    entries launch on; no switch when it already is."""
+    import torch
+    if _index(device) == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, what: str) -> None:

@@ -9,7 +9,10 @@ int32 ids; ties go to the lowest id; slots with no candidate are
 
 The kernels (``csrc/topk_score.cu``) split n over CTAs, since at serving
 batch sizes one CTA per query tile would leave most of the card idle: one
-persistent CTA per SM walks 512-row chunks for 32 queries. For k <= 32 it
+persistent CTA per SM walks 512-row chunks for 32 queries, or, where those
+chunks are fewer than the SMs a query tile may have and its 64-row units
+fit two waves (a shortlist's rescore, a live delta), a CTA takes each unit
+(``chunk_plan`` decides and the C entries take its plan). For k <= 32 it
 keeps each chunk's top k against a running threshold and a merge kernel
 reduces the per-chunk lists; for larger k it lists, compacted into its own
 segment of each query's row, only the keys at or above a running
@@ -40,6 +43,8 @@ chunk kernel lists them, each row optionally cut to a live count;
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -52,18 +57,18 @@ SCRATCH_BYTES = 4 << 30    # scratch of one C call, above which queries are grou
 MAX_GROUP = 65504
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+    "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                  ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_f32": (ctypes.c_int, [
         _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-        ctypes.POINTER(ctypes.c_int)]),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_paged_f32": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 7 + [_P] * 2
                              + [ctypes.c_int] * 4 + [_P] * 4
-                             + [ctypes.POINTER(ctypes.c_int)]),
+                             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]),
     "topk_select_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int64)]),
     "topk_select_keys": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
@@ -73,10 +78,77 @@ _SIGNATURES = {
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _STORE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
 _SIGN = -(1 << 63)         # the CUDA keys are the plain keys with the top bit flipped
-# csrc/topk_score.cu's scratch geometry, for reading a list-mode call's
-# lists back: rows a chunk (CR), rows a paged unit (UNIT), units a chunk
-# (UPC) and 8-byte words a unit (sizeof(Unit) / 8)
-_CR, _UNIT, _UPC, _UNIT_WORDS = 512, 64, 8, 3
+# csrc/topk_score.cu's geometry: queries a tile (CQ), rows a chunk of the
+# chunk kernel (CR), rows a unit (UNIT: a warp's block, a paged unit, a
+# chunk of the unit kernel), units a chunk (UPC), 8-byte words a unit of a
+# paged unit table (sizeof(Unit) / 8), k of the register select (SMALL_K)
+_CQ, _CR, _UNIT, _UPC, _UNIT_WORDS, _SMALL_K = 32, 512, 64, 8, 3, 32
+# unit-kernel CTAs an SM holds at once (57 KB of shared memory each at m
+# 384: half the query tile and the ring; 128 threads of at most 170
+# registers); a 32-query tile takes two CTAs a unit. ``chunk_plan`` gives
+# the unit kernel at most this many units a tile's SM: on an H100 the chunk
+# kernel overtakes it between 3 and 3.4 units an SM at k 100 (25,344 and
+# 28,672 rows at B 32) and near 4.4 at k 10 (36,864 rows), as
+# ``benchmarks/small_calls.py`` times them, so neither k loses to the switch
+UNIT_CTAS_PER_SM = 3
+
+
+class ChunkPlan(NamedTuple):
+    """A call's walk: chunks of ``upc`` 64-row units (8: the chunk kernel's
+    512 rows; 1: the unit kernel's 64), ``chunks`` of them, and ``ctas``
+    CTAs a query tile. CTA x walks chunks x, x + ctas, ...; in list mode it
+    owns segment x of each query's row of keys."""
+    upc: int
+    chunks: int
+    ctas: int
+
+    @property
+    def rows(self) -> int:
+        return _UNIT * self.upc
+
+    def segments(self) -> list[tuple[int, int]]:
+        """(first key slot, key slots) of each CTA's segment of a query's
+        row: room for every row of the chunks it walks."""
+        qn, rn = divmod(self.chunks, self.ctas) if self.ctas else (0, 0)
+        return [((x * qn + min(x, rn)) * self.rows, (qn + (x < rn)) * self.rows)
+                for x in range(self.ctas)]
+
+
+@functools.lru_cache(maxsize=4096)
+def chunk_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
+    """The walk of a call of B queries over ``big_chunks`` 512-row chunks
+    or ``units`` 64-row units, on a card of ``sms`` SMs. A query tile gets
+    ceil(sms / tiles) SMs. Where the 512-row chunks fill them, or the units
+    are more than UNIT_CTAS_PER_SM a tile's SM (the unit kernel's two CTAs a
+    unit would take more than two waves, and it spends more time a row than
+    the chunk kernel), the chunk kernel walks the chunks with at most one
+    CTA an SM and a chunk. Else the unit kernel takes each unit with a CTA
+    of its own. The plan depends on the capacity (n, the planned slots) and
+    B, never on a live count read on the card, so a captured CUDA graph
+    replays at any count."""
+    tiles = -(-B // _CQ)
+    per_tile = -(-sms // tiles)
+    if big_chunks >= per_tile or units > UNIT_CTAS_PER_SM * per_tile:
+        return ChunkPlan(_UPC, big_chunks, min(big_chunks, per_tile))
+    return ChunkPlan(1, units, units)
+
+
+def dense_plan(n: int, B: int, sms: int) -> ChunkPlan:
+    """``chunk_plan`` of a dense call over n rows."""
+    return chunk_plan(-(-n // _CR), -(-n // _UNIT), B, sms)
+
+
+def paged_chunks(slots: int, R: int, upc: int) -> int:
+    """Chunks of ``upc`` units of a paged walk over ``slots`` slots of R
+    rows (the C side's paged_geom): a chunk holds upc // U whole pages of
+    U = ceil(R / 64) units, or a page spans ceil(U / upc) chunks."""
+    U = -(-R // _UNIT)
+    return -(-slots // (upc // U)) if U <= upc else slots * -(-U // upc)
+
+
+def paged_plan(slots: int, R: int, B: int, sms: int) -> ChunkPlan:
+    """``chunk_plan`` of a paged call over ``slots`` slots of R rows."""
+    return chunk_plan(paged_chunks(slots, R, _UPC), paged_chunks(slots, R, 1), B, sms)
 
 
 # the plain versions are the oracles themselves
@@ -84,6 +156,7 @@ topk_score_plain = ref.topk_score_ref
 topk_score_paged_plain = ref.topk_score_paged_ref
 
 
+@functools.lru_cache(maxsize=4096)
 def _plan(fn: str, *args) -> tuple[int, bool]:
     """(scratch words, takes the radix select) from a C plan entry."""
     lib = _build.load("topk_score", _SIGNATURES)
@@ -92,9 +165,15 @@ def _plan(fn: str, *args) -> tuple[int, bool]:
     return int(out[0]), bool(out[1])
 
 
-def topk_plan(n: int, k: int, B: int) -> tuple[int, bool]:
-    """(8-byte words of scratch, takes the radix select) of a dense call."""
-    return _plan("topk_plan", n, k, B)
+def _sms() -> int:
+    return _build.sm_count(torch.device("cuda"))
+
+
+def topk_plan(n: int, k: int, B: int, sms: int | None = None) -> tuple[int, bool]:
+    """(8-byte words of scratch, takes the radix select) of a dense call,
+    planned for a card of ``sms`` SMs (default: the current device's)."""
+    plan = dense_plan(n, B, _sms() if sms is None else sms)
+    return _plan("topk_plan", n, k, B, plan.upc)
 
 
 def _group(B: int, words_of) -> int:
@@ -105,20 +184,19 @@ def _group(B: int, words_of) -> int:
     return min(B, g, MAX_GROUP)
 
 
-def _listed(scratch: torch.Tensor, base: int, B: int, nchunks: int, ldq: int, extra: int):
+def _listed(scratch: torch.Tensor, base: int, B: int, plan: ChunkPlan, ldq: int, extra: int):
     """What a list-mode call of B queries listed, read from its scratch
     (from word ``base``): the (B,) int64 counts a query, and a function that
     packs the listed keys into (B, max count) CUDA-order keys, each query's
-    at the front and 0 past its count. The segments are the chunk kernel's:
-    one per CTA of a query tile, as ``chunk_grid_x`` sizes the grid, then
-    the carry's ``extra`` keys. ``pack`` reads the scratch when called, so
-    before the call's next group of queries overwrites it."""
-    sms = torch.cuda.get_device_properties(scratch.device).multi_processor_count
-    gx = min(nchunks, -(-sms // -(-B // 32)))
+    at the front and 0 past its count. The segments are the plan's
+    (``ChunkPlan.segments``: one per CTA of a query tile), then the carry's
+    ``extra`` keys. ``pack`` reads the scratch when called, so before the
+    call's next group of queries overwrites it."""
+    gx = plan.ctas
     keys = scratch[base:base + B * ldq].view(B, ldq)
     per = scratch[base + B * ldq:].view(torch.int32)[:B * gx].view(B, gx).clamp_min(0).tolist()
-    qn, rn = divmod(nchunks, gx) if gx else (0, 0)
-    starts = [(s * qn + min(s, rn)) * _CR for s in range(gx)]
+    starts = [st for st, _ in plan.segments()]
+    tail = plan.chunks * plan.rows
     counts = torch.tensor([sum(c) + extra for c in per], dtype=torch.int64)
 
     def pack() -> torch.Tensor:
@@ -126,7 +204,7 @@ def _listed(scratch: torch.Tensor, base: int, B: int, nchunks: int, ldq: int, ex
                           device=scratch.device)
         for b in range(B):
             row = torch.cat([keys[b, st:st + c] for st, c in zip(starts, per[b])]
-                            + [keys[b, nchunks * _CR:nchunks * _CR + extra]])
+                            + [keys[b, tail:tail + extra]])
             out[b, :row.numel()] = row
         return out
 
@@ -135,9 +213,12 @@ def _listed(scratch: torch.Tensor, base: int, B: int, nchunks: int, ldq: int, ex
 
 def _call_groups(B: int, words_of, call, device: torch.device) -> int:
     """Run ``call(g0, g1, scratch)`` over groups of queries sharing one
-    scratch tensor; returns the CUDA launches the C side reported."""
+    scratch tensor (sized for the largest group and the last, whose plans
+    may differ); returns the CUDA launches the C side reported."""
     G = _group(B, words_of)
-    scratch = torch.empty(words_of(G), dtype=torch.int64, device=device)
+    last = B - (B - 1) // G * G
+    words = words_of(G) if last == G else max(words_of(G), words_of(last))
+    scratch = torch.empty(words, dtype=torch.int64, device=device)
     launched = 0
     for g0 in range(0, B, G):
         launched += call(g0, min(B, g0 + G), scratch)
@@ -161,7 +242,8 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     dtype in plain mode (``<dtype>_n_valid`` when ``n_valid`` masks rows,
     as a live delta segment's search does: always for a tensor count, since
     the host cannot tell whether it is below n without reading it), else
-    ``"row_ids"``; a call with k > 32 also counts in
+    ``"row_ids"``; ``unit_launches`` counts, by mode, the C calls whose
+    plan ran the unit kernel (few rows); a call with k > 32 also counts in
     ``topk_select_cuda.launches`` under its mode. ``on_lists(g0, counts,
     pack)``, a measurement aid, is called for k > 32 after each group of
     queries from g0 with what the list mode listed (``_listed``); it reads
@@ -195,33 +277,41 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
         raise ValueError(f"topk_score: needs k, n, m, B >= 1, "
                          f"got k={k} n={n} m={m} B={B}")
     lib = _build.load("topk_score", _SIGNATURES)
-    select = topk_plan(n, k, B)[1]
-    out_s = torch.empty((B, k), dtype=torch.float32, device=D.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=D.device)
+    dev = D.device
+    select = k > _SMALL_K
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     nv = n if n_valid is None or nv_dev is not None else max(0, min(int(n_valid), n))
     vec = m % 16 == 0 and D.data_ptr() % 16 == 0
-    stream = torch.cuda.current_stream(D.device).cuda_stream
+    stream = _build.raw_stream(dev)
+    sms = _build.sm_count(dev)
+    q_ptr, s_ptr, i_ptr = Q.data_ptr(), out_s.data_ptr(), out_i.data_ptr()
+    units = 0
 
     def call(g0, g1, scratch):
+        nonlocal units
+        b = g1 - g0
+        plan = dense_plan(n, b, sms)
         launched = ctypes.c_int(0)
         err = lib.topk_score_f32(
-            D.data_ptr(), Q[g0:g1].data_ptr(),
-            None if row_ids is None else row_ids.data_ptr(), n, m, g1 - g0, nv,
+            D.data_ptr(), q_ptr + 4 * g0 * m,
+            None if row_ids is None else row_ids.data_ptr(), n, m, b, nv,
             None if nv_dev is None else nv_dev.data_ptr(), k,
-            _DTYPES[D.dtype], int(vec), scratch.data_ptr(), out_s[g0:g1].data_ptr(),
-            out_i[g0:g1].data_ptr(), stream, ctypes.byref(launched))
+            _DTYPES[D.dtype], int(vec), scratch.data_ptr(), s_ptr + 4 * g0 * k,
+            i_ptr + 4 * g0 * k, stream, ctypes.byref(launched), plan.upc, plan.ctas)
         _build.check(err, "topk_score")
+        units += plan.upc == 1
         if on_lists is not None and select:
-            nchunks = -(-n // _CR)
-            on_lists(g0, *_listed(scratch, 0, g1 - g0, nchunks, nchunks * _CR, 0))
+            on_lists(g0, *_listed(scratch, 0, b, plan, plan.chunks * plan.rows, 0))
         return launched.value
 
-    with torch.cuda.device(D.device):
-        launched = _call_groups(B, lambda b: topk_plan(n, k, b)[0], call, D.device)
+    with _build.on_device(dev):
+        launched = _call_groups(B, lambda b: topk_plan(n, k, b, sms)[0], call, dev)
     mode = ("row_ids" if row_ids is not None
             else _STORE[D.dtype] + ("_n_valid" if nv < n or nv_dev is not None else ""))
     topk_score_cuda.launches[mode] += 1
     topk_score_cuda.cuda_launches[mode] += launched
+    topk_score_cuda.unit_launches[mode] += units
     if select:
         topk_select_cuda.launches[mode] += 1
     return out_s, out_i
@@ -231,14 +321,17 @@ _DENSE_MODES = ("f32", "bf16", "int8", "f32_n_valid", "bf16_n_valid", "int8_n_va
                 "row_ids")
 topk_score_cuda.launches = dict.fromkeys(_DENSE_MODES, 0)
 topk_score_cuda.cuda_launches = dict.fromkeys(_DENSE_MODES, 0)
+topk_score_cuda.unit_launches = dict.fromkeys(_DENSE_MODES, 0)
 
 
 def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int,
-                    device_range: bool = False) -> tuple[int, bool]:
+                    device_range: bool = False, sms: int | None = None) -> tuple[int, bool]:
     """(8-byte words of scratch, takes the radix select) of a paged call
     over ``slots`` slots (``device_range``: a range within them that the
-    kernels read on the device)."""
-    return _plan("topk_paged_plan", slots, page_rows, k, int(carry), int(device_range), B)
+    kernels read on the device), planned for a card of ``sms`` SMs."""
+    plan = paged_plan(slots, page_rows, B, _sms() if sms is None else sms)
+    return _plan("topk_paged_plan", slots, page_rows, k, int(carry), int(device_range), B,
+                 plan.upc)
 
 
 def _int32_vector(name: str, t: torch.Tensor, n: int) -> None:
@@ -276,8 +369,8 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
     metadata tensors then need the capacity's entries. ``launches`` counts
     calls and ``cuda_launches`` the CUDA launches the C side reports, keyed
     by mode: ``paged_<storage dtype>``, or ``paged_ids`` with ``ids_pool``;
-    ``_dev`` ends the mode of a call with tensor bounds. ``on_lists`` as
-    for ``topk_score_cuda``.
+    ``_dev`` ends the mode of a call with tensor bounds; ``unit_launches``
+    and ``on_lists`` as for ``topk_score_cuda``.
     """
     dev_range = ref.paged_bounds(lo, hi, pool.device)
     cap = page_table.shape[0]
@@ -346,48 +439,53 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
                 if finalize else (-(j + 2)).contiguous())
     lib = _build.load("topk_score", _SIGNATURES)
     slots = phi - plo
-    select = topk_paged_plan(slots, R, k, carry is not None, B, dev_range)[1]
+    select = k > _SMALL_K
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     vec = (m % 16 == 0 and pool.data_ptr() % 16 == 0
            and (tail is None or tail.data_ptr() % 16 == 0)
            and (page_scale is None or page_scale.data_ptr() % 16 == 0))
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _build.raw_stream(dev)
+    sms = _build.sm_count(dev)
+    units = 0
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     def call(g0, g1, scratch):
+        nonlocal units
+        b = g1 - g0
+        plan = paged_plan(slots, R, b, sms)
         launched = ctypes.c_int(0)
         err = lib.topk_score_paged_f32(
             pool.data_ptr(), ptr(tail), page_table.data_ptr(),
             page_nvalid.data_ptr(), page_offset.data_ptr(), ptr(page_scale),
-            ptr(ids_pool), Q[g0:g1].data_ptr(),
-            None if carry is None else carry[0][g0:g1].data_ptr(),
-            None if carry is None else carry[1][g0:g1].data_ptr(), P,
-            0 if tail is None else tail.shape[0], R, m, g1 - g0, plo, phi,
+            ptr(ids_pool), Q.data_ptr() + 4 * g0 * m,
+            None if carry is None else carry[0].data_ptr() + 4 * g0 * k,
+            None if carry is None else carry[1].data_ptr() + 4 * g0 * k, P,
+            0 if tail is None else tail.shape[0], R, m, b, plo, phi,
             lo.data_ptr() if dev_range else None, hi.data_ptr() if dev_range else None, k,
             _DTYPES[pool.dtype], int(vec), int(finalize), scratch.data_ptr(),
-            out_s[g0:g1].data_ptr(), out_i[g0:g1].data_ptr(), stream,
-            ctypes.byref(launched))
+            out_s.data_ptr() + 4 * g0 * k, out_i.data_ptr() + 4 * g0 * k, stream,
+            ctypes.byref(launched), plan.upc, plan.ctas)
         _build.check(err, "topk_score_paged")
+        units += plan.upc == 1 and plan.chunks > 0
         if on_lists is not None and select:
-            U = -(-R // _UNIT)                 # paged_geom's chunks, unit_words' base
-            nchunks = -(-slots // (_UPC // U)) if U <= _UPC else slots * -(-U // _UPC)
             extra = 0 if carry is None else k
-            base = nchunks * _UPC * _UNIT_WORDS + nchunks + int(dev_range)
-            on_lists(g0, *_listed(scratch, base, g1 - g0, nchunks, nchunks * _CR + extra,
+            base = plan.chunks * plan.upc * _UNIT_WORDS + plan.chunks + int(dev_range)
+            on_lists(g0, *_listed(scratch, base, b, plan, plan.chunks * plan.rows + extra,
                                   extra))
         return launched.value
 
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         launched = _call_groups(
-            B, lambda b: topk_paged_plan(slots, R, k, carry is not None, b, dev_range)[0],
+            B, lambda b: topk_paged_plan(slots, R, k, carry is not None, b, dev_range, sms)[0],
             call, dev)
     mode = "paged_ids" if ids_pool is not None else f"paged_{_STORE[pool.dtype]}"
     mode += "_dev" if dev_range else ""
     topk_score_paged_cuda.launches[mode] += 1
     topk_score_paged_cuda.cuda_launches[mode] += launched
+    topk_score_paged_cuda.unit_launches[mode] += units
     if select:
         topk_select_cuda.launches[mode] += 1
     return out_s, out_i
@@ -397,6 +495,7 @@ _PAGED_MODES = tuple(f"paged_{st}{how}" for how in ("", "_dev")
                      for st in ("f32", "bf16", "int8", "ids"))
 topk_score_paged_cuda.launches = dict.fromkeys(_PAGED_MODES, 0)
 topk_score_paged_cuda.cuda_launches = dict.fromkeys(_PAGED_MODES, 0)
+topk_score_paged_cuda.unit_launches = dict.fromkeys(_PAGED_MODES, 0)
 
 
 def topk_select_plain(keys: torch.Tensor, k: int, finalize: bool = True,

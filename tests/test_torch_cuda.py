@@ -1559,7 +1559,9 @@ def test_cuda_kernel_budget_has_no_gating_finding():
     from repro_torch.analysis import kernel_budget
 
     table = kernel_budget.kernel_table()
-    assert len(table) == 36 + 13 + 5 + 8
+    # topk_score.cu: 36 chunk-kernel and 36 unit-kernel instances and 13 others;
+    # gram.cu 5; pca_project.cu 8 tiled and 8 small instances
+    assert len(table) == 36 + 36 + 13 + 5 + 8 + 8
     findings = kernel_budget.run("cuda")
     assert [f.key for f in findings if f.severity == "error"] == []
     assert {f.check for f in findings} <= {"budget.spill"}
@@ -1695,6 +1697,50 @@ def test_cuda_large_k_thresholds_and_counts():
     checks = []
     smoke.large_k_cases(torch.device("cuda"), checks)
     assert len(checks) == (9 + 2 * 3) * len(smoke.LARGE_KS) + 6
+    torch.cuda.synchronize()
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.gpu
+def test_cuda_small_projection_is_the_tiled_projection():
+    """chip_smoke.py's few-row projection cases: pca_project's small kernel
+    bitwise its tiled kernel on the same rows, n in {1, 7, 32, 64, 100,
+    128, 129} x m in {64, 128, 130, 384} x d in {768, 48, 200}, f32, bf16
+    and the int8 epilogue, and within the repo's tolerances of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    checks = []
+    smoke.small_projection_cases(torch.device("cuda"), checks)
+    assert len(checks) == 3 * len(smoke.PCA_SMALL_NS) * len(smoke.PCA_SMALL_MS) * len(
+        smoke.PCA_SMALL_DS)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_few_row_topk_is_the_chunk_kernels_topk():
+    """chip_smoke.py's few-row top-k cases: the unit kernel bitwise the
+    chunk kernel on the same rows (inside a buffer of more 512-row chunks
+    than the SMs, n_valid = n), plain, row_ids with masked ids, a device
+    n_valid, a paged pool and ids_pool, k in {1, 10, 32, 33, 100}, f32, bf16
+    and int8; and within the repo's tolerances of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    checks = []
+    smoke.few_row_topk_cases(torch.device("cuda"), checks)
+    assert len(checks) == (4 * 3 * 3 + 2 * 2) * len(smoke.FEW_ROW_KS)
+    assert all(c["chunk_bitwise"] for c in checks)
     torch.cuda.synchronize()
 
 
