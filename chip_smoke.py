@@ -26,7 +26,11 @@ Phases, each printing one JSON line:
      few-row calls' kernels bitwise the other path on the same rows
      (pca_project's small kernel the tiled one, n 1 to 129, m 64 to 384;
      the top-k's unit kernel the chunk kernel over a padded buffer, plain,
-     row_ids, a device n_valid, paged and ids_pool, k 1 to 100);
+     row_ids, a device n_valid, paged and ids_pool, k 1 to 100); the chunk
+     kernel's persistent items over 2 to 133 query tiles (B 33 to 4,225)
+     bitwise its walk of a CTA a segment and tile (``wave_plan``), dense
+     f32 / bf16 / int8 at k 10, 100 and 1,000 (plain, device n_valid,
+     row_ids), paged f32 / int8 at k 10 and 100;
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
@@ -47,7 +51,10 @@ Phases, each printing one JSON line:
      cutoffs {0.25, 0.5, 0.75}, and Table 2's (W_m fit on an out-of-domain
      corpus of the same encoder, drawn on the card), each checked against
      the CPU path (plain versions, the card's PCA state carried across) at
-     0.5;
+     0.5; then the devsmall search (200 queries, k 1,000) over the unpruned
+     corpus as a kernel row: the chunk kernel's and the select's device ms
+     (torch.profiler) under the plan and under the wave walk, its segments,
+     CTAs and makespan;
   6. a pipeline_depth=3 RetrievalServer over the full-size int8 and f32
      indexes: closed and open loop (beside each open-loop result its tape's
      own rate, ``tape_qps``), replies checked against direct
@@ -92,10 +99,11 @@ Phases, each printing one JSON line:
      at k = 10 and 1000; (e) IndexUpdater.from_store on it, 10,000 rows of
      durable 64-row add_documents (one widens) in turns with a store-less
      updater, SegmentedIndex.load of the store bitwise equal, and the
-     store-backed compact bitwise the store-less one; (d) the f32 index
-     saved and loaded, bitwise (cut to the rows the free disk holds, and
-     said so); (f) phase 7's int8 index with 2,048 host-tier pages, a few
-     appended blocks, PagedIndex.save and load, bitwise equal in search and
+     store-backed compact bitwise the store-less one; (d) the f32 index's
+     first F32_STORE_ROWS rows saved and loaded, bitwise (fewer where the
+     free disk holds fewer, and said so); (f) phase 7's int8 index with
+     2,048 host-tier pages, a few appended blocks, PagedIndex.save and
+     load, bitwise equal in search and
      extent_rows;
  10. the cascade over phase 4's f32 pruned rows, CascadeIndex.build at
      64:8 (coarse int8) with the full side f32 and int8, and from_index on
@@ -145,7 +153,9 @@ Phases, each printing one JSON line:
      256 under --quantize-int8 (the int8 index built by pca_project_quant,
      held to the two-pass build), an f32 pruned index beside it, ids
      against the plain top-k, MRR@10 (random weights: a check that the
-     pieces connect, not a quality claim); (d) one encoder layer at the
+     pieces connect, not a quality claim), each B 1,000 search with its
+     plan's segments, CTAs and makespan and the wave walk's ms beside
+     it; (d) one encoder layer at the
      micro-batch, op by op against each op's bound, the ops' composition
      bitwise the layer's, SDPA's time beside the attention (a yardstick
      the port never calls);
@@ -185,7 +195,9 @@ Phases, each printing one JSON line:
      through its bundle (full d 256, pruned f32, pruned int8, int8 with a
      4,096-row delta, int8 under hier_merge on a (2, 2) mesh of the card's
      slots), ids against the plain top-k, recall@100 against the full
-     search, and compress_tables over the 1,048,576 x 256 item table; (c)
+     search (each int8 kernel row with matmul + topk over an f32 copy of
+     its live rows), and compress_tables over the 1,048,576 x 256 item
+     table; (c)
      one train_batch step at the largest batch that fits (65,536 first),
      serve_p99 and serve_bulk, against their bounds, with peak memory; (d)
      DLRM with its tables cut to 2^24 rows (45.0 GB): a rowwise step at
@@ -287,6 +299,8 @@ BUILD_BLOCK = 262_144       # phase 9: rows per card-resident block of a build
 STORE_APPEND = 10_000       # phase 9(e): rows appended durably
 PAGED_STORE_APPEND = 384    # phase 9(f): rows appended before the paged save
 DISK_MARGIN = 2 << 30       # phase 9(d): free disk kept beside the f32 artifact
+F32_STORE_ROWS = 8 * BUILD_BLOCK    # phase 9(d): rows of the f32 round trip (2,097,152 of
+                                    # 8,841,823: a depth cut, ~20 s, for phase 3's many-tile cases)
 FIT_BLOCK = 25_000          # phase 9(b): rows per block of the fit-inside build
 COMP_TOL = 1e-3             # phase 9(b): two fits' kept subspace and conditioned columns
 CASCADE_M = 64              # phase 10: the coarse width of 64:8 (README's operating point)
@@ -549,17 +563,106 @@ def compare_topk(s_ref, i_ref, s_got, i_got, what):
     return err, near == 0, near
 
 
-def n_ctas(n, B, page_rows=None):
-    """CTAs a query tile of a top-k call over n rows (``page_rows``: n / R
+def n_segs(n, B, page_rows=None):
+    """Segments a query of a top-k call over n rows (``page_rows``: n / R
     pages of R rows) and B queries, as the wrapper plans it
     (``topk_score.dense_plan`` / ``paged_plan``): the segments a query's
-    list-mode keys come in."""
+    list-mode keys come in, one an item of the chunk kernel."""
     import torch
     from repro_torch.kernels import topk_score
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if page_rows is None:
-        return topk_score.dense_plan(n, B, sms).ctas
-    return topk_score.paged_plan(n // page_rows, page_rows, B, sms).ctas
+        return topk_score.dense_plan(n, B, sms).segs
+    return topk_score.paged_plan(n // page_rows, page_rows, B, sms).segs
+
+
+def plan_fields(n, B):
+    """The chunk kernel's plan of a dense call over n rows and B queries:
+    its segments a query, persistent CTAs and ``makespan`` (the most
+    512-row chunks one CTA walks), beside the walk before persistent items
+    (``wave_plan``: a CTA a segment and tile, those past the SMs in a second
+    wave; its makespan counts that wave)."""
+    import torch
+    from repro_torch.kernels import topk_score
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = topk_score.dense_plan(n, B, sms)
+    if plan.upc != 8:
+        return dict(segs=plan.segs, ctas=plan.ctas, kernel="topk_unit_kernel")
+    tiles = -(-B // 32)
+    old = topk_score.wave_plan(plan.chunks, -(-n // 64), B, sms)
+    return dict(segs=plan.segs, ctas=plan.ctas,
+                makespan=topk_score.makespan(plan.chunks, tiles, plan.segs, plan.ctas),
+                wave_segs=old.segs, wave_ctas=old.ctas,
+                wave_makespan=topk_score.makespan(plan.chunks, tiles, old.segs, min(old.ctas, sms)))
+
+
+def wave_walk():
+    """A context in which every top-k is planned by ``wave_plan``: the
+    chunk kernel's walk before persistent items, on the same build."""
+    from unittest import mock
+    from repro_torch.kernels import topk_score
+    return mock.patch.object(topk_score, "chunk_plan", topk_score.wave_plan)
+
+
+TOPK_KERNELS = {"chunk": ("topk_chunk_kernel", "topk_unit_kernel"),
+                "select": ("topk_merge_kernel", "select_fused_kernel", "radix_hist_kernel",
+                           "radix_pick_kernel", "radix_gather_kernel", "bitonic_tile_kernel",
+                           "bitonic_global_kernel", "select_write_kernel")}
+
+
+def kernel_ms(fn, groups=TOPK_KERNELS):
+    """Device ms of one call of ``fn`` under torch.profiler, summed over the
+    kernels each group names; None where the profiler saw none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(groups, 0.0)
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        for group, names in groups.items():
+            if t and any(name in ev.key for name in names):
+                out[group] += t / 1e3
+    return {group: (v or None) for group, v in out.items()}
+
+
+def many_query_row(D, Q, k, reps=5):
+    """A kernel row for a top-k call of many query tiles: the kernel against
+    its plain version, its ms under the plan and under the wave walk on the
+    same build (``wave_ms``), the chunk kernel's and the select's device ms
+    of each (torch.profiler), ``matmul`` + ``topk`` beside them, the plan's
+    segments, CTAs and makespan, and the bound (each row read once)."""
+    import torch
+    from repro_torch.kernels import topk_score
+    n, m = D.shape
+    B = Q.shape[0]
+    got = topk_score.topk_score_cuda(D, Q, k=k)
+    err, eq, near = compare_topk(*topk_score.topk_score_plain(D, Q, k=k), *got,
+                                 f"many queries {tuple(D.shape)} B={B} k={k}")
+
+    def call():
+        return topk_score.topk_score_cuda(D, Q, k=k)
+
+    split = kernel_ms(call)
+    with wave_walk():
+        wave = kernel_ms(call)
+        wave_ms = cuda_ms(call, reps=reps)
+    item = D.element_size()
+    return dict(shape=[n, m, B, k], store={1: "int8", 2: "bf16", 4: "f32"}[item],
+                max_abs_err=err, ids_equal=eq, near_ties=near, **plan_fields(n, B),
+                ms=cuda_ms(call, reps=reps), wave_ms=wave_ms,
+                chunk_ms=split["chunk"], select_ms=split["select"],
+                wave_chunk_ms=wave["chunk"], wave_select_ms=wave["select"],
+                plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D, Q, k=k), reps=2),
+                library_ms=None,
+                matmul_topk_ms=(cuda_ms(lambda: torch.topk(Q @ D.T, k), reps=reps)
+                                if item == 4 else None),
+                bound=bound(item * n * m + 4 * B * m + 8 * B * k, 2 * B * n * m))
 
 
 def listed_stats(counts, rows_, segments):
@@ -710,6 +813,7 @@ def phase_edge_cases():
                                max_abs_err=int(diff.max()), frac_differ=frac))
     ids_row = paged_edge_cases(dev, randn, checks)
     any_batch_cases(dev, randn, checks)
+    many_tile_cases(dev, checks)
     large_k_cases(dev, checks)
     small_projection_cases(dev, checks)
     few_row_topk_cases(dev, checks)
@@ -773,6 +877,92 @@ def any_batch_cases(dev, randn, checks):
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
         raise AssertionError(f"B={B} topk_select: differs from its plain version")
     held("topk_select k=100", got, want, topk_score.topk_select_cuda(keys[last:], 100))
+
+
+MANY_TILE_CASES = ((33, 130), (200, 768), (1000, 384), (4225, 64))   # (B, m) of many_tile_cases
+MANY_TILE_ROWS = 20_000     # 40 chunks: several items a CTA at B 200 to 4,225
+
+
+def many_tile_cases(dev, checks, cases=MANY_TILE_CASES):
+    """The chunk kernel's persistent items bitwise its walk before them
+    (``wave_walk``: a CTA a segment and tile, on the same build) and both
+    within the repo's tolerances of the plain versions: B of 2 to 133
+    query tiles (B 33 keeps its one-wave plan; from 200 the plans differ),
+    m 130 (the element-wise loader), 768 (two query panels), 384, 64; dense
+    f32, bf16 and int8 at k 10, 100 and 1000, plain, with a 0-d device
+    n_valid and with row_ids (a tenth masked); paged f32 and int8 (per-page
+    scales) at k 10 and 100 over the same rows in 256-row pages of a
+    scrambled pool / tail."""
+    import torch
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+    g = torch.Generator(device=dev).manual_seed(37)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    cuda, plain = topk_score.topk_score_cuda, topk_score.topk_score_plain
+    paged, pplain = topk_score.topk_score_paged_cuda, topk_score.topk_score_paged_plain
+    n, R = MANY_TILE_ROWS, 256
+    for B, m in cases:
+        plans = plan_fields(n, B)
+        with wave_walk():
+            moved = topk_score.dense_plan(n, B, sms) != topk_score.items_plan(-(-n // 512), B, sms)
+        if moved != (plans["wave_ctas"] > sms):
+            raise AssertionError(f"many tiles B={B}: the plan differs from the wave walk's "
+                                 f"where that walk fills one wave, or the reverse: {plans}")
+        D, Q = randn(n, m) / m ** 0.5, randn(B, m)
+        ids = torch.randperm(n, generator=g, device=dev).to(torch.int32) + 1000
+        ids[torch.randperm(n, generator=g, device=dev)[:n // 10]] = -1
+        nv = torch.tensor(n // 2 + 37, dtype=torch.int32, device=dev)
+        for store in ("f32", "bf16", "int8"):
+            Dx, Qx = D, Q
+            if store == "bf16":
+                Dx = D.to(torch.bfloat16)
+            elif store == "int8":
+                Dx, scale = quantize_int8_per_dim(D)
+                Qx = (Q * scale[None, :]).contiguous()
+            for k in (10, 100, 1000):
+                for mode, kw, kw_plain in (("plain", {}, {}),
+                                           ("n_valid_tensor", {"n_valid": nv},
+                                            {"n_valid": int(nv)}),
+                                           ("row_ids", {"row_ids": ids}, {"row_ids": ids})):
+                    what = f"many tiles {store} {mode} B={B} m={m} k={k}"
+                    got = cuda(Dx, Qx, k=k, **kw)
+                    with wave_walk():
+                        if not same(got, cuda(Dx, Qx, k=k, **kw)):
+                            raise AssertionError(f"{what}: differs from the wave walk")
+                    err, eq, near = compare_topk(*plain(Dx, Qx, k=k, **kw_plain), *got, what)
+                    checks.append(dict(kernel="topk_score", case="many_tiles", n=n, m=m, B=B,
+                                       k=k, store=store, mode=mode, max_abs_err=err,
+                                       ids_equal=eq, near_ties=near, wave_bitwise=True,
+                                       **plans))
+        for store in ("f32", "int8"):
+            pg, _ = make_paged(dev, randn, n, m, R, store)
+            npages = pg.pop("npages")
+            for k in (10, 100):
+                what = f"many tiles paged {store} B={B} m={m} k={k}"
+                got = paged(pg["pool"], pg["page_table"], pg["page_nvalid"], pg["page_offset"],
+                            0, npages, Q, k=k, tail=pg["tail"], page_scale=pg["page_scale"])
+                with wave_walk():
+                    if not same(got, paged(pg["pool"], pg["page_table"], pg["page_nvalid"],
+                                           pg["page_offset"], 0, npages, Q, k=k,
+                                           tail=pg["tail"], page_scale=pg["page_scale"])):
+                        raise AssertionError(f"{what}: differs from the wave walk")
+                err, eq, near = compare_topk(
+                    *pplain(pg["pool"], pg["page_table"], pg["page_nvalid"], pg["page_offset"],
+                            0, npages, Q, k=k, tail=pg["tail"], page_scale=pg["page_scale"]),
+                    *got, what)
+                pplan = topk_score.paged_plan(npages, R, B, sms)
+                checks.append(dict(kernel="topk_score_paged", case="many_tiles", pages=npages,
+                                   R=R, m=m, B=B, k=k, store=store, max_abs_err=err,
+                                   ids_equal=eq, near_ties=near, wave_bitwise=True,
+                                   segs=pplan.segs, ctas=pplan.ctas))
+            del pg
 
 
 LARGE_KS = (33, 80, 100, 160, 511, 512, 513, 1000)   # either side of the lane lists (160),
@@ -1443,7 +1633,7 @@ def phase_main_path(counters, rows, n_docs):
                 rows[f"topk_score_{name}_k{kk}"] = dict(
                     shape=[n, m, BATCH, kk], store=name, max_abs_err=err, ids_equal=eq,
                     near_ties=near, launches_per_call=per_call,
-                    **listed_stats(listed["counts"], n, n_ctas(n, BATCH)),
+                    **listed_stats(listed["counts"], n, n_segs(n, BATCH)),
                     ms=cuda_ms(lambda: topk_score.topk_score_cuda(index.vectors, q, k=kk),
                                reps=5),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(
@@ -1529,11 +1719,13 @@ def phase_main_path(counters, rows, n_docs):
             fresh)
 
 
-def phase_protocol(n_docs):
+def phase_protocol(counters, rows, n_docs):
     """Tables 1 and 2 of the paper on one dataset: W_m fit in domain, and
     out of domain on the card's OOD corpus of the same encoder (RQ2); each
     checked at cutoff 0.5 against the CPU path with the card's PCA state
-    carried across."""
+    carried across. Then the unpruned system's search of the devsmall set
+    (200 queries, k 1,000: seven query tiles) as a kernel row
+    (``many_query_row``, uncounted)."""
     import numpy as np
     import torch
     from repro_torch.convert import pca_state_from_numpy
@@ -1622,6 +1814,12 @@ def phase_protocol(n_docs):
     emit("protocol_ood", n_docs=n_docs, d=DIM, depth=PROTOCOL_DEPTH, fit_corpus="ood",
          card_s=t_card, cpu_check_s=t_cpu, card_vs_cpu_max_metric_diff=worst,
          table=table_of(ood_systems, systems[None]))
+    with counters.uncounted():
+        D = torch.as_tensor(ds.docs, device="cuda")
+        Q = torch.as_tensor(ds.queries["devsmall"], device="cuda")
+        row = rows["topk_score_protocol_devsmall"] = many_query_row(D, Q, PROTOCOL_DEPTH)
+        del D, Q
+    emit("protocol_devsmall", **row)
 
 
 def tape_qps(n, rate, seed=0):
@@ -1809,7 +2007,7 @@ def phase_paged(counters, index_f32, index_int8, pruner, Q, rows):
                     shape=[index.n, m, BATCH, kk], page_rows=R, pages=npages, store=name,
                     max_abs_err=e2, ids_equal=eq2, near_ties=near2, launches_per_call=per,
                     **listed_stats(listed["counts"], index.n,
-                                   n_ctas(npages * R, BATCH, R)),
+                                   n_segs(npages * R, BATCH, R)),
                     ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*args, **{**kw, "k": kk}),
                                reps=3),
                     plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(
@@ -2656,11 +2854,10 @@ def phase_store(counters, index_f32, index_int8, pruner, Q, fresh, n_docs, proto
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d) the f32 round trip, at the largest row count the disk holds
+    # (d) the f32 round trip, at F32_STORE_ROWS rows or as many as the disk holds
     path_d = os.path.join(root, "f32")
     free = shutil.disk_usage(root).free
-    rows_d = n if free >= 4 * m * n + DISK_MARGIN else \
-        (free - DISK_MARGIN) // (4 * m) // BUILD_BLOCK * BUILD_BLOCK
+    rows_d = min(n, F32_STORE_ROWS, (free - DISK_MARGIN) // (4 * m) // BUILD_BLOCK * BUILD_BLOCK)
     if rows_d < BUILD_BLOCK:
         raise AssertionError(f"store (d): {free / 1e9:.1f} GB free holds no f32 block")
     src = index_f32 if rows_d == n else DenseIndex(index_f32.vectors[:rows_d])
@@ -2769,7 +2966,7 @@ def coarse_lists(coarse, qf, nk):
                                on_lists=lambda g0, c, pack: got.update(counts=c, pack=pack))
     counts = got["counts"]
     return ((got["pack"](), counts.to(device=qc.device, dtype=torch.int32)),
-            listed_stats(counts, coarse.n, n_ctas(coarse.n, qc.shape[0])))
+            listed_stats(counts, coarse.n, n_segs(coarse.n, qc.shape[0])))
 
 
 def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
@@ -2922,7 +3119,7 @@ def phase_cascade(counters, index_f32, index_int8, pruner, Q, fresh, rows):
             shape=[npg, PAGE_ROWS, CASCADE_M, BATCH, CASCADE_N * K], store="int8",
             max_abs_err=err, ids_equal=eq, near_ties=near, pages=npg,
             **listed_stats(listed["counts"], coarse64.n,
-                           n_ctas(npg * PAGE_ROWS, BATCH, PAGE_ROWS)),
+                           n_segs(npg * PAGE_ROWS, BATCH, PAGE_ROWS)),
             ms=cuda_ms(lambda: topk_score.topk_score_paged_cuda(*pargs, **pkw), reps=10),
             plain_ms=cuda_ms(lambda: topk_score.topk_score_paged_plain(*pargs, **pkw),
                              reps=1),
@@ -3828,7 +4025,7 @@ def phase_paged_range(counters, index_f32, index_int8, pruner, Q, rows):
             listed = {}
             paged(*args, lo_t, hi_t, q, k=SHORTLIST_K, **kw,
                   on_lists=lambda g0, c, pack: listed.update(counts=c))
-            stats = listed_stats(listed["counts"], index.n, n_ctas(cap * R, BATCH, R))
+            stats = listed_stats(listed["counts"], index.n, n_segs(cap * R, BATCH, R))
             matmul_topk = (cuda_ms(lambda: torch.topk(q @ index.vectors.T, K), reps=3)
                            if name == "f32" else None)
 
@@ -4191,9 +4388,12 @@ def phase_encoder(counters, rows, encode_docs, encode_batch):
             want = topk_score.topk_score_plain(Dx, q, k=K)
             err, eq, near = compare_topk(*want, *got, f"encoder (c) {name}")
             item, nq, mx = Dx.element_size(), q.shape[0], Dx.shape[1]
+            with wave_walk():
+                wave_ms = cuda_ms(lambda: topk_score.topk_score_cuda(Dx, q, k=K), reps=10)
             rows[f"topk_score_encoder_{name}"] = dict(
                 shape=[n, mx, nq, K], store="int8" if scale is not None else "f32",
-                max_abs_err=err, ids_equal=eq, near_ties=near,
+                max_abs_err=err, ids_equal=eq, near_ties=near, **plan_fields(n, nq),
+                wave_ms=wave_ms,
                 ms=cuda_ms(lambda: topk_score.topk_score_cuda(Dx, q, k=K), reps=10),
                 plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(Dx, q, k=K), reps=3),
                 library_ms=None,
@@ -5079,7 +5279,9 @@ def phase_lm(counters):
 def topk_row(D, q, k, *, n_valid=None, reps=10):
     """A kernel row for one top-k shape: the kernel against its plain
     version (ids up to near-ties, scores at TOL), their times, matmul +
-    topk beside them where D is f32, and the bound (each row read once)."""
+    topk over the live rows beside them (for int8 rows, over an f32 copy
+    of them: ``matmul_topk_f32_ms``), and the bound (each row read
+    once)."""
     import torch
     from repro_torch.kernels import topk_score
     want = topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid)
@@ -5093,14 +5295,24 @@ def topk_row(D, q, k, *, n_valid=None, reps=10):
     return dict(
         shape=[n, m, B, k], store={1: "int8", 4: "f32"}[item], n_valid=nv,
         max_abs_err=err, ids_equal=eq, near_ties=near,
-        **({} if not listed else listed_stats(listed["counts"], nv, n_ctas(n, B))),
+        **({} if not listed else listed_stats(listed["counts"], nv, n_segs(n, B))),
         ms=cuda_ms(lambda: topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid), reps=reps),
         plain_ms=cuda_ms(lambda: topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid),
                          reps=3),
         library_ms=None,
         matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ D[:nv].T, k), reps=reps)
                         if item == 4 else None),
+        **({} if item == 4 else {"matmul_topk_f32_ms": f32_topk_ms(D[:nv], q, k, reps)}),
         bound=bound(item * nv * m + 4 * B * m + 8 * B * k, 2 * B * nv * m))
+
+
+def f32_topk_ms(rows_, q, k, reps):
+    """``matmul`` + ``topk`` over an f32 copy of ``rows_``."""
+    import torch
+    Df = rows_.float()
+    ms = cuda_ms(lambda: torch.topk(q @ Df.T, k), reps=reps)
+    del Df
+    return ms
 
 
 def gram_row(D):
@@ -5993,7 +6205,7 @@ def run_phases(args, smi):
     counters.zero()
     t0 = time.perf_counter()
     index_f32, index_int8, pruner, Q, fresh = phase_main_path(counters, rows, args.n_docs)
-    phase_protocol(args.protocol_docs)
+    phase_protocol(counters, rows, args.protocol_docs)
     phase_server(counters, index_f32, index_int8, pruner, Q)
     torch.cuda.synchronize()
     launches = counters.read()
@@ -6220,7 +6432,10 @@ def run_phases(args, smi):
                                 "listed_max", "listed_share", "written_bytes", "listed_keys",
                                 "select_ms", "select_bound_ms", "host_k100_ms",
                                 "device_k100_ms", "kernel", "path", "device_ms",
-                                "library_device_ms", "tiled_bitwise")})
+                                "library_device_ms", "tiled_bitwise", "segs", "ctas",
+                                "makespan", "wave_segs", "wave_ctas", "wave_makespan",
+                                "wave_ms", "chunk_ms", "wave_chunk_ms", "wave_select_ms",
+                                "matmul_topk_f32_ms")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -6248,6 +6463,14 @@ def run_phases(args, smi):
         *[entry(f"topk_score{'' if st == 'f32' else '_int8'}_k{kk}",
                 rows[f"topk_score_{st}_k{kk}"], topk[1], topk[0], None)
           for st in ("f32", "int8") for kk in (100, 1000, 2000, 10000)],
+        # the protocol's devsmall search (200 queries, k 1,000) over Table 1's
+        # unpruned 100,000 x 768 corpus: seven query tiles on the chunk
+        # kernel's persistent items (launches: every f32 plain-mode call of
+        # phases 4-6, the protocol's searches among them)
+        entry("topk_score_protocol_devsmall", rows["topk_score_protocol_devsmall"], topk[1],
+              topk[0], "topk_score_f32",
+              launches_of="every f32 plain-mode call of phases 4-6: the main path's and "
+                          "the protocol's searches"),
         # the select alone: radix_hist / radix_pick passes, radix_gather,
         # bitonic_tile (and bitonic_global past 8,192 keys), select_write;
         # launches are its runs on the main path (protocol k = 1000, the int8

@@ -53,9 +53,8 @@ def forced_plan(upc: int):
 
     def plan(big_chunks, units, B, sms):
         if upc == 1:
-            return topk_score.ChunkPlan(1, units, units)
-        per_tile = -(-sms // -(-B // topk_score._CQ))
-        return topk_score.ChunkPlan(8, big_chunks, min(big_chunks, per_tile))
+            return topk_score.unit_plan(units, B)
+        return topk_score.items_plan(big_chunks, B, sms)
     return mock.patch.object(topk_score, "chunk_plan", plan)
 
 

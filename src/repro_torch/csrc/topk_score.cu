@@ -20,8 +20,9 @@
 // chunk kernel takes a row source, which names row r of 512-row chunk c
 // (DenseSrc: D + (512 c + r) m; PagedSrc: a unit table built per call from
 // the page table, 64 rows a unit, so every warp's rows lie in one page).
-//   1. topk_chunk_kernel: one persistent CTA per SM and 32-query tile
-//      walks the chunks. It keeps the query tile in shared memory, streams
+//   1. topk_chunk_kernel: persistent CTAs, at most one an SM, take
+//      (segment, query tile) items; an item walks every S-th chunk for 32
+//      queries. It keeps the query tile in shared memory, streams
 //      the chunks through a cp.async ring and scores each with a
 //      register-blocked fp32 product. Then, for k <= SMALL_K, each warp
 //      selects per query the chunk's top k into that chunk's candidate
@@ -713,17 +714,26 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
     for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
 }
 
-// Persistent: CTA (x, y) walks chunks x, x + gridDim.x, ... of the
-// 32-query tile y, reading rows through the row source, up to the
-// source's live chunks. For k <= SMALL_K its chunks past those (a paged
+// Persistent: the call's S x tiles items (x, tile) are spread over the
+// gridDim.x CTAs, CTA g taking items i = g, g + gridDim.x, ... with x = i /
+// tiles and tile = i % tiles, so the items that run at once share x and
+// read the same chunks (from L2 after the first). Item (x, tile) walks
+// chunks x, x + S, ... of the 32-query tile, reading rows through the row
+// source, up to the source's live chunks, with the ring and the query tile
+// (with a paged source's fold) reloaded; its running lists or thresholds
+// start afresh where the CTA's last item was of another tile (with
+// gridDim.x a multiple of the tiles, a CTA keeps one tile). For k <= SMALL_K its chunks past the live ones (a paged
 // range read on the device that ends before the capacity the call was
 // planned for) get pads in place of their lists, so the merge reads what a
-// walk planned for that range would have left. In list mode the CTA owns
+// walk planned for that range would have left. In list mode the item owns
 // one segment of each query's row of keys, room for every row of the
 // chunks it was planned for: segment x holds (x qn + min(x, rn)) CR keys
-// before it, qn and rn the quotient and remainder of nchunks / gridDim.x;
-// it lists there and writes counts[query][x], so chunks past the live ones
-// write nothing.
+// before it, qn and rn the quotient and remainder of nchunks / S; it lists
+// there and writes counts[query][x], so chunks past the live ones write
+// nothing. The plan (kernels/topk_score.py::chunk_plan) picks S and the
+// grid so that no CTA walks many more chunks than the even share of the
+// SMs; one CTA an item (gridDim.x = S x tiles) is the walk of one CTA a
+// segment and query tile.
 //
 // What bounds it on an H100: an f32 index is about even between bytes (n m
 // 4 over 3.35 TB/s) and fp32 FMAs (2 B n m over 67 TFLOP/s); int8 moves a
@@ -731,14 +741,14 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 // query tile kept on chip, loads in flight during the FMAs, and few
 // shared-memory wavefronts per FMA.
 //
-// This design loads the 32 x m query tile into shared memory once per CTA
+// This design loads the 32 x m query tile into shared memory once per item
 // (in panels of 384 values when m is larger, reloaded per chunk) and
 // streams D through a ring: 4 f32 stages, or raw int8 / bf16 stages upcast
 // once per element into one of two f32 slabs (int8 by a byte permute and
-// an exact add, not the conversion pipe), with one barrier per slab and
-// later slabs in flight, also across a chunk's select. The select keeps a
-// running top k per query (list mode: a running threshold), so after the
-// first chunks it lists few keys.
+// an exact add, not the conversion pipe), with one barrier per two f32
+// slabs or per raw slab and later slabs in flight, also across a chunk's
+// select. The select keeps a running top k per query (list mode: a running
+// threshold), so after the first chunks it lists few keys.
 // Rows land as they lie in memory. A warp owns 32 queries x 64 rows, a
 // thread 8 queries x 8 rows with lanes 4 x 8, reading both operands along
 // m in 16-byte pieces: a quarter-warp reads one query piece (2 wavefronts
@@ -751,7 +761,7 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 // A paged source adds per load one read of its unit (8 a chunk, L1-hot).
 // With scale rows the resident tile holds the query folded with the scale
 // row the chunk's pages share, reloaded from Q (in L2) only where that row
-// changes along the CTA's walk; a chunk whose pages have differing rows
+// changes along the item's walk; a chunk whose pages have differing rows
 // folds at read time instead (32 multiplies per 256 FMAs and a 16-byte
 // scale read per 4-deep step; the warp's 64 rows are one unit of one page).
 //
@@ -763,7 +773,7 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 template <typename T, bool VEC, bool LIST, typename Src>
 __global__ void __launch_bounds__(CT, 1)
 topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
-                  int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
+                  int S, int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
   using C = Chunk<T>;
   const Src src = src_arg.bound();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -772,110 +782,142 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
   float* Ss = Qs + CQ * qld;                                        // [HQ][SLD]
   unsigned char* ring = reinterpret_cast<unsigned char*>(Ss + HQ * SLD);
   float* Fs = reinterpret_cast<float*>(ring + C::STAGES * C::STAGE_BYTES);  // raw: [2][CR][RS]
-  const int q0 = blockIdx.y * CQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int qg = lane / 8, rg = lane % 8;     // queries 4i + qg, rows 64 warp + 8j + rg
   const int nslab = (m + CK - 1) / CK;
   const int ppanel = kp / CK;                 // slabs per query panel
-  const int bx = static_cast<int>(blockIdx.x), gx = static_cast<int>(gridDim.x);
-  const int live = src.live_chunks(nchunks);
-  const int mine = bx < live ? (live - 1 - bx) / gx + 1 : 0;   // chunks this CTA walks
-  const int total = mine * nslab;             // slabs this CTA walks
-  auto stage = [&](int t) {
-    return reinterpret_cast<T*>(ring + (t % C::STAGES) * C::STAGE_BYTES);
-  };
-  auto chunk_of = [&](int t) { return bx + (t / nslab) * gx; };
-  auto load = [&](int t) {
-    load_chunk_slab<T, VEC, CR, CT>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  uint64_t run[4] = {0, 0, 0, 0};     // chunk_keys' thresholds
+  uint64_t run[4];                    // chunk_keys' thresholds
   ListRun lr;                         // chunk_list's
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    lr.tau[s] = REAL_HI;
-    lr.cnt[s] = 0;
-  }
-  if constexpr (LIST) {               // each lane's own entries: no barrier
+  if constexpr (LIST)
     lr.lanes = reinterpret_cast<unsigned short*>(ring + C::RING_BYTES) + warp * 4 * LANE_J * 32;
-#pragma unroll
-    for (int i = 0; i < 4 * LANE_J; ++i) lr.lanes[32 * i + lane] = 0;
-  }
-  const int qn = nchunks / gx, rn = nchunks % gx;
-  const int64_t seg0 = (static_cast<int64_t>(bx) * qn + (bx < rn ? bx : rn)) * CR;
-  const float* srow = nullptr;        // the warp's scale row (paged, SCALED)
-  int2 fs = make_int2(-1, Src::SCALED ? 0 : 1);   // the chunk's fold row, and whether Qs
-                                                // holds it (dense: nothing to fold)
+  // an item's place is derived anew from `item` and the arguments, so only
+  // `item` is carried across the mainloop, whose registers are at the limit
+  for (int item = blockIdx.x; item < (B + CQ - 1) / CQ * S; item += gridDim.x) {
+    const int tiles = (B + CQ - 1) / CQ;
+    if (item != static_cast<int>(blockIdx.x)) __syncthreads();   // the last item's smem is read
+    const int bx = item / tiles, q0 = (item % tiles) * CQ;
+    const int live = src.live_chunks(nchunks);
+    const int mine = bx < live ? (live - 1 - bx) / S + 1 : 0;    // chunks this item walks
+    const int total = mine * nslab;             // slabs this item walks
+    auto stage = [&](int t) {
+      return reinterpret_cast<T*>(ring + (t % C::STAGES) * C::STAGE_BYTES);
+    };
+    auto chunk_of = [&](int t) { return bx + (t / nslab) * S; };
+    auto load = [&](int t) {
+      load_chunk_slab<T, VEC, CR, CT>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
+    };
 
-  // f32 multiplies straight out of the ring, slab t + STAGES - 1 in
-  // flight; int8 / bf16 upcast slab t + 1 while slab t is multiplied, raw
-  // slabs t + 2 .. t + STAGES in flight
-  constexpr int AHEAD = C::RAW ? C::STAGES : C::STAGES - 1;
+    float acc[8][8];
 #pragma unroll
-  for (int t = 0; t < AHEAD; ++t) {
-    if (t < total) load(t);
-    cp_async_commit();
-  }
-  if constexpr (C::RAW) {
-    cp_async_wait<C::STAGES - 1>();
-    __syncthreads();
-    upcast_slab(stage(0), Fs, tid);
-  }
-  for (int t = 0; t < total; ++t) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();                   // slab t is in (raw: slab t + 1, and f32 slab t);
-                                       // slab t - 1 (raw: raw slab t) is consumed
-    const int slab = t % nslab;
-    if (Src::SCALED && slab == 0) {
-      fs = src.fold_state(chunk_of(t));
-      srow = src.scale_row(chunk_of(t), warp);
-    }
-    // the tile is (re)loaded at the first slab, at each panel, and where a
-    // chunk needs another fold than the CTA's last chunk
-    if (slab % ppanel == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
-      load_query_panel<CT>(Q, Qs, B, m, q0, slab * CK, kp, tid,
-                           Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
-      __syncthreads();
-    }
-    if (t + AHEAD < total) load(t + AHEAD);
-    cp_async_commit();
-    const float* Ds;
-    if constexpr (C::RAW) {
-      if (t + 1 < total) upcast_slab(stage(t + 1), Fs + ((t + 1) % 2) * CR * RS, tid);
-      Ds = Fs + (t % 2) * CR * RS;
-    } else {
-      Ds = reinterpret_cast<const float*>(stage(t));
-    }
-    slab_fma<Src::SCALED, VEC>(Qs + (slab % ppanel) * CK, qld, Ds, acc, warp, qg, rg,
-                               fs.x < 0, srow, slab * CK, m);
-    if (slab == nslab - 1) {
-      if constexpr (LIST)
-        chunk_list(acc, Ss, lr, src, B, q0, k, chunk_of(t), ldq, seg0, cand, tid);
-      else
-        chunk_keys(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
-    }
-  }
-  cp_async_wait<0>();
-  if constexpr (LIST) {
-    if (lane == 0)
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    // an item of another tile starts its running lists afresh; one of the
+    // same tile keeps them: the keys they stand for are listed in this
+    // CTA's earlier lists or segments of the same queries, which the merge
+    // and the select read, so chunk_keys' and chunk_list's invariants hold.
+    // A CTA's items share its tile exactly when gridDim.x % tiles == 0.
+    if (item == static_cast<int>(blockIdx.x) || gridDim.x % tiles != 0) {
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
-        const int q = HQ * (s / 2) + 2 * warp + s % 2;
-        if (q0 + q < B) counts[static_cast<int64_t>(q0 + q) * gx + bx] = lr.cnt[s];
+        run[s] = 0;
+        lr.tau[s] = REAL_HI;
       }
-  } else {
-    for (int c = bx + mine * gx; c < nchunks; c += gx)
-      for (int e = tid; e < CQ * k; e += CT) {
-        const int q = e / k;
-        if (q0 + q < B)
-          cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * k + e % k] =
-              PAD_KEY;
+      if constexpr (LIST) {             // each lane's own entries: no barrier
+#pragma unroll
+        for (int i = 0; i < 4 * LANE_J; ++i) lr.lanes[32 * i + lane] = 0;
       }
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) lr.cnt[s] = 0;
+    const int rn = nchunks % S;
+    const int64_t seg0 = (static_cast<int64_t>(bx) * (nchunks / S) + (bx < rn ? bx : rn)) * CR;
+    const float* srow = nullptr;        // the warp's scale row (paged, SCALED)
+    int2 fs = make_int2(-1, Src::SCALED ? 0 : 1);   // the chunk's fold row, and whether Qs
+                                                    // holds it (dense: nothing to fold)
+
+    // f32 multiplies straight out of the ring two slabs a barrier: at an
+    // even slab t, slabs t and t + 1 are in and t - 2, t - 1 consumed, so t
+    // + 2 and t + 3 load into their stages (bitwise, 1.6-2 % faster than a
+    // barrier a slab at B 1,000 and at B 32 over 8.8M rows on an H100:
+    // benchmarks/many_queries.py's pair_barrier variant); a chunk of one
+    // slab (m <= 16) keeps a barrier a slab, for its select's staged
+    // scores. int8 / bf16 upcast slab t + 1 while slab t is multiplied, raw
+    // slabs t + 2 .. t + STAGES in flight, a barrier a slab.
+    constexpr int AHEAD = C::RAW ? C::STAGES : C::STAGES - 2;
+#pragma unroll
+    for (int t = 0; t < AHEAD; ++t) {
+      if (t < total) load(t);
+      cp_async_commit();
+    }
+    if constexpr (C::RAW) {
+      cp_async_wait<C::STAGES - 1>();
+      __syncthreads();
+      upcast_slab(stage(0), Fs, tid);
+    }
+    for (int t = 0; t < total; ++t) {
+      const bool synced = C::RAW || t % 2 == 0 || nslab == 1;
+      if (synced) {
+        if constexpr (C::RAW)
+          cp_async_wait<C::STAGES - 2>();
+        else if (t % 2 == 0)
+          cp_async_wait<0>();
+        __syncthreads();                 // slab t is in (raw: slab t + 1, and f32 slab t);
+      }                                  // slab t - 1 (raw: raw slab t) is consumed
+      const int slab = t % nslab;
+      if (Src::SCALED && slab == 0) {
+        fs = src.fold_state(chunk_of(t));
+        srow = src.scale_row(chunk_of(t), warp);
+      }
+      // the tile is (re)loaded at the item's first slab, at each panel, and
+      // where a chunk needs another fold than the item's last chunk
+      if (slab % ppanel == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
+        if (!synced) __syncthreads();    // slab t - 1's FMAs read the tile
+        load_query_panel<CT>(Q, Qs, B, m, q0, slab * CK, kp, tid,
+                             Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
+        __syncthreads();
+      }
+      if constexpr (C::RAW) {
+        if (t + AHEAD < total) load(t + AHEAD);
+        cp_async_commit();
+      } else if (t % 2 == 0) {
+        if (t + 2 < total) load(t + 2);
+        if (t + 3 < total) load(t + 3);
+        cp_async_commit();
+      }
+      const float* Ds;
+      if constexpr (C::RAW) {
+        if (t + 1 < total) upcast_slab(stage(t + 1), Fs + ((t + 1) % 2) * CR * RS, tid);
+        Ds = Fs + (t % 2) * CR * RS;
+      } else {
+        Ds = reinterpret_cast<const float*>(stage(t));
+      }
+      slab_fma<Src::SCALED, VEC>(Qs + (slab % ppanel) * CK, qld, Ds, acc, warp, qg, rg,
+                                 fs.x < 0, srow, slab * CK, m);
+      if (slab == nslab - 1) {
+        if constexpr (LIST)
+          chunk_list(acc, Ss, lr, src, B, q0, k, chunk_of(t), ldq, seg0, cand, tid);
+        else
+          chunk_keys(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
+      }
+    }
+    cp_async_wait<0>();
+    if constexpr (LIST) {
+      if (lane == 0)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int q = HQ * (s / 2) + 2 * warp + s % 2;
+          if (q0 + q < B) counts[static_cast<int64_t>(q0 + q) * S + bx] = lr.cnt[s];
+        }
+    } else {
+      for (int c = bx + mine * S; c < nchunks; c += S)
+        for (int e = tid; e < CQ * k; e += CT) {
+          const int q = e / k;
+          if (q0 + q < B)
+            cand[static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(c) * k + e % k] =
+                PAD_KEY;
+        }
+    }
   }
 }
 
@@ -1322,18 +1364,18 @@ __device__ __forceinline__ int chunk_fold(const Unit* units, const float* scale,
   return rep < 0 ? units[c * upc].slot : rep;
 }
 
-// One warp per chunk: fold[c] = (chunk_fold(c), whether the tile the CTA
-// left after chunk c - gx, its last, already holds that fold); only for
-// the chunks the chunk kernel walks (*live of them, when live is set).
+// One warp per chunk: fold[c] = (chunk_fold(c), whether the tile the item
+// left after chunk c - S, its last, already holds that fold); only for the
+// chunks the chunk kernel walks (*live of them, when live is set).
 __global__ void paged_fold_kernel(const Unit* __restrict__ units, const float* __restrict__ scale,
                                   int m, int nchunks, int upc, const int* __restrict__ live,
-                                  int gx, int2* __restrict__ fold) {
+                                  int S, int2* __restrict__ fold) {
   const int c = static_cast<int>((static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32);
   if (c >= nchunks || (live != nullptr && c >= *live)) return;   // whole warp
   const int r = chunk_fold(units, scale, m, c, upc);
   int same = 0;
-  if (c >= gx) {
-    const int p = chunk_fold(units, scale, m, c - gx, upc);
+  if (c >= S) {
+    const int p = chunk_fold(units, scale, m, c - S, upc);
     same = (r < 0 && p < 0) || (r >= 0 && p >= 0 && rows_equal(scale, m, r, p));
   }
   if ((threadIdx.x & 31) == 0) fold[c] = make_int2(r, same);
@@ -1345,7 +1387,7 @@ __global__ void paged_fold_kernel(const Unit* __restrict__ units, const float* _
 //
 // Replaces the running top-k of topk_score_pallas / topk_score_paged_pallas
 // for large k. A query's keys sit in one row of `keys` as segments (Segs):
-// one per CTA of the chunk kernel, each with the count of keys it listed,
+// one per item of the chunk kernel, each with the count of keys it listed,
 // then the carry's k keys; topk_select_keys passes one segment of a row's
 // live count. The select walks only the counted keys: T of them for a
 // query, and k_eff = min(k, T) is taken on the device, so the host reads
@@ -1780,17 +1822,20 @@ cudaError_t sm_count(int* sms) {
 }
 
 // A call's plan, from the wrapper (kernels/topk_score.py::chunk_plan): upc
-// 64-row units a chunk, UPC for the chunk kernel or 1 for the unit kernel,
-// and gx CTAs a query tile (the list mode's segments a query).
+// 64-row units a chunk, UPC for the chunk kernel or 1 for the unit kernel;
+// S segments a query (an item, segment x of a query tile, walks chunks x, x
+// + S, ...; in list mode it owns segment x of each query's row of keys);
+// and G, the chunk kernel's persistent CTAs (the unit kernel launches one
+// CTA an item and UCQ queries, whatever G says).
 struct Plan {
-  int upc, gx;
+  int upc, S, G;
   int rows() const { return UNIT * upc; }
 };
 
-// The chunk or unit kernel's launch: gx CTAs per query tile; in list mode
-// `counts` takes B x gx listed counts.
+// The chunk or unit kernel's launch: S segments a query, G CTAs (the chunk
+// kernel); in list mode `counts` takes B x S listed counts.
 struct ChunkLaunch {
-  int gx;
+  int S, G;
   int64_t ldq;
   uint64_t* cand;
   int* counts;
@@ -1804,8 +1849,7 @@ cudaError_t launch_chunks(const Src& src, const float* Q, int m, int B, int k, i
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(cl.gx, (B + CQ - 1) / CQ);
-  kern<<<grid, CT, smem, stream>>>(src, Q, m, B, k, nchunks, cl.ldq, cl.cand, cl.counts);
+  kern<<<cl.G, CT, smem, stream>>>(src, Q, m, B, k, nchunks, cl.S, cl.ldq, cl.cand, cl.counts);
   return cudaGetLastError();
 }
 
@@ -1817,7 +1861,7 @@ cudaError_t launch_units(const Src& src, const float* Q, int m, int B, int k, in
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(cl.gx, (B + UCQ - 1) / UCQ);
+  const dim3 grid(cl.S, (B + UCQ - 1) / UCQ);
   kern<<<grid, UT, smem, stream>>>(src, Q, m, B, k, nchunks, cl.ldq, cl.cand, cl.counts);
   return cudaGetLastError();
 }
@@ -1978,7 +2022,7 @@ int64_t unit_words(int64_t nchunks, int upc, int dev) {
   return nchunks * upc * (sizeof(Unit) / 8) + nchunks + (dev ? 1 : 0);
 }
 
-// Words of the list-mode counts: B x nchunks ints (gx <= nchunks).
+// Words of the list-mode counts: B x nchunks ints (S <= nchunks).
 int64_t count_words(int64_t nchunks, int B) { return (static_cast<int64_t>(B) * nchunks + 1) / 2; }
 
 // Words of scratch after the unit table for B queries of nchunks chunks of
@@ -1991,17 +2035,18 @@ int64_t key_words(int64_t nchunks, int rows, int carry, int k, int B) {
   return static_cast<int64_t>(B) * L + count_words(nchunks, B) + sel_layout(L, k, B).words;
 }
 
-// The list mode's segments (gx CTAs over nchunks chunks of `rows` rows, a
-// carry of `extra` keys after them) for the select.
-Segs list_segs(const int* counts, int64_t ldq, int nchunks, int rows, int gx, int extra) {
-  return Segs{counts, ldq, rows, gx, gx > 0 ? nchunks / gx : 0, gx > 0 ? nchunks % gx : 0,
-              extra};
+// The list mode's segments (S a query over nchunks chunks of `rows` rows,
+// a carry of `extra` keys after them) for the select.
+Segs list_segs(const int* counts, int64_t ldq, int nchunks, int rows, int S, int extra) {
+  return Segs{counts, ldq, rows, S, S > 0 ? nchunks / S : 0, S > 0 ? nchunks % S : 0, extra};
 }
 
-// A plan the kernels take: upc UPC or 1, and 1 <= gx <= nchunks (0 when
-// there is no chunk).
-bool plan_ok(const Plan& p, int64_t nchunks) {
-  return (p.upc == UPC || p.upc == 1) && p.gx >= (nchunks > 0 ? 1 : 0) && p.gx <= nchunks;
+// A plan the kernels take for B queries: upc UPC or 1, 1 <= S <= nchunks (0
+// when there is no chunk), and for the chunk kernel 1 <= G <= S x tiles.
+bool plan_ok(const Plan& p, int64_t nchunks, int B) {
+  const int64_t items = static_cast<int64_t>(p.S) * ((B + CQ - 1) / CQ);
+  return (p.upc == UPC || p.upc == 1) && p.S >= (nchunks > 0 ? 1 : 0) && p.S <= nchunks &&
+         (p.upc != UPC || nchunks == 0 || (p.G >= 1 && p.G <= items));
 }
 
 template <typename T>
@@ -2010,19 +2055,18 @@ int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, 
                uint64_t* scratch, float* os, int* oi, cudaStream_t s, int* launched) {
   const int rows = plan.rows();
   const int nchunks = static_cast<int>((n + rows - 1) / rows);
-  if (!plan_ok(plan, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(plan, nchunks, B)) return static_cast<int>(cudaErrorInvalidValue);
   const DenseSrc<T> src{static_cast<const T*>(D), ids, n, n_valid, m, n_valid_dev};
   const bool list = k > SMALL_K;
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows
                            : static_cast<int64_t>(nchunks) * k;
-  const int gx = plan.gx;
   int* counts = reinterpret_cast<int*>(scratch + static_cast<int64_t>(B) * ldq);
   cudaError_t err = dispatch_chunks<T>(vec, list, plan.upc, src, q, m, B, k, nchunks,
-                                       ChunkLaunch{gx, ldq, scratch, counts}, s);
+                                       ChunkLaunch{plan.S, plan.G, ldq, scratch, counts}, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launched;
   if (list)
-    return run_select(scratch, list_segs(counts, ldq, nchunks, rows, gx, 0), B, ldq, k, 0,
+    return run_select(scratch, list_segs(counts, ldq, nchunks, rows, plan.S, 0), B, ldq, k, 0,
                       scratch + static_cast<int64_t>(B) * ldq + count_words(nchunks, B), os, oi,
                       s, launched);
   return run_merges(nchunks, B, k, scratch, scratch + static_cast<int64_t>(B) * ldq, os, oi, 0,
@@ -2037,10 +2081,10 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
                int unfinal, const Plan& plan, uint64_t* scratch, float* os, int* oi,
                cudaStream_t s, int* launched) {
   const int64_t slots = hi > lo ? hi - lo : 0;
-  const int upc = plan.upc, rows = plan.rows(), gx = plan.gx;
+  const int upc = plan.upc, rows = plan.rows(), S = plan.S;
   const PagedGeom g = paged_geom(slots, R, upc);
   const int nchunks = static_cast<int>(g.nchunks);
-  if (!plan_ok(plan, nchunks)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(plan, nchunks, B)) return static_cast<int>(cudaErrorInvalidValue);
   const bool carry = cs != nullptr;
   const bool dev = lo_dev != nullptr;
   auto* units = reinterpret_cast<Unit*>(scratch);
@@ -2051,7 +2095,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows + (carry ? k : 0)
                            : static_cast<int64_t>(nchunks + (carry ? 1 : 0)) * k;
   int* counts = reinterpret_cast<int*>(cand + static_cast<int64_t>(B) * ldq);
-  const ChunkLaunch cl{gx, ldq, cand, counts};
+  const ChunkLaunch cl{S, plan.G, ldq, cand, counts};
   cudaError_t err = cudaSuccess;
   if (nchunks > 0) {
     const int nunits = nchunks * upc;
@@ -2065,7 +2109,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     if (scale != nullptr) {
       const int64_t threads = static_cast<int64_t>(nchunks) * 32;
       paged_fold_kernel<<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(
-          units, scale, m, nchunks, upc, live, gx, fold);
+          units, scale, m, nchunks, upc, live, S, fold);
       err = cudaGetLastError();
       if (err != cudaSuccess) return static_cast<int>(err);
       ++*launched;
@@ -2090,7 +2134,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
     ++*launched;
   }
   if (list)
-    return run_select(cand, list_segs(counts, ldq, nchunks, rows, gx, carry ? k : 0), B, ldq, k,
+    return run_select(cand, list_segs(counts, ldq, nchunks, rows, S, carry ? k : 0), B, ldq, k,
                       unfinal, cand + static_cast<int64_t>(B) * ldq + count_words(nchunks, B),
                       os, oi, s, launched);
   return run_merges(nchunks + (carry ? 1 : 0), B, k, cand, cand + static_cast<int64_t>(B) * ldq,
@@ -2116,14 +2160,15 @@ extern "C" int topk_plan(int64_t n, int k, int B, int upc, int64_t* out) {
 // device, clamped to [0, n] by the kernel) when that pointer is set, else
 // the host value n_valid. scratch holds topk_plan's words. Writes out_s
 // (B, k) f32 and out_i (B, k) int32. `vec` asserts m % 16 == 0 and a
-// 16-byte aligned D. *launched counts the kernel launches made. upc and gx
-// are the call's plan (kernels/topk_score.py::chunk_plan): chunks of upc
-// 64-row units (8: the chunk kernel, 1: the unit kernel), gx CTAs a query
-// tile. Returns the first cudaError_t.
+// 16-byte aligned D. *launched counts the kernel launches made. upc, segs
+// and ctas are the call's plan (kernels/topk_score.py::chunk_plan): chunks
+// of upc 64-row units (8: the chunk kernel, 1: the unit kernel), segs
+// segments a query, ctas persistent CTAs of the chunk kernel. Returns the
+// first cudaError_t.
 extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids, int64_t n,
                               int m, int B, int64_t n_valid, const void* n_valid_dev, int k,
                               int dtype, int vec, void* scratch, void* out_s, void* out_i,
-                              void* stream, int* launched, int upc, int gx) {
+                              void* stream, int* launched, int upc, int segs, int ctas) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(Q);
   auto ids = static_cast<const int*>(row_ids);
@@ -2134,7 +2179,7 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
   *launched = 0;
   if (n < 1 || (n + UNIT - 1) / UNIT > 0x7FFFFFFF || k < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan{upc, gx};
+  const Plan plan{upc, segs, ctas};
 #define DENSE(T) \
   dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, plan, sc, os, oi, s, launched)
   if (dtype == 0) return DENSE(float);
@@ -2174,7 +2219,7 @@ extern "C" int topk_paged_plan(int64_t slots, int R, int k, int carry, int dev, 
 // out_i (B, k) int32; -inf slots get id -1 with `finalize`, else their
 // rank among pads as -(j - c + 2). `vec` asserts m % 16 == 0 and 16-byte
 // aligned pool, tail and scale. *launched counts the kernel launches
-// made. upc and gx are the call's plan, as topk_score_f32's. Returns the
+// made. upc, segs and ctas are the call's plan, as topk_score_f32's. Returns the
 // first cudaError_t.
 extern "C" int topk_score_paged_f32(
     const void* pool, const void* tail, const void* table, const void* nvalid,
@@ -2182,7 +2227,7 @@ extern "C" int topk_score_paged_f32(
     const void* carry_s, const void* carry_i, int pool_pages, int tail_pages,
     int R, int m, int B, int lo, int hi, const void* lo_dev, const void* hi_dev, int k,
     int dtype, int vec, int finalize, void* scratch, void* out_s, void* out_i, void* stream,
-    int* launched, int upc, int gx) {
+    int* launched, int upc, int segs, int ctas) {
   auto s = static_cast<cudaStream_t>(stream);
   *launched = 0;
   const bool carry = carry_s != nullptr;
@@ -2204,7 +2249,7 @@ extern "C" int topk_score_paged_f32(
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   const int unfinal = finalize ? 0 : 1;
-  const Plan plan{upc, gx};
+  const Plan plan{upc, segs, ctas};
 #define PAGED(T) paged_call<T>(pool, tail, tb, nv, off, sc, ip, q, cs, ci, pool_pages, tail_pages, \
                                R, m, B, lo, hi, lod, hid, k, vec, unfinal, plan, w, os, oi, s, \
                                launched)

@@ -8,11 +8,12 @@ int32 ids; ties go to the lowest id; slots with no candidate are
 (-inf, -1). Any k >= 1 runs.
 
 The kernels (``csrc/topk_score.cu``) split n over CTAs, since at serving
-batch sizes one CTA per query tile would leave most of the card idle: one
-persistent CTA per SM walks 512-row chunks for 32 queries, or, where those
-chunks are fewer than the SMs a query tile may have and its 64-row units
-fit two waves (a shortlist's rescore, a live delta), a CTA takes each unit
-(``chunk_plan`` decides and the C entries take its plan). For k <= 32 it
+batch sizes one CTA per query tile would leave most of the card idle: at
+most one persistent CTA per SM takes (segment, query tile) items, each
+walking every S-th 512-row chunk for 32 queries, or, where those chunks are
+fewer than the SMs a query tile may have and its 64-row units fit two waves
+(a shortlist's rescore, a live delta), a CTA takes each unit (``chunk_plan``
+decides and the C entries take its plan). For k <= 32 it
 keeps each chunk's top k against a running threshold and a merge kernel
 reduces the per-chunk lists; for larger k it lists, compacted into its own
 segment of each query's row, only the keys at or above a running
@@ -62,13 +63,13 @@ _SIGNATURES = {
     "topk_score_f32": (ctypes.c_int, [
         _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int]),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_paged_f32": (ctypes.c_int, [_P] * 10 + [ctypes.c_int] * 7 + [_P] * 2
                              + [ctypes.c_int] * 4 + [_P] * 4
-                             + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]),
+                             + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3),
     "topk_select_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                         ctypes.POINTER(ctypes.c_int64)]),
     "topk_select_keys": (ctypes.c_int, [_P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
@@ -81,8 +82,9 @@ _SIGN = -(1 << 63)         # the CUDA keys are the plain keys with the top bit f
 # csrc/topk_score.cu's geometry: queries a tile (CQ), rows a chunk of the
 # chunk kernel (CR), rows a unit (UNIT: a warp's block, a paged unit, a
 # chunk of the unit kernel), units a chunk (UPC), 8-byte words a unit of a
-# paged unit table (sizeof(Unit) / 8), k of the register select (SMALL_K)
-_CQ, _CR, _UNIT, _UPC, _UNIT_WORDS, _SMALL_K = 32, 512, 64, 8, 3, 32
+# paged unit table (sizeof(Unit) / 8), k of the register select (SMALL_K),
+# queries a CTA of the unit kernel (UCQ)
+_CQ, _CR, _UNIT, _UPC, _UNIT_WORDS, _SMALL_K, _UCQ = 32, 512, 64, 8, 3, 32, 16
 # unit-kernel CTAs an SM holds at once (57 KB of shared memory each at m
 # 384: half the query tile and the ring; 128 threads of at most 170
 # registers); a 32-query tile takes two CTAs a unit. ``chunk_plan`` gives
@@ -91,15 +93,34 @@ _CQ, _CR, _UNIT, _UPC, _UNIT_WORDS, _SMALL_K = 32, 512, 64, 8, 3, 32
 # 28,672 rows at B 32) and near 4.4 at k 10 (36,864 rows), as
 # ``benchmarks/small_calls.py`` times them, so neither k loses to the switch
 UNIT_CTAS_PER_SM = 3
+# segment counts ``items_plan`` tries for the chunk kernel: S0 = min(chunks,
+# ceil(sms / tiles)) to SEG_SPAN S0. At 7 tiles (B 200) that reaches a
+# segment an SM, which splits any chunk count evenly; wider spans would
+# win a chunk or two a CTA at B 2,048 and above, for ten times the
+# segments the list mode's select reads
+SEG_SPAN = 8
+# what ``items_plan`` charges, in 512-row chunks, each time a CTA starts an
+# item of another query tile than its last: its running lists and
+# thresholds start afresh, so the item's first chunks list and select many
+# keys. On an H100 at B 1,000 over 100,000 rows, k 10, that took about 75
+# us a restart at m 384 and 768 (a chunk's walk: 56 and 112 us), from
+# ``benchmarks/many_queries.py``'s plan (one restart a CTA) against its
+# spread_plan (eight). Where a CTA keeps one tile (its CTAs a multiple of
+# the tiles), it starts once
+RESTART = 1
 
 
 class ChunkPlan(NamedTuple):
     """A call's walk: chunks of ``upc`` 64-row units (8: the chunk kernel's
-    512 rows; 1: the unit kernel's 64), ``chunks`` of them, and ``ctas``
-    CTAs a query tile. CTA x walks chunks x, x + ctas, ...; in list mode it
-    owns segment x of each query's row of keys."""
+    512 rows; 1: the unit kernel's 64), ``chunks`` of them, in ``segs``
+    segments a query. Item (x, tile), segment x of a 32-query tile, walks
+    chunks x, x + segs, ...; in list mode it owns segment x of each of its
+    queries' row of keys. ``ctas`` CTAs run the items: the chunk kernel's
+    persistent CTA g takes items i = g, g + ctas, ... (x = i // tiles, tile
+    = i % tiles); the unit kernel launches one CTA an item and 16 queries."""
     upc: int
     chunks: int
+    segs: int
     ctas: int
 
     @property
@@ -107,30 +128,92 @@ class ChunkPlan(NamedTuple):
         return _UNIT * self.upc
 
     def segments(self) -> list[tuple[int, int]]:
-        """(first key slot, key slots) of each CTA's segment of a query's
-        row: room for every row of the chunks it walks."""
-        qn, rn = divmod(self.chunks, self.ctas) if self.ctas else (0, 0)
+        """(first key slot, key slots) of each segment of a query's row:
+        room for every row of the chunks its item walks."""
+        qn, rn = divmod(self.chunks, self.segs) if self.segs else (0, 0)
         return [((x * qn + min(x, rn)) * self.rows, (qn + (x < rn)) * self.rows)
-                for x in range(self.ctas)]
+                for x in range(self.segs)]
+
+
+def makespan(chunks: int, tiles: int, segs: int, ctas: int) -> int:
+    """The most chunks one CTA of the chunk kernel walks over ``segs`` x
+    ``tiles`` items: CTA 0's. CTA g takes ceil((items - g) / ctas) items,
+    and those below item rn x tiles (rn = chunks % segs: segments of one
+    chunk more) number ceil((rn x tiles - g) / ctas); both fall with g."""
+    qn, rn = divmod(chunks, segs)
+    return -(-tiles * segs // ctas) * qn + -(-rn * tiles // ctas)
+
+
+def _takes_chunks(big_chunks: int, units: int, B: int, sms: int) -> bool:
+    """Whether the chunk kernel takes the call: its 512-row chunks fill the
+    ceil(sms / tiles) SMs a query tile may have, or the units are more than
+    UNIT_CTAS_PER_SM a tile's SM (the unit kernel's two CTAs a unit would
+    take more than two waves, and it spends more time a row than the chunk
+    kernel)."""
+    per_tile = -(-sms // -(-B // _CQ))
+    return big_chunks >= per_tile or units > UNIT_CTAS_PER_SM * per_tile
+
+
+def unit_plan(units: int, B: int) -> ChunkPlan:
+    """The unit kernel's walk: a segment a unit, a CTA an item and 16
+    queries."""
+    return ChunkPlan(1, units, units, units * -(-B // _UCQ))
+
+
+def restarts(tiles: int, segs: int, ctas: int) -> int:
+    """Items of CTA 0 that start on another query tile than its last: one
+    where the CTAs are a multiple of the tiles (item i's tile is i %
+    tiles, so a CTA keeps its tile), else each of its items."""
+    return 1 if ctas % tiles == 0 else -(-tiles * segs // ctas)
 
 
 @functools.lru_cache(maxsize=4096)
+def items_plan(chunks: int, B: int, sms: int) -> ChunkPlan:
+    """The chunk kernel's walk of B queries over ``chunks`` 512-row chunks
+    on a card of ``sms`` SMs: at most ``sms`` persistent CTAs over ``segs``
+    x tiles items. The segment counts from S0 = min(chunks, ceil(sms /
+    tiles)) to min(chunks, SEG_SPAN S0) are tried with min(sms, tiles x
+    segs) CTAs and, where tiles <= sms, with tiles x (sms // tiles), which
+    keeps each CTA on one tile; the least ``makespan`` plus RESTART a
+    ``restarts`` wins, then the fewest segments (the select reads fewer),
+    then the most CTAs. Where S0 segments a tile fill one wave (B <= 32,
+    and 33 to 128 at 132 SMs) that is S0 with a CTA an item; else no CTA
+    walks more than ceil(chunks / segs) chunks past the even share (tiles
+    x chunks / sms), where one CTA an item would run a second, nearly empty
+    wave."""
+    tiles = -(-B // _CQ)
+    s0 = min(chunks, -(-sms // tiles))
+    best = None
+    for S in range(s0, min(chunks, SEG_SPAN * s0) + 1):
+        for G in {min(sms, tiles * S), tiles * (sms // tiles)}:
+            if 0 < G <= tiles * S:
+                cost = (makespan(chunks, tiles, S, G) + RESTART * restarts(tiles, S, G), S, -G)
+                best = min(best or cost, cost)
+    return ChunkPlan(_UPC, chunks, best[1], -best[2])
+
+
 def chunk_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
     """The walk of a call of B queries over ``big_chunks`` 512-row chunks
-    or ``units`` 64-row units, on a card of ``sms`` SMs. A query tile gets
-    ceil(sms / tiles) SMs. Where the 512-row chunks fill them, or the units
-    are more than UNIT_CTAS_PER_SM a tile's SM (the unit kernel's two CTAs a
-    unit would take more than two waves, and it spends more time a row than
-    the chunk kernel), the chunk kernel walks the chunks with at most one
-    CTA an SM and a chunk. Else the unit kernel takes each unit with a CTA
-    of its own. The plan depends on the capacity (n, the planned slots) and
-    B, never on a live count read on the card, so a captured CUDA graph
-    replays at any count."""
+    or ``units`` 64-row units, on a card of ``sms`` SMs: ``items_plan``
+    where ``_takes_chunks``, else ``unit_plan``. The plan depends on the
+    capacity (n, the planned slots) and B, never on a live count read on
+    the card, so a captured CUDA graph replays at any count."""
+    if _takes_chunks(big_chunks, units, B, sms):
+        return items_plan(big_chunks, B, sms)
+    return unit_plan(units, B)
+
+
+def wave_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
+    """``chunk_plan`` with the chunk kernel's walk before its persistent
+    items: S0 segments a tile and one CTA an item (tiles x S0 CTAs, a
+    second wave where that passes ``sms``). The tests and ``chip_smoke.py``
+    patch it in for ``chunk_plan`` to hold ``items_plan`` bitwise against
+    it on one build."""
+    if not _takes_chunks(big_chunks, units, B, sms):
+        return unit_plan(units, B)
     tiles = -(-B // _CQ)
-    per_tile = -(-sms // tiles)
-    if big_chunks >= per_tile or units > UNIT_CTAS_PER_SM * per_tile:
-        return ChunkPlan(_UPC, big_chunks, min(big_chunks, per_tile))
-    return ChunkPlan(1, units, units)
+    s0 = min(big_chunks, -(-sms // tiles))
+    return ChunkPlan(_UPC, big_chunks, s0, tiles * s0)
 
 
 def dense_plan(n: int, B: int, sms: int) -> ChunkPlan:
@@ -189,12 +272,12 @@ def _listed(scratch: torch.Tensor, base: int, B: int, plan: ChunkPlan, ldq: int,
     (from word ``base``): the (B,) int64 counts a query, and a function that
     packs the listed keys into (B, max count) CUDA-order keys, each query's
     at the front and 0 past its count. The segments are the plan's
-    (``ChunkPlan.segments``: one per CTA of a query tile), then the carry's
+    (``ChunkPlan.segments``: one per item of a query tile), then the carry's
     ``extra`` keys. ``pack`` reads the scratch when called, so before the
     call's next group of queries overwrites it."""
-    gx = plan.ctas
+    S = plan.segs
     keys = scratch[base:base + B * ldq].view(B, ldq)
-    per = scratch[base + B * ldq:].view(torch.int32)[:B * gx].view(B, gx).clamp_min(0).tolist()
+    per = scratch[base + B * ldq:].view(torch.int32)[:B * S].view(B, S).clamp_min(0).tolist()
     starts = [st for st, _ in plan.segments()]
     tail = plan.chunks * plan.rows
     counts = torch.tensor([sum(c) + extra for c in per], dtype=torch.int64)
@@ -298,7 +381,7 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
             None if row_ids is None else row_ids.data_ptr(), n, m, b, nv,
             None if nv_dev is None else nv_dev.data_ptr(), k,
             _DTYPES[D.dtype], int(vec), scratch.data_ptr(), s_ptr + 4 * g0 * k,
-            i_ptr + 4 * g0 * k, stream, ctypes.byref(launched), plan.upc, plan.ctas)
+            i_ptr + 4 * g0 * k, stream, ctypes.byref(launched), plan.upc, plan.segs, plan.ctas)
         _build.check(err, "topk_score")
         units += plan.upc == 1
         if on_lists is not None and select:
@@ -467,7 +550,7 @@ def topk_score_paged_cuda(pool: torch.Tensor, page_table: torch.Tensor,
             lo.data_ptr() if dev_range else None, hi.data_ptr() if dev_range else None, k,
             _DTYPES[pool.dtype], int(vec), int(finalize), scratch.data_ptr(),
             out_s.data_ptr() + 4 * g0 * k, out_i.data_ptr() + 4 * g0 * k, stream,
-            ctypes.byref(launched), plan.upc, plan.ctas)
+            ctypes.byref(launched), plan.upc, plan.segs, plan.ctas)
         _build.check(err, "topk_score_paged")
         units += plan.upc == 1 and plan.chunks > 0
         if on_lists is not None and select:

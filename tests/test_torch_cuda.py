@@ -1744,6 +1744,27 @@ def test_cuda_few_row_topk_is_the_chunk_kernels_topk():
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,m", [(33, 130), (200, 768), (1000, 384), (4225, 64)])
+def test_cuda_many_tile_plan_is_the_wave_walk(B, m):
+    """chip_smoke.py's many-tile cases: the chunk kernel's persistent
+    (segment, tile) items bitwise its walk of a CTA a segment and tile
+    (``wave_plan``) on the same build, and within the repo's tolerances of
+    the plain versions: dense f32, bf16 and int8 at k 10, 100 and 1000
+    (plain, a device n_valid, row_ids), paged f32 and int8 at k 10 and 100,
+    over 20,000 rows (40 chunks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    checks = []
+    smoke.many_tile_cases(torch.device("cuda"), checks, cases=[(B, m)])
+    assert len(checks) == 3 * 3 * 3 + 2 * 2
+    assert all(c["wave_bitwise"] for c in checks)
+    dense = checks[0]
+    assert (dense["wave_ctas"] > dense["ctas"]) == (B >= 200)
+    torch.cuda.synchronize()
+
+
 def _paged_graph_replays(k):
     from repro_torch.kernels.topk_score import topk_score_paged_cuda as paged
 

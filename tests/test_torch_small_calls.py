@@ -26,7 +26,8 @@ from repro_torch.core.index import _delta_topk
 from repro_torch.kernels import ops
 from repro_torch.kernels.pca_project import project_path
 from repro_torch.kernels.topk_score import (ChunkPlan, UNIT_CTAS_PER_SM, _listed, chunk_plan,
-                                            dense_plan, paged_chunks, paged_plan)
+                                            dense_plan, items_plan, paged_chunks, paged_plan,
+                                            unit_plan)
 from test_torch_maintenance import _carried, _corpus, _pair
 from test_torch_paged import _assert_close
 
@@ -79,17 +80,18 @@ def test_project_path_is_monotone_in_n():
 @pytest.mark.parametrize("name", sorted(LARGE))
 def test_large_plans_are_the_chunk_kernels(name):
     """Indexes whose 512-row chunks fill their SMs keep the chunk kernel's
-    plan: one CTA an SM, the SMs shared among the query tiles."""
+    plan: at most one CTA an SM, the SMs shared among the query tiles (one
+    tile: a segment a CTA; 32 tiles over 100,000 rows: 8 segments a tile,
+    128 CTAs, each on one tile)."""
     plan = LARGE[name]
     assert plan.upc == 8 and plan.rows == 512
-    tiles = {"encoder_b1000_100000": 32}.get(name, 1)
-    assert plan.ctas == -(-SMS // tiles)
+    assert (plan.segs, plan.ctas) == {"encoder_b1000_100000": (8, 128)}.get(name, (SMS, SMS))
 
 
 def test_msmarco_plan_is_unchanged():
     """At 8,841,823 rows and B 32: 132 CTAs of 512-row chunks."""
-    assert dense_plan(8_841_823, 32, SMS) == ChunkPlan(8, 17_270, 132)
-    assert paged_plan(34_539, 256, 32, SMS) == ChunkPlan(8, 17_270, 132)
+    assert dense_plan(8_841_823, 32, SMS) == ChunkPlan(8, 17_270, 132, 132)
+    assert paged_plan(34_539, 256, 32, SMS) == ChunkPlan(8, 17_270, 132, 132)
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
@@ -98,8 +100,8 @@ def test_small_plans_fill_the_card(name):
     query tile (two, each of 16 queries, for 32 queries)."""
     plan = SMALL[name]
     assert plan.upc == 1 and plan.rows == 64
-    assert plan.ctas == plan.chunks            # one CTA a unit
-    assert plan.ctas <= UNIT_CTAS_PER_SM * SMS
+    assert plan.segs == plan.chunks            # one CTA a unit
+    assert plan.segs <= UNIT_CTAS_PER_SM * SMS
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 511, 513, 2560, 3183, 4096, 60_000, 67_583,
@@ -110,9 +112,10 @@ def test_chunk_plan_switches_where_the_chunks_fill_the_tile(n, B):
     per_tile = -(-SMS // -(-B // 32))
     big, units = -(-n // 512), -(-n // 64)
     if big >= per_tile or units > UNIT_CTAS_PER_SM * per_tile:
-        assert plan == ChunkPlan(8, big, min(big, per_tile))
+        assert plan == items_plan(big, B, SMS) and plan.upc == 8
+        assert plan.segs >= min(big, per_tile) and plan.ctas <= SMS
     else:
-        assert plan == ChunkPlan(1, units, units)
+        assert plan == ChunkPlan(1, units, units, units * -(-B // 16))
 
 
 @pytest.mark.parametrize("n,upc", [(2560, 1), (20_000, 1), (25_344, 1), (25_345, 8),
@@ -124,7 +127,7 @@ def test_the_unit_kernel_takes_at_most_two_waves(n, upc):
     plan = dense_plan(n, 32, SMS)
     assert plan.upc == upc
     if upc == 8:
-        assert plan.ctas == min(plan.chunks, SMS)
+        assert plan.segs == plan.ctas == min(plan.chunks, SMS)
 
 
 @pytest.mark.parametrize("R", [8, 64, 100, 150, 256, 512, 600, 1024])
@@ -142,32 +145,33 @@ def test_paged_chunks_match_the_unit_layout(R):
 def _all_plans():
     plans = dict(SMALL, **LARGE)
     plans["ragged"] = chunk_plan(10, 77, 32, SMS)
-    plans["walk"] = ChunkPlan(8, 1000, 132)
+    plans["walk"] = ChunkPlan(8, 1000, 132, 132)
     plans["empty"] = chunk_plan(0, 0, 32, SMS)
     return plans
 
 
 @pytest.mark.parametrize("name", sorted(_all_plans()))
 def test_every_row_lands_in_one_segment(name):
-    """CTA x walks chunks x, x + ctas, ...: its segment has room for every
-    row of them, and the segments tile a query's row of keys in order."""
+    """Segment x's item walks chunks x, x + segs, ...: its segment has room
+    for every row of them, and the segments tile a query's row of keys in
+    order."""
     plan = _all_plans()[name]
     segs = plan.segments()
-    assert len(segs) == plan.ctas
+    assert len(segs) == plan.segs
     pos = 0
     for x, (start, size) in enumerate(segs):
         assert start == pos
-        walked = len(range(x, plan.chunks, plan.ctas))
+        walked = len(range(x, plan.chunks, plan.segs))
         assert size == walked * plan.rows
         pos += size
     assert pos == plan.chunks * plan.rows
-    # row r of the walk: chunk r // rows, walked by CTA (r // rows) % ctas
-    if plan.ctas:
+    # row r of the walk: chunk r // rows, walked by segment (r // rows) % segs
+    if plan.segs:
         for r in {0, plan.rows - 1, plan.rows, plan.chunks * plan.rows - 1}:
             c = r // plan.rows
-            x = c % plan.ctas
+            x = c % plan.segs
             start, size = segs[x]
-            assert start <= start + (c // plan.ctas) * plan.rows + r % plan.rows < start + size
+            assert start <= start + (c // plan.segs) * plan.rows + r % plan.rows < start + size
 
 
 @pytest.mark.parametrize("name", ["shortlist_3183", "delta_4096", "ids_pool_20x256",
@@ -175,15 +179,15 @@ def test_every_row_lands_in_one_segment(name):
 @pytest.mark.parametrize("extra", [0, 40])
 def test_listed_reads_the_plans_segments(name, extra):
     """``_listed`` (what a list-mode call listed, read back from its
-    scratch) finds each CTA's keys at its plan's segment start, with its
+    scratch) finds each item's keys at its plan's segment start, with its
     count, then a carry's ``extra`` keys."""
     plan = _all_plans()[name]
     B, base = 3, 5
     ldq = plan.chunks * plan.rows + extra
     rng = np.random.default_rng(0)
-    scratch = torch.zeros(base + B * ldq + (B * plan.ctas + 1) // 2 + 4, dtype=torch.int64)
+    scratch = torch.zeros(base + B * ldq + (B * plan.segs + 1) // 2 + 4, dtype=torch.int64)
     keys = scratch[base:base + B * ldq].view(B, ldq)
-    counts = rng.integers(0, 5, size=(B, plan.ctas)).astype(np.int32)
+    counts = rng.integers(0, 5, size=(B, plan.segs)).astype(np.int32)
     want = []
     for b in range(B):
         row = []
@@ -196,7 +200,7 @@ def test_listed_reads_the_plans_segments(name, extra):
         tail = torch.arange(extra, dtype=torch.int64) + 7_000_000 + b
         keys[b, plan.chunks * plan.rows:plan.chunks * plan.rows + extra] = tail
         want.append(torch.cat(row + [tail]))
-    scratch[base + B * ldq:].view(torch.int32)[:B * plan.ctas] = torch.from_numpy(
+    scratch[base + B * ldq:].view(torch.int32)[:B * plan.segs] = torch.from_numpy(
         counts.reshape(-1))
     got_counts, pack = _listed(scratch, base, B, plan, ldq, extra)
     assert got_counts.tolist() == [int(w.numel()) for w in want]
@@ -322,8 +326,8 @@ def test_forced_plan_is_the_other_kernels_and_undone(upc, n, B, paged):
                   else (-(-n // 512), -(-n // 64)))
     with forced_plan(upc):
         got = plan()
-    assert got == (ChunkPlan(1, units, units) if upc == 1
-                   else ChunkPlan(8, big, min(big, -(-SMS // -(-B // 32)))))
+    assert got == (unit_plan(units, B) if upc == 1 else items_plan(big, B, SMS))
+    assert got.upc == upc
     assert plan() == before
 
 
