@@ -30,13 +30,19 @@ Phases, each printing one JSON line:
      kernel's persistent items over 2 to 133 query tiles (B 33 to 4,225)
      bitwise its walk of a CTA a segment and tile (``wave_plan``), dense
      f32 / bf16 / int8 at k 10, 100 and 1,000 (plain, device n_valid,
-     row_ids), paged f32 / int8 at k 10 and 100;
+     row_ids), paged f32 / int8 at k 10 and 100; the chunk kernel's 1- and
+     8-query tiles and the two-level select bitwise the 32-query tile and
+     the one-level select (``wide_tiles``), B 1 to 9, 16 and 17, m 16, 130
+     and 256, f32 / bf16 / int8, k 10, 100 and 1,000, plain and with a
+     device n_valid, and one query's search replayed in a CUDA graph;
   4. the main path at full width: an MS MARCO-sized corpus (8,841,823 x 768,
      27.2 GB f32) drawn on the card, PCA fit (gram kernel), pruning at
      cutoff 0.5 to m = 384 (pca_project kernel), int8 by the two-pass
      absmax build and by the fused epilogue (pca_project_quant kernel),
      batches of 32 queries through search_projected on the f32 and int8
-     indexes (topk_score kernel) and an exact f32 rescore of the int8
+     indexes (topk_score kernel), a batch of 8 (a bucketed server's
+     smallest: the chunk kernel's 8-query tile, at k 10 and 100), and an
+     exact f32 rescore of the int8
      shortlist (topk_score, row_ids mode); each kernel is compared with its
      plain version and timed at the shapes this path gives it, gram also at
      the protocol's 100,000 x 768 (there held bitwise equal to the in-order
@@ -196,7 +202,10 @@ Phases, each printing one JSON line:
      4,096-row delta, int8 under hier_merge on a (2, 2) mesh of the card's
      slots), ids against the plain top-k, recall@100 against the full
      search (each int8 kernel row with matmul + topk over an f32 copy of
-     its live rows), and compress_tables over the 1,048,576 x 256 item
+     its live rows; each one-query row, on the 1-query tile and the
+     two-level select, bitwise and in turns against the 32-query tile and
+     the one-level select, split into the chunk kernel and the select),
+     and compress_tables over the 1,048,576 x 256 item
      table; (c)
      one train_batch step at the largest batch that fits (65,536 first),
      serve_p99 and serve_bulk, against their bounds, with peak memory; (d)
@@ -216,9 +225,11 @@ Phases, each printing one JSON line:
      bound, with peak memory and the gathers' and segment sums' share; (d)
      launch.train --arch graphcast (20 steps, checkpoints under
      build/gnn_smoke/) and a bitwise resume; (e) launch.dryrun --all --mesh
-     pod on meta tensors, in DRYRUN_JOBS processes started after (c), so
-     that no timed phase shares the host with it: every cell of every
-     family accounted for, and the roofline tables;
+     pod on meta tensors, in DRYRUN_JOBS processes at the lowest CPU
+     priority, started after (c), so that no timed cell shares the host
+     with it, and collected after phase 19(b), the examples, beside which
+     it runs: every cell of every family accounted for, and the roofline
+     tables;
  18. the analysis gate (``repro_torch.analysis``), run right after phase 12
      over phase 4's indexes: (a) the top-k's live count as a 0-d device
      tensor bitwise the host int's (a 4,096-row delta, f32 and int8, at
@@ -280,6 +291,7 @@ BATCH = 32                  # serving batch
 K = 10
 SEARCH_BATCHES = 8
 SHORTLIST_K = 100
+FEW_BATCH = 8               # phase 4: a bucketed server's smallest batch (launch/serve.py)
 PROTOCOL_DOCS = 100_000
 PROTOCOL_DEPTH = 1000       # benchmarks/common.py:24
 SERVER_CLOSED = 256
@@ -477,8 +489,11 @@ class Counters:
     those that ran the small kernel. ``topk_score`` and its paged wrapper
     count per mode (storage dtype, row_ids, paged_<dtype>, paged_ids), their
     calls, the CUDA launches their C entries report and, as
-    ``topk_unit_<mode>``, the C calls that ran the unit kernel (few rows);
-    the large-k select counts its runs per calling mode."""
+    ``topk_unit_<mode>``, the C calls that ran the unit kernel (few rows),
+    and as ``topk_narrow_qn1`` / ``qn8`` those whose chunk kernel ran a
+    1- or 8-query tile; the large-k select counts its runs per calling mode,
+    and as ``topk_select_two_level_<mode>`` the C calls whose select took
+    two levels."""
 
     def __init__(self):
         from repro_torch.kernels.gram import gram_cuda
@@ -500,11 +515,16 @@ class Counters:
                 out[f"topk_score_{mode}"] = v
                 out[f"topk_score_{mode}_cuda"] = fn.cuda_launches[mode]
                 out[f"topk_unit_{mode}"] = fn.unit_launches[mode]
+        for width, v in self.topk[0].narrow_launches.items():
+            out[f"topk_narrow_{width}"] = v
         for mode, v in self.select.launches.items():
             out[f"topk_select_{mode}"] = v
+        for mode, v in self.select.two_level_launches.items():
+            out[f"topk_select_two_level_{mode}"] = v
         out["topk_select_keys_cuda"] = self.select.cuda_launches["keys"]
-        # runs of the select, whoever called it
+        # runs of the select, whoever called it; C calls that took two levels
         out["topk_select"] = sum(self.select.launches.values())
+        out["topk_select_two_level"] = sum(self.select.two_level_launches.values())
         return out
 
     def restore(self, values):
@@ -518,8 +538,12 @@ class Counters:
                 fn.launches[mode] = values[f"topk_score_{mode}"]
                 fn.cuda_launches[mode] = values[f"topk_score_{mode}_cuda"]
                 fn.unit_launches[mode] = values[f"topk_unit_{mode}"]
+        for width in self.topk[0].narrow_launches:
+            self.topk[0].narrow_launches[width] = values[f"topk_narrow_{width}"]
         for mode in self.select.launches:
             self.select.launches[mode] = values[f"topk_select_{mode}"]
+        for mode in self.select.two_level_launches:
+            self.select.two_level_launches[mode] = values[f"topk_select_two_level_{mode}"]
         self.select.cuda_launches["keys"] = values["topk_select_keys_cuda"]
 
     def zero(self):
@@ -588,7 +612,7 @@ def plan_fields(n, B):
     plan = topk_score.dense_plan(n, B, sms)
     if plan.upc != 8:
         return dict(segs=plan.segs, ctas=plan.ctas, kernel="topk_unit_kernel")
-    tiles = -(-B // 32)
+    tiles = -(-B // plan.qn)
     old = topk_score.wave_plan(plan.chunks, -(-n // 64), B, sms)
     return dict(segs=plan.segs, ctas=plan.ctas,
                 makespan=topk_score.makespan(plan.chunks, tiles, plan.segs, plan.ctas),
@@ -604,31 +628,69 @@ def wave_walk():
     return mock.patch.object(topk_score, "chunk_plan", topk_score.wave_plan)
 
 
+@contextlib.contextmanager
+def wide_tiles(tile=True, select=True):
+    """A context in which every dense top-k takes the 32-query tile
+    (``query_width``) and the one-level select (``select_groups``): the
+    walk before the narrow tiles and the two-level select, on the same
+    build."""
+    from unittest import mock
+    from repro_torch.kernels import topk_score
+    with contextlib.ExitStack() as stack:
+        if tile:
+            stack.enter_context(mock.patch.object(topk_score, "query_width", lambda B: 32))
+        if select:
+            stack.enter_context(mock.patch.object(topk_score, "select_groups",
+                                                  lambda *args: 0))
+        yield
+
+
 TOPK_KERNELS = {"chunk": ("topk_chunk_kernel", "topk_unit_kernel"),
                 "select": ("topk_merge_kernel", "select_fused_kernel", "radix_hist_kernel",
                            "radix_pick_kernel", "radix_gather_kernel", "bitonic_tile_kernel",
                            "bitonic_global_kernel", "select_write_kernel")}
 
 
-def kernel_ms(fn, groups=TOPK_KERNELS):
+def topk_launches(fn):
+    """The CUDA launches the top-k wrappers' C entries report for one call
+    of ``fn``."""
+    from repro_torch.kernels import topk_score
+    fns = (topk_score.topk_score_cuda, topk_score.topk_score_paged_cuda)
+    before = sum(sum(f.cuda_launches.values()) for f in fns)
+    fn()
+    return sum(sum(f.cuda_launches.values()) for f in fns) - before
+
+
+def kernel_ms(fn, groups=TOPK_KERNELS, need=(), launches=None, tries=5):
     """Device ms of one call of ``fn`` under torch.profiler, summed over the
-    kernels each group names; None where the profiler saw none of them."""
+    kernels each group names; None where the profiler saw none of them.
+    The profiler now and then drops some of a trace's device events, or
+    hands on a late one from an earlier trace, so a trace is taken again,
+    up to ``tries`` times, where it holds none of the groups' kernels, none
+    of a group in ``need`` (groups the call is known to launch), or other
+    than ``launches`` launches of them (the count the call's C entries
+    report, ``topk_launches``); then every group is None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(groups, 0.0)
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        if t is None:
-            t = getattr(ev, "self_cuda_time_total", 0.0)
-        for group, names in groups.items():
-            if t and any(name in ev.key for name in names):
-                out[group] += t / 1e3
-    return {group: (v or None) for group, v in out.items()}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out, seen = dict.fromkeys(groups, 0.0), 0
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", None)
+            if t is None:
+                t = getattr(ev, "self_cuda_time_total", 0.0)
+            for group, names in groups.items():
+                if t and any(name in ev.key for name in names):
+                    out[group] += t / 1e3
+                    seen += ev.count
+        if (any(out.values()) and all(out[group] for group in need)
+                and launches in (None, seen)):
+            return {group: (v or None) for group, v in out.items()}
+    return dict.fromkeys(groups)
 
 
 def many_query_row(D, Q, k, reps=5):
@@ -648,9 +710,10 @@ def many_query_row(D, Q, k, reps=5):
     def call():
         return topk_score.topk_score_cuda(D, Q, k=k)
 
-    split = kernel_ms(call)
+    need = ("chunk", "select") if k > 32 else ("chunk",)
+    split = kernel_ms(call, need=need, launches=topk_launches(call))
     with wave_walk():
-        wave = kernel_ms(call)
+        wave = kernel_ms(call, need=need, launches=topk_launches(call))
         wave_ms = cuda_ms(call, reps=reps)
     item = D.element_size()
     return dict(shape=[n, m, B, k], store={1: "int8", 2: "bf16", 4: "f32"}[item],
@@ -814,6 +877,12 @@ def phase_edge_cases():
     ids_row = paged_edge_cases(dev, randn, checks)
     any_batch_cases(dev, randn, checks)
     many_tile_cases(dev, checks)
+    t0 = time.perf_counter()
+    narrow = len(checks)
+    narrow_tile_cases(dev, checks)
+    narrow_graph_case(dev, checks)
+    torch.cuda.synchronize()
+    emit("narrow_cases", checks=len(checks) - narrow, seconds=time.perf_counter() - t0)
     large_k_cases(dev, checks)
     small_projection_cases(dev, checks)
     few_row_topk_cases(dev, checks)
@@ -963,6 +1032,112 @@ def many_tile_cases(dev, checks, cases=MANY_TILE_CASES):
                                    ids_equal=eq, near_ties=near, wave_bitwise=True,
                                    segs=pplan.segs, ctas=pplan.ctas))
             del pg
+
+
+NARROW_ROWS = 140_003       # 274 chunks: two or three a segment at B <= 8, a ragged last
+NARROW_BATCHES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17)   # both narrow widths, and past them
+NARROW_MS = (16, 130, 256)  # one slab, the element-wise loader, retrieval_cand's d
+NARROW_KS = (10, 100, 1000)  # the merge, the threshold and the two-level select, every key
+
+
+def narrow_tile_cases(dev, checks, stores=("f32", "bf16", "int8")):
+    """The chunk kernel's narrow tiles (B 1: one query, B 2 to 8: eight) and
+    the two-level select, each bitwise the 32-query tile and the one-level
+    select on the same build (``wide_tiles``), and the call within the
+    repo's tolerances of the plain version: B in NARROW_BATCHES x m in
+    NARROW_MS x k in NARROW_KS over NARROW_ROWS rows, f32, bf16 and int8,
+    plain and with a 0-d device n_valid (bitwise the host int); with the
+    scratch the C plan asks for (the two levels' keys and counts beyond the
+    one-level layout)."""
+    import torch
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+    g = torch.Generator(device=dev).manual_seed(41)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cuda, plain = topk_score.topk_score_cuda, topk_score.topk_score_plain
+    n = NARROW_ROWS
+    nv = torch.tensor(n // 2 + 37, dtype=torch.int32, device=dev)
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    for m in NARROW_MS:
+        D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+        Qall = torch.randn(max(NARROW_BATCHES), m, generator=g, device=dev)
+        for store in stores:
+            Dx, scale = D, None
+            if store == "bf16":
+                Dx = D.to(torch.bfloat16)
+            elif store == "int8":
+                Dx, scale = quantize_int8_per_dim(D)
+            for B in NARROW_BATCHES:
+                Qx = Qall[:B] if scale is None else Qall[:B] * scale[None, :]
+                Qx = Qx.contiguous()
+                plan = topk_score.dense_plan(n, B, sms)
+                if plan.qn != topk_score.query_width(B):
+                    raise AssertionError(f"narrow B={B}: plan {plan}")
+                for k in NARROW_KS:
+                    groups = topk_score.select_groups(B, plan, k, sms)
+                    words = topk_score.topk_plan(n, k, B, sms)[0]
+                    one = topk_score._plan("topk_plan", n, k, B, plan.upc, 0)[0]
+                    if words - one != (B * groups * k + (B * groups + 1) // 2 if groups else 0):
+                        raise AssertionError(f"narrow B={B} k={k}: scratch {words} against "
+                                             f"{one} for one level, {groups} groups")
+                    for mode, kw, kw_plain in (("plain", {}, {}),
+                                               ("n_valid_tensor", {"n_valid": nv},
+                                                {"n_valid": int(nv)})):
+                        what = f"narrow {store} {mode} B={B} m={m} k={k}"
+                        got = cuda(Dx, Qx, k=k, **kw)
+                        if mode != "plain" and not same(got, cuda(Dx, Qx, k=k,
+                                                                  **kw_plain)):
+                            raise AssertionError(f"{what}: the device count differs from "
+                                                 f"the host int")
+                        for tile, select in ((True, False), (False, True), (True, True)):
+                            with wide_tiles(tile, select):
+                                if not same(got, cuda(Dx, Qx, k=k, **kw)):
+                                    raise AssertionError(
+                                        f"{what}: differs from the "
+                                        f"{'32-query tile' if tile else 'narrow tile'} with "
+                                        f"the {'one' if select else 'two'}-level select")
+                        err, eq, near = compare_topk(*plain(Dx, Qx, k=k, **kw_plain), *got,
+                                                     what)
+                        checks.append(dict(kernel="topk_score", case="narrow", n=n, m=m, B=B,
+                                           k=k, store=store, mode=mode, qn=plan.qn,
+                                           select_groups=groups, max_abs_err=err,
+                                           ids_equal=eq, near_ties=near, wide_bitwise=True))
+            del Dx
+        del D
+
+
+def narrow_graph_case(dev, checks):
+    """One query's search (the 1-query tile; at k 100 the two-level select)
+    over NARROW_ROWS x 256 rows with its live count a 0-d device tensor,
+    captured once in a CUDA graph and replayed as the count moves: bitwise
+    the eager call at each count."""
+    import torch
+    from repro_torch.kernels import topk_score
+    g = torch.Generator(device=dev).manual_seed(43)
+    n, m = NARROW_ROWS, 256
+    D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+    q = torch.randn(1, m, generator=g, device=dev)
+    for k in (10, 100):
+        nv = torch.tensor(n, dtype=torch.int32, device=dev)
+        for _ in range(2):
+            topk_score.topk_score_cuda(D, q, k=k, n_valid=nv)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gs, gi = topk_score.topk_score_cuda(D, q, k=k, n_valid=nv)
+        for count in (n, n // 3 + 5, 777):
+            nv.fill_(count)
+            graph.replay()
+            want = topk_score.topk_score_cuda(D, q, k=k, n_valid=count)
+            torch.cuda.synchronize()
+            if not (torch.equal(gs, want[0]) and torch.equal(gi, want[1])):
+                raise AssertionError(f"narrow graph k={k}: the replay at {count} differs")
+            checks.append(dict(kernel="topk_score", case="narrow_graph", n=n, m=m, B=1, k=k,
+                               n_valid=count, replay_bitwise=True))
+        del graph
 
 
 LARGE_KS = (33, 80, 100, 160, 511, 512, 513, 1000)   # either side of the lane lists (160),
@@ -1448,6 +1623,13 @@ def phase_main_path(counters, rows, n_docs):
                          for i in range(0, len(Qs), BATCH)]
     torch.cuda.synchronize()
     t_search = time.perf_counter() - t0
+    # a bucketed server's batch under low load: 8 queries (the chunk
+    # kernel's 8-query tile), at k 10 and at the shortlist's k 100 (the
+    # two-level select)
+    few = Qs[:FEW_BATCH]
+    few_results = {(name, kk): index.search_projected(few, W, k=kk)
+                   for name, index in (("f32", index_f32), ("int8", index_int8))
+                   for kk in (K, SHORTLIST_K)}
     # exact f32 rescore of one batch's int8 shortlist (row_ids mode)
     qb = Qs[:BATCH]
     _, short = index_int8.search_projected(qb, W, k=SHORTLIST_K)
@@ -1643,6 +1825,16 @@ def phase_main_path(counters, rows, n_docs):
                                             reps=2) if item == 4 else None),
                     bound=bound(item * n * m + 4 * BATCH * m + 8 * BATCH * kk,
                                 2 * BATCH * n * m))
+        # the 8-query batch: its kernel rows, each bitwise the 32-query tile
+        # with the one-level select and timed in turns with it (the int8
+        # rows' matmul + topk over the f32 index, an f32 copy of that shape)
+        for (name, kk), got in few_results.items():
+            index = index_f32 if name == "f32" else index_int8
+            q = project_queries(few, Wc, scale=index.scale).contiguous()
+            row = topk_row(index.vectors, q, kk, reps=5, f32_rows=index_f32.vectors)
+            want = topk_score.topk_score_plain(index.vectors, q, k=kk)
+            compare_topk(*want, *got, f"topk {name} B={FEW_BATCH} k={kk} main path")
+            rows[f"topk_score_{name}_b{FEW_BATCH}_k{kk}"] = row
         # the multi-CTA select alone (radix passes, gather, sort, write) on
         # one batch's keys over every row, at the int8 shortlist's k = 100
         q = project_queries(qb, Wc).contiguous()
@@ -5276,18 +5468,20 @@ def phase_lm(counters):
     torch.cuda.empty_cache()
 
 
-def topk_row(D, q, k, *, n_valid=None, reps=10):
+def topk_row(D, q, k, *, n_valid=None, reps=10, f32_rows=None):
     """A kernel row for one top-k shape: the kernel against its plain
     version (ids up to near-ties, scores at TOL), their times, matmul +
     topk over the live rows beside them (for int8 rows, over an f32 copy
-    of them: ``matmul_topk_f32_ms``), and the bound (each row read
-    once)."""
+    of them, or over ``f32_rows`` of the same shape where given:
+    ``matmul_topk_f32_ms``), and the bound (each row read once); at B <= 8
+    also ``narrow_fields``."""
     import torch
     from repro_torch.kernels import topk_score
     want = topk_score.topk_score_plain(D, q, k=k, n_valid=n_valid)
     listed = {}
     got = topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid,
-                                     on_lists=lambda g0, c, pack: listed.update(counts=c))
+                                     on_lists=lambda g0, c, pack: listed.update(counts=c,
+                                                                                pack=pack))
     n, m = D.shape
     nv = n if n_valid is None else max(0, min(int(n_valid), n))
     err, eq, near = compare_topk(*want, *got, f"recsys top-k {tuple(D.shape)} {D.dtype}")
@@ -5302,8 +5496,75 @@ def topk_row(D, q, k, *, n_valid=None, reps=10):
         library_ms=None,
         matmul_topk_ms=(cuda_ms(lambda: torch.topk(q @ D[:nv].T, k), reps=reps)
                         if item == 4 else None),
-        **({} if item == 4 else {"matmul_topk_f32_ms": f32_topk_ms(D[:nv], q, k, reps)}),
+        **({} if item == 4 else {"matmul_topk_f32_ms": (
+            f32_topk_ms(D[:nv], q, k, reps) if f32_rows is None
+            else cuda_ms(lambda: torch.topk(q @ f32_rows[:nv].T, k), reps=reps))}),
+        **({} if B > 8 else narrow_fields(D, q, k, n_valid, reps, listed)),
         bound=bound(item * nv * m + 4 * B * m + 8 * B * k, 2 * B * nv * m))
+
+
+def narrow_fields(D, q, k, n_valid, reps, listed):
+    """What the narrow tile and the two-level select change in a call of
+    few queries: the plan's tile width and select groups; the call bitwise
+    the 32-query tile with the one-level select on the same build
+    (``wide_tiles``) and timed in turns with it (``ms_turns``,
+    ``wide_ms_turns``: wide, narrow, narrow, wide); each one's chunk kernel
+    and select device ms (torch.profiler); and for k > 32 the select's
+    own row over the listed keys (``listed`` from the call's
+    ``on_lists``): its device ms beside ``topk_select_plain`` and ``topk``
+    on the packed keys, and its bound (each listed key read once)."""
+    import torch
+    from repro_torch.benchmarks import turns
+    from repro_torch.kernels import topk_score
+    n, B = D.shape[0], q.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = topk_score.dense_plan(n, B, sms)
+    groups = topk_score.select_groups(B, plan, k, sms)
+
+    def call():
+        return topk_score.topk_score_cuda(D, q, k=k, n_valid=n_valid)
+
+    def wide():
+        with wide_tiles():
+            return call()
+
+    a, b = call(), wide()
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+        raise AssertionError(f"narrow {tuple(D.shape)} B={B} k={k}: differs from the "
+                             f"32-query tile with the one-level select")
+    this, other = turns.in_turns(call, wide, reps)
+    need = ("chunk", "select") if k > 32 else ("chunk",)
+    split = kernel_ms(call, need=need, launches=topk_launches(call))
+    with wide_tiles():
+        wsplit = kernel_ms(call, need=need, launches=topk_launches(call))
+    out = dict(qn=plan.qn, select_groups=groups, wide_bitwise=True, ms_turns=this,
+               wide_ms_turns=other, chunk_ms=split["chunk"], select_ms=split["select"],
+               wide_chunk_ms=wsplit["chunk"], wide_select_ms=wsplit["select"])
+    if "pack" in listed:
+        keys = listed["pack"]()
+        counts = listed["counts"].to(device=keys.device, dtype=torch.int32)
+        plain_keys = keys ^ topk_score._SIGN
+        live = int(counts.sum())
+        out.update(select_plain_ms=cuda_ms(lambda: topk_score.topk_select_plain(
+                       keys, k, counts=counts), reps=reps),
+                   select_library_ms=cuda_ms(lambda: torch.topk(plain_keys, min(
+                       k, plain_keys.shape[1])), reps=reps),
+                   select_bound=bound(8 * live + 4 * B + 8 * B * k, 0), listed_keys=live)
+    return out
+
+
+def two_level_row(row):
+    """A kernel row for the two-level select, from a few-query call's row
+    (``narrow_fields``): its device ms within the call (torch.profiler)
+    beside ``topk_select_plain`` and ``topk`` on the packed listed keys."""
+    B, k = row["shape"][2], row["shape"][3]
+    if row["select_ms"] is None:
+        raise AssertionError("the two-level select: the profiler saw no select kernel")
+    return dict(shape=[B, row["listed_keys"], k], max_abs_err=row["max_abs_err"],
+                ids_equal=row["ids_equal"], near_ties=row["near_ties"], ms=row["select_ms"],
+                plain_ms=row["select_plain_ms"], library_ms=row["select_library_ms"],
+                library_call="topk over the packed listed keys", bound=row["select_bound"],
+                select_groups=row["select_groups"], wide_select_ms=row["wide_select_ms"])
 
 
 def f32_topk_ms(rows_, q, k, reps):
@@ -5756,7 +6017,8 @@ def start_dryrun():
     cell of every family on meta tensors, in DRYRUN_JOBS processes at the
     lowest CPU priority, its records under build/experiments/dryrun and its lines in
     build/experiments/dryrun.log. It needs no card; phase_gnn starts it
-    after its timed cells and collects it after (d)."""
+    after its timed cells, and ``collect_dryrun`` waits for it after
+    phase 19(b)."""
     out = os.path.join(HERE, "build", "experiments")
     os.makedirs(out, exist_ok=True)
     log = open(os.path.join(out, "dryrun.log"), "w")
@@ -5769,13 +6031,15 @@ def start_dryrun():
     return proc, log, time.perf_counter()
 
 
-def stop_dryrun(proc):
+def stop_dryrun(dryrun):
     """Kill the dry run and its worker processes (one process group) if it
-    is still running."""
+    is still running, and close its log."""
     import signal
+    proc, log, _ = dryrun
     if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.wait()
+    log.close()
 
 
 def gnn_graph(n_nodes, n_edges, d_feat, d_edge, d_out, dev, seed, power_law=False):
@@ -5857,9 +6121,8 @@ def phase_gnn(counters):
     first cell) for 20 steps with checkpoints every 10 under
     build/gnn_smoke/, and a resume from step 10 that replays step 11
     bitwise. (e) The dry run (``start_dryrun``), started once (c) is timed
-    and running beside (d): every cell of every family on both meshes ok,
-    or skipped with the reference's reason, or an error naming its op; the
-    slowest cells' counting seconds; the roofline tables."""
+    and running beside (d) and phase 19(b), returned as its handle and
+    collected after 19(b) (``collect_dryrun``)."""
     import dataclasses
     import statistics
     import numpy as np
@@ -6091,19 +6354,19 @@ def phase_gnn(counters):
     emit("gnn", step="c_cells", seconds=time.perf_counter() - t0, **cells)
     dryrun = start_dryrun()
     try:
-        _gnn_launcher_and_dryrun(dev, dryrun)
-    finally:
-        stop_dryrun(dryrun[0])
-        dryrun[1].close()
+        _gnn_launcher(dev)
+    except BaseException:
+        stop_dryrun(dryrun)
+        raise
+    return dryrun
 
 
-def _gnn_launcher_and_dryrun(dev, dryrun):
-    """Phase 17(d) and (e), while the dry run counts: see ``phase_gnn``."""
+def _gnn_launcher(dev):
+    """Phase 17(d), while the dry run counts: see ``phase_gnn``."""
     import shutil
     import numpy as np
     import torch
-    from repro_torch.configs import registry
-    from repro_torch.launch import roofline, train as train_cli
+    from repro_torch.launch import train as train_cli
 
     # (d) launch.train --arch graphcast, full config, checkpoints, resume
     root = os.path.join(HERE, "build", "gnn_smoke")
@@ -6137,7 +6400,15 @@ def _gnn_launcher_and_dryrun(dev, dryrun):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (e) the dry run over every cell, started after (c)
+
+def collect_dryrun(dryrun):
+    """Phase 17(e): the dry run started after 17(c), waited for after 19(b)
+    (it needs no card, and it runs at the lowest CPU priority beside 17(d)
+    and the examples): every cell of every family on the pod mesh ok, or
+    skipped with the reference's reason, or an error naming its op; the
+    slowest cells' counting seconds; the roofline tables."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import roofline
     proc, _, t_start = dryrun
     t0 = time.perf_counter()
     rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (t0 - t_start)))
@@ -6212,7 +6483,7 @@ def run_phases(args, smi):
     emit("main_path_launches", seconds=time.perf_counter() - t0, **launches)
     on_path = ("gram", "pca_project", "pca_project_quant", "topk_score_f32",
                "topk_score_int8", "topk_score_row_ids", "topk_select", "pca_project_small",
-               "topk_unit_row_ids")
+               "topk_unit_row_ids", "topk_narrow_qn8", "topk_select_two_level")
     missing = [k for k in on_path if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -6369,7 +6640,7 @@ def run_phases(args, smi):
     emit("recsys_path_launches", seconds=time.perf_counter() - t0,
          **{k: v for k, v in recsys_launches.items() if v})
     on_recsys = ("gram", "pca_project", "topk_score_f32", "topk_score_int8", "topk_select",
-                 "topk_score_int8_n_valid")
+                 "topk_score_int8_n_valid", "topk_narrow_qn1", "topk_select_two_level")
     missing = [k for k in on_recsys if recsys_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the recsys path: {missing}")
@@ -6377,24 +6648,29 @@ def run_phases(args, smi):
     # reference computes its step outside Pallas), and the dry run collected
     counters.zero()
     t0 = time.perf_counter()
-    phase_gnn(counters)
-    torch.cuda.synchronize()
-    gnn_launches = counters.read()
-    emit("gnn_path_launches", seconds=time.perf_counter() - t0,
-         **{k: v for k, v in gnn_launches.items() if v})
-    if any(gnn_launches.values()):
-        raise AssertionError(f"a kernel launched on the GNN path: "
-                             f"{ {k: v for k, v in gnn_launches.items() if v} }")
-    # the examples (phase 19(b)), each counted inside its own process
-    counters.zero()
-    t0 = time.perf_counter()
-    example_launches = phase_examples()
-    emit("examples_path_launches", seconds=time.perf_counter() - t0,
-         **{k: v for k, v in example_launches.items() if v})
-    on_examples = ("gram", "pca_project", "topk_score_f32")
-    missing = [k for k in on_examples if example_launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the examples' path: {missing}")
+    dryrun = phase_gnn(counters)
+    try:
+        torch.cuda.synchronize()
+        gnn_launches = counters.read()
+        emit("gnn_path_launches", seconds=time.perf_counter() - t0,
+             **{k: v for k, v in gnn_launches.items() if v})
+        if any(gnn_launches.values()):
+            raise AssertionError(f"a kernel launched on the GNN path: "
+                                 f"{ {k: v for k, v in gnn_launches.items() if v} }")
+        # the examples (phase 19(b)), each counted inside its own process,
+        # while the dry run (17(e)) counts on the host; then the dry run
+        counters.zero()
+        t0 = time.perf_counter()
+        example_launches = phase_examples()
+        emit("examples_path_launches", seconds=time.perf_counter() - t0,
+             **{k: v for k, v in example_launches.items() if v})
+        on_examples = ("gram", "pca_project", "topk_score_f32")
+        missing = [k for k in on_examples if example_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the examples' path: {missing}")
+        collect_dryrun(dryrun)
+    finally:
+        stop_dryrun(dryrun)
 
     def entry(name, row, source, replaces, counter, counts=launches, launches_of=None,
               kernel=None):
@@ -6435,7 +6711,9 @@ def run_phases(args, smi):
                                 "library_device_ms", "tiled_bitwise", "segs", "ctas",
                                 "makespan", "wave_segs", "wave_ctas", "wave_makespan",
                                 "wave_ms", "chunk_ms", "wave_chunk_ms", "wave_select_ms",
-                                "matmul_topk_f32_ms")})
+                                "matmul_topk_f32_ms", "qn", "select_groups", "wide_bitwise",
+                                "ms_turns", "wide_ms_turns", "wide_chunk_ms",
+                                "wide_select_ms")})
     csrc = "src/repro_torch/csrc/"
     topk = ("src/repro/kernels/topk_score.py:283", csrc + "topk_score.cu")
     paged = "src/repro/kernels/topk_score.py:549"
@@ -6609,6 +6887,26 @@ def run_phases(args, smi):
         entry("pca_project_table_compress", rows["pca_project_table_compress"],
               csrc + "pca_project.cu", "src/repro/kernels/pca_project.py:56", "pca_project",
               recsys_launches, launches_of="every pca_project call of phase 16"),
+        # few queries (phases 4 and 16): the chunk kernel's 8-query tile on
+        # the 8-query batch over MS MARCO (launches: every C call of phases
+        # 4-6 that ran it), its 1-query tile on retrieval_cand's search
+        # (launches: every C call of phase 16 that ran it), and the
+        # two-level select over what that search listed (launches: every C
+        # call of phase 16 whose select took two levels)
+        *[entry(f"topk_score_{st}_b{FEW_BATCH}", rows[f"topk_score_{st}_b{FEW_BATCH}_k{K}"],
+                topk[1], topk[0], "topk_narrow_qn8", kernel="topk_chunk_kernel (QN 8)",
+                launches_of="every C call of phases 4-6 whose chunk kernel ran the 8-query "
+                            "tile: the 8-query batches at k 10 and 100, f32 and int8")
+          for st in ("f32", "int8")],
+        entry("topk_score_recsys_b1_qn1", rows["topk_score_recsys_f32_d256"], topk[1], topk[0],
+              "topk_narrow_qn1", recsys_launches, kernel="topk_chunk_kernel (QN 1)",
+              launches_of="every C call of phase 16 whose chunk kernel ran the 1-query tile: "
+                          "retrieval_cand's full, pruned and int8 searches and the (2, 2) "
+                          "mesh's slots"),
+        entry("topk_select_two_level", two_level_row(rows["topk_score_recsys_f32_d256"]),
+              topk[1], topk[0], "topk_select_two_level", recsys_launches,
+              kernel="select_fused_kernel (two levels)",
+              launches_of="every C call of phase 16 whose select took two levels"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -110,17 +110,18 @@ def plan_of(n, B, sms):
     return out
 
 
-def spread_plan(big_chunks, units, B, sms):
+def spread_plan(big_chunks, units, B, sms, qn=None):
     """``chunk_plan`` without the restart charge: the least makespan over
     min(sms, tiles x segs) CTAs, the fewest segments on a tie."""
     from repro_torch.kernels import topk_score as T
     if not T._takes_chunks(big_chunks, units, B, sms):
         return T.unit_plan(units, B)
-    tiles = -(-B // 32)
+    qn = T.query_width(B) if qn is None else qn
+    tiles = -(-B // qn)
     s0 = min(big_chunks, -(-sms // tiles))
     segs = min(range(s0, min(big_chunks, T.SEG_SPAN * s0) + 1),
                key=lambda S: T.makespan(big_chunks, tiles, S, min(sms, tiles * S)))
-    return T.ChunkPlan(8, big_chunks, segs, min(sms, tiles * segs))
+    return T.ChunkPlan(8, big_chunks, segs, min(sms, tiles * segs), qn)
 
 
 def same(a, b):

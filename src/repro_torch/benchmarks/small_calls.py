@@ -51,10 +51,10 @@ def forced_plan(upc: int):
     or the chunk kernel's (upc 8)."""
     from repro_torch.kernels import topk_score
 
-    def plan(big_chunks, units, B, sms):
+    def plan(big_chunks, units, B, sms, qn=None):
         if upc == 1:
             return topk_score.unit_plan(units, B)
-        return topk_score.items_plan(big_chunks, B, sms)
+        return topk_score.items_plan(big_chunks, B, sms, qn)
     return mock.patch.object(topk_score, "chunk_plan", plan)
 
 

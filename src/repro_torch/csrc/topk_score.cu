@@ -21,8 +21,10 @@
 // (DenseSrc: D + (512 c + r) m; PagedSrc: a unit table built per call from
 // the page table, 64 rows a unit, so every warp's rows lie in one page).
 //   1. topk_chunk_kernel: persistent CTAs, at most one an SM, take
-//      (segment, query tile) items; an item walks every S-th chunk for 32
-//      queries. It keeps the query tile in shared memory, streams
+//      (segment, query tile) items; an item walks every S-th chunk for a
+//      tile of 32 queries (dense rows at B <= 8: a narrow tile of 1 or 8,
+//      fed as a bandwidth-bound walk, narrow_walk). It keeps the query
+//      tile in shared memory, streams
 //      the chunks through a cp.async ring and scores each with a
 //      register-blocked fp32 product. Then, for k <= SMALL_K, each warp
 //      selects per query the chunk's top k into that chunk's candidate
@@ -41,7 +43,9 @@
 //      the counted keys of each segment. select_fused_kernel, one CTA per
 //      query, does the whole select (radix digits on a shared-memory
 //      histogram, gather, bitonic sort, write) where a query's keys fit its
-//      budget; else the multi-CTA radix select (radix_hist / radix_pick,
+//      budget, in two levels (a CTA a group of a query's segments, then a
+//      CTA a query) where few queries would leave most SMs idle; else the
+//      multi-CTA radix select (radix_hist / radix_pick,
 //      11-bit digits, most significant first), a gather of the keys at or
 //      above the threshold, a bitonic sort of those and a write. Scratch
 //      keeps room for every row's key, so any k runs whatever is listed.
@@ -485,15 +489,44 @@ __device__ __forceinline__ void stage_scores(const float (&acc)[8][8], float* Ss
       Ss[(4 * i + qg - HQ * h) * SLD + warp * 64 + 8 * j + rg] = acc[i][j];
 }
 
+// One query's chunk top k (k <= SMALL_K) from its CR scores srow, the lane
+// holding rows lane + 32 t (ids, ok), into the chunk's candidate list dst,
+// against a running threshold: rs holds, lane j, the j-th best key this CTA
+// listed for the query, and a key below lane k - 1's cannot reach the final
+// top k (k keys above it are already listed), so it is listed as a pad. The
+// final result does not change; a chunk's select shrinks to the keys that
+// still matter.
+__device__ __forceinline__ void slot_keys(const float* srow, const int (&ids)[CR / 32],
+                                          const bool (&ok)[CR / 32], uint64_t& rs,
+                                          uint64_t* dst, int k, int lane) {
+  const uint64_t th = __shfl_sync(FULL, rs, k - 1);
+  // a score below the threshold's cannot make a key at or above it
+  const float ths = th > PAD_KEY ? key_score(th) : __int_as_float(0xff800000);
+  uint64_t keys[CR / 32];
+#pragma unroll
+  for (int t = 0; t < CR / 32; ++t) {
+    const float sc = srow[lane + 32 * t];
+    uint64_t key = PAD_KEY;
+    if (ok[t] && !(sc < ths)) {
+      key = encode_key(sc, ids[t]);
+      if (key < th) key = PAD_KEY;
+    }
+    keys[t] = key;
+  }
+  // each listed key enters the running list at its rank
+  warp_extract<CR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; },
+                        [&](uint64_t best) {
+                          const int pos = __popc(__ballot_sync(FULL, rs > best));
+                          const uint64_t prev = __shfl_up_sync(FULL, rs, 1);
+                          rs = lane < pos ? rs : (lane == pos ? best : prev);
+                        });
+}
+
 // The chunk's top k per query (k <= SMALL_K), from the scores in acc; then
 // acc is zeroed. Scores go through shared memory half a tile at a time;
 // warp w takes queries 16h + 2w + {0, 1} of half h, so it keeps the same
-// four queries across chunks. The chunk's top k goes to its candidate list,
-// against a running threshold: run[s] holds, lane j, the j-th best key this
-// CTA listed for query slot s, and a key below lane k - 1's cannot reach the
-// final top k (k keys above it are already listed), so it is listed as a
-// pad. The final result does not change; a chunk's select shrinks to the
-// keys that still matter.
+// four queries across chunks, each with its running threshold run[s]
+// (slot_keys).
 template <typename Src>
 __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64_t (&run)[4],
                                            const Src& src, int B, int q0, int k, int chunk,
@@ -513,30 +546,9 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
     for (int u = 0; u < 2; ++u) {
       const int q = HQ * h + 2 * warp + u;
       if (q0 + q >= B) break;
-      const float* srow = Ss + (2 * warp + u) * SLD;
-      uint64_t& rs = run[2 * h + u];
-      uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k;
-      const uint64_t th = __shfl_sync(FULL, rs, k - 1);
-      // a score below the threshold's cannot make a key at or above it
-      const float ths = th > PAD_KEY ? key_score(th) : __int_as_float(0xff800000);
-      uint64_t keys[CR / 32];
-#pragma unroll
-      for (int t = 0; t < CR / 32; ++t) {
-        const float sc = srow[lane + 32 * t];
-        uint64_t key = PAD_KEY;
-        if (ok[t] && !(sc < ths)) {
-          key = encode_key(sc, ids[t]);
-          if (key < th) key = PAD_KEY;
-        }
-        keys[t] = key;
-      }
-      // each listed key enters the running list at its rank
-      warp_extract<CR / 32>(keys, k, [&](int j, uint64_t key) { dst[j] = key; },
-                            [&](uint64_t best) {
-                              const int pos = __popc(__ballot_sync(FULL, rs > best));
-                              const uint64_t prev = __shfl_up_sync(FULL, rs, 1);
-                              rs = lane < pos ? rs : (lane == pos ? best : prev);
-                            });
+      slot_keys(Ss + (2 * warp + u) * SLD, ids, ok, run[2 * h + u],
+                cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k, k,
+                lane);
     }
   }
 #pragma unroll
@@ -598,11 +610,12 @@ __device__ __forceinline__ void lane_insert(unsigned short* b, unsigned x) {
 // its lane list.
 constexpr int DENSE_LIST = 4 * 32;
 
-// The chunk's keys per query at or above the slot's threshold tau, listed
-// in the CTA's segment of the query's row (seg0 keys in, lr.cnt[s]
-// filled), compacted; then acc is zeroed. A score is tested against tau as
-// a float (!(score < hi_score(tau)) is key_hi(score) >= tau; a NaN lists),
-// and only the listed rows build keys. tau rises
+// One query's keys of the chunk at or above its threshold tau, from its CR
+// scores srow (the lane's rows lane + 32 t; okm: those that may list),
+// listed compacted at dst (its segment, after the cnt keys listed before),
+// cnt and tau updated; b is the lane's list (stride 32). A score is tested
+// against tau as a float (!(score < hi_score(tau)) is key_hi(score) >= tau;
+// a NaN lists), and only the listed rows build keys. tau rises
 //   - before listing, to the chunk's k-th largest high word (k <= CR),
 //     searched only when more than k of its keys pass tau (the first
 //     chunks);
@@ -622,21 +635,97 @@ constexpr int DENSE_LIST = 4 * 32;
 // are listed. Listing more than that is harmless: the select keeps the
 // top k of whatever is listed.
 template <typename Src>
-__device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRun& lr,
-                                           const Src& src, int B, int q0, int k, int chunk,
-                                           int64_t ldq, int64_t seg0,
-                                           uint64_t* __restrict__ cand, int tid) {
-  const int warp = tid / 32, lane = tid % 32, qg = lane / 8, rg = lane % 8;
-  const unsigned below = lanemask_lt();
+__device__ __forceinline__ void slot_list(const float* srow, const Src& src, int chunk,
+                                          const int (&ids)[CR / 32], unsigned okm,
+                                          unsigned& tau_io, int& cnt,
+                                          unsigned short* b, uint64_t* dst, int k, int lane,
+                                          unsigned below) {
   const int j = (k + 31) / 32;
-  int ids[CR / 32];                    // the lane's rows lane + 32 t
-  unsigned okm = 0;                    // those that may list
+  unsigned tau = tau_io;
+  const float tf = hi_score(tau);
+  unsigned tm = 0;                     // the lane's rows to list
+#pragma unroll
+  for (int t = 0; t < CR / 32; ++t)
+    tm |= static_cast<unsigned>(((okm >> t) & 1u) && !(srow[lane + 32 * t] < tf)) << t;
+  int total = __reduce_add_sync(FULL, __popc(tm));
+  if (total == 0) return;
+  if (k <= CR && total > k) {
+    // k of the chunk's keys at or above tau: its k-th is, and the
+    // rows below it need not list
+    unsigned hi[CR / 32];
+#pragma unroll
+    for (int t = 0; t < CR / 32; ++t)
+      hi[t] = (tm >> t) & 1u ? key_hi(srow[lane + 32 * t]) : 0u;
+    tau = max(tau, kth_hi(hi, k));
+#pragma unroll
+    for (int t = 0; t < CR / 32; ++t)
+      if (hi[t] < tau) tm &= ~(1u << t);
+    total = __reduce_add_sync(FULL, __popc(tm));
+  }
+  const bool lanes = j <= LANE_J;
+  if (!lanes && total > DENSE_LIST) {
+    int c = 0;
+#pragma unroll
+    for (int t = 0; t < CR / 32; ++t) {
+      const bool take = (tm >> t) & 1u;
+      const unsigned mask = __ballot_sync(FULL, take);
+      if (take)
+        dst[c + __popc(mask & below)] = make_key(key_hi(srow[lane + 32 * t]), ids[t]);
+      c += __popc(mask);
+    }
+  } else {
+    // each lane its own rows, after the rows of the lanes below it
+    const int nt = __popc(tm);
+    int pos = nt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, pos, off);
+      if (lane >= off) pos += v;
+    }
+    pos -= nt;
+    for (unsigned m = tm; m; m &= m - 1) {
+      const int r = lane + 32 * (__ffs(m) - 1);
+      int id;
+      bool o;
+      src.template id<CR>(chunk, r, id, o);
+      const unsigned x = key_hi(srow[r]);
+      dst[pos++] = make_key(x, id);
+      if (lanes && (x >> 16) > b[32 * (LANE_J - 1)]) lane_insert(b, x >> 16);
+    }
+  }
+  cnt += total;
+  if (lanes)                           // for the next chunks
+    tau = max(tau, __reduce_min_sync(FULL, static_cast<unsigned>(b[32 * (j - 1)])) << 16);
+  tau_io = tau;
+}
+
+// The ids of a chunk's rows a lane holds (lane + 32 t), and which may list.
+template <typename Src>
+__device__ __forceinline__ unsigned chunk_ids(const Src& src, int chunk, int lane,
+                                              int (&ids)[CR / 32]) {
+  unsigned okm = 0;
 #pragma unroll
   for (int t = 0; t < CR / 32; ++t) {
     bool o;
     src.template id<CR>(chunk, lane + 32 * t, ids[t], o);
     okm |= static_cast<unsigned>(o) << t;
   }
+  return okm;
+}
+
+// List mode (k > SMALL_K): the chunk's keys per query at or above the
+// slot's threshold, listed in the CTA's segment of the query's row (seg0
+// keys in, lr.cnt[s] filled) by slot_list; then acc is zeroed. Scores go
+// through shared memory half a tile at a time, as in chunk_keys.
+template <typename Src>
+__device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRun& lr,
+                                           const Src& src, int B, int q0, int k, int chunk,
+                                           int64_t ldq, int64_t seg0,
+                                           uint64_t* __restrict__ cand, int tid) {
+  const int warp = tid / 32, lane = tid % 32, qg = lane / 8, rg = lane % 8;
+  const unsigned below = lanemask_lt();
+  int ids[CR / 32];                    // the lane's rows lane + 32 t
+  const unsigned okm = chunk_ids(src, chunk, lane, ids);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (h) __syncthreads();            // half 0's scores are read
@@ -647,65 +736,9 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
       const int s = 2 * h + u;
       const int q = HQ * h + 2 * warp + u;
       if (q0 + q >= B) break;
-      const float* srow = Ss + (2 * warp + u) * SLD;
-      unsigned tau = lr.tau[s];
-      const float tf = hi_score(tau);
-      unsigned tm = 0;                 // the lane's rows to list
-#pragma unroll
-      for (int t = 0; t < CR / 32; ++t)
-        tm |= static_cast<unsigned>(((okm >> t) & 1u) && !(srow[lane + 32 * t] < tf)) << t;
-      int total = __reduce_add_sync(FULL, __popc(tm));
-      if (total == 0) continue;
-      if (k <= CR && total > k) {
-        // k of the chunk's keys at or above tau: its k-th is, and the
-        // rows below it need not list
-        unsigned hi[CR / 32];
-#pragma unroll
-        for (int t = 0; t < CR / 32; ++t)
-          hi[t] = (tm >> t) & 1u ? key_hi(srow[lane + 32 * t]) : 0u;
-        tau = max(tau, kth_hi(hi, k));
-#pragma unroll
-        for (int t = 0; t < CR / 32; ++t)
-          if (hi[t] < tau) tm &= ~(1u << t);
-        total = __reduce_add_sync(FULL, __popc(tm));
-      }
-      unsigned short* b = lr.lanes + s * LANE_J * 32 + lane;
-      const bool lanes = j <= LANE_J;
-      uint64_t* dst = cand + static_cast<int64_t>(q0 + q) * ldq + seg0 + lr.cnt[s];
-      if (!lanes && total > DENSE_LIST) {
-        int c = 0;
-#pragma unroll
-        for (int t = 0; t < CR / 32; ++t) {
-          const bool take = (tm >> t) & 1u;
-          const unsigned mask = __ballot_sync(FULL, take);
-          if (take)
-            dst[c + __popc(mask & below)] = make_key(key_hi(srow[lane + 32 * t]), ids[t]);
-          c += __popc(mask);
-        }
-      } else {
-        // each lane its own rows, after the rows of the lanes below it
-        const int nt = __popc(tm);
-        int pos = nt;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int v = __shfl_up_sync(FULL, pos, off);
-          if (lane >= off) pos += v;
-        }
-        pos -= nt;
-        for (unsigned m = tm; m; m &= m - 1) {
-          const int r = lane + 32 * (__ffs(m) - 1);
-          int id;
-          bool o;
-          src.template id<CR>(chunk, r, id, o);
-          const unsigned x = key_hi(srow[r]);
-          dst[pos++] = make_key(x, id);
-          if (lanes && (x >> 16) > b[32 * (LANE_J - 1)]) lane_insert(b, x >> 16);
-        }
-      }
-      lr.cnt[s] += total;
-      if (lanes)                       // for the next chunks
-        tau = max(tau, __reduce_min_sync(FULL, static_cast<unsigned>(b[32 * (j - 1)])) << 16);
-      lr.tau[s] = tau;
+      slot_list(Ss + (2 * warp + u) * SLD, src, chunk, ids, okm, lr.tau[s], lr.cnt[s],
+                lr.lanes + s * LANE_J * 32 + lane,
+                cand + static_cast<int64_t>(q0 + q) * ldq + seg0 + lr.cnt[s], k, lane, below);
     }
   }
 #pragma unroll
@@ -771,9 +804,10 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 // rounding per value, as the dense fold). The dense and the paged search
 // are bitwise equal on the same contents because of it.
 template <typename T, bool VEC, bool LIST, typename Src>
-__global__ void __launch_bounds__(CT, 1)
-topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
-                  int S, int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
+__device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __restrict__ Q,
+                                           int m, int B, int k, int nchunks, int S, int64_t ldq,
+                                           uint64_t* __restrict__ cand,
+                                           int* __restrict__ counts) {
   using C = Chunk<T>;
   const Src src = src_arg.bound();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -918,6 +952,253 @@ topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k,
                 PAD_KEY;
         }
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Few queries: the chunk kernel's narrow query tile (QN = 1 or 8, dense rows)
+// ---------------------------------------------------------------------------
+//
+// At B <= 8 the 32-query tile issues 32 queries' FMAs for each row value
+// (at B 1, 31 of its 32 query rows are zeros): over retrieval_cand's
+// 1,000,448 x 256 f32 rows that is 8.2 G FMA, 0.56 ms at the wide
+// mainloop's 44 % of fp32 FMA peak, against 0.31 ms for the bytes. A tile of
+// QN queries issues QN FMAs a value, so at QN 1 and 8 the bytes set the pace
+// (int8 at QN 8 is about even: a quarter of the bytes, eight FMAs a value).
+// The walk is the chunk kernel's: the same items, chunks, segments, lists
+// and thresholds, with tiles of QN queries.
+//
+// The design feeds it as a bandwidth-bound kernel. A slab holds 128 bytes of
+// each of the chunk's 512 rows (f32 32 values, bf16 64, int8 128): whole
+// 128-byte lines, by 16-byte cp.async pieces a quarter-warp reads
+// coalesced, into a ring of three 64 KB stages, two in flight (128 KB an
+// SM) while one is multiplied, with one barrier a slab. Thread t owns rows
+// t and t + 256 of the chunk and QN chains each; its rows' pieces are read
+// in the storage dtype and upcast in registers (each value is used by one
+// thread only), piece c of row r stored at slot c ^ (r & 7), so the eight
+// rows a quarter-warp reads at once fall on distinct banks. The queries'
+// values come from the resident tile as broadcasts. Then, per chunk, the
+// scores go through shared memory once and warp w selects or lists for
+// query w of the tile (slot_keys, slot_list: the same thresholds and
+// invariants as the wide tile); at QN 1 warp 0 does, while the ring keeps
+// streaming.
+//
+// Invariant: each score is the wide tile's fmaf chain, from 0.f over m in
+// ascending order with the same query values (zero past m), so the narrow
+// and the wide tile give the same bits.
+constexpr int NROW = 128;                 // bytes of each row a narrow slab holds
+constexpr int NSTAGES = 3;                // narrow ring stages
+constexpr int NSTAGE_BYTES = CR * NROW;   // 64 KB
+constexpr int NLANE_BYTES = (CT / 32) * LANE_J * 32 * 2;   // a query slot a warp
+
+// Values of a row a narrow slab holds: f32 32, bf16 64, int8 128.
+template <typename T>
+__host__ __device__ constexpr int narrow_depth() {
+  return NROW / static_cast<int>(sizeof(T));
+}
+
+// The narrow tile's panel width for m: whole, rounded up to a slab, or
+// KP_MAX (a multiple of every slab depth).
+__host__ __device__ __forceinline__ int narrow_panel(int m, int kd) {
+  const int mp = (m + kd - 1) / kd * kd;
+  return mp < KP_MAX ? mp : KP_MAX;
+}
+
+// Dynamic shared memory of the narrow tile: the ring, the query tile, a
+// chunk's staged scores, then list mode's lane lists.
+template <typename T, bool LIST, int QN>
+size_t narrow_smem(int m) {
+  return static_cast<size_t>(NSTAGES) * NSTAGE_BYTES +
+         static_cast<size_t>(QN) * (narrow_panel(m, narrow_depth<T>()) + 4) * 4 +
+         static_cast<size_t>(QN) * SLD * 4 + (LIST ? NLANE_BYTES : 0);
+}
+
+// Fill a narrow stage with values [k0, k0 + KD) of each row of chunk
+// `chunk`, piece c of row r at slot c ^ (r & 7); zero past m and past n.
+// VEC: 16-byte cp.async pieces (m % 16 == 0, rows 16-byte aligned); else
+// scalar loads.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_narrow_slab(const DenseSrc<T>& src, T* dst, int chunk,
+                                                 int m, int k0, int tid) {
+  constexpr int VPP = 16 / sizeof(T), KD = narrow_depth<T>(), PIECES = NROW / 16;
+  if (VEC) {
+#pragma unroll
+    for (int i = 0; i < CR * PIECES / CT; ++i) {
+      const int e = tid + i * CT, r = e / PIECES, c = e % PIECES;
+      const int kk = k0 + c * VPP;
+      bool ok;
+      const T* p = src.template row<CR>(chunk, r, ok);
+      ok = ok && kk < m;
+      cp_async16(dst + r * KD + ((c ^ (r & 7)) * VPP), p + (ok ? kk : 0), ok);
+    }
+  } else {
+    for (int e = tid; e < CR * KD; e += CT) {
+      const int r = e / KD, kk = e % KD;
+      bool ok;
+      const T* p = src.template row<CR>(chunk, r, ok);
+      dst[r * KD + (((kk / VPP) ^ (r & 7)) * VPP) + kk % VPP] =
+          (ok && k0 + kk < m) ? p[k0 + kk] : T(0.f);
+    }
+  }
+}
+
+// 16 bytes of a narrow slab as f32, exactly: 4 f32, 8 bf16 or 16 int8.
+__device__ __forceinline__ void narrow_piece(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+__device__ __forceinline__ void narrow_piece(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x; v[2 * j + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void narrow_piece(const int8_t* p, float (&v)[16]) { upcast16(p, v); }
+
+// acc[i][j] += Q[i] . D[tid + 256 j] over one narrow slab, k ascending; qp:
+// the tile panel at the slab's first value.
+template <typename T, int QN>
+__device__ __forceinline__ void narrow_fma(const float* qp, int qld, const T* Ds,
+                                           float (&acc)[QN][2], int tid) {
+  constexpr int VPP = 16 / sizeof(T), KD = narrow_depth<T>();
+  const int swz = tid & 7;                // rows tid and tid + CT
+#pragma unroll
+  for (int c = 0; c < NROW / 16; ++c) {
+    float d[2][VPP];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) narrow_piece(Ds + (tid + j * CT) * KD + (c ^ swz) * VPP, d[j]);
+#pragma unroll
+    for (int i = 0; i < QN; ++i)
+#pragma unroll
+      for (int v = 0; v < VPP; v += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(qp + i * qld + c * VPP + v);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc[i][j] = fmaf(q.x, d[j][v], acc[i][j]);
+          acc[i][j] = fmaf(q.y, d[j][v + 1], acc[i][j]);
+          acc[i][j] = fmaf(q.z, d[j][v + 2], acc[i][j]);
+          acc[i][j] = fmaf(q.w, d[j][v + 3], acc[i][j]);
+        }
+      }
+  }
+}
+
+// The chunk kernel's walk with a tile of QN queries (dense rows): items,
+// segments, counts and running lists as chunk_walk keeps them, warp w
+// holding query slot w.
+template <typename T, bool VEC, bool LIST, int QN>
+__device__ __forceinline__ void narrow_walk(const DenseSrc<T>& src, const float* __restrict__ Q,
+                                            int m, int B, int k, int nchunks, int S,
+                                            int64_t ldq, uint64_t* __restrict__ cand,
+                                            int* __restrict__ counts) {
+  constexpr int KD = narrow_depth<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kp = narrow_panel(m, KD), qld = kp + 4;
+  unsigned char* ring = smem;
+  float* Qs = reinterpret_cast<float*>(smem + NSTAGES * NSTAGE_BYTES);   // [QN][qld]
+  float* Ss = Qs + QN * qld;                                             // [QN][SLD]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the warp's lane list (list mode), its own entries at stride 32
+  unsigned short* lanes = reinterpret_cast<unsigned short*>(Ss + QN * SLD) +
+                          warp * LANE_J * 32 + lane;
+  const int nslab = (m + KD - 1) / KD, ppanel = kp / KD;
+  const int tiles = (B + QN - 1) / QN;
+  uint64_t run = 0;                       // slot_keys' threshold
+  unsigned tau = REAL_HI;                 // slot_list's
+  for (int item = blockIdx.x; item < tiles * S; item += gridDim.x) {
+    if (item != static_cast<int>(blockIdx.x)) __syncthreads();   // the last item's smem is read
+    const int bx = item / tiles, q0 = (item % tiles) * QN;
+    const bool slot = warp < QN && q0 + warp < B;   // the warp selects for query q0 + warp
+    const int mine = bx < nchunks ? (nchunks - 1 - bx) / S + 1 : 0;
+    const int total = mine * nslab;
+    auto stage = [&](int t) {
+      return reinterpret_cast<T*>(ring + (t % NSTAGES) * NSTAGE_BYTES);
+    };
+    auto load = [&](int t) {
+      load_narrow_slab<T, VEC>(src, stage(t), bx + (t / nslab) * S, m, (t % nslab) * KD, tid);
+    };
+    // running lists start afresh where the CTA's last item was of another
+    // tile, as in chunk_walk
+    if (item == static_cast<int>(blockIdx.x) || gridDim.x % tiles != 0) {
+      run = 0;
+      tau = REAL_HI;
+      if constexpr (LIST) {
+#pragma unroll
+        for (int i = 0; i < LANE_J; ++i) lanes[32 * i] = 0;
+      }
+    }
+    int cnt = 0;
+    const int rn = nchunks % S;
+    const int64_t seg0 = (static_cast<int64_t>(bx) * (nchunks / S) + (bx < rn ? bx : rn)) * CR;
+    float acc[QN][2];
+#pragma unroll
+    for (int i = 0; i < QN; ++i) acc[i][0] = acc[i][1] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NSTAGES - 1; ++t) {
+      if (t < total) load(t);
+      cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      cp_async_wait<NSTAGES - 2>();
+      __syncthreads();                    // slab t is in; slab t - 1 is consumed
+      if (t + NSTAGES - 1 < total) load(t + NSTAGES - 1);
+      cp_async_commit();
+      const int slab = t % nslab;
+      if (slab % ppanel == 0 && (t == 0 || nslab > ppanel)) {
+        load_query_panel<CT, QN>(Q, Qs, B, m, q0, slab * KD, kp, tid, nullptr);
+        __syncthreads();
+      }
+      narrow_fma<T, QN>(Qs + (slab % ppanel) * KD, qld, stage(t), acc, tid);
+      if (slab == nslab - 1) {
+        // the chunk's scores, each thread its rows; the next chunk's first
+        // barrier comes after this chunk's select has read them
+#pragma unroll
+        for (int i = 0; i < QN; ++i) {
+          Ss[i * SLD + tid] = acc[i][0];
+          Ss[i * SLD + tid + CT] = acc[i][1];
+          acc[i][0] = acc[i][1] = 0.f;
+        }
+        __syncthreads();
+        if (slot) {
+          const int chunk = bx + (t / nslab) * S;
+          const float* srow = Ss + warp * SLD;
+          uint64_t* row = cand + static_cast<int64_t>(q0 + warp) * ldq;
+          int ids[CR / 32];
+          if constexpr (LIST) {
+            const unsigned okm = chunk_ids(src, chunk, lane, ids);
+            slot_list(srow, src, chunk, ids, okm, tau, cnt, lanes, row + seg0 + cnt, k, lane,
+                      lanemask_lt());
+          } else {
+            bool ok[CR / 32];
+#pragma unroll
+            for (int u = 0; u < CR / 32; ++u) src.template id<CR>(chunk, lane + 32 * u, ids[u], ok[u]);
+            slot_keys(srow, ids, ok, run, row + static_cast<int64_t>(chunk) * k, k, lane);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if constexpr (LIST) {
+      if (slot && lane == 0) counts[static_cast<int64_t>(q0 + warp) * S + bx] = cnt;
+    }
+  }
+}
+
+// The chunk kernel: chunk_walk with the 32-query tile (any row source), or
+// narrow_walk with a tile of QN = 1 or 8 queries (dense rows), which the
+// wrapper's plan picks from B.
+template <typename T, bool VEC, bool LIST, typename Src, int QN = CQ>
+__global__ void __launch_bounds__(CT, 1)
+topk_chunk_kernel(Src src_arg, const float* __restrict__ Q, int m, int B, int k, int nchunks,
+                  int S, int64_t ldq, uint64_t* __restrict__ cand, int* __restrict__ counts) {
+  if constexpr (QN == CQ) {
+    chunk_walk<T, VEC, LIST, Src>(src_arg, Q, m, B, k, nchunks, S, ldq, cand, counts);
+  } else {
+    static_assert(std::is_same<Src, DenseSrc<T>>::value, "a narrow tile takes dense rows");
+    narrow_walk<T, VEC, LIST, QN>(src_arg.bound(), Q, m, B, k, nchunks, S, ldq, cand, counts);
   }
 }
 
@@ -1518,21 +1799,22 @@ __device__ __forceinline__ Sel sel_step(Sel s, int digit, long long above, long 
   return s;
 }
 
-// The live keys of query q as work items for a team of NT threads (a
-// warp or a block): item (s, x) is slice x of nslices of segment s; team
-// `team` of nteams takes items team, team + nteams, ... and calls
-// f(key, live) for U keys at a time, all U loads issued before any use.
-// Loop bounds are uniform across a team, so a warp's lanes stay together.
+// The live keys of query q in segments [s0, s0 + nseg) as work items for a
+// team of NT threads (a warp or a block): item (s, x) is slice x of
+// nslices of segment s0 + s (segc[s] its count, or read from sg); team
+// `team` of nteams takes items team, team + nteams, ... and calls f(key,
+// live) for U keys at a time, all U loads issued before any use. Loop
+// bounds are uniform across a team, so a warp's lanes stay together.
 constexpr int U_KEYS = 4;
 template <int NT, typename F>
-__device__ __forceinline__ void team_keys(const uint64_t* row, const Segs& sg, int q,
-                                          const long long* segc, int team, int nteams,
+__device__ __forceinline__ void team_keys(const uint64_t* row, const Segs& sg, int q, int s0,
+                                          int nseg, const long long* segc, int team, int nteams,
                                           int nslices, int t, F f) {
-  const long long items = static_cast<long long>(sg.nseg()) * nslices;
+  const long long items = static_cast<long long>(nseg) * nslices;
   for (long long it = team; it < items; it += nteams) {
     const int s = static_cast<int>(it / nslices), x = static_cast<int>(it % nslices);
-    const long long c = segc != nullptr ? segc[s] : sg.count(q, s);
-    const uint64_t* seg = row + sg.start(s);
+    const long long c = segc != nullptr ? segc[s] : sg.count(q, s0 + s);
+    const uint64_t* seg = row + sg.start(s0 + s);
     const long long step = static_cast<long long>(nslices) * NT;
     for (long long i0 = static_cast<long long>(x) * NT; i0 < c; i0 += step * U_KEYS) {
       uint64_t key[U_KEYS];
@@ -1641,10 +1923,17 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
 
 // One CTA per query: the whole select of a query whose T live keys are at
 // most FCAP and k_eff = min(k, T) at most FN, in shared memory, then its
-// result; else the query's starting state for the multi-CTA path.
+// result; else the query's starting state for the multi-CTA path. A digit
+// pass stops once the keys at or above its bin fit `room` (at most FN),
+// which bounds the sort. With `part` (two levels, gridDim.y = G groups),
+// CTA (q, g) takes query q's segments [g nseg / G, (g + 1) nseg / G) and
+// writes their top k_eff keys, sorted, at part[(q G + g) k] and k_eff at
+// part_cnt[q G + g]: the host plans it only where each group's keys fit
+// FCAP and k fits FN, so every group finishes here.
 __global__ void __launch_bounds__(FT)
-select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfinal,
-                    Sel* __restrict__ st, float* __restrict__ out_s, int* __restrict__ out_i) {
+select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfinal, int room,
+                    Sel* __restrict__ st, float* __restrict__ out_s, int* __restrict__ out_i,
+                    uint64_t* __restrict__ part, int* __restrict__ part_cnt) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* buf = reinterpret_cast<uint64_t*>(smem);      // FN keys
   __shared__ unsigned h[RBINS];
@@ -1653,17 +1942,19 @@ select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfin
   __shared__ Sel sh;
   __shared__ unsigned cnt2[2];
   const int q = blockIdx.x, tid = threadIdx.x;
-  const int nseg = sg.nseg();
-  long long part = 0;
+  const int g = blockIdx.y, groups = gridDim.y;
+  const int s0 = static_cast<int>(static_cast<int64_t>(g) * sg.nseg() / groups);
+  const int nseg = static_cast<int>(static_cast<int64_t>(g + 1) * sg.nseg() / groups) - s0;
+  long long mine = 0;
   for (int s = tid; s < nseg; s += FT) {
-    const long long c = sg.count(q, s);
+    const long long c = sg.count(q, s0 + s);
     segc[s] = c;
-    part += c;
+    mine += c;
   }
-  const long long T = block_sum(part, red);   // its barriers publish segc
+  const long long T = block_sum(mine, red);   // its barriers publish segc
   const long long k_eff = k < T ? k : T;
   if (T > FCAP || k_eff > FN) {
-    if (tid == 0) st[q] = Sel{0ull, k_eff, 0, 0, 0};
+    if (tid == 0 && part == nullptr) st[q] = Sel{0ull, k_eff, 0, 0, 0};
     return;                                   // the whole CTA
   }
   const uint64_t* row = keys + static_cast<int64_t>(q) * sg.ld;
@@ -1678,21 +1969,21 @@ select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfin
       __syncthreads();                        // also publishes sh
       const int shift = pass_shift(p), width = pass_width(p);
       const uint64_t hmask = p == 0 ? 0 : ~0ull << (shift + width);
-      team_keys<32>(row, sg, q, segc, tid / 32, FT / 32, nslices, tid & 31,
+      team_keys<32>(row, sg, q, s0, nseg, segc, tid / 32, FT / 32, nslices, tid & 31,
                     HistKey{h, sh.prefix, hmask, shift, (1u << width) - 1});
       __syncthreads();
       if (tid < 32) {
         int digit;
         long long above, count;
         pick_digit(h, sh.need, digit, above, count);
-        if (tid == 0) sh = sel_step(sh, digit, above, count, shift, FN);
+        if (tid == 0) sh = sel_step(sh, digit, above, count, shift, room);
       }
       __syncthreads();
       if (sh.done) break;
     }
     if (tid < 2) cnt2[tid] = 0;
     __syncthreads();
-    team_keys<32>(row, sg, q, segc, tid / 32, FT / 32, nslices, tid & 31,
+    team_keys<32>(row, sg, q, s0, nseg, segc, tid / 32, FT / 32, nslices, tid & 31,
                   GatherKey<unsigned>{sh.prefix, sh.need, sh.above, buf, cnt2});
     G = sh.above + sh.need;
   }
@@ -1706,6 +1997,12 @@ select_fused_kernel(const uint64_t* __restrict__ keys, Segs sg, int k, int unfin
         bitonic_pair(buf, 0, (i / stride) * 2 * stride + (i % stride), stride, size);
       __syncthreads();
     }
+  if (part != nullptr) {
+    const int64_t at = static_cast<int64_t>(q) * groups + g;
+    for (int j = tid; j < k_eff; j += FT) part[at * k + j] = buf[j];
+    if (tid == 0) part_cnt[at] = static_cast<int>(k_eff);
+    return;
+  }
   write_sorted(buf, G, k, unfinal, out_s, out_i);
   if (tid == 0) st[q] = Sel{0ull, 0, 0, 2, 0};
 }
@@ -1723,8 +2020,8 @@ radix_hist_kernel(const uint64_t* __restrict__ keys, Segs sg, int pass,
   for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT) h[i] = 0;
   __syncthreads();
   // a block a slice of every segment: the segments may be long
-  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, nullptr, blockIdx.x, gridDim.x,
-                gridDim.x, threadIdx.x, HistKey{h, prefix, hmask, shift, dmask});
+  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, 0, sg.nseg(), nullptr, blockIdx.x,
+                gridDim.x, gridDim.x, threadIdx.x, HistKey{h, prefix, hmask, shift, dmask});
   __syncthreads();
   for (int i = threadIdx.x; i <= static_cast<int>(dmask); i += RT)
     if (h[i]) atomicAdd(&hist[static_cast<int64_t>(q) * RBINS + i], h[i]);
@@ -1755,8 +2052,8 @@ radix_gather_kernel(const uint64_t* __restrict__ keys, Segs sg, const Sel* __res
   const int q = blockIdx.y;
   const Sel s = st[q];
   if (s.done == 2) return;
-  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, nullptr, blockIdx.x, gridDim.x,
-                gridDim.x, threadIdx.x,
+  team_keys<RT>(keys + static_cast<int64_t>(q) * sg.ld, sg, q, 0, sg.nseg(), nullptr, blockIdx.x,
+                gridDim.x, gridDim.x, threadIdx.x,
                 GatherKey<unsigned long long>{s.prefix, s.need, s.above,
                                               out + static_cast<int64_t>(q) * N, cnt + 2 * q});
 }
@@ -1825,27 +2122,30 @@ cudaError_t sm_count(int* sms) {
 // 64-row units a chunk, UPC for the chunk kernel or 1 for the unit kernel;
 // S segments a query (an item, segment x of a query tile, walks chunks x, x
 // + S, ...; in list mode it owns segment x of each query's row of keys);
-// and G, the chunk kernel's persistent CTAs (the unit kernel launches one
-// CTA an item and UCQ queries, whatever G says).
+// G, the chunk kernel's persistent CTAs (the unit kernel launches one CTA
+// an item and UCQ queries, whatever G says); and QN, the chunk kernel's
+// queries a tile (CQ, or 1 or 8 for dense rows).
 struct Plan {
-  int upc, S, G;
+  int upc, S, G, qn;
   int rows() const { return UNIT * upc; }
 };
 
-// The chunk or unit kernel's launch: S segments a query, G CTAs (the chunk
-// kernel); in list mode `counts` takes B x S listed counts.
+// The chunk or unit kernel's launch: S segments a query, G CTAs and QN
+// queries a tile (the chunk kernel); in list mode `counts` takes B x S
+// listed counts.
 struct ChunkLaunch {
   int S, G;
   int64_t ldq;
   uint64_t* cand;
   int* counts;
+  int qn;
 };
 
-template <typename T, bool VEC, bool LIST, typename Src>
+template <typename T, bool VEC, bool LIST, typename Src, int QN = CQ>
 cudaError_t launch_chunks(const Src& src, const float* Q, int m, int B, int k, int nchunks,
                           const ChunkLaunch& cl, cudaStream_t stream) {
-  auto kern = topk_chunk_kernel<T, VEC, LIST, Src>;
-  const size_t smem = chunk_smem<T, LIST>(m);
+  auto kern = topk_chunk_kernel<T, VEC, LIST, Src, QN>;
+  const size_t smem = QN == CQ ? chunk_smem<T, LIST>(m) : narrow_smem<T, LIST, QN>(m);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1866,6 +2166,19 @@ cudaError_t launch_units(const Src& src, const float* Q, int m, int B, int k, in
   return cudaGetLastError();
 }
 
+// The chunk kernel at the plan's tile width: 1 or 8 queries for dense
+// rows, else CQ.
+template <typename T, bool VEC, bool LIST, typename Src>
+cudaError_t launch_width(const Src& src, const float* Q, int m, int B, int k, int nchunks,
+                         const ChunkLaunch& cl, cudaStream_t s) {
+  if constexpr (std::is_same<Src, DenseSrc<T>>::value) {
+    if (cl.qn == 1) return launch_chunks<T, VEC, LIST, Src, 1>(src, Q, m, B, k, nchunks, cl, s);
+    if (cl.qn == 8) return launch_chunks<T, VEC, LIST, Src, 8>(src, Q, m, B, k, nchunks, cl, s);
+  }
+  if (cl.qn != CQ) return cudaErrorInvalidValue;
+  return launch_chunks<T, VEC, LIST, Src>(src, Q, m, B, k, nchunks, cl, s);
+}
+
 // The plan's kernel: the chunk kernel (upc == UPC) or the unit kernel.
 template <typename T, typename Src>
 cudaError_t dispatch_chunks(bool vec, bool list, int upc, const Src& src, const float* Q, int m,
@@ -1876,10 +2189,10 @@ cudaError_t dispatch_chunks(bool vec, bool list, int upc, const Src& src, const 
     return list ? launch_units<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
                 : launch_units<T, false, false>(src, Q, m, B, k, nchunks, cl, s);
   }
-  if (vec) return list ? launch_chunks<T, true, true>(src, Q, m, B, k, nchunks, cl, s)
-                       : launch_chunks<T, true, false>(src, Q, m, B, k, nchunks, cl, s);
-  return list ? launch_chunks<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
-              : launch_chunks<T, false, false>(src, Q, m, B, k, nchunks, cl, s);
+  if (vec) return list ? launch_width<T, true, true>(src, Q, m, B, k, nchunks, cl, s)
+                       : launch_width<T, true, false>(src, Q, m, B, k, nchunks, cl, s);
+  return list ? launch_width<T, false, true>(src, Q, m, B, k, nchunks, cl, s)
+              : launch_width<T, false, false>(src, Q, m, B, k, nchunks, cl, s);
 }
 
 int merge_group(int k) { return MERGE_SMALL / k; }
@@ -1918,34 +2231,72 @@ int run_merges(int L, int B, int k, uint64_t* a, uint64_t* b, float* os, int* oi
 // The select's scratch for B queries of at most L keys at k: the sorted
 // rows of the multi-CTA path (N keys each, N the power of two at or above
 // min(k, L) + SLACK), the histograms, the per-query state and the gather's
-// counters.
+// counters; with `groups` (two levels) each group's k keys and its count.
 struct SelLayout {
   int64_t N, words;
 };
-SelLayout sel_layout(int64_t L, int k, int B) {
+SelLayout sel_layout(int64_t L, int k, int B, int groups = 0) {
   const int64_t k_eff = k < L ? k : L;
   int64_t N = 1;
   while (N < k_eff + SLACK) N <<= 1;
+  const int64_t parts = groups > 1 ? static_cast<int64_t>(B) * groups : 0;
   const int64_t words = static_cast<int64_t>(B) * N + static_cast<int64_t>(B) * RBINS / 2 +
-                        static_cast<int64_t>(B) * (sizeof(Sel) / 8) + 2 * static_cast<int64_t>(B);
+                        static_cast<int64_t>(B) * (sizeof(Sel) / 8) + 2 * static_cast<int64_t>(B) +
+                        parts * k + (parts + 1) / 2;
   return {N, words};
+}
+
+// The two-level select's room: the keys a digit pass may leave to the sort
+// (at least k, a power of two, at most FN).
+int two_level_room(int k) {
+  int room = 1024;
+  while (room < 2 * k && room < FN) room <<= 1;
+  return room;
+}
+
+// Whether `groups` groups of a query's segments suit the two-level select:
+// 2 <= groups <= nseg, k <= FN, groups k <= FCAP, and every group's
+// segments hold at most FCAP keys (sg's capacities), so each group and the
+// second level finish in the fused kernel.
+bool two_level_ok(const Segs& sg, int k, int groups) {
+  const int nseg = sg.nseg();
+  if (groups < 2 || groups > nseg || k > FN || static_cast<int64_t>(groups) * k > FCAP)
+    return false;
+  for (int g = 0; g < groups; ++g) {
+    long long cap = 0;
+    for (int s = static_cast<int>(static_cast<int64_t>(g) * nseg / groups);
+         s < static_cast<int>(static_cast<int64_t>(g + 1) * nseg / groups); ++s)
+      cap += s < sg.S ? static_cast<long long>(sg.qn + (s < sg.rn ? 1 : 0)) * sg.unit : sg.extra;
+    if (cap > FCAP) return false;
+  }
+  return true;
 }
 
 // Top k of each query's live keys (keys: B rows of sg.ld keys in segments,
 // at most L live a query; descending (score, id) order as encode_key makes
-// them) into out_s / out_i; `work` holds sel_layout(L, k, B).words keys.
-// The fused kernel takes every query it can; the multi-CTA kernels are
-// launched only when some query could be left to them.
+// them) into out_s / out_i; `work` holds sel_layout(L, k, B, groups).words
+// keys. The fused kernel takes every query it can; the multi-CTA kernels
+// are launched only when some query could be left to them. With `groups`
+// (the host's plan where B queries would leave most SMs idle: two_level_ok)
+// the select takes two levels of the fused kernel: B x groups CTAs each keep
+// the top k of a group of a query's segments, then one CTA a query keeps
+// the top k of its groups' G k keys. That is exact: the top k of a union
+// are the top k of its groups' top-k sets under the one key order.
 int run_select(const uint64_t* keys, const Segs& sg, int B, int64_t L, int k, int unfinal,
-               uint64_t* work, float* os, int* oi, cudaStream_t s, int* launched) {
-  if (sg.nseg() > MAX_SEG) return static_cast<int>(cudaErrorInvalidValue);
-  const SelLayout lay = sel_layout(L, k, B);
+               uint64_t* work, float* os, int* oi, cudaStream_t s, int* launched,
+               int groups = 0) {
+  if (sg.nseg() > MAX_SEG || (groups > 1 && !two_level_ok(sg, k, groups)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool two = groups > 1;
+  const SelLayout lay = sel_layout(L, k, B, two ? groups : 0);
   const int64_t N = lay.N;
   uint64_t* sorted = work;
   auto* hist = reinterpret_cast<unsigned*>(sorted + static_cast<int64_t>(B) * N);
   auto* sel = reinterpret_cast<Sel*>(hist + static_cast<int64_t>(B) * RBINS);
   auto* cnt = reinterpret_cast<unsigned long long*>(sel + B);
-  const bool multi = L > FCAP || (k < L ? k : L) > FN;
+  auto* part = reinterpret_cast<uint64_t*>(cnt + 2 * static_cast<int64_t>(B));
+  auto* part_cnt = reinterpret_cast<int*>(part + (two ? static_cast<int64_t>(B) * groups * k : 0));
+  const bool multi = !two && (L > FCAP || (k < L ? k : L) > FN);
   cudaError_t err = multi ? cudaMemsetAsync(work, 0, lay.words * 8, s) : cudaSuccess;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(select_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1956,7 +2307,18 @@ int run_select(const uint64_t* keys, const Segs& sg, int B, int64_t L, int k, in
     if (err == cudaSuccess) ++*launched;
     return err == cudaSuccess;
   };
-  select_fused_kernel<<<B, FT, FN * sizeof(uint64_t), s>>>(keys, sg, k, unfinal, sel, os, oi);
+  if (two) {
+    const int room = two_level_room(k);
+    select_fused_kernel<<<dim3(B, groups), FT, FN * sizeof(uint64_t), s>>>(
+        keys, sg, k, unfinal, room, sel, nullptr, nullptr, part, part_cnt);
+    if (!check()) return static_cast<int>(err);
+    const Segs top{part_cnt, static_cast<int64_t>(groups) * k, k, groups, 1, 0, 0};
+    select_fused_kernel<<<B, FT, FN * sizeof(uint64_t), s>>>(part, top, k, unfinal, room, sel,
+                                                             os, oi, nullptr, nullptr);
+    return check() ? 0 : static_cast<int>(err);
+  }
+  select_fused_kernel<<<B, FT, FN * sizeof(uint64_t), s>>>(keys, sg, k, unfinal, FN, sel, os, oi,
+                                                           nullptr, nullptr);
   if (!check()) return static_cast<int>(err);
   if (!multi) return 0;
   int sms = 0;
@@ -2028,11 +2390,12 @@ int64_t count_words(int64_t nchunks, int B) { return (static_cast<int64_t>(B) * 
 // Words of scratch after the unit table for B queries of nchunks chunks of
 // `rows` rows (and a carry): per-chunk candidate lists and merges for k <=
 // SMALL_K; else room for every row's key and the carry's, the listed counts
-// (one int a CTA, at most one CTA a chunk) and the select.
-int64_t key_words(int64_t nchunks, int rows, int carry, int k, int B) {
+// (one int a CTA, at most one CTA a chunk) and the select (with `groups`,
+// two levels).
+int64_t key_words(int64_t nchunks, int rows, int carry, int k, int B, int groups = 0) {
   if (k <= SMALL_K) return merge_words(nchunks + carry, k, B);
   const int64_t L = nchunks * rows + (carry ? k : 0);
-  return static_cast<int64_t>(B) * L + count_words(nchunks, B) + sel_layout(L, k, B).words;
+  return static_cast<int64_t>(B) * L + count_words(nchunks, B) + sel_layout(L, k, B, groups).words;
 }
 
 // The list mode's segments (S a query over nchunks chunks of `rows` rows,
@@ -2042,9 +2405,11 @@ Segs list_segs(const int* counts, int64_t ldq, int nchunks, int rows, int S, int
 }
 
 // A plan the kernels take for B queries: upc UPC or 1, 1 <= S <= nchunks (0
-// when there is no chunk), and for the chunk kernel 1 <= G <= S x tiles.
+// when there is no chunk), and for the chunk kernel a tile of QN in {1, 8,
+// CQ} queries (1 and 8: dense calls only) and 1 <= G <= S x tiles.
 bool plan_ok(const Plan& p, int64_t nchunks, int B) {
-  const int64_t items = static_cast<int64_t>(p.S) * ((B + CQ - 1) / CQ);
+  if (p.qn != CQ && !(p.upc == UPC && (p.qn == 1 || p.qn == 8))) return false;
+  const int64_t items = static_cast<int64_t>(p.S) * ((B + p.qn - 1) / p.qn);
   return (p.upc == UPC || p.upc == 1) && p.S >= (nchunks > 0 ? 1 : 0) && p.S <= nchunks &&
          (p.upc != UPC || nchunks == 0 || (p.G >= 1 && p.G <= items));
 }
@@ -2052,7 +2417,8 @@ bool plan_ok(const Plan& p, int64_t nchunks, int B) {
 template <typename T>
 int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, int B,
                int64_t n_valid, const int* n_valid_dev, int k, bool vec, const Plan& plan,
-               uint64_t* scratch, float* os, int* oi, cudaStream_t s, int* launched) {
+               int groups, uint64_t* scratch, float* os, int* oi, cudaStream_t s,
+               int* launched) {
   const int rows = plan.rows();
   const int nchunks = static_cast<int>((n + rows - 1) / rows);
   if (!plan_ok(plan, nchunks, B)) return static_cast<int>(cudaErrorInvalidValue);
@@ -2061,14 +2427,18 @@ int dense_call(const void* D, const float* q, const int* ids, int64_t n, int m, 
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows
                            : static_cast<int64_t>(nchunks) * k;
   int* counts = reinterpret_cast<int*>(scratch + static_cast<int64_t>(B) * ldq);
+  const Segs segs = list_segs(counts, ldq, nchunks, rows, plan.S, 0);
+  if (groups != 0 && !(list && two_level_ok(segs, k, groups)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = dispatch_chunks<T>(vec, list, plan.upc, src, q, m, B, k, nchunks,
-                                       ChunkLaunch{plan.S, plan.G, ldq, scratch, counts}, s);
+                                       ChunkLaunch{plan.S, plan.G, ldq, scratch, counts, plan.qn},
+                                       s);
   if (err != cudaSuccess) return static_cast<int>(err);
   ++*launched;
   if (list)
-    return run_select(scratch, list_segs(counts, ldq, nchunks, rows, plan.S, 0), B, ldq, k, 0,
+    return run_select(scratch, segs, B, ldq, k, 0,
                       scratch + static_cast<int64_t>(B) * ldq + count_words(nchunks, B), os, oi,
-                      s, launched);
+                      s, launched, groups);
   return run_merges(nchunks, B, k, scratch, scratch + static_cast<int64_t>(B) * ldq, os, oi, 0,
                     s, launched);
 }
@@ -2095,7 +2465,7 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
   const int64_t ldq = list ? static_cast<int64_t>(nchunks) * rows + (carry ? k : 0)
                            : static_cast<int64_t>(nchunks + (carry ? 1 : 0)) * k;
   int* counts = reinterpret_cast<int*>(cand + static_cast<int64_t>(B) * ldq);
-  const ChunkLaunch cl{S, plan.G, ldq, cand, counts};
+  const ChunkLaunch cl{S, plan.G, ldq, cand, counts, CQ};
   cudaError_t err = cudaSuccess;
   if (nchunks > 0) {
     const int nunits = nchunks * upc;
@@ -2144,13 +2514,14 @@ int paged_call(const void* pool, const void* tail, const int* table, const int* 
 }  // namespace
 
 // Scratch of a dense call over n rows at k for B queries in chunks of upc
-// 64-row units (the plan's): out[0] = 8-byte words, out[1] = 1 when the
-// call takes the radix select (k > 32).
-extern "C" int topk_plan(int64_t n, int k, int B, int upc, int64_t* out) {
-  if (n < 1 || k < 1 || B < 1 || (upc != UPC && upc != 1))
+// 64-row units, its select in `groups` groups a query (0: one level; the
+// plan's): out[0] = 8-byte words, out[1] = 1 when the call takes the radix
+// select (k > 32).
+extern "C" int topk_plan(int64_t n, int k, int B, int upc, int groups, int64_t* out) {
+  if (n < 1 || k < 1 || B < 1 || (upc != UPC && upc != 1) || groups < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = UNIT * upc;
-  out[0] = key_words((n + rows - 1) / rows, rows, 0, k, B);
+  out[0] = key_words((n + rows - 1) / rows, rows, 0, k, B, groups);
   out[1] = k > SMALL_K;
   return 0;
 }
@@ -2160,15 +2531,18 @@ extern "C" int topk_plan(int64_t n, int k, int B, int upc, int64_t* out) {
 // device, clamped to [0, n] by the kernel) when that pointer is set, else
 // the host value n_valid. scratch holds topk_plan's words. Writes out_s
 // (B, k) f32 and out_i (B, k) int32. `vec` asserts m % 16 == 0 and a
-// 16-byte aligned D. *launched counts the kernel launches made. upc, segs
-// and ctas are the call's plan (kernels/topk_score.py::chunk_plan): chunks
-// of upc 64-row units (8: the chunk kernel, 1: the unit kernel), segs
-// segments a query, ctas persistent CTAs of the chunk kernel. Returns the
-// first cudaError_t.
+// 16-byte aligned D. *launched counts the kernel launches made. upc, segs,
+// ctas and qn are the call's plan (kernels/topk_score.py::chunk_plan):
+// chunks of upc 64-row units (8: the chunk kernel, 1: the unit kernel),
+// segs segments a query, ctas persistent CTAs and qn queries a tile (1, 8
+// or 32) of the chunk kernel; groups > 1 takes the two-level select
+// (kernels/topk_score.py::select_groups), 0 one level. Returns the first
+// cudaError_t.
 extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids, int64_t n,
                               int m, int B, int64_t n_valid, const void* n_valid_dev, int k,
                               int dtype, int vec, void* scratch, void* out_s, void* out_i,
-                              void* stream, int* launched, int upc, int segs, int ctas) {
+                              void* stream, int* launched, int upc, int segs, int ctas, int qn,
+                              int groups) {
   auto s = static_cast<cudaStream_t>(stream);
   auto q = static_cast<const float*>(Q);
   auto ids = static_cast<const int*>(row_ids);
@@ -2179,9 +2553,9 @@ extern "C" int topk_score_f32(const void* D, const void* Q, const void* row_ids,
   *launched = 0;
   if (n < 1 || (n + UNIT - 1) / UNIT > 0x7FFFFFFF || k < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan{upc, segs, ctas};
+  const Plan plan{upc, segs, ctas, qn};
 #define DENSE(T) \
-  dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, plan, sc, os, oi, s, launched)
+  dense_call<T>(D, q, ids, n, m, B, n_valid, nvd, k, vec, plan, groups, sc, os, oi, s, launched)
   if (dtype == 0) return DENSE(float);
   if (dtype == 1) return DENSE(__nv_bfloat16);
   if (dtype == 2) return DENSE(int8_t);
@@ -2249,7 +2623,7 @@ extern "C" int topk_score_paged_f32(
   auto* os = static_cast<float*>(out_s);
   auto* oi = static_cast<int*>(out_i);
   const int unfinal = finalize ? 0 : 1;
-  const Plan plan{upc, segs, ctas};
+  const Plan plan{upc, segs, ctas, CQ};
 #define PAGED(T) paged_call<T>(pool, tail, tb, nv, off, sc, ip, q, cs, ci, pool_pages, tail_pages, \
                                R, m, B, lo, hi, lod, hid, k, vec, unfinal, plan, w, os, oi, s, \
                                launched)
@@ -2304,9 +2678,24 @@ template <typename T>
 using PagedPlain = PagedSrc<T, false>;
 template <typename T>
 using PagedScaled = PagedSrc<T, true>;
+template <typename T, bool LIST, int QN>
+int narrow_dyn_smem(int m) { return static_cast<int>(narrow_smem<T, LIST, QN>(m)); }
+#define NARROW4(T, TN, QN)                                                                 \
+  {"topk_chunk_kernel<" TN ",vec,keep,dense,qn" #QN ">",                                   \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, false, DenseSrc<T>, QN>), CT,  \
+   narrow_dyn_smem<T, false, QN>},                                                         \
+  {"topk_chunk_kernel<" TN ",vec,list,dense,qn" #QN ">",                                   \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, true, true, DenseSrc<T>, QN>), CT,   \
+   narrow_dyn_smem<T, true, QN>},                                                          \
+  {"topk_chunk_kernel<" TN ",scalar,keep,dense,qn" #QN ">",                                \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, false, DenseSrc<T>, QN>), CT, \
+   narrow_dyn_smem<T, false, QN>},                                                         \
+  {"topk_chunk_kernel<" TN ",scalar,list,dense,qn" #QN ">",                                \
+   reinterpret_cast<const void*>(topk_chunk_kernel<T, false, true, DenseSrc<T>, QN>), CT,  \
+   narrow_dyn_smem<T, true, QN>}
 #define CHUNKS(T, TN)                                                                      \
   CHUNK4(T, TN, DenseSrc<T>, "dense"), CHUNK4(T, TN, PagedPlain<T>, "paged"),             \
-      CHUNK4(T, TN, PagedScaled<T>, "paged_scaled")
+      CHUNK4(T, TN, PagedScaled<T>, "paged_scaled"), NARROW4(T, TN, 1), NARROW4(T, TN, 8)
 template <typename T, bool LIST>
 int unit_dyn_smem(int m) { return static_cast<int>(unit_smem<T>(m)); }
 #define UNIT4(T, TN, S, SN)                                                                \
@@ -2353,6 +2742,7 @@ const KernelEntry KERNELS[] = {
 #undef UNITS4
 #undef UNIT4
 #undef CHUNKS
+#undef NARROW4
 #undef CHUNK4
 
 }  // namespace

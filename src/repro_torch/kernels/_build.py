@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("gram", "pca_project", "topk_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# topk_score.cu instantiates its chunk kernel 36 ways: nvcc's split
+# topk_score.cu instantiates its chunk kernel 60 ways: nvcc's split
 # compilation optimizes them on all the build host's cores (ptxas reports
 # every kernel as a plain build does)
 SOURCE_FLAGS = {"topk_score": ("--split-compile", "0")}

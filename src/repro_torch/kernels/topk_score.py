@@ -10,7 +10,8 @@ int32 ids; ties go to the lowest id; slots with no candidate are
 The kernels (``csrc/topk_score.cu``) split n over CTAs, since at serving
 batch sizes one CTA per query tile would leave most of the card idle: at
 most one persistent CTA per SM takes (segment, query tile) items, each
-walking every S-th 512-row chunk for 32 queries, or, where those chunks are
+walking every S-th 512-row chunk for a tile of 32 queries (dense rows at B
+<= 16: 1 or 8, ``query_width``), or, where those chunks are
 fewer than the SMs a query tile may have and its 64-row units fit two waves
 (a shortlist's rescore, a live delta), a CTA takes each unit (``chunk_plan``
 decides and the C entries take its plan). For k <= 32 it
@@ -19,12 +20,13 @@ reduces the per-chunk lists; for larger k it lists, compacted into its own
 segment of each query's row, only the keys at or above a running
 per-query threshold, with a count a segment, and a select that walks the
 listed keys takes the top k (one CTA a query where they fit its budget,
-else a multi-CTA radix select). Candidates are compared as (score desc,
-id asc) keys, so the result does not depend on visit order nor on which
-keys below the k-th a threshold skipped. Above k = 32 the scratch keeps
-room for one 8-byte key per row and query, so a call walks its queries in
-groups whose scratch fits ``SCRATCH_BYTES`` (at least one 32-query tile a
-group). A group also holds at most ``MAX_GROUP`` queries, since one launch
+in two levels over groups of segments where few queries would leave most
+SMs idle, ``select_groups``; else a multi-CTA radix select). Candidates
+are compared as (score desc, id asc) keys, so the result does not depend
+on visit order nor on which keys below the k-th a threshold skipped. Above
+k = 32 the scratch keeps room for one 8-byte key per row and query, so a
+call walks its queries in groups whose scratch fits ``SCRATCH_BYTES`` (at
+least 32 queries a group). A group also holds at most ``MAX_GROUP`` queries, since one launch
 of the merge and select kernels takes at most 65,535: so every wrapper
 takes any B.
 
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -59,11 +62,11 @@ MAX_GROUP = 65504
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "topk_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_int64)]),
+                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int64)]),
     "topk_score_f32": (ctypes.c_int, [
         _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int64, _P,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_int]),
+        ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 5),
     "topk_paged_plan": (ctypes.c_int, [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int64)]),
@@ -85,6 +88,9 @@ _SIGN = -(1 << 63)         # the CUDA keys are the plain keys with the top bit f
 # paged unit table (sizeof(Unit) / 8), k of the register select (SMALL_K),
 # queries a CTA of the unit kernel (UCQ)
 _CQ, _CR, _UNIT, _UPC, _UNIT_WORDS, _SMALL_K, _UCQ = 32, 512, 64, 8, 3, 32, 16
+# the fused select's limits: keys it gathers and sorts (FN), listed keys a
+# query (FCAP)
+_FN, _FCAP = 8192, 1 << 20
 # unit-kernel CTAs an SM holds at once (57 KB of shared memory each at m
 # 384: half the query tile and the ring; 128 threads of at most 170
 # registers); a 32-query tile takes two CTAs a unit. ``chunk_plan`` gives
@@ -113,15 +119,18 @@ RESTART = 1
 class ChunkPlan(NamedTuple):
     """A call's walk: chunks of ``upc`` 64-row units (8: the chunk kernel's
     512 rows; 1: the unit kernel's 64), ``chunks`` of them, in ``segs``
-    segments a query. Item (x, tile), segment x of a 32-query tile, walks
-    chunks x, x + segs, ...; in list mode it owns segment x of each of its
-    queries' row of keys. ``ctas`` CTAs run the items: the chunk kernel's
-    persistent CTA g takes items i = g, g + ctas, ... (x = i // tiles, tile
-    = i % tiles); the unit kernel launches one CTA an item and 16 queries."""
+    segments a query. Item (x, tile), segment x of a tile of ``qn`` queries
+    (the chunk kernel's: 32, or 1 or 8 for dense rows), walks chunks x, x +
+    segs, ...; in list mode it owns segment x of each of its queries' row of
+    keys. ``ctas`` CTAs run the items: the chunk kernel's persistent CTA g
+    takes items i = g, g + ctas, ... (x = i // tiles, tile = i % tiles, tiles
+    = ceil(B / qn)); the unit kernel launches one CTA an item and 16
+    queries."""
     upc: int
     chunks: int
     segs: int
     ctas: int
+    qn: int = _CQ
 
     @property
     def rows(self) -> int:
@@ -142,6 +151,17 @@ def makespan(chunks: int, tiles: int, segs: int, ctas: int) -> int:
     chunk more) number ceil((rn x tiles - g) / ctas); both fall with g."""
     qn, rn = divmod(chunks, segs)
     return -(-tiles * segs // ctas) * qn + -(-rn * tiles // ctas)
+
+
+def query_width(B: int) -> int:
+    """The chunk kernel's queries a tile for B dense queries: 1 at B 1, 8 at
+    B 2 to 16, else 32. The narrow tiles issue only their queries' FMAs, so
+    at B <= 8 the bytes set the pace; at B 9 to 16 two 8-query tiles, whose
+    CTAs read the same chunks at once (the second read mostly from L2),
+    beat one 32-query tile on an H100 at every measured shape but f32 at B
+    9 over 8.8M rows (PERF.md). The width comes from B alone, never
+    from a count read on the card, so a captured CUDA graph replays."""
+    return 1 if B == 1 else 8 if B <= 16 else _CQ
 
 
 def _takes_chunks(big_chunks: int, units: int, B: int, sms: int) -> bool:
@@ -167,21 +187,27 @@ def restarts(tiles: int, segs: int, ctas: int) -> int:
     return 1 if ctas % tiles == 0 else -(-tiles * segs // ctas)
 
 
-@functools.lru_cache(maxsize=4096)
-def items_plan(chunks: int, B: int, sms: int) -> ChunkPlan:
+def items_plan(chunks: int, B: int, sms: int, qn: int | None = None) -> ChunkPlan:
     """The chunk kernel's walk of B queries over ``chunks`` 512-row chunks
-    on a card of ``sms`` SMs: at most ``sms`` persistent CTAs over ``segs``
-    x tiles items. The segment counts from S0 = min(chunks, ceil(sms /
-    tiles)) to min(chunks, SEG_SPAN S0) are tried with min(sms, tiles x
-    segs) CTAs and, where tiles <= sms, with tiles x (sms // tiles), which
-    keeps each CTA on one tile; the least ``makespan`` plus RESTART a
+    on a card of ``sms`` SMs, in tiles of ``qn`` queries (default: the dense
+    ``query_width(B)``): at most ``sms`` persistent CTAs over ``segs`` x
+    tiles items, tiles = ceil(B / qn). The segment counts from S0 =
+    min(chunks, ceil(sms / tiles)) to min(chunks, SEG_SPAN S0) are tried
+    with min(sms, tiles x segs) CTAs and, where tiles <= sms, with tiles x
+    (sms // tiles), which keeps each CTA on one tile; the least
+    ``makespan`` plus RESTART a
     ``restarts`` wins, then the fewest segments (the select reads fewer),
     then the most CTAs. Where S0 segments a tile fill one wave (B <= 32,
     and 33 to 128 at 132 SMs) that is S0 with a CTA an item; else no CTA
     walks more than ceil(chunks / segs) chunks past the even share (tiles
     x chunks / sms), where one CTA an item would run a second, nearly empty
     wave."""
-    tiles = -(-B // _CQ)
+    return _items_plan(chunks, B, sms, query_width(B) if qn is None else qn)
+
+
+@functools.lru_cache(maxsize=4096)
+def _items_plan(chunks: int, B: int, sms: int, qn: int) -> ChunkPlan:
+    tiles = -(-B // qn)
     s0 = min(chunks, -(-sms // tiles))
     best = None
     for S in range(s0, min(chunks, SEG_SPAN * s0) + 1):
@@ -189,21 +215,24 @@ def items_plan(chunks: int, B: int, sms: int) -> ChunkPlan:
             if 0 < G <= tiles * S:
                 cost = (makespan(chunks, tiles, S, G) + RESTART * restarts(tiles, S, G), S, -G)
                 best = min(best or cost, cost)
-    return ChunkPlan(_UPC, chunks, best[1], -best[2])
+    return ChunkPlan(_UPC, chunks, best[1], -best[2], qn)
 
 
-def chunk_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
+def chunk_plan(big_chunks: int, units: int, B: int, sms: int,
+               qn: int | None = None) -> ChunkPlan:
     """The walk of a call of B queries over ``big_chunks`` 512-row chunks
     or ``units`` 64-row units, on a card of ``sms`` SMs: ``items_plan``
-    where ``_takes_chunks``, else ``unit_plan``. The plan depends on the
-    capacity (n, the planned slots) and B, never on a live count read on
-    the card, so a captured CUDA graph replays at any count."""
+    (tiles of ``qn`` queries; default the dense ``query_width(B)``) where
+    ``_takes_chunks``, else ``unit_plan``. The plan depends on the capacity
+    (n, the planned slots) and B, never on a live count read on the card,
+    so a captured CUDA graph replays at any count."""
     if _takes_chunks(big_chunks, units, B, sms):
-        return items_plan(big_chunks, B, sms)
+        return items_plan(big_chunks, B, sms, qn)
     return unit_plan(units, B)
 
 
-def wave_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
+def wave_plan(big_chunks: int, units: int, B: int, sms: int,
+              qn: int | None = None) -> ChunkPlan:
     """``chunk_plan`` with the chunk kernel's walk before its persistent
     items: S0 segments a tile and one CTA an item (tiles x S0 CTAs, a
     second wave where that passes ``sms``). The tests and ``chip_smoke.py``
@@ -211,14 +240,47 @@ def wave_plan(big_chunks: int, units: int, B: int, sms: int) -> ChunkPlan:
     it on one build."""
     if not _takes_chunks(big_chunks, units, B, sms):
         return unit_plan(units, B)
-    tiles = -(-B // _CQ)
+    qn = query_width(B) if qn is None else qn
+    tiles = -(-B // qn)
     s0 = min(big_chunks, -(-sms // tiles))
-    return ChunkPlan(_UPC, big_chunks, s0, tiles * s0)
+    return ChunkPlan(_UPC, big_chunks, s0, tiles * s0, qn)
 
 
 def dense_plan(n: int, B: int, sms: int) -> ChunkPlan:
-    """``chunk_plan`` of a dense call over n rows."""
+    """``chunk_plan`` of a dense call over n rows (tiles of
+    ``query_width(B)`` queries)."""
     return chunk_plan(-(-n // _CR), -(-n // _UNIT), B, sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def select_groups(B: int, plan: ChunkPlan, k: int, sms: int) -> int:
+    """Groups of a query's segments for the list mode's select in two
+    levels (``csrc/topk_score.cu::run_select``), or 0 for one level. Two
+    levels where one CTA a query would leave most of the ``sms`` SMs idle
+    (2 B <= sms) on the chunk kernel's segments at k > 32: B x groups CTAs
+    each keep the top k of a group of segments, then one CTA a query the
+    top k of the groups' keys. The groups even out the two levels' keys
+    (listed / groups against groups x k): a segment of r rows lists about
+    k (1 + ln(r / k)) keys under the running threshold, or all r at k > 512
+    or r <= k; at most sms // B groups a query, the segments split evenly,
+    and more groups where a group's rows would pass FCAP.
+    The C side's ``two_level_ok`` holds each group and the second level
+    to the fused select's limits (keys within FCAP, k within FN), as
+    here."""
+    if k <= _SMALL_K or plan.upc != _UPC or 2 * B > sms or k > _FN:
+        return 0
+    rows = -(-plan.chunks // plan.segs) * plan.rows       # rows a segment holds, at most
+    listed = rows if k > _CR or rows <= k else k * (1 + math.log(rows / k))
+    most = min(plan.segs, sms // B)
+    sizes = [size for _, size in plan.segments()]
+    for want in range(max(2, min(most, round(math.sqrt(plan.segs * listed / k)))), most + 1):
+        groups = -(-plan.segs // -(-plan.segs // want))   # ceil(segs / want) segments a group
+        if groups * k > _FCAP:
+            break
+        if all(sum(sizes[g * plan.segs // groups:(g + 1) * plan.segs // groups]) <= _FCAP
+               for g in range(groups)):
+            return groups
+    return 0
 
 
 def paged_chunks(slots: int, R: int, upc: int) -> int:
@@ -230,8 +292,9 @@ def paged_chunks(slots: int, R: int, upc: int) -> int:
 
 
 def paged_plan(slots: int, R: int, B: int, sms: int) -> ChunkPlan:
-    """``chunk_plan`` of a paged call over ``slots`` slots of R rows."""
-    return chunk_plan(paged_chunks(slots, R, _UPC), paged_chunks(slots, R, 1), B, sms)
+    """``chunk_plan`` of a paged call over ``slots`` slots of R rows (tiles
+    of 32 queries)."""
+    return chunk_plan(paged_chunks(slots, R, _UPC), paged_chunks(slots, R, 1), B, sms, _CQ)
 
 
 # the plain versions are the oracles themselves
@@ -255,8 +318,9 @@ def _sms() -> int:
 def topk_plan(n: int, k: int, B: int, sms: int | None = None) -> tuple[int, bool]:
     """(8-byte words of scratch, takes the radix select) of a dense call,
     planned for a card of ``sms`` SMs (default: the current device's)."""
-    plan = dense_plan(n, B, _sms() if sms is None else sms)
-    return _plan("topk_plan", n, k, B, plan.upc)
+    sms = _sms() if sms is None else sms
+    plan = dense_plan(n, B, sms)
+    return _plan("topk_plan", n, k, B, plan.upc, select_groups(B, plan, k, sms))
 
 
 def _group(B: int, words_of) -> int:
@@ -326,8 +390,11 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     as a live delta segment's search does: always for a tensor count, since
     the host cannot tell whether it is below n without reading it), else
     ``"row_ids"``; ``unit_launches`` counts, by mode, the C calls whose
-    plan ran the unit kernel (few rows); a call with k > 32 also counts in
-    ``topk_select_cuda.launches`` under its mode. ``on_lists(g0, counts,
+    plan ran the unit kernel (few rows), and ``narrow_launches``, as
+    ``qn1`` / ``qn8``, those whose chunk kernel ran a 1- or 8-query tile; a
+    call with k > 32 also counts in ``topk_select_cuda.launches`` under its
+    mode, and each C call whose select took two levels in
+    ``topk_select_cuda.two_level_launches``. ``on_lists(g0, counts,
     pack)``, a measurement aid, is called for k > 32 after each group of
     queries from g0 with what the list mode listed (``_listed``); it reads
     the scratch back on the host.
@@ -365,6 +432,8 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     nv = n if n_valid is None or nv_dev is not None else max(0, min(int(n_valid), n))
+    mode = ("row_ids" if row_ids is not None
+            else _STORE[D.dtype] + ("_n_valid" if nv < n or nv_dev is not None else ""))
     vec = m % 16 == 0 and D.data_ptr() % 16 == 0
     stream = _build.raw_stream(dev)
     sms = _build.sm_count(dev)
@@ -375,23 +444,27 @@ def topk_score_cuda(D: torch.Tensor, Q: torch.Tensor, *, k: int,
         nonlocal units
         b = g1 - g0
         plan = dense_plan(n, b, sms)
+        groups = select_groups(b, plan, k, sms)
         launched = ctypes.c_int(0)
         err = lib.topk_score_f32(
             D.data_ptr(), q_ptr + 4 * g0 * m,
             None if row_ids is None else row_ids.data_ptr(), n, m, b, nv,
             None if nv_dev is None else nv_dev.data_ptr(), k,
             _DTYPES[D.dtype], int(vec), scratch.data_ptr(), s_ptr + 4 * g0 * k,
-            i_ptr + 4 * g0 * k, stream, ctypes.byref(launched), plan.upc, plan.segs, plan.ctas)
+            i_ptr + 4 * g0 * k, stream, ctypes.byref(launched), plan.upc, plan.segs, plan.ctas,
+            plan.qn, groups)
         _build.check(err, "topk_score")
         units += plan.upc == 1
+        if plan.upc == _UPC and plan.qn != _CQ:
+            topk_score_cuda.narrow_launches[f"qn{plan.qn}"] += 1
+        if groups:
+            topk_select_cuda.two_level_launches[mode] += 1
         if on_lists is not None and select:
             on_lists(g0, *_listed(scratch, 0, b, plan, plan.chunks * plan.rows, 0))
         return launched.value
 
     with _build.on_device(dev):
         launched = _call_groups(B, lambda b: topk_plan(n, k, b, sms)[0], call, dev)
-    mode = ("row_ids" if row_ids is not None
-            else _STORE[D.dtype] + ("_n_valid" if nv < n or nv_dev is not None else ""))
     topk_score_cuda.launches[mode] += 1
     topk_score_cuda.cuda_launches[mode] += launched
     topk_score_cuda.unit_launches[mode] += units
@@ -405,6 +478,7 @@ _DENSE_MODES = ("f32", "bf16", "int8", "f32_n_valid", "bf16_n_valid", "int8_n_va
 topk_score_cuda.launches = dict.fromkeys(_DENSE_MODES, 0)
 topk_score_cuda.cuda_launches = dict.fromkeys(_DENSE_MODES, 0)
 topk_score_cuda.unit_launches = dict.fromkeys(_DENSE_MODES, 0)
+topk_score_cuda.narrow_launches = {"qn1": 0, "qn8": 0}
 
 
 def topk_paged_plan(slots: int, page_rows: int, k: int, carry: bool, B: int,
@@ -663,3 +737,4 @@ def topk_select_cuda(keys: torch.Tensor, k: int, finalize: bool = True,
 
 topk_select_cuda.launches = dict.fromkeys((*_DENSE_MODES, *_PAGED_MODES, "keys"), 0)
 topk_select_cuda.cuda_launches = {"keys": 0}
+topk_select_cuda.two_level_launches = dict.fromkeys(_DENSE_MODES, 0)

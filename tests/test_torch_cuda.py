@@ -1559,9 +1559,10 @@ def test_cuda_kernel_budget_has_no_gating_finding():
     from repro_torch.analysis import kernel_budget
 
     table = kernel_budget.kernel_table()
-    # topk_score.cu: 36 chunk-kernel and 36 unit-kernel instances and 13 others;
+    # topk_score.cu: 60 chunk-kernel (24 of them the 1- and 8-query tiles) and
+    # 36 unit-kernel instances and 13 others;
     # gram.cu 5; pca_project.cu 8 tiled and 8 small instances
-    assert len(table) == 36 + 36 + 13 + 5 + 8 + 8
+    assert len(table) == 60 + 36 + 13 + 5 + 8 + 8
     findings = kernel_budget.run("cuda")
     assert [f.key for f in findings if f.severity == "error"] == []
     assert {f.check for f in findings} <= {"budget.spill"}
@@ -1762,6 +1763,42 @@ def test_cuda_many_tile_plan_is_the_wave_walk(B, m):
     assert all(c["wave_bitwise"] for c in checks)
     dense = checks[0]
     assert (dense["wave_ctas"] > dense["ctas"]) == (B >= 200)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_cuda_narrow_tile_is_the_wide_tile(store):
+    """chip_smoke.py's narrow cases: the chunk kernel's 1- and 8-query tiles
+    and the two-level select, each bitwise the 32-query tile and the
+    one-level select on the same build, and within the repo's tolerances
+    of the plain version, at B 1 to 9, 16 and 17, m 16, 130 and 256, k 10,
+    100 and 1,000, plain and with a 0-d device n_valid; the C plan's scratch
+    holds the two levels' keys and counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    checks = []
+    smoke.narrow_tile_cases(torch.device("cuda"), checks, stores=(store,))
+    assert len(checks) == 2 * len(smoke.NARROW_BATCHES) * len(smoke.NARROW_MS) * len(
+        smoke.NARROW_KS)
+    assert all(c["wide_bitwise"] for c in checks)
+    assert {c["qn"] for c in checks} == {1, 8, 32}
+    assert any(c["select_groups"] for c in checks)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_cuda_narrow_tile_replays_in_a_cuda_graph():
+    """chip_smoke.py's narrow graph case: one query's search with a 0-d
+    device count, captured once, replayed bitwise the eager call at three
+    counts, at k 10 and 100 (the two-level select)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    smoke = _smoke()
+    checks = []
+    smoke.narrow_graph_case(torch.device("cuda"), checks)
+    assert len(checks) == 6 and all(c["replay_bitwise"] for c in checks)
     torch.cuda.synchronize()
 
 

@@ -4,7 +4,11 @@ table2_ood.py) on one synthetic dataset, fed to both packages from the
 same numpy arrays, and the port's protocol drivers. Also: the port imports
 neither JAX nor ``repro``, and defaults to the card."""
 import ast
+import functools
+import os
 import pathlib
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +20,7 @@ from repro.core.metrics import (
     evaluate_run as jax_evaluate_run,
     wilcoxon_significant as jax_wilcoxon,
 )
+from repro.data import synthetic as jax_synthetic
 from repro.data.synthetic import (
     make_dataset as jax_make_dataset,
     make_ood_corpus as jax_make_ood_corpus,
@@ -24,11 +29,39 @@ from repro_torch import convert
 from repro_torch.core.index import DenseIndex
 from repro_torch.core.metrics import evaluate_run, wilcoxon_significant
 from repro_torch.core.pruning import StaticPruner
+from repro_torch.data import synthetic as port_synthetic
 from repro_torch.data.synthetic import make_dataset, make_ood_corpus, ood_corpus_on_device
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 METRICS = ("AP", "MRR@10", "nDCG@10")
 DEPTH = 1000                     # benchmarks/common.py:24 retrieves this deep
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_seed0(name: str) -> int:
+    """``hash(name)`` as a process started with PYTHONHASHSEED=0 computes it."""
+    out = subprocess.run([sys.executable, "-c", "import sys; print(hash(sys.argv[1]))", name],
+                         env={**os.environ, "PYTHONHASHSEED": "0"}, capture_output=True,
+                         text=True, check=True)
+    return int(out.stdout)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _string_hash_of_seed0():
+    """Both packages' ``make_dataset`` seed their generators with
+    ``hash(name)``, which Python salts per process unless PYTHONHASHSEED is
+    set. So each test process drew another dataset, and on some (6 of the
+    88 hash seeds 0 to 87) the two frameworks' sums, an ULP apart, order a near-tie
+    inside a query's top 10 differently, which the carried-state tests
+    count as a swap. The module draws, in both packages alike, the dataset
+    a PYTHONHASHSEED=0 process draws (as ``chip_smoke.py`` and the examples
+    run): the same on every run."""
+    def seeded(x):
+        return _hash_seed0(x) if isinstance(x, str) else hash(x)
+    with pytest.MonkeyPatch.context() as mp:
+        for mod in (jax_synthetic, port_synthetic):
+            mp.setattr(mod, "hash", seeded, raising=False)
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -38,7 +38,7 @@ CHUNKS = (196, 4318, 17270)     # 100,000 rows; 2,210,456 (a shard of four); 8,8
 def _walk(plan: ChunkPlan, B: int):
     """The chunk kernel's items as it takes them: (cta, segment, tile) of
     every item, and the chunks each walks."""
-    tiles = -(-B // 32)
+    tiles = -(-B // plan.qn)
     i = np.arange(plan.segs * tiles)
     x = i // tiles
     walked = (plan.chunks - x + plan.segs - 1) // plan.segs
@@ -65,7 +65,7 @@ def test_plan_covers_each_chunk_and_tile_once_within_one_wave(sms, chunks):
     share."""
     for B in BATCHES:
         plan = chunk_plan(chunks, 8 * chunks, B, sms)
-        tiles = -(-B // 32)
+        tiles = -(-B // plan.qn)
         assert plan.upc == 8 and plan.chunks == chunks
         assert 1 <= plan.segs <= chunks and 1 <= plan.ctas <= min(sms, plan.segs * tiles)
         cta, x, tile, walked = _walk(plan, B)
