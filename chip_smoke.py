@@ -6691,6 +6691,14 @@ def run_phases(args, smi):
                 extra["launches_of"] = launches_of
         if kernel:
             extra["kernel"] = kernel
+        shape = row.get("shape")
+        if (name.startswith("topk_score") and kernel is None and isinstance(shape, list)
+                and len(shape) == 4 and shape[0] >= 100_000 and shape[2] > 16):
+            # the chunk kernel's 32-query tile (B > 16 over 100,000 rows or
+            # more: 196 chunks, more than a 132-SM card's share a tile): the
+            # call's FMAs a second over the fp32 FMA peak (33.5 T FMA/s), its
+            # mainloop's rate where the chunk kernel takes the call's time
+            extra["fma_share"] = shape[0] * shape[1] * shape[2] / (row["ms"] * 1e-3) / 33.5e12
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=n_launch, **extra,
                     max_abs_err=row["max_abs_err"],

@@ -17,8 +17,8 @@ call forced onto the other tile width of 8 and 32 (``alt_qn``,
 the chunk kernel, the select and the merge, and each select launch's
 device ms (``select_launch_ms``: the two levels); the share of the rows the list
 mode listed (k > 32); ``matmul`` + ``topk`` over the same rows (an f32
-copy of bf16 and int8 rows); and the bound (each row read once, 2 B n m
-FLOP).
+copy of bf16 and int8 rows); at B 1 the port's plain version on the card
+(``plain_ms``); and the bound (each row read once, 2 B n m FLOP).
 
 Shapes: B 1, 2, 4, 8, 9, 10, 12 and 16 at k 100 over ``retrieval_cand``'s
 1,000,448 candidates (d 256 f32, pruned m 128 f32, bf16 and int8) and one slot of
@@ -163,6 +163,9 @@ def run(this, other, variant, reps, emit):
                 row.update({f"{part}_ms": v for part, v in split.items()})
                 row["select_launch_ms"] = launch_ms(mine, "select_fused_kernel")
                 row["library_ms"] = turns.cuda_ms(lambda: torch.topk(Q @ Df.T, k), reps)
+                if B == 1 and not variant:      # the port's plain version on the card
+                    row["plain_ms"] = turns.cuda_ms(
+                        lambda: topk_score.topk_score_plain(D, Q, k=k), max(2, reps // 4))
                 b_ms, b_by = chip_smoke.bound(item * n * m + 4 * B * m + 8 * B * k,
                                               2 * B * n * m)
                 row.update(bound_ms=b_ms, bound_by=b_by)

@@ -161,17 +161,26 @@ struct NoEach {
   __device__ void operator()(uint64_t) const {}
 };
 
-// 16 consecutive bf16 (one slab row) upcast to f32, 16-byte loads.
-__device__ __forceinline__ void load_slab(const __nv_bfloat16* p, float (&v)[CK]) {
+// 4 int8 (one word, in memory order) as f32, exactly, without the
+// conversion pipe (16 a clock per SM, an eighth of the FMA rate): byte b ^
+// 0x80 = b + 128 is placed in the mantissa of 2^23, and 2^23 + 128 is
+// subtracted.
+__device__ __forceinline__ void upcast4(unsigned w, float* v) {
+  w ^= 0x80808080u;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const uint4 x = reinterpret_cast<const uint4*>(p)[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  for (int i = 0; i < 4; ++i)
+    v[i] = __uint_as_float(__byte_perm(w, 0x4Bu, 0x4550u | i)) - 8388736.0f;
+}
+
+// 8 bf16 (16 bytes, in memory order) as f32; x by value, so a caller's
+// 16-byte shared-memory read stays one load.
+__device__ __forceinline__ void upcast8(const uint4 x, float* v) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      v[8 * i + 2 * j] = f.x; v[8 * i + 2 * j + 1] = f.y;
-    }
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
   }
 }
 
@@ -293,24 +302,13 @@ struct PagedSrc {
 // The mainloop's pieces
 // ---------------------------------------------------------------------------
 
-// Ring geometry of the chunk kernel. A D slab is CR rows x CK values. As
-// f32 a row's four 16-byte pieces are stored in the order piece ^ ((row >>
-// 1) & 3), so the 8 rows a quarter-warp reads at once fall on distinct
-// banks with no padding. int8 and bf16 slabs land raw (CK values a row,
-// packed) in a 32 KB ring and are upcast once into one of two f32 slabs.
+// Geometry shared by the chunk kernel's tiles and the unit kernel: RS, the
+// row stride of a row-major f32 slab (slab_at, the unit kernel's), and
+// SLD, the narrow tile's score row stride (a warp's 32 stores hit 32 banks).
 constexpr int RS = CK;
 constexpr int KP_MAX = 384;     // m-values of the query tile resident at once
 constexpr int HQ = CQ / 2;      // queries whose scores are staged at once
-constexpr int SLD = CR + 8;     // score row stride: a warp's 32 stores hit 32 banks
-constexpr int RAW_RING = 32768;
-
-template <typename T>
-struct Chunk {
-  static constexpr bool RAW = !std::is_same<T, float>::value;
-  static constexpr int STAGE_BYTES = RAW ? CR * CK * static_cast<int>(sizeof(T)) : CR * RS * 4;
-  static constexpr int STAGES = RAW ? RAW_RING / STAGE_BYTES : 4;
-  static constexpr int RING_BYTES = STAGES * STAGE_BYTES + (RAW ? 2 * CR * RS * 4 : 0);
-};
+constexpr int SLD = CR + 8;
 
 // Query-tile width for m: whole, rounded up to a slab, or panels of KP_MAX.
 __host__ __device__ __forceinline__ int panel_width(int m) {
@@ -324,15 +322,36 @@ __host__ __device__ __forceinline__ int panel_width(int m) {
 constexpr int LANE_J = 5;              // lane lists: k <= 32 LANE_J
 constexpr int LANE_BYTES = (CT / 32) * 4 * LANE_J * 32 * 2;
 
-// Dynamic shared memory of the chunk kernel: the query tile, half the
-// tile's scores and the ring, side by side, so the ring keeps streaming
-// while a chunk's keys are selected or listed; then list mode's lane lists.
+// The wide tile's slabs. Slab t's raw pieces (CK values of each of the
+// chunk's CR rows, in the storage dtype) land by cp.async in a 96 KB ring
+// (f32 3 stages, bf16 6, int8 12) and are rewritten once, upcast, into an
+// f32 slab stored k-major (value k of row r at k CR + r), which the product
+// reads. A chunk's scores (CQ rows of CR) are staged in the f32 slab's room
+// once its last slab is multiplied and in as much again beside it.
+constexpr int RING = 98304;
+constexpr int FS = CK * CR;     // floats of a k-major slab
+
+template <typename T>
+struct Chunk {
+  static constexpr int P = CK * static_cast<int>(sizeof(T)) / 16;   // 16-byte pieces a row
+  static constexpr int STAGE_BYTES = CR * CK * static_cast<int>(sizeof(T));
+  static constexpr int STAGES = RING / STAGE_BYTES;
+  // f32 asks for two raw slabs at once, a row's whole 128-byte line (its
+  // bytes pace it at few query tiles); int8 and bf16, paced by the FMAs,
+  // ask for one a slab
+  static constexpr bool PAIRED = sizeof(T) == 4;
+};
+
+// Dynamic shared memory of the wide tile: the k-major query panel, the f32
+// slab with the rest of a chunk's staged scores after it, and the ring,
+// side by side, so the ring keeps streaming while a chunk's keys are
+// selected or listed; then list mode's lane lists.
+static_assert(CQ * CR == 2 * FS, "a chunk's staged scores fill the f32 slab twice");
 template <typename T, bool LIST>
 size_t chunk_smem(int m) {
-  return static_cast<size_t>(CQ) * (panel_width(m) + 4) * 4 + HQ * SLD * 4 +
-         Chunk<T>::RING_BYTES + (LIST ? LANE_BYTES : 0);
+  return static_cast<size_t>(panel_width(m)) * CQ * 4 + CQ * CR * 4 + RING +
+         (LIST ? LANE_BYTES : 0);
 }
-
 // Float offset of 16-byte piece c of row r in an f32 slab.
 __device__ __forceinline__ int slab_at(int r, int c) { return r * RS + ((c ^ ((r >> 1) & 3)) << 2); }
 
@@ -368,36 +387,6 @@ __device__ __forceinline__ void load_chunk_slab(const Src& src, T* dst, int chun
       dst[F32 ? slab_at(r, kk >> 2) + (kk & 3) : r * CK + kk] =
           (ok && k0 + kk < m) ? p[k0 + kk] : T(0.f);
     }
-  }
-}
-
-// 16 int8 as f32, exactly, without the conversion pipe (16 a clock per SM,
-// an eighth of the FMA rate): byte b ^ 0x80 = b + 128 is placed in the
-// mantissa of 2^23, and 2^23 + 128 is subtracted.
-__device__ __forceinline__ void upcast16(const int8_t* p, float (&v)[CK]) {
-  const int4 x = *reinterpret_cast<const int4*>(p);
-  const unsigned w[4] = {static_cast<unsigned>(x.x) ^ 0x80808080u,
-                         static_cast<unsigned>(x.y) ^ 0x80808080u,
-                         static_cast<unsigned>(x.z) ^ 0x80808080u,
-                         static_cast<unsigned>(x.w) ^ 0x80808080u};
-#pragma unroll
-  for (int i = 0; i < CK; ++i)
-    v[i] = __uint_as_float(__byte_perm(w[i / 4], 0x4Bu, 0x4550u | (i % 4))) - 8388736.0f;
-}
-__device__ __forceinline__ void upcast16(const __nv_bfloat16* p, float (&v)[CK]) { load_slab(p, v); }
-
-// Upcast a raw int8 / bf16 slab into an f32 slab: two rows per thread.
-template <typename T>
-__device__ __forceinline__ void upcast_slab(const T* raw, float* dst, int tid) {
-#pragma unroll
-  for (int h = 0; h < CR / CT; ++h) {
-    const int r = tid + h * CT;
-    float v[CK];
-    upcast16(raw + r * CK, v);
-#pragma unroll
-    for (int c = 0; c < CK / 4; ++c)
-      *reinterpret_cast<float4*>(dst + slab_at(r, c)) =
-          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
   }
 }
 
@@ -437,56 +426,192 @@ __device__ __forceinline__ float4 load_scale4(const float* s, int k, int m) {
                      k + 2 < m ? __ldg(s + k + 2) : 0.f, k + 3 < m ? __ldg(s + k + 3) : 0.f);
 }
 
-// acc[i][j] += Q[4i + qg] . D[64 w + 8j + rg] over one CK-deep slab, k
-// ascending: per 4-deep step, 8 query and 8 row 16-byte pieces for 256 FMAs.
-// SCALED and `fold`: each query value is first multiplied by srow[k] (one
-// rounding, as the dense index folds its scale into the query), srow being
-// the scale row of the warp's page and k0 the slab's first m-position.
-template <bool SCALED, bool VEC>
-__device__ __forceinline__ void slab_fma(const float* Qs, int qld, const float* Ds,
-                                         float (&acc)[8][8], int w, int qg, int rg,
-                                         bool fold, const float* srow, int k0, int m) {
-  const float* qb = Qs + qg * qld;
-  const float* db = Ds + (w * 64 + rg) * RS;
-  const int swz = (rg >> 1) & 3;          // slab_at's order for rows 64 w + 8 j + rg
+// 16-byte unit of piece c of row r in a wide-tile raw stage. A 128-byte
+// line holds 8 / P rows; its eight pieces are permuted by (r >> 2) & 7, so
+// the rows 4 (l % 16) + i that lanes l = 0..31 of to_kmajor read at once
+// spread over all eight 16-byte bank groups of a line.
+template <typename T>
+__device__ __forceinline__ int raw_at(int r, int c) {
+  constexpr int P = Chunk<T>::P, RL = 8 / P;
+  return (r / RL) * 8 + (((r % RL) * P + c) ^ ((r >> 2) & 7));
+}
+
+// A lane's 16-byte pieces of its warp's 64 rows of a chunk's slabs (VEC):
+// pieces e = lane + 32 i, row 64 w + e / P, piece e % P, each row's
+// address found once a chunk (find), then each slab's pieces copied into a
+// raw stage (load).
+template <typename T>
+struct SlabRows {
+  static constexpr int P = Chunk<T>::P, PPL = UNIT * P / 32;
+  const T* p[PPL];
+  unsigned ok;
+  template <typename Src>
+  __device__ __forceinline__ void find(const Src& src, int chunk, int w, int lane) {
+    ok = 0;
 #pragma unroll
-  for (int k4 = 0; k4 < CK; k4 += 4) {
-    float4 q[8];
+    for (int i = 0; i < PPL; ++i) {
+      bool o;
+      p[i] = src.template row<CR>(chunk, UNIT * w + (lane + 32 * i) / P, o);
+      ok |= static_cast<unsigned>(o) << i;
+    }
+  }
+  __device__ __forceinline__ void load(unsigned char* dst, int k0, int w, int lane) const {
+    constexpr int VPP = 16 / static_cast<int>(sizeof(T));
+    const int c = lane % P;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) q[i] = *reinterpret_cast<const float4*>(qb + 4 * i * qld + k4);
-    if (SCALED && fold) {
-      const float4 s = load_scale4<VEC>(srow, k0 + k4, m);
+    for (int i = 0; i < PPL; ++i)
+      cp_async16(dst + raw_at<T>(UNIT * w + (lane + 32 * i) / P, c) * 16, p[i] + k0 + c * VPP,
+                 (ok >> i) & 1u);
+  }
+};
+
+// The warp's rows of slab k0 of chunk `chunk` into a raw stage by scalar
+// loads (m % 16 != 0 or rows not 16-byte aligned), as raw_at places them;
+// zero past m and n.
+template <typename T, typename Src>
+__device__ __forceinline__ void load_wide_scalar(const Src& src, unsigned char* dst, int chunk,
+                                                 int m, int k0, int w, int lane) {
+  constexpr int VPP = 16 / static_cast<int>(sizeof(T));
+  T* d = reinterpret_cast<T*>(dst);
+  for (int e = lane; e < UNIT * CK; e += 32) {
+    const int r = UNIT * w + e / CK, kk = e % CK;
+    bool ok;
+    const T* p = src.template row<CR>(chunk, r, ok);
+    d[raw_at<T>(r, kk / VPP) * VPP + kk % VPP] = (ok && k0 + kk < m) ? p[k0 + kk] : T(0.f);
+  }
+}
+
+// Values [8 h, 8 h + 8) of row r of a raw stage as f32, exactly.
+__device__ __forceinline__ void raw_half(const float* raw, int r, int h, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(raw + raw_at<float>(r, 2 * h) * 4);
+  const float4 b = *reinterpret_cast<const float4*>(raw + raw_at<float>(r, 2 * h + 1) * 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void raw_half(const __nv_bfloat16* raw, int r, int h, float (&v)[8]) {
+  upcast8(*reinterpret_cast<const uint4*>(raw + raw_at<__nv_bfloat16>(r, h) * 8), v);
+}
+__device__ __forceinline__ void raw_half(const int8_t* raw, int r, int h, float (&v)[8]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(raw + raw_at<int8_t>(r, 0) * 16 + 8 * h);
+  upcast4(x.x, v);
+  upcast4(x.y, v + 4);
+}
+
+// Rewrite warp w's rows of a raw stage into a k-major f32 slab: lane l
+// takes rows 64 w + 4 (l % 16) + 0..3 and values [8 h, 8 h + 8), h = l /
+// 16, and stores each value of its four rows as one 16-byte piece (a
+// warp's stores fill two 256-byte runs).
+template <typename T>
+__device__ __forceinline__ void to_kmajor(const unsigned char* raw, float* dst, int w, int lane) {
+  const int r0 = UNIT * w + 4 * (lane % 16), h = lane / 16;
+  float v[4][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        q[i].x = __fmul_rn(q[i].x, s.x);
-        q[i].y = __fmul_rn(q[i].y, s.y);
-        q[i].z = __fmul_rn(q[i].z, s.z);
-        q[i].w = __fmul_rn(q[i].w, s.w);
+  for (int i = 0; i < 4; ++i) raw_half(reinterpret_cast<const T*>(raw), r0 + i, h, v[i]);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    *reinterpret_cast<float4*>(dst + (8 * h + k) * CR + r0) =
+        make_float4(v[0][k], v[1][k], v[2][k], v[3][k]);
+}
+
+// The wide tile's query panel [kb, kb + kp) of queries [q0, q0 + CQ),
+// stored k-major (value kk of query q at kk CQ + q), each value multiplied
+// by srow[kb + kk] when a scale row is given (one rounding, as the dense
+// index folds its scale); zero past B and past m. A thread takes four
+// consecutive values of one query at a time (one 16-byte load where Q's
+// rows allow), a warp 32 queries, so its stores fill panel rows; four such
+// reads in flight per thread.
+__device__ __forceinline__ void load_query_panel_k(const float* __restrict__ Q, float* Qs, int B,
+                                                   int m, int q0, int kb, int kp, int tid,
+                                                   const float* srow) {
+  const int total = CQ * kp / 4;
+  const bool vec = m % 4 == 0 && reinterpret_cast<uintptr_t>(Q) % 16 == 0;
+  for (int e0 = tid; e0 < total; e0 += 4 * CT) {
+    float v[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * CT, q = e % CQ, kk = kb + 4 * (e / CQ);
+      const bool live = e < total && q0 + q < B;
+      const float* row = Q + static_cast<int64_t>(live ? q0 + q : 0) * m;
+      if (live && vec && kk < m) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(row + kk));
+        v[u][0] = x.x; v[u][1] = x.y; v[u][2] = x.z; v[u][3] = x.w;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) v[u][c] = live && kk + c < m ? row[kk + c] : 0.f;
+      }
+      if (srow != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (live && kk + c < m) v[u][c] = __fmul_rn(v[u][c], __ldg(srow + kk + c));
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 dv =
-          *reinterpret_cast<const float4*>(db + 8 * j * RS + (((k4 >> 2) ^ swz) << 2));
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * CT;
+      if (e < total) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][j] = fmaf(q[i].x, dv.x, acc[i][j]);
-        acc[i][j] = fmaf(q[i].y, dv.y, acc[i][j]);
-        acc[i][j] = fmaf(q[i].z, dv.z, acc[i][j]);
-        acc[i][j] = fmaf(q[i].w, dv.w, acc[i][j]);
+        for (int c = 0; c < 4; ++c) Qs[(4 * (e / CQ) + c) * CQ + e % CQ] = v[u][c];
       }
     }
   }
 }
 
-// Stage scores of queries [16 h, 16 h + 16) of the tile, from acc, into Ss.
-__device__ __forceinline__ void stage_scores(const float (&acc)[8][8], float* Ss, int h,
-                                             int warp, int qg, int rg) {
+__device__ __forceinline__ float comp(const float4& v, int c) {
+  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
+}
+
+// acc[i][j] += Q[16 (i / 4) + 4 qg + i % 4] . D[64 w + 32 (j / 4) + 4 rg + j
+// % 4] over one CK-deep slab, k ascending, both operands k-major: per k,
+// two 16-byte pieces of panel row k (4 distinct in a warp) and two of slab
+// row k (8 distinct, 128 contiguous bytes) for 64 FMAs. SCALED and `fold`:
+// each query value is first multiplied by srow[k] (one rounding, as the
+// dense index folds its scale into the query), srow being the scale row of
+// the warp's page and k0 the slab's first m-position.
+template <bool SCALED, bool VEC>
+__device__ __forceinline__ void slab_fma(const float* Qp, const float* Fp, float (&acc)[8][8],
+                                         int w, int qg, int rg, bool fold, const float* srow,
+                                         int k0, int m) {
+  const float* qb = Qp + 4 * qg;
+  const float* db = Fp + w * 64 + 4 * rg;
 #pragma unroll
-  for (int i = 4 * h; i < 4 * h + 4; ++i)
+  for (int k4 = 0; k4 < CK; k4 += 4) {
+    float4 s = make_float4(1.f, 1.f, 1.f, 1.f);
+    if (SCALED && fold) s = load_scale4<VEC>(srow, k0 + k4, m);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      Ss[(4 * i + qg - HQ * h) * SLD + warp * 64 + 8 * j + rg] = acc[i][j];
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = k4 + kk;
+      const float4 q0 = *reinterpret_cast<const float4*>(qb + k * CQ);
+      const float4 q1 = *reinterpret_cast<const float4*>(qb + k * CQ + 16);
+      const float4 d0 = *reinterpret_cast<const float4*>(db + k * CR);
+      const float4 d1 = *reinterpret_cast<const float4*>(db + k * CR + 32);
+      float qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+      if (SCALED && fold) {
+        const float sk = comp(s, kk);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) qv[i] = __fmul_rn(qv[i], sk);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], dv[j], acc[i][j]);
+    }
+  }
+}
+
+// Stage the tile's scores, from acc, into Ss (CQ rows of CR): each
+// thread's four rows of a query as one 16-byte piece, a warp's into its own
+// 64 columns.
+__device__ __forceinline__ void stage_scores(const float (&acc)[8][8], float* Ss, int warp,
+                                             int qg, int rg) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const float* v = &acc[i][4 * g];
+      *reinterpret_cast<float4*>(Ss + (16 * (i / 4) + 4 * qg + i % 4) * CR + warp * 64 +
+                                 32 * g + 4 * rg) = make_float4(v[0], v[1], v[2], v[3]);
+    }
 }
 
 // One query's chunk top k (k <= SMALL_K) from its CR scores srow, the lane
@@ -523,10 +648,10 @@ __device__ __forceinline__ void slot_keys(const float* srow, const int (&ids)[CR
 }
 
 // The chunk's top k per query (k <= SMALL_K), from the scores in acc; then
-// acc is zeroed. Scores go through shared memory half a tile at a time;
-// warp w takes queries 16h + 2w + {0, 1} of half h, so it keeps the same
-// four queries across chunks, each with its running threshold run[s]
-// (slot_keys).
+// acc is zeroed. Scores go through shared memory (Ss: the f32 slab just
+// multiplied, and the room after it); warp w takes queries 16h + 2w + {0,
+// 1}, h = 0, 1, so it keeps the same four queries across chunks, each with
+// its running threshold run[s] (slot_keys).
 template <typename Src>
 __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64_t (&run)[4],
                                            const Src& src, int B, int q0, int k, int chunk,
@@ -537,20 +662,21 @@ __device__ __forceinline__ void chunk_keys(float (&acc)[8][8], float* Ss, uint64
   bool ok[CR / 32];
 #pragma unroll
   for (int t = 0; t < CR / 32; ++t) src.template id<CR>(chunk, lane + 32 * t, ids[t], ok[t]);
+  __syncwarp();                        // a warp's scores go to the columns only it read
+  stage_scores(acc, Ss, warp, qg, rg);
+  __syncthreads();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (h) __syncthreads();            // half 0's scores are read
-    stage_scores(acc, Ss, h, warp, qg, rg);
-    __syncthreads();
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int q = HQ * h + 2 * warp + u;
       if (q0 + q >= B) break;
-      slot_keys(Ss + (2 * warp + u) * SLD, ids, ok, run[2 * h + u],
+      slot_keys(Ss + q * CR, ids, ok, run[2 * h + u],
                 cand + static_cast<int64_t>(q0 + q) * ldq + static_cast<int64_t>(chunk) * k, k,
                 lane);
     }
   }
+  __syncthreads();                     // Ss is read before its slab is rewritten
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -716,7 +842,7 @@ __device__ __forceinline__ unsigned chunk_ids(const Src& src, int chunk, int lan
 // List mode (k > SMALL_K): the chunk's keys per query at or above the
 // slot's threshold, listed in the CTA's segment of the query's row (seg0
 // keys in, lr.cnt[s] filled) by slot_list; then acc is zeroed. Scores go
-// through shared memory half a tile at a time, as in chunk_keys.
+// through shared memory as in chunk_keys.
 template <typename Src>
 __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRun& lr,
                                            const Src& src, int B, int q0, int k, int chunk,
@@ -726,21 +852,22 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
   const unsigned below = lanemask_lt();
   int ids[CR / 32];                    // the lane's rows lane + 32 t
   const unsigned okm = chunk_ids(src, chunk, lane, ids);
+  __syncwarp();                        // a warp's scores go to the columns only it read
+  stage_scores(acc, Ss, warp, qg, rg);
+  __syncthreads();
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (h) __syncthreads();            // half 0's scores are read
-    stage_scores(acc, Ss, h, warp, qg, rg);
-    __syncthreads();
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int s = 2 * h + u;
       const int q = HQ * h + 2 * warp + u;
       if (q0 + q >= B) break;
-      slot_list(Ss + (2 * warp + u) * SLD, src, chunk, ids, okm, lr.tau[s], lr.cnt[s],
+      slot_list(Ss + q * CR, src, chunk, ids, okm, lr.tau[s], lr.cnt[s],
                 lr.lanes + s * LANE_J * 32 + lane,
                 cand + static_cast<int64_t>(q0 + q) * ldq + seg0 + lr.cnt[s], k, lane, below);
     }
   }
+  __syncthreads();                     // Ss is read before its slab is rewritten
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -776,33 +903,42 @@ __device__ __forceinline__ void chunk_list(float (&acc)[8][8], float* Ss, ListRu
 //
 // This design loads the 32 x m query tile into shared memory once per item
 // (in panels of 384 values when m is larger, reloaded per chunk) and
-// streams D through a ring: 4 f32 stages, or raw int8 / bf16 stages upcast
-// once per element into one of two f32 slabs (int8 by a byte permute and
-// an exact add, not the conversion pipe), with one barrier per two f32
-// slabs or per raw slab and later slabs in flight, also across a chunk's
-// select. The select keeps a running top k per query (list mode: a running
-// threshold), so after the first chunks it lists few keys.
-// Rows land as they lie in memory. A warp owns 32 queries x 64 rows, a
-// thread 8 queries x 8 rows with lanes 4 x 8, reading both operands along
-// m in 16-byte pieces: a quarter-warp reads one query piece (2 wavefronts
-// per warp-wide load) or 8 row pieces on distinct banks (4), so 48
-// wavefronts per 256 FMAs. One CTA fills an SM. What is left between this
-// and the bound is shared memory: those wavefronts, and for int8 the
-// upcast's f32 stores, keep it busy for most of the FMA time, and one CTA
-// per SM hides little of it.
+// streams D through a 128 KB ring of raw stages in the storage dtype (f32
+// 4, bf16 8, int8 16), 16-byte cp.async pieces whose row addresses are
+// found once a chunk. Each raw slab is rewritten once, upcast (int8 by a
+// byte permute and an exact add, not the conversion pipe), into the f32
+// slab, with later raw slabs in flight, also across a chunk's select. The
+// select keeps a running top k per query (list mode: a running threshold),
+// so after the first chunks it lists few keys.
+// A warp owns 32 queries x 64 rows, a thread 8 queries x 8 rows with lanes
+// 4 (queries) x 8 (rows), as outer products over m: the query panel and the
+// f32 slab are stored k-major, so per m-value a warp reads two 16-byte
+// pieces of 4 distinct query pieces (64 contiguous bytes) and two of 8
+// distinct row pieces (128 contiguous bytes) for 64 FMAs, and a thread holds
+// 16 operand values a step, not the 64 of 4-deep pieces read along m. The
+// rewrite costs f32 a pass through shared memory (a raw slab read and a
+// k-major slab written, 16-byte pieces both), which the product's reads
+// repay (benchmarks/slab_product.py times each layout alone); int8 and bf16
+// were upcast through shared memory anyway.
+// Each warp also loads and rewrites its own 64 rows, so a slab needs no
+// block barrier: the warps drift apart within a chunk, one's wait for its
+// pieces or its rewrite filled by the others' FMAs, and meet at the chunk's
+// select (four barriers) and where the query panel is reloaded (two). One
+// CTA fills an SM.
 //
-// A paged source adds per load one read of its unit (8 a chunk, L1-hot).
-// With scale rows the resident tile holds the query folded with the scale
-// row the chunk's pages share, reloaded from Q (in L2) only where that row
+// A paged source adds one read of its unit per row a chunk (L1-hot). With
+// scale rows the resident tile holds the query folded with the scale row
+// the chunk's pages share, reloaded from Q (in L2) only where that row
 // changes along the item's walk; a chunk whose pages have differing rows
-// folds at read time instead (32 multiplies per 256 FMAs and a 16-byte
-// scale read per 4-deep step; the warp's 64 rows are one unit of one page).
+// folds at read time instead (8 multiplies per 64 FMAs and a 16-byte scale
+// read per 4-deep step; the warp's 64 rows are one unit of one page).
 //
 // Invariant: every score is one fp32 fmaf chain over m in ascending order
 // from 0.f (slabs past m add exact zeros), with the query scale-folded by
 // the caller (dense) or at read time with the page's scale row (paged, one
 // rounding per value, as the dense fold). The dense and the paged search
-// are bitwise equal on the same contents because of it.
+// are bitwise equal on the same contents because of it, and so is every
+// layout of the operands.
 template <typename T, bool VEC, bool LIST, typename Src>
 __device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __restrict__ Q,
                                            int m, int B, int k, int nchunks, int S, int64_t ldq,
@@ -811,21 +947,20 @@ __device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __re
   using C = Chunk<T>;
   const Src src = src_arg.bound();
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kp = panel_width(m), qld = kp + 4;
-  float* Qs = reinterpret_cast<float*>(smem);                       // [CQ][qld]
-  float* Ss = Qs + CQ * qld;                                        // [HQ][SLD]
-  unsigned char* ring = reinterpret_cast<unsigned char*>(Ss + HQ * SLD);
-  float* Fs = reinterpret_cast<float*>(ring + C::STAGES * C::STAGE_BYTES);  // raw: [2][CR][RS]
+  const int kp = panel_width(m);
+  float* Qs = reinterpret_cast<float*>(smem);                       // [kp][CQ]
+  float* Fs = Qs + kp * CQ;           // [CK][CR]; at a chunk's end [CQ][CR] staged scores
+  unsigned char* ring = reinterpret_cast<unsigned char*>(Fs + CQ * CR);   // [STAGES][STAGE_BYTES]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int qg = lane / 8, rg = lane % 8;     // queries 4i + qg, rows 64 warp + 8j + rg
+  const int qg = lane / 8, rg = lane % 8;     // slab_fma's queries and rows
   const int nslab = (m + CK - 1) / CK;
   const int ppanel = kp / CK;                 // slabs per query panel
   uint64_t run[4];                    // chunk_keys' thresholds
   ListRun lr;                         // chunk_list's
   if constexpr (LIST)
-    lr.lanes = reinterpret_cast<unsigned short*>(ring + C::RING_BYTES) + warp * 4 * LANE_J * 32;
+    lr.lanes = reinterpret_cast<unsigned short*>(ring + RING) + warp * 4 * LANE_J * 32;
   // an item's place is derived anew from `item` and the arguments, so only
-  // `item` is carried across the mainloop, whose registers are at the limit
+  // `item` is carried across the mainloop
   for (int item = blockIdx.x; item < (B + CQ - 1) / CQ * S; item += gridDim.x) {
     const int tiles = (B + CQ - 1) / CQ;
     if (item != static_cast<int>(blockIdx.x)) __syncthreads();   // the last item's smem is read
@@ -833,12 +968,26 @@ __device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __re
     const int live = src.live_chunks(nchunks);
     const int mine = bx < live ? (live - 1 - bx) / S + 1 : 0;    // chunks this item walks
     const int total = mine * nslab;             // slabs this item walks
-    auto stage = [&](int t) {
-      return reinterpret_cast<T*>(ring + (t % C::STAGES) * C::STAGE_BYTES);
-    };
-    auto chunk_of = [&](int t) { return bx + (t / nslab) * S; };
-    auto load = [&](int t) {
-      load_chunk_slab<T, VEC, CR, CT>(src, stage(t), chunk_of(t), m, (t % nslab) * CK, tid);
+    auto stage = [&](int t) { return ring + (t % C::STAGES) * C::STAGE_BYTES; };
+    // the loader's place, kept by counters (no division a slab): raw slab
+    // lt, slab lslab of chunk lchunk, whose rows `rows` holds
+    int lt = 0, lslab = 0, lchunk = bx;
+    SlabRows<T> rows;
+    auto load_next = [&]() {
+      if (lt < total) {
+        if (VEC) {
+          if (lslab == 0) rows.find(src, lchunk, warp, lane);
+          rows.load(stage(lt), lslab * CK, warp, lane);
+        } else {
+          load_wide_scalar<T>(src, stage(lt), lchunk, m, lslab * CK, warp, lane);
+        }
+        if (++lslab == nslab) {
+          lslab = 0;
+          lchunk += S;
+        }
+      }
+      ++lt;
+      cp_async_commit();
     };
 
     float acc[8][8];
@@ -870,69 +1019,66 @@ __device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __re
     int2 fs = make_int2(-1, Src::SCALED ? 0 : 1);   // the chunk's fold row, and whether Qs
                                                     // holds it (dense: nothing to fold)
 
-    // f32 multiplies straight out of the ring two slabs a barrier: at an
-    // even slab t, slabs t and t + 1 are in and t - 2, t - 1 consumed, so t
-    // + 2 and t + 3 load into their stages (bitwise, 1.6-2 % faster than a
-    // barrier a slab at B 1,000 and at B 32 over 8.8M rows on an H100:
-    // benchmarks/many_queries.py's pair_barrier variant); a chunk of one
-    // slab (m <= 16) keeps a barrier a slab, for its select's staged
-    // scores. int8 / bf16 upcast slab t + 1 while slab t is multiplied, raw
-    // slabs t + 2 .. t + STAGES in flight, a barrier a slab.
-    constexpr int AHEAD = C::RAW ? C::STAGES : C::STAGES - 2;
-#pragma unroll
-    for (int t = 0; t < AHEAD; ++t) {
-      if (t < total) load(t);
-      cp_async_commit();
-    }
-    if constexpr (C::RAW) {
-      cp_async_wait<C::STAGES - 1>();
-      __syncthreads();
-      upcast_slab(stage(0), Fs, tid);
-    }
+    // each warp streams its own 64 rows: raw slabs 0 .. STAGES - 1 in
+    // flight, raw slab 0 rewritten into the f32 slab; then at slab t: slab t
+    // is multiplied (and at a chunk's end its keys selected), and once raw
+    // slab t + 1 is in it is rewritten into the f32 slab. Raw slab t +
+    // STAGES loads into raw slab t's stage before slab t's product (int8,
+    // bf16), or at even t with raw slab t + STAGES + 1 after the rewrite
+    // (f32: a row's two 64-byte halves of a 128-byte line asked for
+    // together). A warp reads and writes only its rows' pieces and columns,
+    // so it syncs with itself, and with the CTA only where the query panel
+    // changes and at a chunk's select.
+#pragma unroll 1
+    for (int t = 0; t < C::STAGES; ++t) load_next();
+    cp_async_wait<C::STAGES - 1>();
+    __syncwarp();
+    if (total > 0) to_kmajor<T>(stage(0), Fs, warp, lane);
+    int slab = 0, pan = 0, chunk = bx;  // slab t's place: in its chunk, in the panel
     for (int t = 0; t < total; ++t) {
-      const bool synced = C::RAW || t % 2 == 0 || nslab == 1;
-      if (synced) {
-        if constexpr (C::RAW)
-          cp_async_wait<C::STAGES - 2>();
-        else if (t % 2 == 0)
-          cp_async_wait<0>();
-        __syncthreads();                 // slab t is in (raw: slab t + 1, and f32 slab t);
-      }                                  // slab t - 1 (raw: raw slab t) is consumed
-      const int slab = t % nslab;
+      __syncwarp();                      // the warp's part of f32 slab t is written, and
+                                         // of raw slab t read
       if (Src::SCALED && slab == 0) {
-        fs = src.fold_state(chunk_of(t));
-        srow = src.scale_row(chunk_of(t), warp);
+        fs = src.fold_state(chunk);
+        srow = src.scale_row(chunk, warp);
       }
       // the tile is (re)loaded at the item's first slab, at each panel, and
       // where a chunk needs another fold than the item's last chunk
-      if (slab % ppanel == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
-        if (!synced) __syncthreads();    // slab t - 1's FMAs read the tile
-        load_query_panel<CT>(Q, Qs, B, m, q0, slab * CK, kp, tid,
-                             Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
+      if (pan == 0 && (t == 0 || nslab > ppanel || (slab == 0 && !fs.y))) {
+        if (t > 0) __syncthreads();      // every warp is done with the last panel
+        load_query_panel_k(Q, Qs, B, m, q0, slab * CK, kp, tid,
+                           Src::SCALED && fs.x >= 0 ? src.slot_scale(fs.x) : nullptr);
         __syncthreads();
       }
-      if constexpr (C::RAW) {
-        if (t + AHEAD < total) load(t + AHEAD);
-        cp_async_commit();
-      } else if (t % 2 == 0) {
-        if (t + 2 < total) load(t + 2);
-        if (t + 3 < total) load(t + 3);
-        cp_async_commit();
-      }
-      const float* Ds;
-      if constexpr (C::RAW) {
-        if (t + 1 < total) upcast_slab(stage(t + 1), Fs + ((t + 1) % 2) * CR * RS, tid);
-        Ds = Fs + (t % 2) * CR * RS;
-      } else {
-        Ds = reinterpret_cast<const float*>(stage(t));
-      }
-      slab_fma<Src::SCALED, VEC>(Qs + (slab % ppanel) * CK, qld, Ds, acc, warp, qg, rg,
-                                 fs.x < 0, srow, slab * CK, m);
-      if (slab == nslab - 1) {
+      if constexpr (!C::PAIRED) load_next();
+      slab_fma<Src::SCALED, VEC>(Qs + pan * CK * CQ, Fs, acc, warp, qg, rg, fs.x < 0, srow,
+                                 slab * CK, m);
+      if (slab == nslab - 1) {            // the scores staged from the f32 slab's room on
         if constexpr (LIST)
-          chunk_list(acc, Ss, lr, src, B, q0, k, chunk_of(t), ldq, seg0, cand, tid);
+          chunk_list(acc, Fs, lr, src, B, q0, k, chunk, ldq, seg0, cand, tid);
         else
-          chunk_keys(acc, Ss, run, src, B, q0, k, chunk_of(t), ldq, cand, tid);
+          chunk_keys(acc, Fs, run, src, B, q0, k, chunk, ldq, cand, tid);
+      } else {
+        __syncwarp();                    // the warp's part of f32 slab t is read
+      }
+      if (t + 1 < total) {
+        if (!C::PAIRED || (t & 1))       // STAGES + t + 1 raw slabs asked for
+          cp_async_wait<C::STAGES - 1>();
+        else                             // STAGES + t
+          cp_async_wait<C::STAGES - 2>();
+        __syncwarp();                    // the warp's raw slab t + 1 is in
+        to_kmajor<T>(stage(t + 1), Fs, warp, lane);
+      }
+      if (C::PAIRED && t % 2 == 0) {
+        __syncwarp();                    // the warp's raw slab t + 1 is read
+        load_next();
+        load_next();
+      }
+      if (++slab == nslab) {
+        slab = pan = 0;
+        chunk += S;
+      } else if (++pan == ppanel) {
+        pan = 0;
       }
     }
     cp_async_wait<0>();
@@ -961,10 +1107,11 @@ __device__ __forceinline__ void chunk_walk(const Src& src_arg, const float* __re
 //
 // At B <= 8 the 32-query tile issues 32 queries' FMAs for each row value
 // (at B 1, 31 of its 32 query rows are zeros): over retrieval_cand's
-// 1,000,448 x 256 f32 rows that is 8.2 G FMA, 0.56 ms at the wide
-// mainloop's 44 % of fp32 FMA peak, against 0.31 ms for the bytes. A tile of
-// QN queries issues QN FMAs a value, so at QN 1 and 8 the bytes set the pace
-// (int8 at QN 8 is about even: a quarter of the bytes, eight FMAs a value).
+// 1,000,448 x 256 f32 rows that is 8.2 G FMA, 0.47 ms at the wide
+// mainloop's 52 % of fp32 FMA peak on an H100, against 0.31 ms for the
+// bytes. A tile of QN queries issues QN FMAs a value, so at QN 1 and 8 the
+// bytes set the pace (int8 at QN 8 is about even: a quarter of the bytes,
+// eight FMAs a value).
 // The walk is the chunk kernel's: the same items, chunks, segments, lists
 // and thresholds, with tiles of QN queries.
 //
@@ -1048,15 +1195,15 @@ __device__ __forceinline__ void narrow_piece(const float* p, float (&v)[4]) {
   v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
 }
 __device__ __forceinline__ void narrow_piece(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x; v[2 * j + 1] = f.y;
-  }
+  upcast8(*reinterpret_cast<const uint4*>(p), v);
 }
-__device__ __forceinline__ void narrow_piece(const int8_t* p, float (&v)[16]) { upcast16(p, v); }
+__device__ __forceinline__ void narrow_piece(const int8_t* p, float (&v)[16]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  upcast4(x.x, v);
+  upcast4(x.y, v + 4);
+  upcast4(x.z, v + 8);
+  upcast4(x.w, v + 12);
+}
 
 // acc[i][j] += Q[i] . D[tid + 256 j] over one narrow slab, k ascending; qp:
 // the tile panel at the slab's first value.

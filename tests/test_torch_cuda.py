@@ -288,6 +288,59 @@ def test_cuda_kernels_tile_edges():
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("store", ["f32", "bf16", "int8"])
+def test_cuda_wide_tile_operand_paths(store):
+    """Every operand path of the chunk kernel's 32-query tile against the
+    plain version: m 16 (one slab), 130 (the scalar loader), 384 (one query
+    panel) and 768 (two), keep mode (k 10) and list mode (k 100, 1,000), B
+    33 (a tile of one query) and 64; dense rows, paged rows with a scale row
+    a page (each page its own: the fold at read time), and dense == paged
+    bitwise where the pages share one scale row (the fold in the tile)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.benchmarks.many_queries import paged_view
+    from repro_torch.core.quantization import quantize_int8_per_dim
+    from repro_torch.kernels import topk_score
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, R = 40_001, 256
+    for m in (16, 130, 384, 768):
+        D = torch.randn(n, m, generator=g, device=dev) / m ** 0.5
+        Dx, scale = D, None
+        if store == "bf16":
+            Dx = D.to(torch.bfloat16)
+        elif store == "int8":
+            Dx, scale = quantize_int8_per_dim(D)
+        args, ps, npages = _paged_view(Dx, R, scale)
+        if store == "int8":         # each page quantized with its own scale row
+            own, own_ps = paged_view(D, R, True)
+        else:
+            own = args
+            own_ps = torch.rand(npages, m, generator=g, device=dev) + 0.5
+        for B in (33, 64):
+            assert topk_score.dense_plan(n, B, sms).upc == 8      # the chunk kernel
+            Q = torch.randn(B, m, generator=g, device=dev)
+            Qd = Q if scale is None else (Q * scale[None, :]).contiguous()
+            for k in (10, 100, 1000):
+                dense = topk_score.topk_score_cuda(Dx, Qd, k=k)
+                s2, i2 = topk_score.topk_score_plain(Dx, Qd, k=k)
+                torch.testing.assert_close(dense[0], s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, dense[0], dense[1])
+                paged = topk_score.topk_score_paged_cuda(*args, 0, npages, Q, k=k,
+                                                         page_scale=ps)
+                assert torch.equal(dense[0], paged[0]) and torch.equal(dense[1], paged[1])
+                s1, i1 = topk_score.topk_score_paged_cuda(*own, 0, npages, Q, k=k,
+                                                          page_scale=own_ps)
+                s2, i2 = topk_score.topk_score_paged_plain(*own, 0, npages, Q, k=k,
+                                                           page_scale=own_ps)
+                torch.testing.assert_close(s1, s2, **TOL)
+                _ids_equal_up_to_near_ties(s2, i2, s1, i1)
+    torch.cuda.synchronize()
+
+
 def _scrambled_pages(D, R, g, *, quantize=False, masked=0, scale_block=1):
     """D's rows in pages of R rows over a scrambled pool + tail layout, with
     `masked` table entries naming no page, int8 scales shared by blocks of
